@@ -1,0 +1,17 @@
+"""PyTorch / CUDA port of ``carla_imitation_learning_tpu`` for NVIDIA Hopper.
+
+The closed-loop fleet rollout — batched driving sim, triangle rasterizer,
+4-frame uint8 observation window, ``PolicyCNN`` forward, discrete action back
+into the sim — as plain PyTorch on batched tensors, with the two rasterizer
+kernels written by hand in CUDA C++ for ``sm_90a`` (``csrc/``).
+
+Layout mirrors the JAX package: ``sim/``, ``render/``, ``ops/``, ``models/``,
+``data/actions.py``, ``training/closed_loop.py``. The env axis that the JAX
+package ``vmap``s is a leading ``B`` dimension here. Entry points take an
+explicit ``device`` (default ``"cuda"``, which raises when there is no card)
+and explicit ``torch.Generator``s. ``convert.py`` turns numpy pytrees of the
+JAX package (flax params, ``TownMap``, ``WorldState``, spawn pool,
+``TriangleSetup``) into this package's objects.
+
+This package imports torch and numpy only.
+"""

@@ -1,0 +1,407 @@
+"""World state, batched env step/reset and the autopilot expert.
+
+Every function works on a whole fleet at once: each ``WorldState`` field
+carries a leading env axis ``B``. Integer fields are int64; the ``rng`` key
+is an int64 (B, 2) pair of uint32 values, of which only the first (the
+"salt") is read, to pick auto-reset states from the packed spawn pool.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from carla_imitation_learning_tpu_torch.device import map_tensors
+from carla_imitation_learning_tpu_torch.sim import agents as agent_lib
+from carla_imitation_learning_tpu_torch.sim import collision as col
+from carla_imitation_learning_tpu_torch.sim import pedestrians as ped_lib
+from carla_imitation_learning_tpu_torch.sim.dynamics import bicycle_step
+from carla_imitation_learning_tpu_torch.sim.town import TownMap, norm2, route_point
+
+
+@dataclasses.dataclass(frozen=True)
+class SimParams:
+    """Static simulation constants (the JAX package's ``SimParams``)."""
+
+    dt: float = 0.05
+    wheelbase: float = 2.9
+    max_steer: float = 0.6
+    max_accel: float = 4.0
+    max_brake: float = 8.0
+    drag: float = 0.05
+    tire_stiffness: float = 9.0
+    n_agents: int = 15
+    agent_target_speed: float = 7.0
+    n_pedestrians: int = 0
+    ped_speed: float = 1.4
+    ped_sidewalk_frac: float = 0.0
+    light_green: float = 8.0
+    light_yellow: float = 2.0
+    light_red: float = 6.0
+    collision_radius: float = 2.2
+    collision_model: str = "capsule"
+    vehicle_half_len: float = 1.3
+    vehicle_radius: float = 1.0
+    arrive_radius: float = 4.0
+    episode_len: int = 400
+    target_speed: float = 8.0  # autopilot cruise speed
+    lane_change_period: int = 0
+    lane_change_window: int = 12
+    headway_gap: float = 7.0
+    headway_ttc: float = 1.2
+    headway_corridor: float = 2.6
+    yield_gap: float = 8.0
+    turn_speed: float = 0.0
+    turn_period: int = 0
+    agent_turn_prob: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class WorldState:
+    ego_pos: torch.Tensor       # (B, 2)
+    ego_yaw: torch.Tensor       # (B,)
+    ego_v: torch.Tensor         # (B,)
+    ego_steer: torch.Tensor     # (B,) realized wheel angle (rad)
+    ego_route: torch.Tensor     # (B,) int64
+    ego_s: torch.Tensor         # (B,) arclength of the nearest route point
+    agents_route: torch.Tensor  # (B, A) int64
+    agents_s: torch.Tensor      # (B, A)
+    agents_v: torch.Tensor      # (B, A)
+    peds_crossing: torch.Tensor  # (B, P) int64 (P may be 0)
+    peds_s: torch.Tensor        # (B, P)
+    peds_phase: torch.Tensor    # (B, P)
+    t: torch.Tensor             # (B,) int64 step count within the episode
+    rng: torch.Tensor           # (B, 2) int64, uint32 values
+    goal: torch.Tensor          # (B,) int64, −1 = free roam
+
+    def replace(self, **kw) -> "WorldState":
+        return dataclasses.replace(self, **kw)
+
+    def to(self, device) -> "WorldState":
+        return map_tensors(self, lambda t: t.to(device))
+
+
+@dataclasses.dataclass(frozen=True)
+class VehicleControl:
+    """CARLA-style normalized control, each (B,)."""
+
+    steer: torch.Tensor     # [-1, 1]
+    throttle: torch.Tensor  # [0, 1]
+    brake: torch.Tensor     # [0, 1]
+
+
+def _check_ported(params: SimParams, town: TownMap) -> None:
+    if town.lanes > 1:
+        raise NotImplementedError("multi-lane towns are not ported yet")
+    if params.collision_model != "capsule":
+        raise NotImplementedError(
+            f"collision_model={params.collision_model!r} is not ported yet")
+
+
+def reset_env(params: SimParams, town: TownMap, generator: torch.Generator,
+              n_envs: int) -> WorldState:
+    """Spawn ``n_envs`` egos and their agents on random routes at spaced
+    arclengths. Draws come from ``generator`` (a CPU generator); the state
+    lands on the town's device. ``jax.random`` draws cannot be reproduced,
+    so only the distribution matches the JAX package's ``reset_env``."""
+    dev = town.routes.device
+    n_routes = town.routes.shape[0]
+    A = params.n_agents
+    ego_route = torch.randint(0, n_routes, (n_envs,), generator=generator)
+    ego_u = torch.rand(n_envs, generator=generator)
+    agents_route = torch.randint(0, n_routes, (n_envs, A), generator=generator)
+    agents_u = torch.rand((n_envs, A), generator=generator)
+    peds = ped_lib.spawn_pedestrians(town, generator, n_envs,
+                                     params.n_pedestrians,
+                                     sidewalk_frac=params.ped_sidewalk_frac)
+    rng = torch.randint(0, 2 ** 32, (n_envs, 2), generator=generator)
+
+    ego_route, agents_route = ego_route.to(dev), agents_route.to(dev)
+    ego_s = ego_u.to(dev) * town.route_total[ego_route]
+    ego_pos, ego_yaw = route_point(town, ego_route, ego_s)
+    base = (torch.arange(A, dtype=torch.float32, device=dev) + agents_u.to(dev)) / A
+    agents_s = base * town.route_total[agents_route]
+    zeros = torch.zeros(n_envs, device=dev)
+    return WorldState(
+        ego_pos=ego_pos, ego_yaw=ego_yaw, ego_v=zeros, ego_steer=zeros.clone(),
+        ego_route=ego_route, ego_s=ego_s,
+        agents_route=agents_route, agents_s=agents_s,
+        agents_v=torch.full((n_envs, A), params.agent_target_speed * 0.5, device=dev),
+        peds_crossing=peds[0].to(dev), peds_s=peds[1].to(dev),
+        peds_phase=peds[2].to(dev),
+        t=torch.zeros(n_envs, dtype=torch.int64, device=dev),
+        rng=rng.to(dev),
+        goal=torch.full((n_envs,), -1, dtype=torch.int64, device=dev),
+    )
+
+
+def _phases(params: SimParams, town: TownMap, state: WorldState):
+    return agent_lib.light_phases(
+        town, state.t.to(torch.float32) * params.dt,
+        params.light_green, params.light_yellow, params.light_red)
+
+
+def _ego_red_light(town: TownMap, pos, yaw, phases):
+    return agent_lib.red_light_ahead(town, pos[:, None, :], yaw[:, None],
+                                     phases, stop_distance=15.0)[:, 0]
+
+
+def _wrap_angle(a):
+    return torch.remainder(a + math.pi, 2 * math.pi) - math.pi
+
+
+def _junction_radius(town: TownMap):
+    return torch.clamp(town.road_half_width * 1.8, min=6.0)
+
+
+def navigation_command(params: SimParams, town: TownMap, state: WorldState):
+    """(B,) int64 CIL-style command: 0 follow, 1 left, 2 right, 3 straight
+    through the next junction. (Scripted lane changes, commands 4 and 5,
+    need multi-lane towns, which are not ported.)"""
+    if town.lanes > 1 and params.lane_change_period > 0:
+        raise NotImplementedError("scripted ego lane changes are not ported yet")
+    _, yaw_now = route_point(town, state.ego_route, state.ego_s)
+    _, yaw_ahead = route_point(town, state.ego_route, state.ego_s + 15.0)
+    dyaw = _wrap_angle(yaw_ahead - yaw_now)
+    turn = torch.where(dyaw > 0, 1, 2)
+    straight_junc = torch.zeros_like(dyaw, dtype=torch.bool)
+    if town.junctions.shape[0] > 0:
+        p_ahead, _ = route_point(town, state.ego_route, state.ego_s + 10.0)
+        d = norm2(p_ahead[:, None, :] - town.junctions).amin(dim=1)
+        straight_junc = d < _junction_radius(town) + 2.0
+    return torch.where(torch.abs(dyaw) >= 0.15, turn,
+                       torch.where(straight_junc, 3, 0))
+
+
+def _nearest_s_update(town: TownMap, state: WorldState):
+    """Track the ego's arclength by a local window search around ego_s."""
+    route = state.ego_route
+    total = town.route_total[route]
+    offsets = torch.arange(-4, 9, dtype=torch.float32, device=route.device)
+    cand = torch.remainder(state.ego_s[:, None] + offsets, total[:, None])  # (B, 13)
+    pts, _ = route_point(town, route[:, None].expand_as(cand), cand)
+    d = pts - state.ego_pos[:, None, :]
+    d2 = (d * d).sum(-1)
+    return torch.gather(cand, 1, torch.argmin(d2, dim=1, keepdim=True))[:, 0]
+
+
+def step_env(params: SimParams, town: TownMap, state: WorldState,
+             control: VehicleControl, fresh: WorldState):
+    """One sim tick for the fleet → (new_state, info). Envs that end their
+    episode (collision, off-road, timeout) continue from ``fresh`` (picked
+    from the spawn pool, see ``pick_fresh_packed``)."""
+    _check_ported(params, town)
+    phases = _phases(params, town, state)
+
+    steer_cmd = control.steer.clamp(-1.0, 1.0) * params.max_steer
+    ego_pos, ego_yaw, ego_v, ego_steer = bicycle_step(
+        state.ego_pos, state.ego_yaw, state.ego_v, state.ego_steer,
+        steer_cmd, control.throttle.clamp(0.0, 1.0), control.brake.clamp(0.0, 1.0),
+        dt=params.dt, wheelbase=params.wheelbase, max_accel=params.max_accel,
+        max_brake=params.max_brake, drag=params.drag,
+        tire_stiffness=params.tire_stiffness)
+
+    agents_route, agents_s, agents_v = agent_lib.step_agents(
+        town, state.agents_route, state.agents_s, state.agents_v, phases,
+        dt=params.dt, target_speed=params.agent_target_speed,
+        ego_pos=state.ego_pos)
+    agents_pos, agents_yaw = agent_lib.agent_positions(town, agents_route, agents_s)
+
+    peds_s, peds_phase = ped_lib.step_pedestrians(
+        town, state.peds_crossing, state.peds_s, state.peds_phase,
+        dt=params.dt, speed=params.ped_speed)
+    peds_pos = ped_lib.ped_positions(town, state.peds_crossing, peds_s)
+
+    hl, vr = params.vehicle_half_len, params.vehicle_radius
+    hit_vehicle = col.capsule_vehicle_collision(
+        ego_pos, ego_yaw, agents_pos, agents_yaw, hl, vr)
+    hit_building = col.capsule_building_collision(
+        ego_pos, ego_yaw, hl, vr, town.buildings)
+    hit_ped = col.capsule_point_collision(
+        ego_pos, ego_yaw, hl, vr, peds_pos, ped_lib.PED_RADIUS)
+    off = col.offroad(ego_pos, town.road_segments, town.road_half_width)
+    collided = hit_vehicle | hit_building | hit_ped
+    t_new = state.t + 1
+    timeout = t_new >= params.episode_len
+    arrived = torch.zeros_like(timeout)
+    done = collided | off | timeout
+
+    mid = WorldState(
+        ego_pos=ego_pos, ego_yaw=ego_yaw, ego_v=ego_v, ego_steer=ego_steer,
+        ego_route=state.ego_route, ego_s=state.ego_s,
+        agents_route=agents_route, agents_s=agents_s, agents_v=agents_v,
+        peds_crossing=state.peds_crossing, peds_s=peds_s, peds_phase=peds_phase,
+        t=t_new, rng=state.rng, goal=state.goal)
+    mid = mid.replace(ego_s=_nearest_s_update(town, mid))
+
+    # auto-reset: branchless select between continued and fresh state; the
+    # goal survives auto-resets
+    fresh = fresh.replace(goal=state.goal)
+
+    def select(a, b):
+        return torch.where(done.view((-1,) + (1,) * (a.dim() - 1)), a, b)
+
+    new_state = WorldState(**{
+        f.name: select(getattr(fresh, f.name), getattr(mid, f.name))
+        for f in dataclasses.fields(WorldState)})
+
+    # stop-line crossing on red: a red light AHEAD in the ego's lane corridor
+    # before the step and BEHIND after it
+    h_pre = col.heading(state.ego_yaw)                      # (B, 2)
+    l_pre = torch.stack([-h_pre[:, 1], h_pre[:, 0]], -1)
+    h_post = col.heading(ego_yaw)
+    rel_pre = town.lights_pos - state.ego_pos[:, None, :]   # (B, L, 2)
+    rel_post = town.lights_pos - ego_pos[:, None, :]
+    crossed = (((rel_pre * h_pre[:, None, :]).sum(-1) > 0.0)
+               & ((rel_post * h_post[:, None, :]).sum(-1) <= 0.0)
+               & (torch.abs((rel_pre * l_pre[:, None, :]).sum(-1)) < 4.0)
+               & (norm2(rel_pre) < 10.0))
+    ran_red = (crossed & (phases == agent_lib.RED)).any(dim=1)
+
+    info = {
+        "collision": collided, "offroad": off, "timeout": timeout, "done": done,
+        "speed": ego_v, "red_light": _ego_red_light(town, ego_pos, ego_yaw, phases),
+        "ran_red": ran_red, "pedestrian": hit_ped, "arrived": arrived,
+    }
+    return new_state, info
+
+
+def autopilot_control(params: SimParams, town: TownMap, state: WorldState
+                      ) -> VehicleControl:
+    """Expert: pure pursuit along the ego's route and discrete CARLA-like
+    pedals — (1, 0), (0.5, 0), (0, 1) — with the safety envelope: stop for
+    red lights and crossing pedestrians, keep time headway to vehicles in the
+    forward corridor, yield to vehicles in (or closer to) the junction ahead,
+    and cap cruise speed through curves (``turn_speed``)."""
+    lookahead = torch.clamp(0.8 * state.ego_v, min=4.0)
+    target_pos, _ = route_point(town, state.ego_route, state.ego_s + lookahead)
+    rel = target_pos - state.ego_pos
+    alpha = _wrap_angle(torch.atan2(rel[:, 1], rel[:, 0]) - state.ego_yaw)
+    ld = norm2(rel) + 1e-6
+    steer_angle = torch.atan2(2.0 * params.wheelbase * torch.sin(alpha), ld)
+    steer = (steer_angle / params.max_steer).clamp(-1.0, 1.0)
+
+    phases = _phases(params, town, state)
+    must_stop = _ego_red_light(town, state.ego_pos, state.ego_yaw, phases)
+    if params.n_pedestrians > 0:
+        peds_pos = ped_lib.ped_positions(town, state.peds_crossing, state.peds_s)
+        on_crossing = state.peds_crossing < town.crossings.shape[0]
+        must_stop = must_stop | ped_lib.pedestrian_ahead(
+            state.ego_pos, state.ego_yaw, peds_pos, mask=on_crossing)
+
+    if (params.headway_gap > 0.0 or params.yield_gap > 0.0) \
+            and state.agents_s.shape[1] > 0:
+        head = col.heading(state.ego_yaw)                   # (B, 2)
+        left = torch.stack([-head[:, 1], head[:, 0]], -1)
+        agents_pos, _ = agent_lib.agent_positions(
+            town, state.agents_route, state.agents_s)
+        if params.headway_gap > 0.0:
+            rel = agents_pos - state.ego_pos[:, None, :]    # (B, A, 2)
+            fwd = (rel * head[:, None, :]).sum(-1)
+            lat = (rel * left[:, None, :]).sum(-1)
+            watch = params.headway_gap + params.headway_ttc * state.ego_v
+            lead = (fwd > 0.0) & (fwd < watch[:, None]) \
+                & (torch.abs(lat) < params.headway_corridor)
+            must_stop = must_stop | lead.any(dim=1)
+        if params.yield_gap > 0.0 and town.junctions.shape[0] > 0:
+            d_all = norm2(town.junctions - state.ego_pos[:, None, :])  # (B, J)
+            jidx = torch.argmin(d_all, dim=1)
+            d_junc = torch.gather(d_all, 1, jidx[:, None])[:, 0]
+            junction_r = _junction_radius(town)
+            junc = town.junctions[jidx]                     # (B, 2)
+            ahead = ((junc - state.ego_pos) * head).sum(-1) > 0.0
+            approaching = (d_junc >= junction_r) \
+                & (d_junc < junction_r + params.yield_gap) & ahead
+            d_agents = norm2(agents_pos - junc[:, None, :])  # (B, A)
+            occupied = (d_agents < junction_r).any(dim=1)
+            rival = ((d_agents >= junction_r)
+                     & (d_agents < junction_r + params.yield_gap)
+                     & (d_agents < d_junc[:, None] - 0.5)).any(dim=1)
+            must_stop = must_stop | (approaching & (occupied | rival))
+
+    cruise = params.target_speed
+    if params.turn_speed > 0.0:
+        _, yaw_near = route_point(town, state.ego_route, state.ego_s + 3.0)
+        _, yaw_far = route_point(town, state.ego_route, state.ego_s + 13.0)
+        dyaw = _wrap_angle(yaw_far - yaw_near)
+        cruise = torch.where(torch.abs(dyaw) >= 0.15, params.turn_speed, cruise)
+    err = cruise - state.ego_v
+    throttle = torch.where(err > 1.0, 1.0, torch.where(err > -0.5, 0.5, 0.0))
+    brake = torch.where(err <= -0.5, 1.0, 0.0)
+    throttle = torch.where(must_stop, 0.0, throttle)
+    brake = torch.where(must_stop, 1.0, brake)
+    return VehicleControl(steer=steer, throttle=throttle, brake=brake)
+
+
+def sensor_vector(params: SimParams, state: WorldState):
+    """(B, 3) = (current_steer, speed_long, speed)."""
+    beta = torch.atan(0.5 * torch.tan(state.ego_steer))
+    return torch.stack([state.ego_steer / params.max_steer,
+                        state.ego_v * torch.cos(beta), state.ego_v], -1)
+
+
+def traffic_light_state(params: SimParams, town: TownMap, state: WorldState):
+    """(B,) int64 — 1 when a red/yellow light blocks the ego."""
+    phases = _phases(params, town, state)
+    return _ego_red_light(town, state.ego_pos, state.ego_yaw, phases).to(torch.int64)
+
+
+# ---------------------------------------------------------------------------
+# Packed spawn pool. The packed layout is the JAX package's
+# (sim/world.py pack_spawn_pool): WorldState fields in declaration order,
+# each flattened per row, non-float fields bitcast to float32 — so a pool
+# packed by either package can be picked by the other.
+# ---------------------------------------------------------------------------
+
+_I32 = ("ego_route", "agents_route", "peds_crossing", "t", "goal")
+_U32 = ("rng",)
+
+
+def pool_layout(params: SimParams):
+    """[(field, width)] of a packed pool row, in column order."""
+    A, P = params.n_agents, params.n_pedestrians
+    widths = {"ego_pos": 2, "agents_route": A, "agents_s": A, "agents_v": A,
+              "peds_crossing": P, "peds_s": P, "peds_phase": P, "rng": 2}
+    return [(f.name, widths.get(f.name, 1)) for f in dataclasses.fields(WorldState)]
+
+
+def pack_spawn_pool(pool: WorldState) -> torch.Tensor:
+    """WorldState with ``size`` rows → (size, D) float32 matrix."""
+    cols = []
+    for f in dataclasses.fields(WorldState):
+        a = getattr(pool, f.name).reshape(pool.t.shape[0], -1)
+        if f.name in _U32:
+            a = torch.where(a >= 2 ** 31, a - 2 ** 32, a)
+        if f.name in _I32 + _U32:
+            a = a.to(torch.int32).view(torch.float32)
+        cols.append(a)
+    return torch.cat(cols, dim=1)
+
+
+def pick_fresh_packed(packed: torch.Tensor, params: SimParams,
+                      state: WorldState) -> WorldState:
+    """Deterministic per-env, per-episode pool pick: row
+    (salt + t) mod 2³² mod size, salt = rng[:, 0] — the JAX package's
+    uint32 arithmetic, done in int64."""
+    size = packed.shape[0]
+    idx = ((state.rng[:, 0] + state.t) & 0xFFFFFFFF) % size
+    row = packed[idx]
+    fields, off = {}, 0
+    for name, width in pool_layout(params):
+        piece = row[:, off:off + width]
+        off += width
+        if name in _I32 + _U32:
+            piece = piece.view(torch.int32).to(torch.int64)
+            if name in _U32:
+                piece = piece & 0xFFFFFFFF
+        shape = getattr(state, name).shape[1:]
+        fields[name] = piece.reshape((row.shape[0],) + tuple(shape))
+    return WorldState(**fields)
+
+
+def make_spawn_pool(params: SimParams, town: TownMap,
+                    generator: torch.Generator, size: int = 1024) -> torch.Tensor:
+    """Packed (size, D) pool of reset states drawn from ``generator``."""
+    return pack_spawn_pool(reset_env(params, town, generator, size))
