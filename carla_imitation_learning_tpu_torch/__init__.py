@@ -2,8 +2,11 @@
 
 The closed-loop fleet rollout — batched driving sim, triangle rasterizer,
 4-frame uint8 observation window, ``PolicyCNN`` forward, discrete action back
-into the sim — as plain PyTorch on batched tensors, with the two rasterizer
-kernels written by hand in CUDA C++ for ``sm_90a`` (``csrc/``).
+into the sim — as plain PyTorch on batched tensors, with the rasterizer
+kernels written by hand in CUDA C++ for ``sm_90a`` (``csrc/``): the exact
+z-buffer (flat and textured), the fast rollout kernel and its fused-quad and
+grouped-table variants. The rich scene (facade bands, markings, shadows,
+textures) and the semantic class stream of collection rollouts are ported.
 
 Layout mirrors the JAX package: ``sim/``, ``render/``, ``ops/``, ``models/``,
 ``data/actions.py``, ``training/closed_loop.py``. The env axis that the JAX

@@ -2,7 +2,7 @@
 
 Everything here reads its input through ``np.asarray`` on named fields, so
 it takes the JAX package's objects (flax params, ``TownMap``, ``WorldState``,
-packed spawn pool, ``TriangleSetup``, rollout carry) without importing JAX.
+packed spawn pool, ``TriangleSetup``, ``PrimSetup``, rollout carry) without importing JAX.
 The port can then run on exactly what the JAX package computed.
 """
 
@@ -13,6 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from carla_imitation_learning_tpu_torch.ops.raster_fast import PrimSetup
 from carla_imitation_learning_tpu_torch.render.camera import TriangleSetup
 from carla_imitation_learning_tpu_torch.sim.town import TownMap
 from carla_imitation_learning_tpu_torch.sim.world import WorldState
@@ -75,20 +76,42 @@ def spawn_pool_from_jax(pool) -> torch.Tensor:
     return _tensor(packed, torch.float32)
 
 
-def setup_from_jax(setup) -> TriangleSetup:
-    """JAX ``TriangleSetup`` (batched or a single env) → port
-    ``TriangleSetup`` with a leading env axis."""
-    single = np.asarray(setup.valid).ndim == 1
+def _batched_getter(obj):
+    """``get(name, dtype)`` reading field ``name`` of a JAX pytree with a
+    leading env axis (added for a single env); None stays None."""
+    single = np.asarray(obj.valid).ndim == 1
 
     def get(name, dtype):
-        a = np.asarray(getattr(setup, name))
+        a = getattr(obj, name)
+        if a is None:
+            return None
+        a = np.asarray(a)
         return _tensor(a[None] if single else a, dtype)
 
+    return get
+
+
+def setup_from_jax(setup) -> TriangleSetup:
+    """JAX ``TriangleSetup`` (batched or a single env) → port
+    ``TriangleSetup`` with a leading env axis, optional rows included."""
+    get = _batched_getter(setup)
     return TriangleSetup(
         edges=get("edges", torch.float32), znum=get("znum", torch.float32),
         colors=get("colors", torch.float32), classes=get("classes", torch.int64),
         valid=get("valid", torch.bool), bbox=get("bbox", torch.float32),
-        zmin=get("zmin", torch.float32))
+        zmin=get("zmin", torch.float32), unum=get("unum", torch.float32),
+        vnum=get("vnum", torch.float32), zinv=get("zinv", torch.float32),
+        pair_ok=get("pair_ok", torch.bool))
+
+
+def prims_from_jax(prims) -> PrimSetup:
+    """JAX ``PrimSetup`` (``fuse_prims``' output, batched or a single env)
+    → port ``PrimSetup`` with a leading env axis."""
+    get = _batched_getter(prims)
+    return PrimSetup(
+        edges=get("edges", torch.float32), zinv=get("zinv", torch.float32),
+        luma=get("luma", torch.float32), valid=get("valid", torch.bool),
+        bbox=get("bbox", torch.float32), zmin=get("zmin", torch.float32))
 
 
 def carry_from_jax(carry):

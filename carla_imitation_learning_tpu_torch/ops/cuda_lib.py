@@ -26,7 +26,7 @@ BUILD_DIR = PACKAGE_DIR / "build"
 # their plain PyTorch versions bit for bit.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("raster_exact", "raster_fast")
+SOURCES = ("raster_exact", "raster_fast", "raster_prim", "raster_vec")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

@@ -7,6 +7,11 @@ an exact depth test. On a CUDA tensor ``raster_bands`` launches the
 hand-written kernel ``csrc/raster_exact.cu``; on a CPU tensor it runs
 ``raster_bands_plain``, the same function in plain PyTorch over the same
 bands and lists. Sky and distance shade are applied outside the kernel.
+
+A setup projected with ``textures=True`` packs 23 rows instead of 17 (the
+surface-UV rows) and takes the kernel's textured variant: each written
+colour is multiplied by ``texture_factor`` (ops/texture.py) at the pixel's
+perspective-correct surface point.
 """
 
 from __future__ import annotations
@@ -16,11 +21,13 @@ import ctypes
 import torch
 
 from carla_imitation_learning_tpu_torch.ops import cuda_lib
+from carla_imitation_learning_tpu_torch.ops.texture import texture_factor
 from carla_imitation_learning_tpu_torch.render.camera import TriangleSetup
 from carla_imitation_learning_tpu_torch.render.plain_raster import SKY_HORIZON, SKY_TOP
 
 TILE_ROWS = 32     # band height in pixel rows, clamped to a divisor of H
 PACK_WIDTH = 17    # 9 edge + 3 znum + 3 rgb + 1 class + 1 zmin
+TEX_PACK_WIDTH = PACK_WIDTH + 6  # + 3 unum + 3 vnum (procedural textures)
 LUMA_W = (0.299, 0.587, 0.114)
 PLAIN_BUDGET = 1 << 22  # elements per (B, R, chunk, rows, W) temporary
 
@@ -32,7 +39,8 @@ class LaunchCount:
         self.launches = 0
 
 
-EXACT_KERNEL = LaunchCount()
+EXACT_KERNEL = LaunchCount()      # flat variant
+EXACT_TEX_KERNEL = LaunchCount()  # textured variant
 
 
 def band_rows(height: int) -> int:
@@ -49,16 +57,19 @@ def luma(colors: torch.Tensor) -> torch.Tensor:
 
 
 def pack_setup(setup: TriangleSetup, luma_only: bool = False) -> torch.Tensor:
-    """TriangleSetup → (B, 17, T) f32 coefficient-major table; invalid
-    triangles get all-zero columns. With ``luma_only`` the colour slots
-    carry the luminance."""
+    """TriangleSetup → (B, 17, T) f32 coefficient-major table, or (B, 23, T)
+    with the surface-UV rows when the setup carries them; invalid triangles
+    get all-zero columns. With ``luma_only`` the colour slots carry the
+    luminance."""
     colors = setup.colors
     if luma_only:
         colors = luma(colors)[..., None].expand_as(colors)
     B, T = setup.valid.shape
-    flat = torch.cat([setup.edges.reshape(B, T, 9), setup.znum, colors,
-                      setup.classes[..., None].to(torch.float32),
-                      setup.zmin[..., None]], -1)
+    parts = [setup.edges.reshape(B, T, 9), setup.znum, colors,
+             setup.classes[..., None].to(torch.float32), setup.zmin[..., None]]
+    if setup.unum is not None:
+        parts += [setup.unum, setup.vnum]
+    flat = torch.cat(parts, -1)
     return torch.where(setup.valid[..., None], flat, 0.0).transpose(1, 2).contiguous()
 
 
@@ -93,9 +104,11 @@ def raster_bands_plain(tbl, idx, count, height: int, width: int, near: float,
     Within a chunk of list positions the winner is the first-occurring
     minimum (``argmin``) and it replaces the band's z-buffer only when
     strictly nearer — the same result as walking the list one triangle at a
-    time with ``near < z < zbuf``. → (sem (B, H, W) int32,
-    colour (B, C, H, W), depth (B, H, W))."""
-    B, _, T = tbl.shape
+    time with ``near < z < zbuf``. A 23-row table is textured: the winner's
+    colour is multiplied by ``texture_factor`` at its (u, v). → (sem (B, H,
+    W) int32, colour (B, C, H, W), depth (B, H, W))."""
+    B, n_rows_tbl, T = tbl.shape
+    textured = n_rows_tbl == TEX_PACK_WIDTH
     R, K = idx.shape[1], idx.shape[2]
     dev = tbl.device
     rows = tile_rows
@@ -104,7 +117,8 @@ def raster_bands_plain(tbl, idx, count, height: int, width: int, near: float,
           + torch.arange(rows, dtype=torch.float32, device=dev)) + 0.5   # (R, rows)
     px = px.view(1, 1, 1, 1, width)
     py = py.view(1, R, 1, rows, 1)
-    tbl_t = tbl.transpose(1, 2)                                   # (B, T, 17)
+    px_w, py_w = px[:, :, 0], py[:, :, 0]          # for (B, R, rows, W) winners
+    tbl_t = tbl.transpose(1, 2)                                   # (B, T, 17|23)
     benv = torch.arange(B, device=dev).view(B, 1, 1)
 
     zbuf = torch.full((B, R, rows, width), far, device=dev)
@@ -114,7 +128,7 @@ def raster_bands_plain(tbl, idx, count, height: int, width: int, near: float,
     n_max = int(count.max()) if count.numel() else 0
     for j0 in range(0, n_max, chunk):
         j = torch.arange(j0, min(j0 + chunk, K), device=dev)
-        co = tbl_t[benv, idx[:, :, j0:j0 + j.numel()].to(torch.int64)]  # (B, R, C, 17)
+        co = tbl_t[benv, idx[:, :, j0:j0 + j.numel()].to(torch.int64)]  # (B, R, C, 17|23)
         live = j < count[..., None]                                # (B, R, C)
         c = [co[..., i, None, None] for i in range(PACK_WIDTH)]
         e0 = c[0] * px + c[1] * py + c[2]
@@ -136,9 +150,16 @@ def raster_bands_plain(tbl, idx, count, height: int, width: int, near: float,
             v = co[..., i, None, None].expand(-1, -1, -1, rows, width)
             return torch.gather(v, 2, win)[:, :, 0]
 
-        sem = torch.where(better, pick(15).to(torch.int32), sem)
+        cls = pick(15).to(torch.int32)
+        sem = torch.where(better, cls, sem)
+        fac = 1.0
+        if textured:   # the winner's perspective-correct (u, v)
+            den_w = torch.gather(den, 2, win)[:, :, 0]
+            u = (pick(17) * px_w + pick(18) * py_w + pick(19)) / den_w
+            v = (pick(20) * px_w + pick(21) * py_w + pick(22)) / den_w
+            fac = texture_factor(u, v, cls)
         for ch in range(n_channels):
-            col[ch] = torch.where(better, pick(12 + ch), col[ch])
+            col[ch] = torch.where(better, pick(12 + ch) * fac, col[ch])
 
     def bands_to_image(a):
         return a.reshape(a.shape[:-3] + (height, width))
@@ -150,14 +171,17 @@ def raster_bands_plain(tbl, idx, count, height: int, width: int, near: float,
 def raster_bands(tbl, idx, count, height: int, width: int, near: float,
                  far: float, n_channels: int, tile_rows: int):
     """Kernel A on CUDA tensors (``csrc/raster_exact.cu``), its plain
-    PyTorch version on CPU tensors. tbl (B, 17, T) f32, idx (B, R, K) int32,
-    count (B, R) int32 → (sem, colour (B, C, H, W), depth)."""
+    PyTorch version on CPU tensors. tbl (B, 17, T) f32 (flat) or (B, 23, T)
+    (textured), idx (B, R, K) int32, count (B, R) int32 → (sem, colour
+    (B, C, H, W), depth)."""
     if not tbl.is_cuda:
         return raster_bands_plain(tbl, idx, count, height, width, near, far,
                                   n_channels, tile_rows)
-    B, _, T = tbl.shape
+    B, n_rows_tbl, T = tbl.shape
     R, K = idx.shape[1], idx.shape[2]
-    cuda_lib.check_cuda(tbl, "tbl", torch.float32, (B, PACK_WIDTH, T))
+    textured = n_rows_tbl == TEX_PACK_WIDTH
+    cuda_lib.check_cuda(tbl, "tbl", torch.float32,
+                        (B, TEX_PACK_WIDTH if textured else PACK_WIDTH, T))
     cuda_lib.check_cuda(idx, "idx", torch.int32, (B, R, K))
     cuda_lib.check_cuda(count, "count", torch.int32, (B, R))
     if R * tile_rows != height or n_channels not in (1, 3) or width > 256:
@@ -165,7 +189,7 @@ def raster_bands(tbl, idx, count, height: int, width: int, near: float,
                          f"H={height} W={width} C={n_channels}")
     fn = cuda_lib.entry_point(
         "raster_exact", "raster_exact_launch",
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
         + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
     dev = tbl.device
     sem = torch.empty((B, height, width), dtype=torch.int32, device=dev)
@@ -173,9 +197,9 @@ def raster_bands(tbl, idx, count, height: int, width: int, near: float,
     depth = torch.empty((B, height, width), dtype=torch.float32, device=dev)
     err = fn(tbl.data_ptr(), idx.data_ptr(), count.data_ptr(), sem.data_ptr(),
              col.data_ptr(), depth.data_ptr(), B, T, R, K, height, width,
-             tile_rows, n_channels, near, far, cuda_lib.stream_ptr(dev))
+             tile_rows, n_channels, int(textured), near, far, cuda_lib.stream_ptr(dev))
     cuda_lib.raise_on_error(err, "raster_exact")
-    EXACT_KERNEL.launches += 1
+    (EXACT_TEX_KERNEL if textured else EXACT_KERNEL).launches += 1
     return sem, col, depth
 
 

@@ -16,11 +16,23 @@ On a CUDA tensor ``fast_bands`` launches the hand-written kernel
 same function in plain PyTorch over the same bands, lists and keys. The
 JAX package's kernel takes an approximate reciprocal; both versions here
 take the IEEE one (``__frcp_rn`` / ``torch.reciprocal``).
+
+Two opt-in variants of the same rollout render (``rasterize_luma_fast``):
+
+- ``quads=True`` (kernel C, ``prim_bands`` / ``csrc/raster_prim.cu``):
+  coplanar even/odd triangle pairs fused into 4-edge primitives
+  (``fuse_prims``), depth from a screen-affine 1/z row, visibility a running
+  MAX of ``(bits(1/z) & ~0xFFF) | luma12`` with 0 as the miss — no divide in
+  the pass loop;
+- ``vec=True`` (kernel D, ``vec_bands`` / ``csrc/raster_vec.cu``): kernel
+  B's function read from per-band gathered tables (``gather_band_tables``)
+  in groups of ``VEC_P`` list entries, bit-exact against kernel B.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
@@ -39,8 +51,13 @@ KEY_MASK = ~LUMA_MASK  # keeps sign + exponent + 11 mantissa bits of the depth
 MISS_KEY = 0x7FFFFFFF
 FAST_PACK_WIDTH = 13   # 9 edge + 3 znum + 1 luma key
 FAST_UNROLL = 2        # list entries per loop body (the kernel walks pairs)
+PRIM_PACK_WIDTH = 16   # 12 edge + 3 zinv + 1 luma key
+VEC_P = 8              # list entries per group of the vec kernel
+VEC_ROW = 16           # floats per band-table entry (13 rows + 3 pad)
 
 FAST_KERNEL = LaunchCount()
+PRIM_KERNEL = LaunchCount()
+VEC_KERNEL = LaunchCount()
 
 
 def pack_key_const(z: float) -> int:
@@ -83,7 +100,7 @@ def compact_setup(setup: TriangleSetup, cap: int) -> TriangleSetup:
                          zmin=take(setup.zmin))
 
 
-def tile_lists_fast(setup: TriangleSetup, height: int, k: int, width: int,
+def tile_lists_fast(setup: "TriangleSetup | PrimSetup", height: int, k: int, width: int,
                     far: float = 300.0, lod_px: float = 0.0,
                     rows_per_band: int = TILE_ROWS):
     """Per band: indices of the triangles that can cover a pixel in it.
@@ -91,7 +108,8 @@ def tile_lists_fast(setup: TriangleSetup, height: int, k: int, width: int,
     Beyond the bbox test: the corner cull (edge functions are affine, so
     their maxima over the band rectangle [0, W]×[ylo, yhi] sit at corners)
     and, with ``lod_px > 0``, the scene LOD (drop triangles whose bbox is
-    under ``lod_px`` pixels both ways). Hits are grouped first in index
+    under ``lod_px`` pixels both ways). A PrimSetup's four edge rows are
+    culled the same way. Hits are grouped first in index
     order; with ``k`` below the table width, hits are ordered by zmin rank
     so the cap drops the farthest. Keys are built in int64.
     → (idx (B, R, k) int32, count (B, R) int32)."""
@@ -107,7 +125,7 @@ def tile_lists_fast(setup: TriangleSetup, height: int, k: int, width: int,
     hit = (ymax[:, None, :] >= row_lo) & (ymin[:, None, :] <= row_hi) & onscreen[:, None, :]
 
     # corner cull: e(x, y) = a·x + b·y + c over x ∈ [0, W], y ∈ [ylo, yhi]
-    a = setup.edges[..., 0]                                  # (B, T, 3)
+    a = setup.edges[..., 0]                                  # (B, T, 3 or 4)
     b = setup.edges[..., 1]
     c = setup.edges[..., 2]
     ax_max = torch.clamp(a * width, min=0.0)[:, None]        # (B, 1, T, 3)
@@ -131,6 +149,50 @@ def tile_lists_fast(setup: TriangleSetup, height: int, k: int, width: int,
     return idx.to(torch.int32).contiguous(), count.contiguous()
 
 
+def _band_grid(B: int, R: int, rows: int, width: int, dev):
+    """Pixel centres of every band: px (1, 1, 1, 1, W), py (R, rows) and
+    py as (1, R, 1, rows, 1) for (B, R, list chunk, rows, W) passes."""
+    px = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5).view(1, 1, 1, 1, width)
+    y_off = torch.arange(R, dtype=torch.float32, device=dev)[:, None] * rows + 0.5
+    py = torch.arange(rows, dtype=torch.float32, device=dev) + y_off          # (R, rows)
+    return px, py, py.view(1, R, 1, rows, 1)
+
+
+def _tri_keys(c, px, pyb, near: float):
+    """Kernel B's pass over 13 coefficient columns ``c`` (each (B, R, C, 1,
+    1)): the packed key of every candidate, MISS_KEY where it fails."""
+    e0 = c[0] * px + (c[1] * pyb + c[2])
+    e1 = c[3] * px + (c[4] * pyb + c[5])
+    e2 = c[6] * px + (c[7] * pyb + c[8])
+    znp = c[9] * px + (c[10] * pyb + c[11])
+    inside = torch.minimum(torch.minimum(e0, e1), e2) > 0.0
+    den = e0 + e1 + e2
+    z = znp * torch.reciprocal(den)
+    key = (z.view(torch.int32) & KEY_MASK) | c[12].to(torch.int32)
+    return torch.where(inside & (z > near), key, MISS_KEY)
+
+
+def _sky_rows(py, height: int):
+    t_sky = ((py - 0.5) * (1.0 / max(height - 1, 1)))[None, :, :, None]
+    return SKY_TOP_L * (1.0 - t_sky) + SKY_HOR_L * t_sky
+
+
+def _luma_epilogue(kmin, py, height: int, far: float, fog_density: float):
+    """Kernel B's (and D's) epilogue: decode the running-min key of every
+    band pixel (B, R, rows, W) → gray (B, H, W)."""
+    B, _, _, width = kmin.shape
+    hit = kmin < pack_key_const(far)
+    depth = (kmin & KEY_MASK).view(torch.float32)
+    lum = (kmin & LUMA_MASK).to(torch.float32) * (1.0 / LUMA_MASK)
+    shade = torch.reciprocal(1.0 + 0.004 * depth)
+    sky = _sky_rows(py, height)
+    lit = lum * shade
+    if fog_density > 0.0:
+        f = torch.exp(-fog_density * depth)
+        lit = lit * f + sky * (1.0 - f)
+    return torch.where(hit, lit, sky).reshape(B, height, width)
+
+
 def fast_bands_plain(tbl, idx, count, height: int, width: int, near: float,
                      far: float, fog_density: float, tile_rows: int):
     """Plain PyTorch version of kernel B over the same bands, lists and
@@ -139,48 +201,23 @@ def fast_bands_plain(tbl, idx, count, height: int, width: int, near: float,
     B, _, T = tbl.shape
     R, K = idx.shape[1], idx.shape[2]
     dev = tbl.device
-    rows = tile_rows
     n_pass = torch.clamp((count + FAST_UNROLL - 1) // FAST_UNROLL * FAST_UNROLL,
                          max=K)                                               # (B, R)
-    px = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5).view(1, 1, 1, 1, width)
-    y_off = torch.arange(R, dtype=torch.float32, device=dev)[:, None] * rows + 0.5
-    py = torch.arange(rows, dtype=torch.float32, device=dev) + y_off          # (R, rows)
-    pyb = py.view(1, R, 1, rows, 1)
+    px, py, pyb = _band_grid(B, R, tile_rows, width, dev)
     tbl_t = tbl.transpose(1, 2)                                               # (B, T, 13)
     benv = torch.arange(B, device=dev).view(B, 1, 1)
 
-    kmin = torch.full((B, R, rows, width), MISS_KEY, dtype=torch.int32, device=dev)
-    chunk = max(1, PLAIN_BUDGET // (B * R * rows * width))
+    kmin = torch.full((B, R, tile_rows, width), MISS_KEY, dtype=torch.int32, device=dev)
+    chunk = max(1, PLAIN_BUDGET // (B * R * tile_rows * width))
     n_max = int(n_pass.max()) if n_pass.numel() else 0
     for j0 in range(0, n_max, chunk):
         j = torch.arange(j0, min(j0 + chunk, K), device=dev)
         co = tbl_t[benv, idx[:, :, j0:j0 + j.numel()].to(torch.int64)]     # (B, R, C, 13)
-        live = j < n_pass[..., None]
-        c = [co[..., i, None, None] for i in range(FAST_PACK_WIDTH)]
-        e0 = c[0] * px + (c[1] * pyb + c[2])
-        e1 = c[3] * px + (c[4] * pyb + c[5])
-        e2 = c[6] * px + (c[7] * pyb + c[8])
-        znp = c[9] * px + (c[10] * pyb + c[11])
-        inside = torch.minimum(torch.minimum(e0, e1), e2) > 0.0
-        den = e0 + e1 + e2
-        z = znp * torch.reciprocal(den)
-        ok = inside & (z > near) & live[..., None, None]
-        key = (z.view(torch.int32) & KEY_MASK) | c[12].to(torch.int32)
-        cand = torch.where(ok, key, MISS_KEY)
-        kmin = torch.minimum(kmin, cand.amin(dim=2))
-
-    far_key = pack_key_const(far)
-    hit = kmin < far_key
-    depth = (kmin & KEY_MASK).view(torch.float32)
-    lum = (kmin & LUMA_MASK).to(torch.float32) * (1.0 / LUMA_MASK)
-    shade = torch.reciprocal(1.0 + 0.004 * depth)
-    t_sky = ((py - 0.5) * (1.0 / max(height - 1, 1)))[None, :, :, None]
-    sky = SKY_TOP_L * (1.0 - t_sky) + SKY_HOR_L * t_sky
-    lit = lum * shade
-    if fog_density > 0.0:
-        f = torch.exp(-fog_density * depth)
-        lit = lit * f + sky * (1.0 - f)
-    return torch.where(hit, lit, sky).reshape(B, height, width)
+        live = (j < n_pass[..., None])[..., None, None]
+        cand = _tri_keys([co[..., i, None, None] for i in range(FAST_PACK_WIDTH)],
+                         px, pyb, near)
+        kmin = torch.minimum(kmin, torch.where(live, cand, MISS_KEY).amin(dim=2))
+    return _luma_epilogue(kmin, py, height, far, fog_density)
 
 
 def fast_bands(tbl, idx, count, height: int, width: int, near: float,
@@ -213,26 +250,286 @@ def fast_bands(tbl, idx, count, height: int, width: int, near: float,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Kernel C: fused quad primitives. Every scene emitter produces planar convex
+# quads split as (v0, v1, v2) + (v0, v2, v3) at even/odd indices; such a pair
+# becomes ONE 4-edge primitive, and since 1/z is screen-affine per plane the
+# fused pass needs no perspective divide.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class PrimSetup:
+    """4-edge primitive table, batched (B, P, ...): fused quads and unfused
+    triangles (4th edge row duplicated). Names line up with TriangleSetup
+    where ``tile_lists_fast`` reads them (edges[..., i], valid, bbox, zmin)."""
+
+    edges: torch.Tensor  # (B, P, 4, 3) sign-normalized border rows
+    zinv: torch.Tensor   # (B, P, 3) affine 1/z row (per plane)
+    luma: torch.Tensor   # (B, P) 12-bit-quantized luminance (stored as f32)
+    valid: torch.Tensor  # (B, P) bool
+    bbox: torch.Tensor   # (B, P, 4)
+    zmin: torch.Tensor   # (B, P)
+
+
+def _luma_q(colors):
+    return torch.clamp(torch.round(luma(colors) * LUMA_MASK), 0, LUMA_MASK)
+
+
+def fuse_prims(setup: TriangleSetup) -> PrimSetup:
+    """TriangleSetup with ``pair_ok`` and ``zinv`` (``project_triangles(...,
+    quads=True)``) → PrimSetup of the same width T: slot 2i holds the fused
+    quad (pair fusable) or triangle 2i; slot 2i+1 holds triangle 2i+1 or is
+    invalid. The quad's border rows are the two triangles' outer edge rows:
+    {t0.E2, t0.E0, t1.E0, t1.E1}."""
+    if setup.pair_ok is None or setup.zinv is None:
+        raise ValueError("fuse_prims needs a setup projected with quads=True")
+    B, T = setup.valid.shape
+    E = setup.edges.reshape(B, T // 2, 2, 3, 3)
+    ok = setup.pair_ok
+    quad_edges = torch.stack([E[:, :, 0, 2], E[:, :, 0, 0], E[:, :, 1, 0],
+                              E[:, :, 1, 1]], 2)
+    tri0 = torch.cat([E[:, :, 0], E[:, :, 0, :1]], 2)      # duplicated 4th row
+    tri1 = torch.cat([E[:, :, 1], E[:, :, 1, :1]], 2)
+    even_edges = torch.where(ok[..., None, None], quad_edges, tri0)
+
+    v0, v1 = setup.valid[:, 0::2], setup.valid[:, 1::2]
+    even_valid = torch.where(ok, v0 & v1, v0)
+    odd_valid = v1 & ~ok
+
+    b0, b1 = setup.bbox[:, 0::2], setup.bbox[:, 1::2]
+    union = torch.stack([torch.minimum(b0[..., 0], b1[..., 0]),
+                         torch.maximum(b0[..., 1], b1[..., 1]),
+                         torch.minimum(b0[..., 2], b1[..., 2]),
+                         torch.maximum(b0[..., 3], b1[..., 3])], -1)
+    even_bbox = torch.where(ok[..., None], union, b0)
+    z0, z1 = setup.zmin[:, 0::2], setup.zmin[:, 1::2]
+    even_zmin = torch.where(ok, torch.minimum(z0, z1), z0)
+    lum_q = _luma_q(setup.colors)
+
+    def interleave(a, b):
+        return torch.stack([a, b], 2).reshape((B, T) + a.shape[2:])
+
+    return PrimSetup(edges=interleave(even_edges, tri1),
+                     zinv=interleave(setup.zinv[:, 0::2], setup.zinv[:, 1::2]),
+                     luma=interleave(lum_q[:, 0::2], lum_q[:, 1::2]),
+                     valid=interleave(even_valid, odd_valid),
+                     bbox=interleave(even_bbox, b1),
+                     zmin=interleave(even_zmin, z1))
+
+
+def compact_prims(prims: PrimSetup, cap: int) -> PrimSetup:
+    """Valid-primitive compaction, nearest-first (see compact_setup)."""
+    score = torch.where(prims.valid, prims.zmin, float("inf"))
+    order = torch.argsort(score, dim=1, stable=True)[:, :cap]
+
+    def take(a):
+        ix = order.view(order.shape + (1,) * (a.dim() - 2)).expand(
+            order.shape + a.shape[2:])
+        return torch.gather(a, 1, ix)
+
+    return PrimSetup(**{f.name: take(getattr(prims, f.name))
+                        for f in dataclasses.fields(PrimSetup)})
+
+
+def pack_setup_prims(prims: PrimSetup) -> torch.Tensor:
+    """PrimSetup → (B, 16, P) coefficient-major f32 table; invalid
+    primitives get all-zero columns."""
+    B, P = prims.valid.shape
+    flat = torch.cat([prims.edges.reshape(B, P, 12), prims.zinv,
+                      prims.luma[..., None]], -1)
+    return torch.where(prims.valid[..., None], flat, 0.0).transpose(1, 2).contiguous()
+
+
+def prim_far_key(far: float) -> int:
+    """Smallest packed key strictly nearer than ``far`` (max luma at 1/far):
+    a pixel is a hit iff its running-max key exceeds it."""
+    return (int(np.float32(1.0 / far).view(np.int32)) & KEY_MASK) | LUMA_MASK
+
+
+def prim_bands_plain(tbl, idx, count, height: int, width: int, near: float,
+                     far: float, fog_density: float, tile_rows: int):
+    """Plain PyTorch version of kernel C over the same bands, lists and
+    keys: four edge rows and the 1/z row per primitive, a running max of
+    ``(bits(1/z) & ~0xFFF) | luma12`` (0 = miss) over list positions below
+    the count rounded up to the unroll width; the epilogue shades by
+    zi / (zi + 0.004) and fogs at depth 1 / max(zi, 1e-9). → (B, H, W)."""
+    B, _, T = tbl.shape
+    R, K = idx.shape[1], idx.shape[2]
+    dev = tbl.device
+    n_pass = torch.clamp((count + FAST_UNROLL - 1) // FAST_UNROLL * FAST_UNROLL, max=K)
+    px, py, pyb = _band_grid(B, R, tile_rows, width, dev)
+    tbl_t = tbl.transpose(1, 2)                                               # (B, P, 16)
+    benv = torch.arange(B, device=dev).view(B, 1, 1)
+    inv_near = float(np.float32(1.0 / near))
+
+    kmax = torch.zeros((B, R, tile_rows, width), dtype=torch.int32, device=dev)
+    chunk = max(1, PLAIN_BUDGET // (B * R * tile_rows * width))
+    n_max = int(n_pass.max()) if n_pass.numel() else 0
+    for j0 in range(0, n_max, chunk):
+        j = torch.arange(j0, min(j0 + chunk, K), device=dev)
+        co = tbl_t[benv, idx[:, :, j0:j0 + j.numel()].to(torch.int64)]     # (B, R, C, 16)
+        live = (j < n_pass[..., None])[..., None, None]
+        c = [co[..., i, None, None] for i in range(PRIM_PACK_WIDTH)]
+        e = [c[3 * i] * px + (c[3 * i + 1] * pyb + c[3 * i + 2]) for i in range(4)]
+        zi = c[12] * px + (c[13] * pyb + c[14])
+        m = torch.minimum(torch.minimum(e[0], e[1]), torch.minimum(e[2], e[3]))
+        ok = (m > 0.0) & (zi < inv_near) & live
+        key = (zi.view(torch.int32) & KEY_MASK) | c[15].to(torch.int32)
+        kmax = torch.maximum(kmax, torch.where(ok, key, 0).amax(dim=2))
+
+    hit = kmax > prim_far_key(far)
+    ziw = (kmax & KEY_MASK).view(torch.float32)
+    lum = (kmax & LUMA_MASK).to(torch.float32) * (1.0 / LUMA_MASK)
+    shade = ziw * torch.reciprocal(ziw + 0.004)   # = 1 / (1 + 0.004·z)
+    sky = _sky_rows(py, height)
+    lit = lum * shade
+    if fog_density > 0.0:
+        depth = torch.reciprocal(torch.clamp(ziw, min=1e-9))
+        f = torch.exp(-fog_density * depth)
+        lit = lit * f + sky * (1.0 - f)
+    return torch.where(hit, lit, sky).reshape(B, height, width)
+
+
+def prim_bands(tbl, idx, count, height: int, width: int, near: float,
+               far: float, fog_density: float, tile_rows: int):
+    """Kernel C on CUDA tensors (``csrc/raster_prim.cu``), its plain PyTorch
+    version on CPU tensors. tbl (B, 16, P) f32, idx (B, R, K) int32 with K
+    even, count (B, R) int32 → gray (B, H, W) f32."""
+    if not tbl.is_cuda:
+        return prim_bands_plain(tbl, idx, count, height, width, near, far,
+                                fog_density, tile_rows)
+    B, _, P = tbl.shape
+    R, K = idx.shape[1], idx.shape[2]
+    cuda_lib.check_cuda(tbl, "tbl", torch.float32, (B, PRIM_PACK_WIDTH, P))
+    cuda_lib.check_cuda(idx, "idx", torch.int32, (B, R, K))
+    cuda_lib.check_cuda(count, "count", torch.int32, (B, R))
+    if R * tile_rows != height or K % FAST_UNROLL or width > 256:
+        raise ValueError(f"unsupported band layout: R={R} rows={tile_rows} "
+                         f"H={height} W={width} K={K}")
+    fn = cuda_lib.entry_point(
+        "raster_prim", "raster_prim_launch",
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int]
+        + [ctypes.c_float] * 5 + [ctypes.c_void_p])
+    out = torch.empty((B, height, width), dtype=torch.float32, device=tbl.device)
+    err = fn(tbl.data_ptr(), idx.data_ptr(), count.data_ptr(), out.data_ptr(),
+             B, P, R, K, height, width, tile_rows, float(np.float32(1.0 / near)),
+             prim_far_key(far), SKY_TOP_L, SKY_HOR_L, 1.0 / max(height - 1, 1),
+             1.0 / LUMA_MASK, fog_density, cuda_lib.stream_ptr(tbl.device))
+    cuda_lib.raise_on_error(err, "raster_prim")
+    PRIM_KERNEL.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Kernel D: kernel B's function over per-band gathered coefficient tables,
+# walked in groups of VEC_P entries with no index indirection in the loop.
+# ---------------------------------------------------------------------------
+
+
+def gather_band_tables(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(B, 13, T) coefficient table + (B, R, k) band lists → (B, R, k, 16)
+    band-resident tables (13 rows + 3 zero pad, so an entry is 64 bytes).
+    The result is allocated once and filled in place: at 1024 envs, R = 4,
+    k = 1408 it is 369 MB."""
+    B, W13, T = tbl.shape
+    R, k = idx.shape[1], idx.shape[2]
+    src = torch.nn.functional.pad(tbl.transpose(1, 2), (0, VEC_ROW - W13))   # (B, T, 16)
+    flat = (idx.to(torch.int64) + (torch.arange(B, device=idx.device) * T).view(B, 1, 1))
+    out = torch.empty((B, R, k, VEC_ROW), dtype=tbl.dtype, device=tbl.device)
+    torch.index_select(src.reshape(B * T, VEC_ROW), 0, flat.reshape(-1),
+                       out=out.view(-1, VEC_ROW))
+    return out
+
+
+def vec_bands_plain(btbl, count, height: int, width: int, near: float,
+                    far: float, fog_density: float, tile_rows: int):
+    """Plain PyTorch version of kernel D: kernel B's pass and epilogue over
+    each band's own table, for list positions below the count rounded up to
+    a whole group of VEC_P. → (B, H, W)."""
+    B, R, K, _ = btbl.shape
+    dev = btbl.device
+    n_pass = torch.clamp((count + VEC_P - 1) // VEC_P * VEC_P, max=K)
+    px, py, pyb = _band_grid(B, R, tile_rows, width, dev)
+    kmin = torch.full((B, R, tile_rows, width), MISS_KEY, dtype=torch.int32, device=dev)
+    chunk = max(VEC_P, PLAIN_BUDGET // (B * R * tile_rows * width) // VEC_P * VEC_P)
+    n_max = int(n_pass.max()) if n_pass.numel() else 0
+    for j0 in range(0, n_max, chunk):
+        co = btbl[:, :, j0:j0 + chunk]                                       # (B, R, C, 16)
+        j = torch.arange(j0, j0 + co.shape[2], device=dev)
+        live = (j < n_pass[..., None])[..., None, None]
+        cand = _tri_keys([co[..., i, None, None] for i in range(FAST_PACK_WIDTH)],
+                         px, pyb, near)
+        kmin = torch.minimum(kmin, torch.where(live, cand, MISS_KEY).amin(dim=2))
+    return _luma_epilogue(kmin, py, height, far, fog_density)
+
+
+def vec_bands(btbl, count, height: int, width: int, near: float, far: float,
+              fog_density: float, tile_rows: int):
+    """Kernel D on CUDA tensors (``csrc/raster_vec.cu``), its plain PyTorch
+    version on CPU tensors. btbl (B, R, K, 16) f32 with K a multiple of
+    VEC_P, count (B, R) int32 → gray (B, H, W) f32."""
+    if not btbl.is_cuda:
+        return vec_bands_plain(btbl, count, height, width, near, far,
+                               fog_density, tile_rows)
+    B, R, K, _ = btbl.shape
+    cuda_lib.check_cuda(btbl, "btbl", torch.float32, (B, R, K, VEC_ROW))
+    cuda_lib.check_cuda(count, "count", torch.int32, (B, R))
+    if R * tile_rows != height or K % VEC_P or width > 256:
+        raise ValueError(f"unsupported band layout: R={R} rows={tile_rows} "
+                         f"H={height} W={width} K={K}")
+    fn = cuda_lib.entry_point(
+        "raster_vec", "raster_vec_launch",
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int]
+        + [ctypes.c_float] * 5 + [ctypes.c_void_p])
+    out = torch.empty((B, height, width), dtype=torch.float32, device=btbl.device)
+    err = fn(btbl.data_ptr(), count.data_ptr(), out.data_ptr(),
+             B, R, K, height, width, tile_rows, near, pack_key_const(far),
+             SKY_TOP_L, SKY_HOR_L, 1.0 / max(height - 1, 1), 1.0 / LUMA_MASK,
+             fog_density, cuda_lib.stream_ptr(btbl.device))
+    cuda_lib.raise_on_error(err, "raster_vec")
+    VEC_KERNEL.launches += 1
+    return out
+
+
 def rasterize_luma_fast(setup: TriangleSetup, height: int, width: int,
                         near: float = 0.5, far: float = 300.0,
                         max_tris_per_tile: int | None = None,
                         compact_cap: int | None = None,
-                        fog_density: float = 0.0, lod_px: float = 0.0):
+                        fog_density: float = 0.0, lod_px: float = 0.0,
+                        quads: bool = False, vec: bool = False):
     """→ gray (B, H, W) f32 in [0, 1], the policy observation channel.
 
     ``max_tris_per_tile`` caps each band's list (dropping the farthest);
     ``compact_cap`` pre-gathers the valid triangles into a table that wide;
     ``fog_density > 0`` fuses exponential fog into the epilogue and shrinks
-    ``far`` to the visibility limit."""
+    ``far`` to the visibility limit. ``quads`` takes kernel C (the setup must
+    carry ``pair_ok`` and ``zinv``); otherwise ``vec`` takes kernel D, and
+    by default kernel B runs. (The JAX package's ``quads=None`` turns kernel
+    C on whenever the setup carries the pair analysis; here it is asked for
+    explicitly.)"""
     far = visibility_far(fog_density, far)
     rows = band_rows(height)
-    if compact_cap is not None and compact_cap < setup.valid.shape[1]:
-        setup = compact_setup(setup, compact_cap)
-    tbl = pack_setup_fast(setup)
+    if quads:
+        src = fuse_prims(setup)
+        if compact_cap is not None and compact_cap < src.valid.shape[1]:
+            src = compact_prims(src, compact_cap)
+        tbl = pack_setup_prims(src)
+    else:
+        src = setup
+        if compact_cap is not None and compact_cap < src.valid.shape[1]:
+            src = compact_setup(src, compact_cap)
+        tbl = pack_setup_fast(src)
     n_tris = tbl.shape[2]
     k = n_tris if max_tris_per_tile is None else min(max_tris_per_tile, n_tris)
-    idx, count = tile_lists_fast(setup, height, k, width=width, far=far,
+    idx, count = tile_lists_fast(src, height, k, width=width, far=far,
                                  lod_px=lod_px, rows_per_band=rows)
+    if vec and not quads:   # whole groups of VEC_P: pad the lists with index 0
+        if k % VEC_P:
+            idx = torch.nn.functional.pad(idx, (0, VEC_P - k % VEC_P))
+        return vec_bands(gather_band_tables(tbl, idx), count, height, width,
+                         near, far, fog_density, rows)
     if k % FAST_UNROLL:  # the pair-wise walk may read one entry past k
         idx = torch.nn.functional.pad(idx, (0, FAST_UNROLL - k % FAST_UNROLL))
-    return fast_bands(tbl, idx, count, height, width, near, far, fog_density, rows)
+    bands = prim_bands if quads else fast_bands
+    return bands(tbl, idx, count, height, width, near, far, fog_density, rows)

@@ -18,6 +18,8 @@ import math
 
 import torch
 
+from carla_imitation_learning_tpu_torch.render.geometry import SEM_BUILDING
+
 
 @dataclasses.dataclass(frozen=True)
 class Camera:
@@ -53,6 +55,16 @@ class TriangleSetup:
     valid: torch.Tensor    # (B, T) bool — non-degenerate and not fully behind
     bbox: torch.Tensor     # (B, T, 4) screen xmin, xmax, ymin, ymax (conservative)
     zmin: torch.Tensor     # (B, T) nearest camera depth
+    # Surface-UV numerator rows (Σ_i U_i E_i, like znum) for procedural
+    # texturing (ops/texture.py); None unless projected with textures=True.
+    unum: torch.Tensor | None = None     # (B, T, 3)
+    vnum: torch.Tensor | None = None     # (B, T, 3)
+    # Screen-affine inverse depth 1/z(p) = den(p)/|det|, one affine row per
+    # plane, and the even/odd pairs (2i, 2i+1) that form one planar convex
+    # quad; both None unless projected with quads=True (the fast quad
+    # kernel's inputs, ops/raster_fast.py fuse_prims).
+    zinv: torch.Tensor | None = None     # (B, T, 3)
+    pair_ok: torch.Tensor | None = None  # (B, T // 2) bool
 
 
 def _cross(a, b):
@@ -64,9 +76,11 @@ def _cross(a, b):
 
 def project_triangles(tris, colors, classes, cam: Camera, width: int,
                       height: int, fov_deg: float = 90.0, near: float = 0.5,
-                      cullable=None) -> TriangleSetup:
+                      cullable=None, textures: bool = False,
+                      quads: bool = False) -> TriangleSetup:
     """World triangles (B, T, 3, 3) → TriangleSetup. ``cullable`` (B, T)
-    marks closed solids whose back faces are dropped."""
+    marks closed solids whose back faces are dropped. ``textures`` adds the
+    surface-UV rows; ``quads`` adds ``zinv`` and ``pair_ok`` (T even)."""
     rel = tris - cam.pos[:, None, None, :]                      # (B, T, 3, 3)
     x = (rel * cam.right[:, None, None, :]).sum(-1)             # (B, T, 3)
     y = (rel * cam.down[:, None, None, :]).sum(-1)
@@ -110,6 +124,43 @@ def project_triangles(tris, colors, classes, cam: Camera, width: int,
         torch.where(behind, 0.0, py.amin(-1)),
         torch.where(behind, float(height), py.amax(-1)),
     ], -1)
+    extra = {}
+    if quads:
+        extra["zinv"], extra["pair_ok"] = _quad_rows(tris, colors, edges, det, z, valid)
+    if textures:
+        # the world-space UV of each vertex interpolates perspective-correctly
+        # as u(p) = (Σ_i U_i E_i)·p / den(p): walls take (x + y, z), which
+        # runs along either axis-aligned facade, everything else (x, y)
+        is_wall = classes == SEM_BUILDING
+        U = torch.where(is_wall[..., None], tris[..., 0] + tris[..., 1], tris[..., 0])
+        V = torch.where(is_wall[..., None], tris[..., 2], tris[..., 1])
+        extra["unum"] = (U[..., None] * edges).sum(2)
+        extra["vnum"] = (V[..., None] * edges).sum(2)
     return TriangleSetup(edges=edges, znum=znum, colors=colors,
                          classes=classes, valid=valid, bbox=bbox,
-                         zmin=z.amin(-1))
+                         zmin=z.amin(-1), **extra)
+
+
+def _quad_rows(tris, colors, edges, det, z, valid):
+    """→ (zinv (B, T, 3), pair_ok (B, T // 2)), term for term as the JAX
+    package computes them. A pair fuses when it shares v0 and the diagonal,
+    is coplanar (distance of v3 from the plane ≤ 1e-3), has one flat colour,
+    lies wholly in front of the eye, keeps one screen winding and both
+    triangles are valid."""
+    B, T = valid.shape
+    if T % 2:
+        raise ValueError(f"quad fusion needs an even triangle count, got {T}")
+    abs_det = torch.abs(det)
+    zinv = edges.sum(2) / torch.where(abs_det > 1e-9, abs_det, 1.0)[..., None]
+    t0, t1 = tris[:, 0::2], tris[:, 1::2]
+    share = ((t0[:, :, 0] == t1[:, :, 0]).all(-1)
+             & (t0[:, :, 2] == t1[:, :, 1]).all(-1))
+    n0 = _cross(t0[:, :, 1] - t0[:, :, 0], t0[:, :, 2] - t0[:, :, 0])
+    dist = (torch.abs((n0 * (t1[:, :, 2] - t0[:, :, 0])).sum(-1))
+            / (torch.linalg.vector_norm(n0, dim=-1) + 1e-12))
+    same_col = (colors[:, 0::2] == colors[:, 1::2]).all(-1)
+    front = (z.reshape(B, -1, 2, 3) > 1e-3).all(-1).all(-1)
+    same_orient = torch.sign(det[:, 0::2]) == torch.sign(det[:, 1::2])
+    pair_ok = (share & (dist <= 1e-3) & same_col & front & same_orient
+               & valid[:, 0::2] & valid[:, 1::2])
+    return zinv, pair_ok

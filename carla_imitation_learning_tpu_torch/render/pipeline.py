@@ -2,9 +2,11 @@
 
 ``make_renderer`` closes over the static scene and returns ``render(state)``
 for a whole fleet. Three branches, as in the JAX package: the fast
-grayscale rollout kernel (``fast=True, rgb=False``), the exact kernel's
-grayscale path (``rgb=False``) and its RGB path (``rgb=True``). On a CUDA
-device the kernels run; on the CPU their plain PyTorch versions.
+grayscale rollout kernel (``fast=True, rgb=False``: kernel B, or C with
+``quads``, or D with ``vec``), the exact kernel's grayscale path
+(``rgb=False``) and its RGB path (``rgb=True``); with ``texture_detail`` the
+exact branches take kernel A's textured variant. On a CUDA device the
+kernels run; on the CPU their plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -42,22 +44,23 @@ class RenderConfig:
     fog_density: float = 0.0  # exponential fog β (1/m); 0 = clear weather
     lod_px: float = -1.0   # fast path: cull triangles under this many pixels
                            # both ways; −1 = auto (2 px inside rollouts)
-    # Not ported yet (ROADMAP Queue 1); setting any of them raises.
+    facade_bands: int = 0  # >0: window-floor stripes on building walls
+    shadows: bool = False  # blob contact shadows under vehicles and walkers
+    markings: bool = False  # lane markings and zebra crosswalks (SEM_ROADLINE)
+    texture_detail: bool = False  # procedural textures; exact branches only
+    quads: bool = False    # fast path: fused quad primitives (kernel C)
+    vec: bool = False      # fast path: grouped band tables (kernel D);
+                           # ignored when quads=True
+    # Not ported yet (ROADMAP Queue 1); setting either raises.
     sun: float = 1.0
     rain: float = 0.0
-    facade_bands: int = 0
-    shadows: bool = False
-    markings: bool = False
-    texture_detail: bool = False
-    vec: bool = False
-    quads: bool = False
+
+    @property
+    def fast_path(self) -> bool:
+        return self.fast and not self.rgb
 
     def check_ported(self) -> None:
-        off = {"sun": self.sun < 1.0, "rain": self.rain > 0.0,
-               "facade_bands": self.facade_bands > 0,
-               "shadows": self.shadows, "markings": self.markings,
-               "texture_detail": self.texture_detail, "vec": self.vec,
-               "quads": self.quads}
+        off = {"sun": self.sun < 1.0, "rain": self.rain > 0.0}
         unported = [k for k, on in off.items() if on]
         if unported:
             raise NotImplementedError(f"render options not ported yet: {unported}")
@@ -67,10 +70,14 @@ def make_scene_setup(params: SimParams, town: TownMap, rcfg: RenderConfig,
                      device: str | torch.device = "cuda"):
     """→ scene_setup(state) → TriangleSetup of a fleet state seen from the
     forward camera: the scene assembly and projection every render branch
-    starts from."""
+    starts from. The setup carries the surface-UV rows when the exact
+    branches texture, and the quad rows when the fast branch fuses quads."""
     dev = resolve_device(device)
     town = town.to(dev)
-    static = geo.build_static_scene(town).to(dev)
+    static = geo.build_static_scene(town, facade_bands=rcfg.facade_bands,
+                                    markings=rcfg.markings).to(dev)
+    textures = rcfg.texture_detail and not rcfg.fast_path
+    quads = rcfg.quads and rcfg.fast_path
 
     def scene_setup(state: WorldState):
         phases = agent_lib.light_phases(
@@ -83,7 +90,7 @@ def make_scene_setup(params: SimParams, town: TownMap, rcfg: RenderConfig,
             peds_pos = ped_positions(town, state.peds_crossing, state.peds_s)
         tris, colors, classes = geo.assemble_scene(
             static, town.lights_pos, phases, agents_pos, agents_yaw,
-            rcfg.max_triangles, peds_pos=peds_pos)
+            rcfg.max_triangles, peds_pos=peds_pos, shadows=rcfg.shadows)
         cam = camera_from_ego(state.ego_pos, state.ego_yaw)
         # closed boxes with outward-wound faces are backface-cullable;
         # ground, roads, poles and light heads stay double-sided
@@ -91,7 +98,7 @@ def make_scene_setup(params: SimParams, town: TownMap, rcfg: RenderConfig,
                     | (classes == geo.SEM_PEDESTRIAN))
         return project_triangles(tris, colors, classes, cam, rcfg.width,
                                  rcfg.height, rcfg.fov_deg, rcfg.near,
-                                 cullable=cullable)
+                                 cullable=cullable, textures=textures, quads=quads)
 
     return scene_setup
 
@@ -104,15 +111,14 @@ def make_renderer(params: SimParams, town: TownMap, rcfg: RenderConfig,
     rcfg.check_ported()
     dev = resolve_device(device)
     scene_setup = make_scene_setup(params, town, rcfg, dev)
-    fast = rcfg.fast and not rcfg.rgb
 
     def render(state: WorldState) -> dict:
         setup = scene_setup(state)
-        if fast:  # rollout kernel: gray plane only
+        if rcfg.fast_path:  # rollout kernel: gray plane only
             gray = rasterize_luma_fast(
                 setup, rcfg.height, rcfg.width, near=rcfg.near, far=rcfg.far,
                 compact_cap=rcfg.active_cap, fog_density=rcfg.fog_density,
-                lod_px=max(rcfg.lod_px, 0.0))
+                lod_px=max(rcfg.lod_px, 0.0), quads=rcfg.quads, vec=rcfg.vec)
             return {"gray": gray}
         if not rcfg.rgb:
             gray, sem, depth = rasterize_exact_luma(

@@ -3,7 +3,9 @@
 The port's own correctness reference for the exact kernel (ops/raster.py),
 the role ``render/jax_raster.py`` plays in the JAX package: per chunk of
 triangles, edge and depth rows are evaluated over the whole pixel grid and
-the z-test is a masked argmin. Batched over envs; peak memory is
+the z-test is a masked argmin. A setup with surface-UV rows is textured:
+the winner's rows are gathered first and ``texture_factor`` scales its
+colour, as ``render/jax_raster.py`` does. Batched over envs; peak memory is
 O(B · chunk · H · W).
 """
 
@@ -11,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from carla_imitation_learning_tpu_torch.ops.texture import texture_factor
 from carla_imitation_learning_tpu_torch.render.camera import TriangleSetup
 from carla_imitation_learning_tpu_torch.render.geometry import SEM_SKY, SEMANTIC_PALETTE
 
@@ -58,6 +61,17 @@ def rasterize_plain(setup: TriangleSetup, height: int, width: int,
         col_win = torch.gather(setup.colors[:, sl], 1,
                                flat[..., None].expand(-1, -1, 3)).reshape(B, height, width, 3)
         cls_win = torch.gather(setup.classes[:, sl], 1, flat).reshape(B, height, width)
+        if setup.unum is not None:
+            # the winner's affine UV rows, then u, v and the factor at (H, W)
+            def row_win(rows):
+                return torch.gather(rows[:, sl], 1, flat[..., None].expand(-1, -1, 3)
+                                    ).reshape(B, height, width, 3)
+
+            un_w, vn_w = row_win(setup.unum), row_win(setup.vnum)
+            den_w = torch.gather(den_safe, 1, win)[:, 0]
+            u = (un_w[..., 0] * PX + un_w[..., 1] * PY + un_w[..., 2]) / den_w
+            v = (vn_w[..., 0] * PX + vn_w[..., 1] * PY + vn_w[..., 2]) / den_w
+            col_win = col_win * texture_factor(u, v, cls_win)[..., None]
         rgb = torch.where(better[..., None], col_win, rgb)
         sem = torch.where(better, cls_win.to(torch.int32), sem)
 

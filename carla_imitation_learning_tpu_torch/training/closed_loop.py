@@ -5,7 +5,10 @@ fast grayscale render (kernel B) → uint8 4-frame window → policy forward →
 discrete action → sim step with auto-resets from the packed spawn pool. The
 JAX package runs it as one ``lax.scan``; here each step is a handful of
 batched tensor ops on the device and the loop runs on the host.
-``evaluate_policy`` turns a rollout into driving metrics.
+``evaluate_policy`` turns a rollout into driving metrics. With
+``record_semantic`` the rollout also records the driving view's per-pixel
+class ids, rendered on the exact path (kernel A, textured when the config
+asks for textures), the supervision stream of segmentation collection.
 """
 
 from __future__ import annotations
@@ -21,7 +24,10 @@ from carla_imitation_learning_tpu_torch.data.actions import (
     continuous_to_discrete, discrete_to_continuous,
 )
 from carla_imitation_learning_tpu_torch.device import resolve_device
-from carla_imitation_learning_tpu_torch.render.pipeline import RenderConfig, make_renderer
+from carla_imitation_learning_tpu_torch.ops.raster import rasterize_exact_luma
+from carla_imitation_learning_tpu_torch.render.pipeline import (
+    RenderConfig, make_renderer, make_scene_setup,
+)
 from carla_imitation_learning_tpu_torch.sim.town import TownMap
 from carla_imitation_learning_tpu_torch.sim.world import (
     SimParams, VehicleControl, autopilot_control, make_spawn_pool,
@@ -64,7 +70,8 @@ def _quantize(gray: torch.Tensor) -> torch.Tensor:
 def make_rollout(params: SimParams, town: TownMap, rcfg: RenderConfig,
                  policy_fn: Callable | None, frame_skip: int = 4,
                  spawn_pool: torch.Tensor | None = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 record_semantic: bool = False):
     """Build (init_fn, rollout_fn) for a single-camera, discrete-action fleet.
 
     ``policy_fn(obs)`` maps the NHWC float window (B, H, W, frame_skip) in
@@ -72,7 +79,10 @@ def make_rollout(params: SimParams, town: TownMap, rcfg: RenderConfig,
     ``spawn_pool`` is a packed (size, D) pool (``sim.world.pack_spawn_pool``
     layout, so the JAX package's pool can be passed in); None builds the
     default one. The renderer is forced onto the fast grayscale kernel with
-    a 2-pixel LOD unless ``rcfg.lod_px`` says otherwise.
+    a 2-pixel LOD unless ``rcfg.lod_px`` says otherwise. ``record_semantic``
+    adds ``traj["semantic"]`` (T, B, H, W) uint8: the class ids of the
+    driving view, from a second scene setup of the same state rendered on
+    the exact luma path (``replace(rcfg, fast=False, rgb=False)``).
 
     ``init_fn(generator, n_envs) -> carry`` with carry = (states, framebuf
     (B, H, W, fs) uint8, just_reset (B,) bool); ``rollout_fn(carry, n_steps)
@@ -86,6 +96,10 @@ def make_rollout(params: SimParams, town: TownMap, rcfg: RenderConfig,
     if rcfg.lod_px < 0.0:
         rcfg = dataclasses.replace(rcfg, lod_px=2.0)
     render = make_renderer(params, town, rcfg, device=dev)
+    sem_setup = None
+    if record_semantic:
+        sem_rcfg = dataclasses.replace(rcfg, fast=False, rgb=False)
+        sem_setup = make_scene_setup(params, town, sem_rcfg, device=dev)
     pool = (rollout_spawn_pool(params, town) if spawn_pool is None
             else spawn_pool).to(dev)
 
@@ -133,6 +147,10 @@ def make_rollout(params: SimParams, town: TownMap, rcfg: RenderConfig,
             "steer": control.steer, "throttle": control.throttle,
             "brake": control.brake,
         }
+        if sem_setup is not None:
+            _, sem, _ = rasterize_exact_luma(sem_setup(states), rcfg.height, rcfg.width,
+                                             near=rcfg.near, far=rcfg.far)
+            out["semantic"] = sem.to(torch.uint8)
         return (new_states, framebuf, info["done"]), out
 
     @torch.no_grad()
@@ -144,6 +162,14 @@ def make_rollout(params: SimParams, town: TownMap, rcfg: RenderConfig,
         return carry, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
     return init_fn, rollout_fn
+
+
+def semantic_stream(traj: dict) -> np.ndarray:
+    """Env-major (B·T, H, W) uint8 class ids of the driving view from a
+    ``record_semantic`` rollout, frame-aligned with the env-major frame
+    stream a collection writes."""
+    sem = traj["semantic"]                                  # (T, B, H, W)
+    return sem.transpose(0, 1).reshape((-1,) + tuple(sem.shape[2:])).cpu().numpy()
 
 
 def evaluate_policy(params: SimParams, town: TownMap, rcfg: RenderConfig,
