@@ -5,12 +5,19 @@
 
 Phases (any failure exits nonzero, with no result line):
 1. device: the card's name, and its name and power limit from nvidia-smi;
+   the issue rate the bounds divide operation counts by (SMs × 128 lanes ×
+   the maximum SM clock);
 2. build: every hand-written kernel from ``csrc/`` (one nvcc per source,
-   all started together);
+   all started together), with ptxas's registers and spills and, for
+   kernels A, A-tex and B, their launch facts (resident blocks per SM);
+   then kernels A (flat and textured, C = 1 and 3) and B bit for bit
+   against their plain versions on the synthetic edge cases of
+   ``edge_case_tables``;
 3. kernel A (exact z-buffer) vs its plain PyTorch version, and
 4. kernel B (fast grayscale) vs its plain version and vs kernel A's luma, on
    the bench town's fleet (1024 envs, 128², T=512) from three seeds; each
-   kernel and plain version is timed with CUDA events at those shapes;
+   kernel and plain version is timed with CUDA events at those shapes,
+   with the (entry, warp tile) pairs A's and B's culls keep;
 5. the main path on 8 envs, on the card vs on the CPU's plain versions: an
    expert rollout with auto-resets, and an fp32 ``PolicyCNN`` forward (TF32
    is switched off for that comparison and restored after it);
@@ -58,8 +65,9 @@ ROLLOUT_SHORT, ROLLOUT_LONG = 16, 96   # marginal rollout pair
 ROLLOUT_REPEATS = 3      # marginal pairs; the median is reported
 AB_SHORT, AB_LONG = 16, 64   # the quad / vec A/B's marginal pair
 CROSS_ENVS, CROSS_STEPS = 8, 8   # the card-vs-CPU check of the main path
-FP32_PEAK = 67e12        # H100 SXM float32 outside the tensor cores, op/s
+LANES_PER_SM = 128       # lane-instructions an SM issues per clock (4 × 32)
 HBM_RATE = 3.35e12       # H100 SXM device memory, B/s
+WARP_TILE = 16           # kernels A and B cull per 16 × 16 pixel warp tile
 # Least operations per pixel and listed triangle, with the rank-1 terms
 # (a·px per column, b·py per row) shared. B: 4 row adds, 2 min, 1 compare,
 # 2 adds (den), 1 reciprocal, 1 mul, 1 compare (near), 1 and, 2 bit ops,
@@ -117,9 +125,88 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(ops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = ops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+def issue_rate() -> float:
+    """Lane-instructions per second the card can issue: SMs × 128 × the
+    maximum SM clock. The operation counts of the bounds are single
+    instructions (the kernels are built with -fmad=false), so this, and not
+    the FP32 peak that counts an FMA as two, is their rate."""
+    import torch
+
+    res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    check(res.returncode == 0 and res.stdout.strip(), f"nvidia-smi failed: {res.stderr}")
+    mhz = float(res.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rate = sms * LANES_PER_SM * mhz * 1e6
+    log(f"issue rate: {sms} SMs × {LANES_PER_SM} lanes × {mhz:.0f} MHz = {rate:.4e} "
+        f"lane-instructions/s")
+    return rate
+
+
+def bound(ops: float, nbytes: float, rate: float) -> tuple[float, str]:
+    t_ops, t_bytes = ops / rate * 1e3, nbytes / HBM_RATE * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def launch_facts(name: str, *variant: int) -> dict:
+    """Registers, spill bytes, shared memory, threads and resident blocks
+    per SM of a kernel, from its library's ``<name>_info`` entry point."""
+    import ctypes
+
+    from carla_imitation_learning_tpu_torch.ops import cuda_lib
+
+    fn = cuda_lib.entry_point(name, f"{name}_info",
+                              [ctypes.c_int] * len(variant) + [ctypes.POINTER(ctypes.c_int)])
+    out = (ctypes.c_int * 5)()
+    cuda_lib.raise_on_error(fn(*variant, out), f"{name}_info")
+    return dict(zip(("registers", "spill_bytes", "smem_bytes", "threads", "blocks_per_sm"), out))
+
+
+def warp_tile_keep(tbl, idx, count, width: int, rows: int, exact: bool):
+    """The warp-tile cull of kernel A (``exact``) or B, per 16 × 16 tile of a
+    band: the kernels' corner test with their expressions (A: (a·x + b·y) +
+    c, either winding; B: a·x + (b·y + c), positive). Yields (x0, x1, y0, y1,
+    keep (B, R, K) bool, live (B, R, K) bool) per tile, pixel columns x0..x1
+    and band rows y0..y1; ``live`` marks the positions each kernel walks (A:
+    the count, B: the count rounded up to a pair)."""
+    import torch
+
+    B, R, K = idx.shape
+    n = count.long() if exact else torch.clamp((count.long() + 1) // 2 * 2, max=K)
+    live = torch.arange(K, device=idx.device) < n[..., None]
+    co = torch.gather(tbl[:, :9], 2, idx.reshape(B, 1, R * K).long().expand(-1, 9, -1))
+    co = co.reshape(B, 9, R, K)
+    y_band = torch.arange(R, dtype=torch.float32, device=idx.device).view(1, R, 1) * rows
+    for x0 in range(0, width, WARP_TILE):
+        for y0 in range(0, rows, WARP_TILE):
+            x1, y1 = min(x0 + WARP_TILE, width) - 1, min(y0 + WARP_TILE, rows) - 1
+            xs = (x0 + 0.5, x1 + 0.5)
+            if exact:
+                ys = ((y_band + y0) + 0.5, (y_band + y1) + 0.5)
+            else:
+                ys = (y0 + (y_band + 0.5), y1 + (y_band + 0.5))
+            pos = torch.ones_like(live)
+            neg = torch.ones_like(live)
+            for i in range(3):
+                a, b, c = co[:, 3 * i], co[:, 3 * i + 1], co[:, 3 * i + 2]
+                x_hi = torch.where(a > 0, xs[1], xs[0])
+                x_lo = torch.where(a > 0, xs[0], xs[1])
+                y_hi = torch.where(b > 0, ys[1], ys[0])
+                y_lo = torch.where(b > 0, ys[0], ys[1])
+                if exact:
+                    pos &= (a * x_hi + b * y_hi) + c > 0
+                    neg &= (a * x_lo + b * y_lo) + c < 0
+                else:
+                    pos &= a * x_hi + (b * y_hi + c) > 0
+            yield x0, x1, y0, y1, (pos | neg) if exact else pos, live
+
+
+def warp_tile_pairs(tbl, idx, count, height: int, width: int, rows: int, exact: bool) -> int:
+    """(listed entry, warp tile) pairs that the cull of ``warp_tile_keep``
+    keeps."""
+    return sum(int((keep & live).sum())
+               for *_, keep, live in warp_tile_keep(tbl, idx, count, width, rows, exact))
 
 
 def b_tolerance(got, want, what: str) -> float:
@@ -156,6 +243,7 @@ def run(args) -> dict:
     log(f"device: {kind} (count {count}); nvidia-smi: {smi}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
+    rate = issue_rate()
     t0 = time.perf_counter()
     reports = cuda_lib.build()
     for name in cuda_lib.SOURCES:
@@ -165,6 +253,14 @@ def run(args) -> dict:
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    facts = {"A": launch_facts("raster_exact", 1, 0), "A-tex": launch_facts("raster_exact", 1, 1),
+             "B": launch_facts("raster_fast")}
+    log(json.dumps({"launch_facts": facts}))
+
+    # --- phase 2b: kernels A and B vs plain on synthetic edge cases
+    t0 = time.perf_counter()
+    edges = edge_case_phase(dev)
+    log(json.dumps({"edge_cases": {**edges, "s": time.perf_counter() - t0}}))
 
     town = make_town(blocks=3, n_buildings=24, n_lights=8).to(dev)
     params = SimParams(n_agents=15)
@@ -215,16 +311,24 @@ def run(args) -> dict:
     kernels = [
         kernel_entry("raster_exact (kernel A, luma)", "A", "raster_exact.cu",
                      "carla_imitation_learning_tpu/ops/raster.py:120", ra.raster_bands,
-                     ra.raster_bands_plain, inputs["A"], errs["A"],
+                     ra.raster_bands_plain, inputs["A"], errs["A"], rate,
                      ops=float(inputs["A"][2].sum()) * pix * (OPS_PER_PASS_A + 1),
                      out_bytes=N_ENVS * HW * HW * 4 * 3,
-                     passes_per_band=float(inputs["A"][2].float().mean())),
+                     listed_pairs=float(inputs["A"][2].sum()) * pix,
+                     passes_per_band=float(inputs["A"][2].float().mean()),
+                     warp_tile_pairs=warp_tile_pairs(*inputs["A"][:5], rows, exact=True),
+                     band_tile_pairs=float(inputs["A"][2].sum()) * (HW // WARP_TILE) * (rows // WARP_TILE),
+                     **facts["A"]),
         kernel_entry("raster_fast (kernel B)", "B", "raster_fast.cu",
                      "carla_imitation_learning_tpu/ops/raster_fast.py:400", rf.fast_bands,
-                     rf.fast_bands_plain, inputs["B"], errs["B"],
+                     rf.fast_bands_plain, inputs["B"], errs["B"], rate,
                      ops=float(inputs["B"][2].sum()) * pix * OPS_PER_PASS_B,
                      out_bytes=N_ENVS * HW * HW * 4,
-                     passes_per_band=float(inputs["B"][2].float().mean())),
+                     listed_pairs=float(inputs["B"][2].sum()) * pix,
+                     passes_per_band=float(inputs["B"][2].float().mean()),
+                     warp_tile_pairs=warp_tile_pairs(*inputs["B"][:5], rows, exact=False),
+                     band_tile_pairs=float(inputs["B"][2].sum()) * (HW // WARP_TILE) * (rows // WARP_TILE),
+                     **facts["B"]),
     ]
     del inputs
 
@@ -297,7 +401,7 @@ def run(args) -> dict:
     paths = {"main": launches}
     # the rich phases allocate gigabytes of temporaries; they run after the
     # main path has been timed
-    kernels += rich_kernels(params, town, dev, rows)
+    kernels += rich_kernels(params, town, dev, rows, rate, facts["A-tex"])
     paths["rich_collection"] = rich_collection(params, town, dev)
     paths["quad_vec_ab"] = quad_vec_ab(params, town, dev, kernels)
     for k in kernels:
@@ -329,17 +433,22 @@ def read_counts() -> dict:
     return {name: c.launches for name, c in counters().items()}
 
 
-def kernel_entry(name, counter, src, replaces, fn, plain, args, err, ops, out_bytes,
-                 table_bytes=None, path="main", **extra) -> dict:
+def kernel_entry(name, counter, src, replaces, fn, plain, args, err, rate, ops, out_bytes,
+                 table_bytes=None, path="main", listed_pairs=None, **extra) -> dict:
     """One entry of the ``kernels`` line: the kernel and its plain version
-    timed with CUDA events on ``args``, and the bound from ``ops`` and the
-    bytes of the inputs (each read once) and outputs (each written once)."""
+    timed with CUDA events on ``args``, and the bound from ``ops`` at the
+    issue ``rate`` and the bytes of the inputs (each read once) and outputs
+    (each written once). With ``listed_pairs`` (listed entries × band
+    pixels), also the lane-instruction slots the kernel's time held per such
+    pair."""
     ms = cuda_ms(lambda: fn(*args), reps=20)
     plain_ms = cuda_ms(lambda: plain(*args), reps=2, warmup=1)
     if table_bytes is None:
         table_bytes = sum(a.numel() * a.element_size() for a in args
                           if hasattr(a, "numel"))
-    bound_ms, bound_by = bound(ops, table_bytes + out_bytes)
+    bound_ms, bound_by = bound(ops, table_bytes + out_bytes, rate)
+    if listed_pairs:
+        extra.update(listed_pairs=listed_pairs, slots_per_pair=ms * 1e-3 * rate / listed_pairs)
     log(f"{name}: {ms:.3f} ms (plain {plain_ms:.1f} ms, bound {bound_ms:.3f} ms "
         f"by {bound_by}, max|d| vs plain {err:.3e})")
     return {"name": name, "route": "cuda",
@@ -347,6 +456,233 @@ def kernel_entry(name, counter, src, replaces, fn, plain, args, err, ops, out_by
             "replaces": replaces, "launches": 0, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, "path": path, "counter": counter, **extra}
+
+
+EDGE_FRAMES = ((64, 64), (96, 96), (48, 80), (40, 160))   # (H, W): bands of 32, 32, 24, 20 rows
+EDGE_T = 640             # table width of the synthetic frames
+EDGE_LONG = 300          # entries on the long list: more than two staging chunks
+
+
+def _screen_rows(xy, w, depth, uv):
+    """Rows of screen triangles as ``project_triangles`` builds them, in
+    float64: vertices (n, 3, 2) in pixels with homogeneous weights w (n, 3),
+    depths (n, 3) and surface coordinates uv (n, 3, 2) → edges (n, 3, 3)
+    (E_i = v_{i+1} × v_{i+2}, not sign-normalized), znum, unum, vnum (n, 3),
+    det (n,)."""
+    import numpy as np
+
+    v = np.stack([xy[..., 0] * w, xy[..., 1] * w, w], -1)
+    edges = np.stack([np.cross(v[:, 1], v[:, 2]), np.cross(v[:, 2], v[:, 0]),
+                      np.cross(v[:, 0], v[:, 1])], 1)
+    det = (v[:, 0] * edges[:, 0]).sum(-1)
+    znum = (depth[..., None] * edges).sum(1)
+    unum = (uv[..., 0, None] * edges).sum(1)
+    vnum = (uv[..., 1, None] * edges).sum(1)
+    return edges, znum, unum, vnum, det
+
+
+def _edge_frame(rng, n_envs: int, height: int, width: int, rows: int):
+    """One synthetic frame shape: → (tex (B, 23, T), fast (B, 13, T),
+    lists_a, lists_b) with nested per-(env, band) index lists; ``lists_b``
+    entries are (listed count, list) pairs."""
+    import numpy as np
+
+    n_bands = height // rows
+    tex = np.zeros((n_envs, 23, EDGE_T), np.float32)
+    fast = np.zeros((n_envs, 13, EDGE_T), np.float32)
+    lists_a, lists_b = [], []
+    for b in range(n_envs):
+        xy, w, depth, flip = [], [], [], []
+
+        def add(verts, ws=(1.0, 1.0, 1.0), zs=None, negate=False):
+            xy.append(verts)
+            w.append(ws)
+            depth.append(ws if zs is None else zs)
+            flip.append(negate)
+
+        # full-frame background pair at one depth: a shared diagonal and a tie
+        add([(-1, -1), (width + 1, -1), (width + 1, height + 1)], zs=(250,) * 3)
+        add([(-1, -1), (width + 1, height + 1), (-1, height + 1)], zs=(250,) * 3)
+        # vertices on warp-tile corners and on pixel centres (16-pixel grid)
+        for gx in range(0, width, 16):
+            for gy in range(0, height, 16):
+                h = 0.5 * rng.integers(0, 2)
+                add([(gx + h, gy + h), (gx + 16 + h, gy + 0.5), (gx + 0.5, gy + 16 + h)],
+                    zs=tuple(rng.uniform(5, 40, 3)), negate=bool(rng.integers(0, 2)))
+        # random triangles, perspective weights, some crossing the eye plane
+        for _ in range(60):
+            c = rng.uniform([-8, -8], [width + 8, height + 8])
+            verts = c + rng.normal(0, rng.choice([2.0, 8.0, 30.0]), (3, 2))
+            ws = rng.uniform(0.6, 50.0, 3)
+            if rng.random() < 0.1:
+                ws[rng.integers(0, 3)] *= -1.0
+            add(verts, ws=tuple(ws), negate=bool(rng.integers(0, 2)))
+        # slivers: a quarter- to half-pixel tall, along rows and columns
+        for _ in range(8):
+            x0, y0 = rng.integers(0, width - 8), rng.integers(0, height - 4)
+            t = 0.25 * rng.integers(1, 3)
+            if rng.random() < 0.5:
+                add([(x0, y0 + 0.5), (x0 + rng.integers(8, 60), y0 + 0.5 + t), (x0, y0 + 0.5 + 2 * t)],
+                    zs=tuple(rng.uniform(1, 30, 3)))
+            else:
+                add([(x0 + 0.5, y0), (x0 + 0.5 + t, y0 + rng.integers(4, 40)), (x0 + 0.5 + 2 * t, y0)],
+                    zs=tuple(rng.uniform(1, 30, 3)))
+        # near the clip planes: in front of `near`, and beyond `far`
+        add([(4, 4), (30, 6), (8, 28)], zs=(0.3, 0.4, 0.45))
+        add([(10, 2), (40, 10), (12, 30)], zs=(301, 320, 400))
+        n_random = len(xy)
+        # equal-z duplicates: the first writer must win
+        dup_of = rng.choice(n_random, 10, replace=False)
+        for i in dup_of:
+            add(xy[i], ws=w[i], zs=depth[i], negate=flip[i])
+        # a sub-LOD triangle in front of everything (placed after odd counts):
+        # it covers the centre (20.5, 3.5), and (21.5, 3.5), (20.5, 4.5) lie
+        # on its hypotenuse
+        sub_lod = len(xy)
+        add([(20.1, 3.1), (21.9, 3.1), (20.1, 4.9)], zs=(0.9, 0.9, 0.9))
+        # many small triangles in band 0 (env 0): a list of EDGE_LONG
+        long_first = len(xy)
+        if b == 0:
+            for _ in range(EDGE_LONG):
+                c = rng.uniform([0, 0], [width, rows])
+                add(c + rng.uniform(-3, 3, (3, 2)), zs=tuple(rng.uniform(2, 60, 3)))
+        n = len(xy)
+        uv = rng.uniform(-60, 60, (n, 3, 2))
+        edges, znum, unum, vnum, det = _screen_rows(
+            np.asarray(xy, np.float64), np.asarray(w, np.float64),
+            np.asarray(depth, np.float64), uv)
+        # sign-normalized as the camera does; kernel A also gets the other
+        # winding (every row negated, so z, u and v are unchanged)
+        sign = np.where(det < 0, -1.0, 1.0)
+        sign_a = np.where(flip, -sign, sign)[:, None]
+        colors = rng.uniform(0, 1, (n, 3))
+        classes = rng.integers(0, 8, n)
+        flat = np.concatenate([edges.reshape(n, 9) * sign_a, znum * sign_a, colors,
+                               classes[:, None], np.asarray(depth).min(-1, keepdims=True),
+                               unum * sign_a, vnum * sign_a], -1)
+        tex[b, :, :n] = flat.T
+        lum = np.clip(np.round((colors @ np.array([0.299, 0.587, 0.114])) * 4095), 0, 4095)
+        fast[b, :, :n] = np.concatenate([edges.reshape(n, 9) * sign[:, None],
+                                         znum * sign[:, None], lum[:, None]], -1).T
+        # den = 0 on every pixel (e2 = -(e0 + e1)): no pixel can pass it
+        den0 = n
+        tex[b, :9, den0] = fast[b, :9, den0] = [1, 0, -7, 0, 1, -9, -1, -1, 16]
+
+        # nearest-first lists of what meets each band's rows (a bbox test; a
+        # vertex behind the eye meets every band)
+        pts = np.asarray(xy, np.float64)[..., 1]
+        behind = (np.asarray(w) <= 0).any(-1)
+        zmin = np.asarray(depth).min(-1)
+        band_a, band_b = [], []
+        for r in range(n_bands):
+            meets = behind | ((pts.max(-1) >= r * rows) & (pts.min(-1) <= (r + 1) * rows))
+            meets[sub_lod] = False
+            if b != 0 or r != 0:
+                meets[long_first:] = False
+            cand = np.flatnonzero(meets)
+            order = [int(i) for i in cand[np.argsort(zmin[cand], kind="stable")]]
+            order.insert(len(order) // 2, den0)
+            if b == 1 and r == n_bands - 1:
+                order = []                       # an empty band
+            band_a.append(order)
+            if r % 2 == 0 and len(order) > 1:    # an odd count, then the sub-LOD entry
+                listed = len(order) - (1 - len(order) % 2)
+                band_b.append((listed, order[:listed] + [sub_lod] + order[listed:]))
+            else:
+                band_b.append((len(order), order))
+        lists_a.append(band_a)
+        lists_b.append(band_b)
+    return tex, fast, lists_a, lists_b
+
+
+def _pack_lists(lists, n_envs: int, n_bands: int, counted: bool):
+    """Nested per-(env, band) lists → (idx (B, R, K) int32 with K even and
+    unused slots pointing at table column 0, count (B, R) int32)."""
+    import numpy as np
+
+    items = [[lst if counted else (len(lst), lst) for lst in env] for env in lists]
+    k = max(2, max(len(lst) for env in items for _, lst in env) + 1)
+    k += k % 2
+    idx = np.zeros((n_envs, n_bands, k), np.int32)
+    count = np.zeros((n_envs, n_bands), np.int32)
+    for b, env in enumerate(items):
+        for r, (listed, lst) in enumerate(env):
+            idx[b, r, :len(lst)] = lst
+            count[b, r] = listed
+    return idx, count
+
+
+def edge_case_tables(device, n_envs: int = 8, seed: int = 0) -> list:
+    """Synthetic band tables for kernels A and B at the cases that warp-tile
+    culling and deferred shading could get wrong: edges through pixel
+    centres and warp-tile corners (integer and half-integer vertices),
+    slivers, both windings (and all-negative regions of triangles crossing
+    the eye plane), entries whose den is 0 on every pixel, equal-z
+    duplicates and a shared-diagonal tie, a list longer than two staging
+    chunks, an empty band, odd counts followed by a sub-LOD triangle that
+    covers pixels, depths in front of near and beyond far, and frames whose
+    bands are 32, 24 and 20 rows and up to 160 columns. Built with numpy
+    from ``seed`` and moved to ``device``. → one dict per frame shape:
+    height, width, rows, tex (B, 23, T) f32 (its first 17 rows are the flat
+    table), idx_a / count_a (exact lists), fast (B, 13, T) f32, idx_b /
+    count_b (fast lists)."""
+    import numpy as np
+    import torch
+
+    from carla_imitation_learning_tpu_torch.ops.raster import band_rows
+
+    rng = np.random.default_rng(seed)
+    cases = []
+    for height, width in EDGE_FRAMES:
+        rows = band_rows(height)
+        tex, fast, lists_a, lists_b = _edge_frame(rng, n_envs, height, width, rows)
+        idx_a, count_a = _pack_lists(lists_a, n_envs, height // rows, counted=False)
+        idx_b, count_b = _pack_lists(lists_b, n_envs, height // rows, counted=True)
+
+        def dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+        cases.append({"height": height, "width": width, "rows": rows,
+                      "tex": dev(tex), "idx_a": dev(idx_a), "count_a": dev(count_a),
+                      "fast": dev(fast), "idx_b": dev(idx_b), "count_b": dev(count_b)})
+    return cases
+
+
+def edge_case_phase(dev) -> dict:
+    """Kernels A (flat and textured, C = 1 and C = 3) and B bit for bit
+    against their plain versions on ``edge_case_tables``. → a summary."""
+    import torch
+
+    from carla_imitation_learning_tpu_torch.ops import raster as ra
+    from carla_imitation_learning_tpu_torch.ops import raster_fast as rf
+
+    near, far = 0.5, 300.0
+    summary = {"frames": [], "pixels_hit_A": 0, "pixels_hit_B": 0}
+    for case in edge_case_tables(dev):
+        h, w, rows = case["height"], case["width"], case["rows"]
+        for textured in (False, True):
+            tbl = case["tex"] if textured else case["tex"][:, :ra.PACK_WIDTH].contiguous()
+            for n_ch in (1, 3):
+                args = (tbl, case["idx_a"], case["count_a"], h, w, near, far, n_ch, rows)
+                got, want = ra.raster_bands(*args), ra.raster_bands_plain(*args)
+                what = f"edge cases {h}x{w} kernel A textured={textured} C={n_ch}"
+                check(torch.equal(got[0], want[0]), f"{what}: semantic plane differs")
+                check(torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]),
+                      f"{what}: colour or depth differs "
+                      f"(max|d| {float((got[1] - want[1]).abs().max()):.3e}, "
+                      f"{float((got[2] - want[2]).abs().max()):.3e})")
+            summary["pixels_hit_A"] += int((want[2] < far).sum())
+        args_b = (case["fast"], case["idx_b"], case["count_b"], h, w, near, far, 0.0, rows)
+        got, want = rf.fast_bands(*args_b), rf.fast_bands_plain(*args_b)
+        check(torch.equal(got, want), f"edge cases {h}x{w} kernel B: max|d| "
+              f"{float((got - want).abs().max()):.3e}")
+        sky = rf.fast_bands_plain(case["fast"], case["idx_b"], torch.zeros_like(case["count_b"]),
+                                  h, w, near, far, 0.0, rows)
+        summary["pixels_hit_B"] += int((want != sky).sum())
+        summary["frames"].append({"hw": [h, w], "rows": rows,
+                                  "max_count_a": int(case["count_a"].max()),
+                                  "empty_bands": int((case["count_a"] == 0).sum())})
+    return summary
 
 
 def rich_config(**kw):
@@ -357,10 +693,12 @@ def rich_config(**kw):
                         shadows=True, markings=True, texture_detail=True, **kw)
 
 
-def rich_kernels(params, town, dev, rows) -> list:
+def rich_kernels(params, town, dev, rows, rate, facts) -> list:
     """Phase 7: kernel A's textured variant, C and D on the rich fleet vs
     their plain versions (and C, D vs B) from three seeds; → their entries
-    of the ``kernels`` line, timed on seed 0's inputs."""
+    of the ``kernels`` line, timed on seed 0's inputs (bounds at the issue
+    ``rate``; ``facts``: A-tex's launch facts). Kernel B on the same fleet's
+    lists is timed too and reported in the ``rich_kernels`` line."""
     import torch
 
     from carla_imitation_learning_tpu_torch.ops import raster as ra
@@ -449,23 +787,36 @@ def rich_kernels(params, town, dev, rows) -> list:
 
     pix = rows * HW
     a_args, c_args, d_args = inputs["A-tex"], inputs["C"], inputs["D"]
-    b_ms = cuda_ms(lambda: rf.fast_bands(*inputs["B-rich"]), reps=20)
+    b_args = inputs["B-rich"]
+    b_ms = cuda_ms(lambda: rf.fast_bands(*b_args), reps=20)
+    b_listed = float(b_args[2].sum()) * pix
+    b_bound, _ = bound(b_listed * OPS_PER_PASS_B, sum(a.numel() * a.element_size()
+                                                      for a in b_args[:3]) + N_ENVS * HW * HW * 4,
+                       rate)
     report["kernel_ms_per_frame"] = {"B": b_ms}
+    report["B_rich_lists"] = {"ms": b_ms, "bound_ms": b_bound, "listed_pairs": b_listed,
+                              "slots_per_pair": b_ms * 1e-3 * rate / b_listed,
+                              "warp_tile_pairs": warp_tile_pairs(*b_args[:5], rows, exact=False),
+                              "band_tile_pairs": b_listed / pix * (HW // WARP_TILE) * (rows // WARP_TILE)}
     entries = [
         kernel_entry("raster_exact textured (kernel A-tex, luma)", "A-tex", "raster_exact.cu",
                      "carla_imitation_learning_tpu/ops/raster.py:151", ra.raster_bands,
-                     ra.raster_bands_plain, a_args, errs["A-tex"],
+                     ra.raster_bands_plain, a_args, errs["A-tex"], rate,
                      ops=float(a_args[2].sum()) * pix * (OPS_PER_PASS_A + 1)
                      + hits * (OPS_PER_PIXEL_TEX + 1),
-                     out_bytes=N_ENVS * HW * HW * 4 * 3, path="rich_collection"),
+                     out_bytes=N_ENVS * HW * HW * 4 * 3, path="rich_collection",
+                     listed_pairs=float(a_args[2].sum()) * pix,
+                     warp_tile_pairs=warp_tile_pairs(*a_args[:5], rows, exact=True),
+                     band_tile_pairs=float(a_args[2].sum()) * (HW // WARP_TILE) * (rows // WARP_TILE),
+                     **facts),
         kernel_entry("raster_prim (kernel C)", "C", "raster_prim.cu",
                      "carla_imitation_learning_tpu/ops/raster_fast.py:265", rf.prim_bands,
-                     rf.prim_bands_plain, c_args, errs["C"],
+                     rf.prim_bands_plain, c_args, errs["C"], rate,
                      ops=float(c_args[2].sum()) * pix * OPS_PER_PASS_C,
                      out_bytes=N_ENVS * HW * HW * 4, path="quad_vec_ab", b_ms_same_scene=b_ms),
         kernel_entry("raster_vec (kernel D)", "D", "raster_vec.cu",
                      "carla_imitation_learning_tpu/ops/raster_fast.py:341", rf.vec_bands,
-                     rf.vec_bands_plain, d_args, errs["D"],
+                     rf.vec_bands_plain, d_args, errs["D"], rate,
                      ops=float(d_args[1].sum()) * pix * OPS_PER_PASS_D,
                      # the listed entries it needs (64 B each), counts, output
                      table_bytes=float(d_args[1].sum()) * 64 + d_args[1].numel() * 4,
