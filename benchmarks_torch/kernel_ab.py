@@ -8,24 +8,22 @@ the fleet inputs that ``chip_smoke.py`` times it on.
 
 ``--kernel``: A (flat, luma, T = 512), A-tex (textured, luma, rich128
 preset, T = 1408), B (T = 512) or B-rich (B on the rich128 fast lists), at
-1024 envs, 128², seed 0's fleet. Each variant is a source with the same C
-entry point as the kernel's own (``raster_exact_launch`` or
-``raster_fast_launch``), compiled with the port's nvcc flags (plus the
-``-D`` flags after a colon) into ``carla_imitation_learning_tpu_torch/
-build/ab/``, then called through the port's own wrapper. Every variant's
-output is compared with the plain version's (``equal``), and the variants
-are timed with CUDA events (20 launches after warm-up) in ``--rounds``
-rounds, in turns, on one card. Prints one JSON object: per variant the
-median and each round's ms, and whether it equals the plain version.
+1024 envs, 128², seed 0's fleet (``chip_smoke.kernel_inputs``). Each variant
+is a source with the same C entry point as the kernel's own
+(``raster_exact_launch`` or ``raster_fast_launch``), compiled with the
+port's nvcc flags (plus the ``-D`` flags after a colon) by
+``cuda_lib.build_variant``, then called through the port's own wrapper.
+Every variant's output is compared with the plain version's (``equal``),
+and the variants are timed with CUDA events (20 launches after warm-up) in
+``--rounds`` rounds, in turns, on one card. Prints one JSON object: per
+variant the median and each round's ms, and whether it equals the plain
+version.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
-import hashlib
 import json
-import subprocess
 import sys
 from pathlib import Path
 
@@ -33,60 +31,6 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402  (imports only the standard library at module level)
-
-
-def build_variant(name: str, spec: str) -> tuple[str, Path]:
-    """'path[:-DA,-DB]' → (library name the wrapper loads, built .so)."""
-    from carla_imitation_learning_tpu_torch.ops import cuda_lib
-
-    path, _, flags = spec.partition(":")
-    src = Path(path).resolve()
-    extra = [f for f in flags.split(",") if f]
-    text = src.read_text()
-    lib = next((k for k in ("raster_exact", "raster_fast") if f"{k}_launch" in text), None)
-    if lib is None:
-        raise SystemExit(f"{src}: neither a raster_exact nor a raster_fast source")
-    digest = hashlib.sha256(src.read_bytes() + " ".join(extra).encode()).hexdigest()[:12]
-    out = cuda_lib.BUILD_DIR / "ab" / f"{name}-{digest}.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    if not out.exists():
-        proc = subprocess.run([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, *extra, "-o", str(out),
-                               str(src)], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise SystemExit(f"nvcc failed for {name}:\n{proc.stdout}{proc.stderr}")
-    return lib, out
-
-
-def fleet_inputs(kernel: str, dev):
-    """(wrapper, plain version, args) of ``kernel`` on seed 0's fleet."""
-    import torch
-
-    from carla_imitation_learning_tpu_torch.ops import raster as ra
-    from carla_imitation_learning_tpu_torch.ops import raster_fast as rf
-    from carla_imitation_learning_tpu_torch.render.pipeline import RenderConfig, make_scene_setup
-    from carla_imitation_learning_tpu_torch.sim.town import make_town
-    from carla_imitation_learning_tpu_torch.sim.world import SimParams, reset_env
-
-    town = make_town(blocks=3, n_buildings=24, n_lights=8).to(dev)
-    params = SimParams(n_agents=15)
-    hw, rows = chip_smoke.HW, ra.band_rows(chip_smoke.HW)
-    states = reset_env(params, town, torch.Generator().manual_seed(0), chip_smoke.N_ENVS)
-    if kernel == "A":
-        rcfg, t = RenderConfig(height=hw, width=hw, max_triangles=chip_smoke.T), chip_smoke.T
-    elif kernel == "A-tex":
-        rcfg, t = chip_smoke.rich_config(), chip_smoke.T_RICH
-    elif kernel == "B":
-        rcfg, t = RenderConfig(height=hw, width=hw, max_triangles=chip_smoke.T), chip_smoke.T
-    else:
-        rcfg, t = chip_smoke.rich_config(rgb=False, fast=True, quads=True), chip_smoke.T_RICH
-    setup = make_scene_setup(params, town, rcfg, device=dev)(states)
-    if kernel in ("A", "A-tex"):
-        idx, cnt = ra.tile_lists(setup, hw, t, width=hw)
-        args = (ra.pack_setup(setup, luma_only=True), idx, cnt, hw, hw, rcfg.near, rcfg.far, 1, rows)
-        return ra.raster_bands, ra.raster_bands_plain, args
-    idx, cnt = rf.tile_lists_fast(setup, hw, t, width=hw, lod_px=2.0, rows_per_band=rows)
-    args = (rf.pack_setup_fast(setup), idx, cnt, hw, hw, rcfg.near, rcfg.far, 0.0, rows)
-    return rf.fast_bands, rf.fast_bands_plain, args
 
 
 def equal(got, want) -> bool:
@@ -110,26 +54,23 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
-    dev = torch.device("cuda")
+    lib = "raster_exact" if args.kernel.startswith("A") else "raster_fast"
     variants = {}
     for item in args.variant:
         name, _, spec = item.partition("=")
-        variants[name] = build_variant(name, spec)
-    wrapper, plain, inputs = fleet_inputs(args.kernel, dev)
+        path, _, flags = spec.partition(":")
+        variants[name] = cuda_lib.build_variant(Path(path), [f for f in flags.split(",") if f])
+    wrapper, plain, inputs = chip_smoke.kernel_inputs(args.kernel, torch.device("cuda"))
     want = plain(*inputs)
 
-    def use(name):   # the wrapper loads its library through cuda_lib's cache
-        lib, path = variants[name]
-        cuda_lib._loaded[lib] = ctypes.CDLL(str(path))
-
     res = {"kernel": args.kernel, "card": chip_smoke.nvidia_smi(), "variants": {}}
-    for name in variants:
-        use(name)
+    for name, path in variants.items():
+        cuda_lib.use_library(lib, path)
         res["variants"][name] = {"equal": equal(wrapper(*inputs), want), "ms": []}
     for rnd in range(args.rounds):
         order = list(variants) if rnd % 2 == 0 else list(variants)[::-1]
         for name in order:
-            use(name)
+            cuda_lib.use_library(lib, variants[name])
             res["variants"][name]["ms"].append(chip_smoke.cuda_ms(lambda: wrapper(*inputs), reps=20))
     for v in res["variants"].values():
         v["median_ms"] = sorted(v["ms"])[len(v["ms"]) // 2]

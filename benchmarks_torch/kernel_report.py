@@ -1,37 +1,28 @@
 #!/usr/bin/env python3
-"""Static report of the port's hand-written kernels: registers, spills,
-resident blocks per SM and the SASS of their innermost loops.
+"""SASS loop sizes of the port's built kernels.
 
-    python3 benchmarks_torch/kernel_report.py [--package DIR] [--out FILE]
+    python3 benchmarks_torch/kernel_report.py [--build DIR] [--out FILE]
 
-Compiles every ``DIR/csrc/*.cu`` (default: this checkout's
-``carla_imitation_learning_tpu_torch``) with the package's own nvcc flags
-(read from ``DIR/ops/cuda_lib.py``) into ``DIR/build/report/``, then for
-every kernel function:
+Reads every library ``DIR/lib*.so`` that the package has already built
+(default: ``carla_imitation_learning_tpu_torch/build/``, filled by the first
+kernel call, e.g. by ``chip_smoke.py``) and, for every kernel function in
+it, lists the loops of ``cuobjdump -sass`` (a backward branch and the body
+it closes): each one's instruction count, and how many of those
+instructions a forward branch inside the body can jump over
+(``conditional``; predicated instructions count as issued). The pass loop
+is the largest loop that holds no loop of ``SMALL_LOOP`` instructions or
+more (the argument reduction of ``sinf`` is a small loop inside the
+textured pass); ``pass_loop_per_pixel`` divides it by the 8 pixels a
+thread owns in every kernel of the port. Registers, spills and resident
+blocks come from ``chip_smoke.py`` (the kernels' ``_info`` entry points).
 
-- registers, spill stores and loads, and static shared memory, from
-  ``ptxas -v``;
-- the warps an SM can hold at that register count on sm_90 (registers are
-  allocated per warp in units of 256, out of 16,384 per quarter-SM; at most
-  64 warps); whole blocks of the launch's size fit in that (``chip_smoke.py``
-  reports the resident blocks of kernels A and B from the runtime);
-- the loops of ``cuobjdump -sass`` (a backward branch and the body it
-  closes): each one's instruction count, and how many of those
-  instructions a forward branch inside the body can jump over
-  (``conditional``; predicated instructions count as issued). The pass
-  loop is the largest loop that holds no loop of ``SMALL_LOOP``
-  instructions or more (the argument reduction of ``sinf`` is a small
-  loop inside the textured pass); ``pass_loop_per_pixel`` divides it by
-  the 8 pixels a thread owns in every kernel of the port.
-
-Needs the CUDA toolkit (nvcc, cuobjdump), not a GPU. Prints one JSON object
-and writes it to ``--out`` when given.
+Needs ``cuobjdump`` from the CUDA toolkit, not a GPU. Prints one JSON
+object and writes it to ``--out`` when given.
 """
 
 from __future__ import annotations
 
 import argparse
-import ast
 import json
 import re
 import shutil
@@ -43,48 +34,6 @@ PIXELS_PER_THREAD = 8
 SMALL_LOOP = 64
 INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 BRANCH = re.compile(r"\bBRA(?:\.\S+)?\s+0x([0-9a-f]+)")
-
-
-def nvcc_flags(package: Path) -> list[str]:
-    """The NVCC_FLAGS tuple of ``package/ops/cuda_lib.py``, without linking."""
-    tree = ast.parse((package / "ops" / "cuda_lib.py").read_text())
-    for node in tree.body:
-        if isinstance(node, ast.Assign) and getattr(node.targets[0], "id", "") == "NVCC_FLAGS":
-            return list(ast.literal_eval(node.value))
-    raise ValueError(f"no NVCC_FLAGS in {package}/ops/cuda_lib.py")
-
-
-def tool(name: str) -> str:
-    path = shutil.which(name) or f"/usr/local/cuda/bin/{name}"
-    if not Path(path).exists():
-        raise SystemExit(f"{name} not found: the CUDA toolkit is needed")
-    return path
-
-
-def ptxas_functions(log: str) -> dict:
-    """ptxas -v output → {mangled function: {registers, spill_stores,
-    spill_loads, smem_bytes}}."""
-    out, name = {}, None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m:
-            name = m.group(1)
-            out[name] = {"registers": 0, "spill_stores": 0, "spill_loads": 0, "smem_bytes": 0}
-            continue
-        if name is None:
-            continue
-        if m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
-            out[name]["spill_stores"], out[name]["spill_loads"] = int(m[1]), int(m[2])
-        if m := re.search(r"Used (\d+) registers", line):
-            out[name]["registers"] = int(m[1])
-        if m := re.search(r"(\d+) bytes smem", line):
-            out[name]["smem_bytes"] = int(m[1])
-    return out
-
-
-def warps_by_registers(registers: int) -> int:
-    regs_per_warp = -(-max(registers, 1) * 32 // 256) * 256
-    return min((16384 // regs_per_warp) * 4, 64)
 
 
 def sass_functions(text: str) -> dict:
@@ -126,25 +75,20 @@ def loops(instrs: list) -> list:
     return sorted(out, key=lambda lp: -lp["instructions"])
 
 
-def report(package: Path) -> dict:
-    build = package / "build" / "report"
-    build.mkdir(parents=True, exist_ok=True)
-    flags = [f for f in nvcc_flags(package) if f not in ("-shared",)]
-    res = {"package": str(package), "flags": flags, "kernels": {}}
-    for src in sorted((package / "csrc").glob("*.cu")):
-        lib = build / f"lib{src.stem}.so"
-        proc = subprocess.run([tool("nvcc"), *flags, "-shared", "-o", str(lib), str(src)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise SystemExit(f"nvcc failed for {src}:\n{proc.stdout}{proc.stderr}")
-        regs = ptxas_functions(proc.stdout + proc.stderr)
-        sass = sass_functions(subprocess.run([tool("cuobjdump"), "-sass", str(lib)],
+def report(build: Path) -> dict:
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(cuobjdump).exists():
+        raise SystemExit("cuobjdump not found: the CUDA toolkit is needed")
+    libs = sorted(p for p in build.glob("lib*.so") if not p.name.endswith(".partial.so"))
+    if not libs:
+        raise SystemExit(f"no built library in {build}: run a kernel (chip_smoke.py) first")
+    res = {"build": str(build), "kernels": {}}
+    for lib in libs:
+        sass = sass_functions(subprocess.run([cuobjdump, "-sass", str(lib)],
                                              capture_output=True, text=True, check=True).stdout)
-        for name, facts in regs.items():
-            found = loops(sass.get(name, []))
-            entry = {"source": src.name, **facts,
-                     "warps_by_registers": warps_by_registers(facts["registers"]),
-                     "sass_instructions": len(sass.get(name, [])), "loops": found[:6]}
+        for name, instrs in sass.items():
+            found = loops(instrs)
+            entry = {"library": lib.name, "sass_instructions": len(instrs), "loops": found[:6]}
             passes = [lp for lp in found if lp["largest_inner"] < SMALL_LOOP]
             if passes:
                 pass_loop = entry["pass_loop"] = passes[0]
@@ -158,12 +102,12 @@ def report(package: Path) -> dict:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--package", type=Path, default=ROOT / "carla_imitation_learning_tpu_torch",
-                        help="the port's package directory (holding csrc/ and ops/)")
+    parser.add_argument("--build", type=Path,
+                        default=ROOT / "carla_imitation_learning_tpu_torch" / "build",
+                        help="the directory of the built kernel libraries")
     parser.add_argument("--out", type=Path, default=None, help="also write the JSON here")
     args = parser.parse_args()
-    res = report(args.package.resolve())
-    text = json.dumps(res, indent=1)
+    text = json.dumps(report(args.build.resolve()), indent=1)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(text)

@@ -80,6 +80,29 @@ def load(name: str) -> ctypes.CDLL:
     return _loaded[name]
 
 
+def build_variant(src: Path, flags=()) -> Path:
+    """Compile ``src``, a variant of one of the sources with the same C entry
+    points, with the package's flags plus ``flags`` into ``BUILD_DIR/
+    variants/`` (named by a hash of source and flags; reused when built). →
+    the library, for ``use_library``."""
+    src = Path(src)
+    digest = hashlib.sha256(src.read_bytes() + " ".join((*NVCC_FLAGS, *flags)).encode())
+    out = BUILD_DIR / "variants" / f"{src.stem}-{digest.hexdigest()[:16]}.so"
+    if not out.exists():
+        out.parent.mkdir(parents=True, exist_ok=True)
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, *flags, "-o", str(out), str(src)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}{proc.stderr}")
+    return out
+
+
+def use_library(name: str, path: Path) -> None:
+    """From now on, the wrappers of library ``name`` call the library at
+    ``path`` (a ``build_variant`` of its source)."""
+    _loaded[name] = ctypes.CDLL(str(path))
+
+
 def entry_point(name: str, symbol: str, argtypes: list):
     """C function ``symbol`` of library ``name``, returning an int error
     code (``cudaGetLastError()`` after the launch)."""

@@ -16,8 +16,10 @@ Phases (any failure exits nonzero, with no result line):
 3. kernel A (exact z-buffer) vs its plain PyTorch version, and
 4. kernel B (fast grayscale) vs its plain version and vs kernel A's luma, on
    the bench town's fleet (1024 envs, 128², T=512) from three seeds; each
-   kernel and plain version is timed with CUDA events at those shapes,
-   with the (entry, warp tile) pairs A's and B's culls keep;
+   kernel and plain version is timed with CUDA events at those shapes;
+   bounds count the (entry, pixel) pairs in the 16 × 16 warp tiles that the
+   exact cull keeps (the band-list figure, every listed entry on every pixel
+   of its band, is reported beside them);
 5. the main path on 8 envs, on the card vs on the CPU's plain versions: an
    expert rollout with auto-resets, and an fp32 ``PolicyCNN`` forward (TF32
    is switched off for that comparison and restored after it);
@@ -29,9 +31,10 @@ Phases (any failure exits nonzero, with no result line):
    reduced value;
 7. the rich fleet (same town and envs, the rich128 preset: facade bands,
    markings, shadows, textures, T=1408) from three seeds: kernel A's
-   textured variant (C=1 and C=3), kernel C (fused quads) and kernel D
-   (grouped band tables) vs their plain versions, C vs B within the quad
-   contract, D vs B bit for bit; each timed at those shapes;
+   textured variant (C=1 and C=3), kernel B on the rich lists (2 px and 0
+   px LOD), kernel C (fused quads) and kernel D (grouped band tables) vs
+   their plain versions, C vs B within the quad contract, D vs B bit for bit
+   at 0 px; each timed at those shapes;
 8. the rich collection path, counts reset just before it: the expert
    rollout with ``record_semantic=True`` on the rich preset at 1024 envs
    (what segmentation collection runs: kernel B for the policy frame, kernel
@@ -86,6 +89,11 @@ OPS_PER_PASS_D = OPS_PER_PASS_B
 # floor, 2 mul + 1 add for the hash argument, 1 sin, 1 mul, 1 floor, 1 sub,
 # 1 mul, 1 add, 1 select) — plus one multiply per colour channel.
 OPS_PER_PIXEL_TEX = 24
+# Epilogues, per pixel of the frame. A (C = 1): the winner's class
+# conversion and colour. B, C and D: the key decode (2 ands, 1 conversion, 2
+# mul, 1 add, 1 reciprocal, 1 mul) and the hit-or-sky compare and select.
+OPS_PER_PIXEL_EPILOGUE_A = 2
+OPS_PER_PIXEL_EPILOGUE_B = 10
 
 
 class SmokeFailure(RuntimeError):
@@ -163,20 +171,24 @@ def launch_facts(name: str, *variant: int) -> dict:
     return dict(zip(("registers", "spill_bytes", "smem_bytes", "threads", "blocks_per_sm"), out))
 
 
-def warp_tile_keep(tbl, idx, count, width: int, rows: int, exact: bool):
+def warp_tile_keep(tbl, idx, count, width: int, rows: int, exact: bool, edges: int = 3,
+                   group: int = 2):
     """The warp-tile cull of kernel A (``exact``) or B, per 16 × 16 tile of a
     band: the kernels' corner test with their expressions (A: (a·x + b·y) +
-    c, either winding; B: a·x + (b·y + c), positive). Yields (x0, x1, y0, y1,
-    keep (B, R, K) bool, live (B, R, K) bool) per tile, pixel columns x0..x1
-    and band rows y0..y1; ``live`` marks the positions each kernel walks (A:
-    the count, B: the count rounded up to a pair)."""
+    c, either winding; B: a·x + (b·y + c), positive). With ``edges`` = 4 it
+    is the same test on kernel C's quads. Yields (x0, x1, y0, y1, keep (B, R,
+    K) bool, live (B, R, K) bool) per tile, pixel columns x0..x1 and band
+    rows y0..y1; ``live`` marks the positions a kernel walks (A: the count;
+    B, C and D: the count rounded up to a ``group``, 2 for the pair walk of B
+    and C, 8 for D's groups)."""
     import torch
 
     B, R, K = idx.shape
-    n = count.long() if exact else torch.clamp((count.long() + 1) // 2 * 2, max=K)
+    n = count.long() if exact else torch.clamp((count.long() + group - 1) // group * group, max=K)
     live = torch.arange(K, device=idx.device) < n[..., None]
-    co = torch.gather(tbl[:, :9], 2, idx.reshape(B, 1, R * K).long().expand(-1, 9, -1))
-    co = co.reshape(B, 9, R, K)
+    nc = 3 * edges
+    co = torch.gather(tbl[:, :nc], 2, idx.reshape(B, 1, R * K).long().expand(-1, nc, -1))
+    co = co.reshape(B, nc, R, K)
     y_band = torch.arange(R, dtype=torch.float32, device=idx.device).view(1, R, 1) * rows
     for x0 in range(0, width, WARP_TILE):
         for y0 in range(0, rows, WARP_TILE):
@@ -188,7 +200,7 @@ def warp_tile_keep(tbl, idx, count, width: int, rows: int, exact: bool):
                 ys = (y0 + (y_band + 0.5), y1 + (y_band + 0.5))
             pos = torch.ones_like(live)
             neg = torch.ones_like(live)
-            for i in range(3):
+            for i in range(edges):
                 a, b, c = co[:, 3 * i], co[:, 3 * i + 1], co[:, 3 * i + 2]
                 x_hi = torch.where(a > 0, xs[1], xs[0])
                 x_lo = torch.where(a > 0, xs[0], xs[1])
@@ -202,11 +214,17 @@ def warp_tile_keep(tbl, idx, count, width: int, rows: int, exact: bool):
             yield x0, x1, y0, y1, (pos | neg) if exact else pos, live
 
 
-def warp_tile_pairs(tbl, idx, count, height: int, width: int, rows: int, exact: bool) -> int:
+def warp_tile_pairs(tbl, idx, count, height: int, width: int, rows: int, exact: bool,
+                    **kw) -> tuple[int, int]:
     """(listed entry, warp tile) pairs that the cull of ``warp_tile_keep``
-    keeps."""
-    return sum(int((keep & live).sum())
-               for *_, keep, live in warp_tile_keep(tbl, idx, count, width, rows, exact))
+    keeps, and (listed entry, pixel) pairs in those tiles: the pass work this
+    run's data needs, which the bounds of kernels A to D count."""
+    tiles = pixels = 0
+    for x0, x1, y0, y1, keep, live in warp_tile_keep(tbl, idx, count, width, rows, exact, **kw):
+        n = int((keep & live).sum())
+        tiles += n
+        pixels += n * (x1 - x0 + 1) * (y1 - y0 + 1)
+    return tiles, pixels
 
 
 def b_tolerance(got, want, what: str) -> float:
@@ -215,6 +233,87 @@ def b_tolerance(got, want, what: str) -> float:
     check(mean < 2e-3 and frac < 0.01,
           f"{what}: mean|d|={mean:.3e}, {frac:.3%} of pixels off by > 2/255")
     return float(d.max())
+
+
+def bench_fleet(dev):
+    """The bench town on ``dev`` and its sim parameters → (params, town)."""
+    from carla_imitation_learning_tpu_torch.sim.town import make_town
+    from carla_imitation_learning_tpu_torch.sim.world import SimParams
+
+    return SimParams(n_agents=15), make_town(blocks=3, n_buildings=24, n_lights=8).to(dev)
+
+
+def exact_args(setup, t: int, near: float, far: float, n_ch: int, rows: int, lists=None):
+    """Kernel A's arguments for a fleet's scene setup at HW²: its table
+    (luma only when ``n_ch`` = 1; textured when the setup has UV rows), the
+    band lists of ``tile_lists`` (or ``lists``) and the frame."""
+    from carla_imitation_learning_tpu_torch.ops import raster as ra
+
+    idx, cnt = lists if lists is not None else ra.tile_lists(setup, HW, t, width=HW)
+    return (ra.pack_setup(setup, luma_only=n_ch == 1), idx, cnt, HW, HW, near, far, n_ch, rows)
+
+
+def fast_args(setup, t: int, near: float, far: float, rows: int, lod: float = 2.0):
+    """Kernel B's arguments for a fleet's scene setup at HW²: its table, the
+    band lists of ``tile_lists_fast`` at ``lod`` px, no fog."""
+    from carla_imitation_learning_tpu_torch.ops import raster_fast as rf
+
+    idx, cnt = rf.tile_lists_fast(setup, HW, t, width=HW, lod_px=lod, rows_per_band=rows)
+    return (rf.pack_setup_fast(setup), idx, cnt, HW, HW, near, far, 0.0, rows)
+
+
+def kernel_inputs(kernel: str, dev, seed: int = 0):
+    """(wrapper, plain version, arguments) of kernel A (luma, T = 512),
+    A-tex (luma, the rich preset, T = 1408), B (T = 512) or B-rich (B on the
+    rich preset's lists) on ``seed``'s 1024-env fleet: the inputs that the
+    kernel phases time."""
+    import torch
+
+    from carla_imitation_learning_tpu_torch.ops import raster as ra
+    from carla_imitation_learning_tpu_torch.ops import raster_fast as rf
+    from carla_imitation_learning_tpu_torch.render.pipeline import RenderConfig, make_scene_setup
+    from carla_imitation_learning_tpu_torch.sim.world import reset_env
+
+    params, town = bench_fleet(dev)
+    rcfg, t = {"A": (RenderConfig(height=HW, width=HW, max_triangles=T), T),
+               "B": (RenderConfig(height=HW, width=HW, max_triangles=T), T),
+               "A-tex": (rich_config(), T_RICH),
+               "B-rich": (rich_config(rgb=False, fast=True, quads=True), T_RICH)}[kernel]
+    states = reset_env(params, town, torch.Generator().manual_seed(seed), N_ENVS)
+    setup = make_scene_setup(params, town, rcfg, device=dev)(states)
+    rows = ra.band_rows(HW)
+    if kernel.startswith("A"):
+        return (ra.raster_bands, ra.raster_bands_plain,
+                exact_args(setup, t, rcfg.near, rcfg.far, 1, rows))
+    return rf.fast_bands, rf.fast_bands_plain, fast_args(setup, t, rcfg.near, rcfg.far, rows)
+
+
+def check_exact(args, what: str) -> tuple[float, int]:
+    """Kernel A on ``args`` against its plain version: the semantic plane,
+    colours and depths must be equal. → (max|d|, hit pixels)."""
+    import torch
+
+    from carla_imitation_learning_tpu_torch.ops import raster as ra
+
+    sem_k, col_k, depth_k = ra.raster_bands(*args)
+    sem_p, col_p, depth_p = ra.raster_bands_plain(*args)
+    check(torch.equal(sem_k, sem_p), f"{what}: semantic plane differs")
+    err = max(float((col_k - col_p).abs().max()), float((depth_k - depth_p).abs().max()))
+    check(torch.equal(col_k, col_p) and torch.equal(depth_k, depth_p), f"{what}: max|d| {err:.3e}")
+    return err, int((depth_k < args[6]).sum())
+
+
+def check_fast(args, what: str):
+    """Kernel B on ``args`` against its plain version, bit for bit. →
+    (max|d|, the kernel's frame)."""
+    import torch
+
+    from carla_imitation_learning_tpu_torch.ops import raster_fast as rf
+
+    got, want = rf.fast_bands(*args), rf.fast_bands_plain(*args)
+    err = float((got - want).abs().max())
+    check(torch.equal(got, want), f"{what}: max|d| vs plain {err:.3e}")
+    return err, got
 
 
 def run(args) -> dict:
@@ -231,8 +330,7 @@ def run(args) -> dict:
             RenderConfig, make_renderer, make_scene_setup,
         )
         from carla_imitation_learning_tpu_torch.render.plain_raster import rasterize_plain
-        from carla_imitation_learning_tpu_torch.sim.town import make_town
-        from carla_imitation_learning_tpu_torch.sim.world import SimParams, reset_env
+        from carla_imitation_learning_tpu_torch.sim.world import reset_env
         from carla_imitation_learning_tpu_torch.training.closed_loop import make_rollout
     except ImportError as e:
         raise SmokeFailure(f"the port package is not importable next to this script: {e}")
@@ -262,8 +360,7 @@ def run(args) -> dict:
     edges = edge_case_phase(dev)
     log(json.dumps({"edge_cases": {**edges, "s": time.perf_counter() - t0}}))
 
-    town = make_town(blocks=3, n_buildings=24, n_lights=8).to(dev)
-    params = SimParams(n_agents=15)
+    params, town = bench_fleet(dev)
     rcfg = RenderConfig(height=HW, width=HW, max_triangles=T)
     scene_setup = make_scene_setup(params, town, rcfg, device=dev)
     rows = ra.band_rows(HW)
@@ -276,28 +373,14 @@ def run(args) -> dict:
         setup = scene_setup(states)
         check(setup.unum is None and setup.zinv is None,
               "the standard setup carries rows only the rich paths read")
-        idx, cnt = ra.tile_lists(setup, HW, T, width=HW)
+        lists = ra.tile_lists(setup, HW, T, width=HW)
         for n_ch in (1, 3):
-            tbl = ra.pack_setup(setup, luma_only=n_ch == 1)
-            args_a = (tbl, idx, cnt, HW, HW, rcfg.near, rcfg.far, n_ch, rows)
-            sem_k, col_k, depth_k = ra.raster_bands(*args_a)
-            sem_p, col_p, depth_p = ra.raster_bands_plain(*args_a)
-            torch.cuda.synchronize()
-            check(torch.equal(sem_k, sem_p), f"kernel A seed {seed} C={n_ch}: semantic plane differs")
-            err = max(float((col_k - col_p).abs().max()), float((depth_k - depth_p).abs().max()))
-            check(err < 1e-5, f"kernel A seed {seed} C={n_ch}: max|d| {err:.3e}")
-            errs["A"] = max(errs["A"], err)
+            args_a = exact_args(setup, T, rcfg.near, rcfg.far, n_ch, rows, lists)
+            errs["A"] = max(errs["A"], check_exact(args_a, f"kernel A seed {seed} C={n_ch}")[0])
             if seed == 0 and n_ch == 1:
                 inputs["A"] = args_a
-        tbl_b = rf.pack_setup_fast(setup)
-        idx_b, cnt_b = rf.tile_lists_fast(setup, HW, T, width=HW, lod_px=2.0,
-                                          rows_per_band=rows)
-        args_b = (tbl_b, idx_b, cnt_b, HW, HW, rcfg.near, rcfg.far, 0.0, rows)
-        out_k = rf.fast_bands(*args_b)
-        out_p = rf.fast_bands_plain(*args_b)
-        torch.cuda.synchronize()
-        err = float((out_k - out_p).abs().max())
-        check(err < 1e-5, f"kernel B seed {seed}: max|d| vs plain {err:.3e}")
+        args_b = fast_args(setup, T, rcfg.near, rcfg.far, rows)
+        err = check_fast(args_b, f"kernel B seed {seed}")[0]
         errs["B"] = max(errs["B"], err)
         if seed == 0:
             inputs["B"] = args_b
@@ -307,30 +390,29 @@ def run(args) -> dict:
         log(f"seed {seed}: A vs plain ok, B vs plain max|d|={err:.3e}, "
             f"B vs A luma max|d|={worst:.3e}")
 
-    pix = rows * HW
+    a_args, b_args = inputs.pop("A"), inputs.pop("B")
+    frame_px = N_ENVS * HW * HW
+    a_tiles, a_kept = warp_tile_pairs(*a_args[:5], rows, exact=True)
+    b_tiles, b_kept = warp_tile_pairs(*b_args[:5], rows, exact=False)
     kernels = [
         kernel_entry("raster_exact (kernel A, luma)", "A", "raster_exact.cu",
                      "carla_imitation_learning_tpu/ops/raster.py:120", ra.raster_bands,
-                     ra.raster_bands_plain, inputs["A"], errs["A"], rate,
-                     ops=float(inputs["A"][2].sum()) * pix * (OPS_PER_PASS_A + 1),
-                     out_bytes=N_ENVS * HW * HW * 4 * 3,
-                     listed_pairs=float(inputs["A"][2].sum()) * pix,
-                     passes_per_band=float(inputs["A"][2].float().mean()),
-                     warp_tile_pairs=warp_tile_pairs(*inputs["A"][:5], rows, exact=True),
-                     band_tile_pairs=float(inputs["A"][2].sum()) * (HW // WARP_TILE) * (rows // WARP_TILE),
+                     ra.raster_bands_plain, a_args, errs["A"], rate,
+                     ops=a_kept * OPS_PER_PASS_A + frame_px * OPS_PER_PIXEL_EPILOGUE_A,
+                     band_list_ops=listed(a_args[2], rows) * (OPS_PER_PASS_A + 1),
+                     out_bytes=frame_px * 4 * 3, rows=rows, warp_tile_pairs=a_tiles,
+                     kept_pairs=a_kept, passes_per_band=float(a_args[2].float().mean()),
                      **facts["A"]),
         kernel_entry("raster_fast (kernel B)", "B", "raster_fast.cu",
                      "carla_imitation_learning_tpu/ops/raster_fast.py:400", rf.fast_bands,
-                     rf.fast_bands_plain, inputs["B"], errs["B"], rate,
-                     ops=float(inputs["B"][2].sum()) * pix * OPS_PER_PASS_B,
-                     out_bytes=N_ENVS * HW * HW * 4,
-                     listed_pairs=float(inputs["B"][2].sum()) * pix,
-                     passes_per_band=float(inputs["B"][2].float().mean()),
-                     warp_tile_pairs=warp_tile_pairs(*inputs["B"][:5], rows, exact=False),
-                     band_tile_pairs=float(inputs["B"][2].sum()) * (HW // WARP_TILE) * (rows // WARP_TILE),
+                     rf.fast_bands_plain, b_args, errs["B"], rate,
+                     ops=b_kept * OPS_PER_PASS_B + frame_px * OPS_PER_PIXEL_EPILOGUE_B,
+                     band_list_ops=listed(b_args[2], rows) * OPS_PER_PASS_B,
+                     out_bytes=frame_px * 4, rows=rows, warp_tile_pairs=b_tiles,
+                     kept_pairs=b_kept, passes_per_band=float(b_args[2].float().mean()),
                      **facts["B"]),
     ]
-    del inputs
+    del a_args, b_args
 
     cross = check_against_cpu(params, town, rcfg, dev)
     log(json.dumps({"card_vs_cpu": cross}))
@@ -401,7 +483,9 @@ def run(args) -> dict:
     paths = {"main": launches}
     # the rich phases allocate gigabytes of temporaries; they run after the
     # main path has been timed
-    kernels += rich_kernels(params, town, dev, rows, rate, facts["A-tex"])
+    rich, b_rich_err = rich_kernels(params, town, dev, rows, rate, facts["A-tex"])
+    kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], b_rich_err)
+    kernels += rich
     paths["rich_collection"] = rich_collection(params, town, dev)
     paths["quad_vec_ab"] = quad_vec_ab(params, town, dev, kernels)
     for k in kernels:
@@ -433,24 +517,39 @@ def read_counts() -> dict:
     return {name: c.launches for name, c in counters().items()}
 
 
+def listed(count, rows: int) -> float:
+    """(entry, pixel) pairs of band lists of ``count`` entries over bands of
+    ``rows`` × HW pixels: what a pass without a cull walks."""
+    return float(count.sum()) * rows * HW
+
+
 def kernel_entry(name, counter, src, replaces, fn, plain, args, err, rate, ops, out_bytes,
-                 table_bytes=None, path="main", listed_pairs=None, **extra) -> dict:
+                 table_bytes=None, path="main", band_list_ops=None, rows=None,
+                 **extra) -> dict:
     """One entry of the ``kernels`` line: the kernel and its plain version
     timed with CUDA events on ``args``, and the bound from ``ops`` at the
     issue ``rate`` and the bytes of the inputs (each read once) and outputs
-    (each written once). With ``listed_pairs`` (listed entries × band
-    pixels), also the lane-instruction slots the kernel's time held per such
-    pair."""
+    (each written once). ``ops`` counts the pass work this run's data needs,
+    the (entry, pixel) pairs in the warp tiles that the exact cull keeps,
+    plus the epilogue. With ``band_list_ops`` (the same count over every
+    listed entry on every pixel of its band), also the band-list figure, and
+    with ``rows``, the listed pairs and the lane-instruction slots the
+    kernel's time held per listed pair."""
     ms = cuda_ms(lambda: fn(*args), reps=20)
     plain_ms = cuda_ms(lambda: plain(*args), reps=2, warmup=1)
     if table_bytes is None:
         table_bytes = sum(a.numel() * a.element_size() for a in args
                           if hasattr(a, "numel"))
     bound_ms, bound_by = bound(ops, table_bytes + out_bytes, rate)
-    if listed_pairs:
-        extra.update(listed_pairs=listed_pairs, slots_per_pair=ms * 1e-3 * rate / listed_pairs)
+    if band_list_ops is not None:
+        extra["band_list_bound_ms"] = bound(band_list_ops, table_bytes + out_bytes, rate)[0]
+    if rows is not None:
+        pairs = listed(args[2], rows)
+        extra.update(listed_pairs=pairs, slots_per_pair=ms * 1e-3 * rate / pairs,
+                     band_tile_pairs=pairs / (rows * HW) * (HW // WARP_TILE) * (rows // WARP_TILE))
     log(f"{name}: {ms:.3f} ms (plain {plain_ms:.1f} ms, bound {bound_ms:.3f} ms "
-        f"by {bound_by}, max|d| vs plain {err:.3e})")
+        f"by {bound_by}, band-list bound {extra.get('band_list_bound_ms', float('nan')):.3f} ms, "
+        f"max|d| vs plain {err:.3e})")
     return {"name": name, "route": "cuda",
             "source": f"carla_imitation_learning_tpu_torch/csrc/{src}",
             "replaces": replaces, "launches": 0, "max_abs_err": err, "ms": ms,
@@ -458,7 +557,9 @@ def kernel_entry(name, counter, src, replaces, fn, plain, args, err, rate, ops, 
             "library_ms": None, "path": path, "counter": counter, **extra}
 
 
-EDGE_FRAMES = ((64, 64), (96, 96), (48, 80), (40, 160))   # (H, W): bands of 32, 32, 24, 20 rows
+# (H, W): bands of 32, 32, 24, 20 and 20 rows; 150 columns is no multiple of 4,
+# which takes the kernels' column-by-column row stores
+EDGE_FRAMES = ((64, 64), (96, 96), (48, 80), (40, 160), (40, 150))
 EDGE_T = 640             # table width of the synthetic frames
 EDGE_LONG = 300          # entries on the long list: more than two staging chunks
 
@@ -621,7 +722,8 @@ def edge_case_tables(device, n_envs: int = 8, seed: int = 0) -> list:
     duplicates and a shared-diagonal tie, a list longer than two staging
     chunks, an empty band, odd counts followed by a sub-LOD triangle that
     covers pixels, depths in front of near and beyond far, and frames whose
-    bands are 32, 24 and 20 rows and up to 160 columns. Built with numpy
+    bands are 32, 24 and 20 rows, up to 160 columns, one of them a width
+    that is no multiple of 4. Built with numpy
     from ``seed`` and moved to ``device``. → one dict per frame shape:
     height, width, rows, tex (B, 23, T) f32 (its first 17 rows are the flat
     table), idx_a / count_a (exact lists), fast (B, 13, T) f32, idx_b /
@@ -693,12 +795,13 @@ def rich_config(**kw):
                         shadows=True, markings=True, texture_detail=True, **kw)
 
 
-def rich_kernels(params, town, dev, rows, rate, facts) -> list:
-    """Phase 7: kernel A's textured variant, C and D on the rich fleet vs
+def rich_kernels(params, town, dev, rows, rate, facts) -> tuple[list, float]:
+    """Phase 7: kernel A's textured variant, B, C and D on the rich fleet vs
     their plain versions (and C, D vs B) from three seeds; → their entries
     of the ``kernels`` line, timed on seed 0's inputs (bounds at the issue
-    ``rate``; ``facts``: A-tex's launch facts). Kernel B on the same fleet's
-    lists is timed too and reported in the ``rich_kernels`` line."""
+    ``rate``; ``facts``: A-tex's launch facts), and kernel B's max|d| vs its
+    plain version on these lists. Kernel B on the same fleet's lists is
+    timed too and reported in the ``rich_kernels`` line."""
     import torch
 
     from carla_imitation_learning_tpu_torch.ops import raster as ra
@@ -708,31 +811,24 @@ def rich_kernels(params, town, dev, rows, rate, facts) -> list:
 
     rich = rich_config()
     tex_setup = make_scene_setup(params, town, rich, device=dev)
-    quad_setup = make_scene_setup(params, town, dataclasses.replace(
-        rich, rgb=False, fast=True, quads=True), device=dev)
+    quad_setup = make_scene_setup(params, town, rich_config(rgb=False, fast=True, quads=True),
+                                  device=dev)
     near, far = rich.near, rich.far
-    errs = {"A-tex": 0.0, "C": 0.0, "D": 0.0}
+    errs = {"A-tex": 0.0, "B": 0.0, "C": 0.0, "D": 0.0}
     inputs, report = {}, {"seeds": []}
     for seed in range(3):
         states = reset_env(params, town, torch.Generator().manual_seed(seed), N_ENVS)
         s_tex = tex_setup(states)
         check(s_tex.unum is not None, "the rich exact setup has no UV rows")
-        idx, cnt = ra.tile_lists(s_tex, HW, T_RICH, width=HW)
+        lists = ra.tile_lists(s_tex, HW, T_RICH, width=HW)
         for n_ch in (1, 3):
-            tbl = ra.pack_setup(s_tex, luma_only=n_ch == 1)
-            check(tbl.shape[1] == ra.TEX_PACK_WIDTH, "the rich table is not textured")
-            args = (tbl, idx, cnt, HW, HW, near, far, n_ch, rows)
-            sem_k, col_k, depth_k = ra.raster_bands(*args)
-            sem_p, col_p, depth_p = ra.raster_bands_plain(*args)
-            torch.cuda.synchronize()
-            check(torch.equal(sem_k, sem_p), f"kernel A-tex seed {seed} C={n_ch}: semantic plane differs")
-            err = max(float((col_k - col_p).abs().max()), float((depth_k - depth_p).abs().max()))
-            check(err < 1e-5, f"kernel A-tex seed {seed} C={n_ch}: max|d| {err:.3e}")
+            args = exact_args(s_tex, T_RICH, near, far, n_ch, rows, lists)
+            check(args[0].shape[1] == ra.TEX_PACK_WIDTH, "the rich table is not textured")
+            err, hit_px = check_exact(args, f"kernel A-tex seed {seed} C={n_ch}")
             errs["A-tex"] = max(errs["A-tex"], err)
             if seed == 0 and n_ch == 1:
-                inputs["A-tex"] = args
-                hits = float((depth_k < far).sum())
-        del s_tex, tbl, sem_k, col_k, depth_k, sem_p, col_p, depth_p
+                inputs["A-tex"], hits = args, hit_px
+        del s_tex, args
 
         s_q = quad_setup(states)
         prims = rf.fuse_prims(s_q)
@@ -745,15 +841,14 @@ def rich_kernels(params, town, dev, rows, rate, facts) -> list:
         check(err < 1e-5, f"kernel C seed {seed}: max|d| vs plain {err:.3e}")
         errs["C"] = max(errs["C"], err)
 
-        tbl_b = rf.pack_setup_fast(s_q)
-        seen, counts = {}, {"A-tex": cnt, "C": cnt_c}
+        seen, counts = {}, {"A-tex": lists[1], "C": cnt_c}
         for lod in (2.0, 0.0):
-            idx_b, cnt_b = rf.tile_lists_fast(s_q, HW, T_RICH, width=HW, lod_px=lod,
-                                              rows_per_band=rows)
-            args_b = (tbl_b, idx_b, cnt_b, HW, HW, near, far, 0.0, rows)
-            btbl = rf.gather_band_tables(tbl_b, idx_b)
-            args_d = (btbl, cnt_b, HW, HW, near, far, 0.0, rows)
-            out_b, out_d = rf.fast_bands(*args_b), rf.vec_bands(*args_d)
+            args_b = fast_args(s_q, T_RICH, near, far, rows, lod=lod)
+            err, out_b = check_fast(args_b, f"kernel B seed {seed} lod {lod} (rich lists)")
+            errs["B"] = max(errs["B"], err)
+            args_d = (rf.gather_band_tables(args_b[0], args_b[1]), args_b[2], HW, HW, near, far,
+                      0.0, rows)
+            out_d = rf.vec_bands(*args_d)
             check(torch.equal(out_d, rf.vec_bands_plain(*args_d)),
                   f"kernel D seed {seed} lod {lod}: differs from its plain version")
             seen[lod] = int((out_d != out_b).sum())
@@ -764,7 +859,7 @@ def rich_kernels(params, town, dev, rows, rate, facts) -> list:
                 fog_err = float((fog_b - fog_d).abs().max())
                 check(fog_err <= 1.2e-7, f"kernel D seed {seed} with fog: max|d| vs B {fog_err:.3e}")
             else:
-                counts["B"] = cnt_b
+                counts["B"] = args_b[2]
                 b_tolerance(out_d, out_b, f"kernel D vs B seed {seed} lod 2")
                 d = (out_c - out_b).abs()
                 quad = {"mean": float(d.mean()), "frac_over_2_255": float((d > 2 / 255).float().mean()),
@@ -782,50 +877,59 @@ def rich_kernels(params, town, dev, rows, rate, facts) -> list:
                                                     for k, v in counts.items()}})
         del s_q, prims
         torch.cuda.synchronize()
-        log(f"rich seed {seed}: A-tex vs plain ok, C vs B {quad}, D vs B pixels "
+        log(f"rich seed {seed}: A-tex and B vs plain ok, C vs B {quad}, D vs B pixels "
             f"differing {seen}")
 
-    pix = rows * HW
-    a_args, c_args, d_args = inputs["A-tex"], inputs["C"], inputs["D"]
-    b_args = inputs["B-rich"]
+    frame_px = N_ENVS * HW * HW
+    a_args, b_args, c_args, d_args = (inputs[k] for k in ("A-tex", "B-rich", "C", "D"))
     b_ms = cuda_ms(lambda: rf.fast_bands(*b_args), reps=20)
-    b_listed = float(b_args[2].sum()) * pix
-    b_bound, _ = bound(b_listed * OPS_PER_PASS_B, sum(a.numel() * a.element_size()
-                                                      for a in b_args[:3]) + N_ENVS * HW * HW * 4,
-                       rate)
+    b_tiles, b_kept = warp_tile_pairs(*b_args[:5], rows, exact=False)
+    b_bytes = sum(a.numel() * a.element_size() for a in b_args[:3]) + frame_px * 4
+    b_listed = listed(b_args[2], rows)
     report["kernel_ms_per_frame"] = {"B": b_ms}
-    report["B_rich_lists"] = {"ms": b_ms, "bound_ms": b_bound, "listed_pairs": b_listed,
-                              "slots_per_pair": b_ms * 1e-3 * rate / b_listed,
-                              "warp_tile_pairs": warp_tile_pairs(*b_args[:5], rows, exact=False),
-                              "band_tile_pairs": b_listed / pix * (HW // WARP_TILE) * (rows // WARP_TILE)}
+    report["B_rich_lists"] = {
+        "ms": b_ms, "max_abs_err": errs["B"],
+        "bound_ms": bound(b_kept * OPS_PER_PASS_B + frame_px * OPS_PER_PIXEL_EPILOGUE_B,
+                          b_bytes, rate)[0],
+        "band_list_bound_ms": bound(b_listed * OPS_PER_PASS_B, b_bytes, rate)[0],
+        "listed_pairs": b_listed, "slots_per_pair": b_ms * 1e-3 * rate / b_listed,
+        "kept_pairs": b_kept, "warp_tile_pairs": b_tiles,
+        "band_tile_pairs": b_listed / (rows * HW) * (HW // WARP_TILE) * (rows // WARP_TILE)}
+    a_tiles, a_kept = warp_tile_pairs(*a_args[:5], rows, exact=True)
+    c_tiles, c_kept = warp_tile_pairs(*c_args[:5], rows, exact=False, edges=4)
+    # D walks B's lists (seed 0's, at 2 px) in whole groups of VEC_P
+    d_tiles, d_kept = warp_tile_pairs(*b_args[:5], rows, exact=False, group=rf.VEC_P)
     entries = [
         kernel_entry("raster_exact textured (kernel A-tex, luma)", "A-tex", "raster_exact.cu",
                      "carla_imitation_learning_tpu/ops/raster.py:151", ra.raster_bands,
                      ra.raster_bands_plain, a_args, errs["A-tex"], rate,
-                     ops=float(a_args[2].sum()) * pix * (OPS_PER_PASS_A + 1)
+                     ops=a_kept * OPS_PER_PASS_A + frame_px * OPS_PER_PIXEL_EPILOGUE_A
                      + hits * (OPS_PER_PIXEL_TEX + 1),
-                     out_bytes=N_ENVS * HW * HW * 4 * 3, path="rich_collection",
-                     listed_pairs=float(a_args[2].sum()) * pix,
-                     warp_tile_pairs=warp_tile_pairs(*a_args[:5], rows, exact=True),
-                     band_tile_pairs=float(a_args[2].sum()) * (HW // WARP_TILE) * (rows // WARP_TILE),
-                     **facts),
+                     band_list_ops=listed(a_args[2], rows) * (OPS_PER_PASS_A + 1)
+                     + hits * (OPS_PER_PIXEL_TEX + 1),
+                     out_bytes=frame_px * 4 * 3, path="rich_collection", rows=rows,
+                     warp_tile_pairs=a_tiles, kept_pairs=a_kept, **facts),
         kernel_entry("raster_prim (kernel C)", "C", "raster_prim.cu",
                      "carla_imitation_learning_tpu/ops/raster_fast.py:265", rf.prim_bands,
                      rf.prim_bands_plain, c_args, errs["C"], rate,
-                     ops=float(c_args[2].sum()) * pix * OPS_PER_PASS_C,
-                     out_bytes=N_ENVS * HW * HW * 4, path="quad_vec_ab", b_ms_same_scene=b_ms),
+                     ops=c_kept * OPS_PER_PASS_C + frame_px * OPS_PER_PIXEL_EPILOGUE_B,
+                     band_list_ops=listed(c_args[2], rows) * OPS_PER_PASS_C,
+                     out_bytes=frame_px * 4, path="quad_vec_ab", rows=rows,
+                     warp_tile_pairs=c_tiles, kept_pairs=c_kept, b_ms_same_scene=b_ms),
         kernel_entry("raster_vec (kernel D)", "D", "raster_vec.cu",
                      "carla_imitation_learning_tpu/ops/raster_fast.py:341", rf.vec_bands,
                      rf.vec_bands_plain, d_args, errs["D"], rate,
-                     ops=float(d_args[1].sum()) * pix * OPS_PER_PASS_D,
+                     ops=d_kept * OPS_PER_PASS_D + frame_px * OPS_PER_PIXEL_EPILOGUE_B,
+                     band_list_ops=listed(d_args[1], rows) * OPS_PER_PASS_D,
                      # the listed entries it needs (64 B each), counts, output
                      table_bytes=float(d_args[1].sum()) * 64 + d_args[1].numel() * 4,
-                     out_bytes=N_ENVS * HW * HW * 4, path="quad_vec_ab", b_ms_same_scene=b_ms),
+                     out_bytes=frame_px * 4, path="quad_vec_ab",
+                     warp_tile_pairs=d_tiles, kept_pairs=d_kept, b_ms_same_scene=b_ms),
     ]
     for e in entries:
         report["kernel_ms_per_frame"][e["counter"]] = e["ms"]
     log(json.dumps({"rich_kernels": report}))
-    return entries
+    return entries, errs["B"]
 
 
 def marginal(rollout_fn, carry, short: int, long: int, repeats: int):

@@ -21,10 +21,12 @@ tensor padded to a multiple of 64 elements (every element on the vector
 path), as the plain version's tensors, whose sizes here are multiples of 64,
 are.
 
-A last test checks the argument behind the kernels' warp-tile culling on
+The last tests check the argument behind the kernels' warp-tile culling on
 the same tables: every entry that ``chip_smoke.warp_tile_keep`` (the
 kernels' corner test, with their expressions) drops from a 16 x 16 tile
-has no pixel of the tile inside.
+has no pixel of the tile inside; and the same for kernel C's 4-edge
+primitives on a small rich fleet, whose kept pairs ``chip_smoke.py``'s
+bounds count.
 """
 
 import functools
@@ -213,3 +215,37 @@ def test_warp_tile_cull_is_exact(frame, kernel):
                 culled += int(gone.sum())
                 kept += int((live[b, r] & keep[b, r]).sum())
     assert culled > kept / 10, (culled, kept)
+
+
+def test_quad_cull_is_exact():
+    """The same corner test on kernel C's 4-edge primitives, which the
+    bounds of ``chip_smoke.py`` count C's work with: on a small rich fleet,
+    every quad dropped from a tile has no pixel of the tile inside."""
+    from carla_imitation_learning_tpu_torch.render.pipeline import make_scene_setup
+    from carla_imitation_learning_tpu_torch.sim.world import reset_env
+
+    params, town = chip_smoke.bench_fleet("cpu")
+    rcfg = chip_smoke.rich_config(rgb=False, fast=True, quads=True)
+    states = reset_env(params, town, torch.Generator().manual_seed(0), N_ENVS)
+    prims = p_fast.fuse_prims(make_scene_setup(params, town, rcfg, device="cpu")(states))
+    hw, rows = chip_smoke.HW, p_raster.band_rows(chip_smoke.HW)
+    tbl = p_fast.pack_setup_prims(prims)
+    idx, count = p_fast.tile_lists_fast(prims, hw, chip_smoke.T_RICH, width=hw, lod_px=2.0,
+                                        rows_per_band=rows)
+    culled = kept = 0
+    for x0, x1, y0, y1, keep, live in chip_smoke.warp_tile_keep(tbl, idx, count, hw, rows,
+                                                                exact=False, edges=4):
+        px = (np.arange(x0, x1 + 1, dtype=F32) + F32(0.5))[None, None, :]
+        for b in range(idx.shape[0]):
+            for r in range(idx.shape[1]):
+                gone = (live[b, r] & ~keep[b, r]).numpy()
+                co = tbl[b][:, idx[b, r]].numpy()[:, gone]
+                py = (np.arange(y0, y1 + 1, dtype=F32) + (F32(r * rows) + F32(0.5)))[None, :, None]
+                inside = np.ones((co.shape[1], y1 - y0 + 1, x1 - x0 + 1), bool)
+                for i in range(4):
+                    inside &= (co[3 * i, :, None, None] * px
+                               + (co[3 * i + 1, :, None, None] * py + co[3 * i + 2, :, None, None])) > 0
+                assert not inside.any(), (b, r, x0, y0)
+                culled += int(gone.sum())
+                kept += int((live[b, r] & keep[b, r]).sum())
+    assert culled > kept, (culled, kept)
