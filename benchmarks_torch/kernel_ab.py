@@ -7,17 +7,24 @@ the fleet inputs that ``chip_smoke.py`` times it on.
         --variant other=path/to/raster_fast.cu [--variant name=path:-DFLAG,...]
 
 ``--kernel``: A (flat, luma, T = 512), A-tex (textured, luma, rich128
-preset, T = 1408), B (T = 512) or B-rich (B on the rich128 fast lists), at
-1024 envs, 128², seed 0's fleet (``chip_smoke.kernel_inputs``). Each variant
-is a source with the same C entry point as the kernel's own
-(``raster_exact_launch`` or ``raster_fast_launch``), compiled with the
-port's nvcc flags (plus the ``-D`` flags after a colon) by
-``cuda_lib.build_variant``, then called through the port's own wrapper.
-Every variant's output is compared with the plain version's (``equal``),
-and the variants are timed with CUDA events (20 launches after warm-up) in
-``--rounds`` rounds, in turns, on one card. Prints one JSON object: per
-variant the median and each round's ms, and whether it equals the plain
-version.
+preset, T = 1408), B (T = 512), B-rich (B on the rich128 fast lists), C (the
+rich128 fused quads) or D (B-rich's lists as band tables), at 1024 envs,
+128², seed 0's fleet (``chip_smoke.kernel_inputs``). Each variant is a
+source with the same C entry point as the kernel's own
+(``raster_exact_launch``, ``raster_fast_launch``, ``raster_prim_launch``
+or ``raster_vec_launch``), compiled with the port's nvcc flags (plus the
+``-D`` flags after a colon) by ``cuda_lib.build_variant``, then called
+through the port's own wrapper. Every variant's output is compared with the
+plain version's (``equal``), and the variants are timed with CUDA events (20
+launches after warm-up) in ``--rounds`` rounds, in turns, on one card.
+Prints one JSON object: per variant the median and each round's ms, and
+whether it equals the plain version.
+
+``--entry-major NAME`` (kernel C only) hands variant NAME the primitive
+table as an entry-major (B, P, 16) copy, viewed with the (B, 16, P) shape
+the wrapper checks: a source written to read that layout. The copy is made
+once, and its own time (``transpose_ms``, the pass a wrapper would add) is
+reported beside the variants.
 """
 
 from __future__ import annotations
@@ -32,6 +39,9 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402  (imports only the standard library at module level)
 
+LIBRARIES = {"A": "raster_exact", "A-tex": "raster_exact", "B": "raster_fast",
+             "B-rich": "raster_fast", "C": "raster_prim", "D": "raster_vec"}
+
 
 def equal(got, want) -> bool:
     import torch
@@ -43,8 +53,10 @@ def equal(got, want) -> bool:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--kernel", choices=("A", "A-tex", "B", "B-rich"), required=True)
+    parser.add_argument("--kernel", choices=tuple(LIBRARIES), required=True)
     parser.add_argument("--variant", action="append", required=True, metavar="NAME=PATH[:FLAGS]")
+    parser.add_argument("--entry-major", action="append", default=[], metavar="NAME",
+                        help="kernel C: variant NAME reads an entry-major copy of the table")
     parser.add_argument("--rounds", type=int, default=3)
     args = parser.parse_args()
 
@@ -54,7 +66,9 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
-    lib = "raster_exact" if args.kernel.startswith("A") else "raster_fast"
+    if args.entry_major and args.kernel != "C":
+        raise SystemExit("--entry-major applies to kernel C only")
+    lib = LIBRARIES[args.kernel]
     variants = {}
     for item in args.variant:
         name, _, spec = item.partition("=")
@@ -64,14 +78,21 @@ def main() -> int:
     want = plain(*inputs)
 
     res = {"kernel": args.kernel, "card": chip_smoke.nvidia_smi(), "variants": {}}
+    per_variant = {name: inputs for name in variants}
+    if args.entry_major:
+        tbl = inputs[0]
+        major = tbl.transpose(1, 2).contiguous().view(tbl.shape)
+        per_variant.update({name: (major, *inputs[1:]) for name in args.entry_major})
+        res["transpose_ms"] = chip_smoke.cuda_ms(lambda: tbl.transpose(1, 2).contiguous(), reps=20)
     for name, path in variants.items():
         cuda_lib.use_library(lib, path)
-        res["variants"][name] = {"equal": equal(wrapper(*inputs), want), "ms": []}
+        res["variants"][name] = {"equal": equal(wrapper(*per_variant[name]), want), "ms": []}
     for rnd in range(args.rounds):
         order = list(variants) if rnd % 2 == 0 else list(variants)[::-1]
         for name in order:
             cuda_lib.use_library(lib, variants[name])
-            res["variants"][name]["ms"].append(chip_smoke.cuda_ms(lambda: wrapper(*inputs), reps=20))
+            res["variants"][name]["ms"].append(
+                chip_smoke.cuda_ms(lambda: wrapper(*per_variant[name]), reps=20))
     for v in res["variants"].values():
         v["median_ms"] = sorted(v["ms"])[len(v["ms"]) // 2]
     print(json.dumps(res))

@@ -4,148 +4,396 @@
 // Replaces: carla_imitation_learning_tpu/ops/raster_fast.py `_vec_kernel`
 // (Pallas TPU kernel, reached through `rasterize_luma_fast` with vec=True).
 //
-// What it computes: kernel B's function (csrc/raster_fast.cu) — per pixel,
-// the running MIN of the packed key (bits(z) & ~0xFFF) | luma12 over the
-// band's list, z = znum * rcp(e0 + e1 + e2) where min(e0, e1, e2) > 0 and
-// z > near, the same epilogue — but read from the band's own gathered table
-// (B, R, K, 16): 13 coefficients and 3 pad floats per entry, in list order,
-// built once per frame by `gather_band_tables`. The list is walked in groups
-// of kVecP = 8 entries over ceil(count / 8) groups (K is a multiple of 8),
-// so up to 7 entries past the count are evaluated, as on the TPU. Every
-// pixel sees the same operands in the same order as in kernel B, so on the
-// same lists the two agree bit for bit wherever those extra entries light
-// nothing.
+// What it computes: kernel B's function (csrc/raster_fast.cu) read from the
+// band's own gathered table (B, R, K, 16) that `gather_band_tables` builds
+// once per frame: 13 coefficients and 3 pad floats per entry, in list order.
+// Per pixel, the running MIN of the packed key (bits(z) & ~0xFFF) | luma12
+// over list positions below n_pass = min(ceil8(count), K), with
+// z = znum * rcp(e0 + e1 + e2) where e0, e1 and e2 are all > 0 and z > near;
+// B's epilogue and fog. The TPU kernel walks whole groups of 8 entries, so up
+// to 7 entries past the count are evaluated and can light pixels; this kernel
+// walks the same positions. A min over ints does not depend on the order, so
+// the groups themselves need not survive: the walked set does.
 //
-// What bounds it on this card: the same FP32/INT32 pass work as kernel B
-// (17 operations per pixel and evaluated entry), over up to 7 more entries
-// per band; its input is 64 bytes per listed entry, read contiguously with
-// no index indirection. Operations over the CUDA-core rate set the bound.
+// What bounds it on this card: instruction issue in the pass (the same pass
+// as kernel B) and the latency of staging a chunk of the band table and of
+// waiting for it. Its bytes are 64 per walked entry and 4 per pixel, far
+// below.
 //
-// Design: one block per (band, env), threads as in kernel B (one column,
-// up to kMaxRows rows each, keys in registers). The block copies its band
-// table into shared memory in chunks of kChunk entries with 16-byte loads
-// (a contiguous, coalesced stream instead of B's per-coefficient gather),
-// then each thread takes the min over a group of 8 candidates before
-// folding it into its running key. Rounding is pinned with __fmul_rn /
-// __fadd_rn and the IEEE reciprocal __frcp_rn, as in kernel B.
+// Design, one answer per cost:
+// - Staging by bulk copy: a band's entries are contiguous 64-byte rows, so a
+//   chunk of up to kChunk entries is one `cp.async.bulk` (the TMA's 1-D copy)
+//   issued by one thread, completing on the stage's full mbarrier with its
+//   byte count. No thread reads a list index or issues per-entry copies.
+// - A ring of kStages stages with full and empty mbarriers in place of a
+//   block barrier: a producer warp walks the block's items and chunks in
+//   order, waits on a stage's empty barrier (one arrival per consumer warp),
+//   writes the stage's item, entry count and first/last flags, and refills
+//   it. A consumer warp waits only on the full barrier of the chunk it needs,
+//   so a fast warp runs up to kStages chunks ahead of a slow one. Lists are
+//   short (tens of entries in the busiest bands), so 4 stages of 64 entries
+//   (16 KB a block); 3 x 128, 6 x 64 and 8 x 32 measured no faster.
+// - Items handed out by an atomic counter: an item is 64 x 16 pixels of one
+//   band of one env (4 warp tiles). Bands differ in list length by 10-50x
+//   (sky and ground bands against the horizon's), and a fixed assignment
+//   (item += gridDim.x) gives a block the same band of every env it walks,
+//   since the grid is a multiple of an env's 16 items. The producer takes
+//   the next item when it starts one, so blocks finish together; the fixed
+//   assignment measured 1.5x slower.
+// - Warp-tile culling, as in kernel B: each consumer warp owns a 16 x 16
+//   tile, tests each staged entry at the tile's extreme pixel centre with the
+//   pass's own expression and rounding (exact, no margin: rounded products
+//   and sums are monotone), and compacts the survivors' positions, in list
+//   order, by ballot and popc; the pass walks only those.
+// - Register micro-tile: a thread owns 4 columns x 2 rows, so a*px is
+//   computed once per column and b*py + c once per row, per entry.
+// - Depth only where covered: the depth numerator, the reciprocal and the
+//   key run only when one of a thread's 8 pixels is inside, as in kernel B.
+// - Output: a thread stores its 4 adjacent columns of a row as one 16-byte
+//   store.
+// - Occupancy: 4 consumer warps and 1 producer warp a block, at most 64
+//   registers a thread (__launch_bounds__(160, kBlocksPerSm)).
+// Rounding is pinned with __fmul_rn/__fadd_rn and the IEEE reciprocal
+// __frcp_rn, as in kernel B, so the kernel equals its plain PyTorch version
+// bit for bit.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
-constexpr int kRow = 16;      // floats per table entry
-constexpr int kVecP = 8;      // entries per group
-constexpr int kChunk = 256;   // entries staged per pass (16 KB)
-constexpr int kMaxRows = 8;
+constexpr int kRow = 16;         // floats per band-table entry
+constexpr int kVecP = 8;         // the TPU kernel's group of entries
+constexpr int kStages = 4;       // ring depth
+constexpr int kChunk = 64;       // list entries a stage holds
+constexpr int kBlocksPerSm = 6;
+static_assert(kChunk <= 256, "survivor positions are kept as bytes");
+constexpr int kWarps = 4;                       // consumer warps
+constexpr int kThreads = (kWarps + 1) * 32;     // plus the producer warp
+constexpr int kBlockX = 64, kBlockY = 16;       // pixels an item covers
+constexpr int kWarpX = 16, kWarpY = 16;         // a consumer warp's tile
+constexpr int kCols = 4, kRows = 2;             // a thread's micro-tile
+static_assert(kCols == 4, "the epilogue stores a thread's columns as one float4");
 constexpr int kLumaMask = 0xFFF;
 constexpr int kKeyMask = ~0xFFF;
 constexpr int kMissKey = 0x7FFFFFFF;
 
-__global__ void vec_band_kernel(
-    const float* __restrict__ btbl, const int* __restrict__ count,
-    float* __restrict__ out, int R, int K, int H, int W, int tile_rows,
-    int rows_per_thread, float near_z, int far_key, float sky_top,
-    float sky_hor, float t_scale, float luma_scale, float fog_density) {
-  __shared__ float4 s_tbl4[kChunk * kRow / 4];
-  const float* s_tbl = reinterpret_cast<const float*>(s_tbl4);
-  const int r = blockIdx.x;
-  const int b = blockIdx.y;
-  const int x = threadIdx.x;
-  const int row0 = threadIdx.y * rows_per_thread;
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nthreads = blockDim.x * blockDim.y;
+__device__ __forceinline__ unsigned smem(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem(bar)),
+               "r"(bytes) : "memory");
+}
+// Wait until the phase of parity `parity` of `bar` has completed. A wait
+// that outlasts 2^26 tries (seconds) means a lost arrival: the launch traps
+// instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  for (unsigned tries = 0; !done; ++tries) {
+    if (tries == (1u << 26)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem(bar)), "r"(parity) : "memory");
+  }
+}
+// One bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from global to shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem(dst)), "l"(src), "r"(bytes), "r"(smem(bar)) : "memory");
+}
 
-  const float px = __fadd_rn(static_cast<float>(x), 0.5f);
-  const float y_off = __fadd_rn(static_cast<float>(r * tile_rows), 0.5f);
-  float py[kMaxRows];
-  int kmin[kMaxRows];
+// Store a thread's kCols adjacent values of one row: one 16-byte store when
+// rows are 16-byte aligned (W a multiple of 4; columns past W are whole
+// groups then), else column by column up to W.
+__device__ __forceinline__ void store_row(float* dst, const float (&v)[4], int x, int W) {
+  if ((W & 3) == 0) {
+    if (x < W) *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
 #pragma unroll
-  for (int i = 0; i < kMaxRows; ++i) {
-    py[i] = __fadd_rn(static_cast<float>(row0 + i), y_off);
-    kmin[i] = kMissKey;
+    for (int j = 0; j < 4; ++j)
+      if (x + j < W) dst[j] = v[j];
+  }
+}
+
+struct Params {
+  const float* btbl;
+  const int* count;
+  float* out;
+  int* queue;         // next item to hand out, 0 at launch
+  int R, K, H, W, tile_rows, n_xs, n_ys, n_items;
+  float near_z;
+  int far_key;
+  float sky_top, sky_hor, t_scale, luma_scale, fog_density;
+};
+
+struct Ring {
+  float tbl[kStages][kChunk * kRow];
+  int4 meta[kStages];           // item (-1: no more), entries, first chunk, last chunk
+  uint64_t full[kStages];       // 1 arrival + the chunk's bytes
+  uint64_t empty[kStages];      // 1 arrival per consumer warp
+  unsigned char wlist[kWarps][kChunk];
+};
+
+// The producer: lane 0 of the last warp. Walks items from the queue and
+// their chunks in order, one ring stage per chunk (an empty item still takes
+// one stage, with no entries, so that its consumers write its sky).
+__device__ void produce(const Params& p, Ring& ring) {
+  int item = 0, n_pass = 0, base = 0;
+  const float* band = nullptr;
+  bool need_item = true;
+  for (unsigned g = 0;; ++g) {
+    const int s = g % kStages;
+    if (g >= kStages) mbar_wait(&ring.empty[s], (g / kStages + 1) & 1);
+    const bool first = need_item;
+    if (need_item) {
+      item = atomicAdd(p.queue, 1);
+      if (item >= p.n_items) {
+        ring.meta[s] = make_int4(-1, 0, 0, 0);
+        mbar_arrive(&ring.full[s]);
+        return;
+      }
+      const int br = item / (p.n_xs * p.n_ys);   // env * R + band
+      n_pass = min((__ldg(p.count + br) + kVecP - 1) / kVecP * kVecP, p.K);
+      band = p.btbl + static_cast<size_t>(br) * p.K * kRow;
+      base = 0;
+      need_item = false;
+    }
+    const int n = min(kChunk, n_pass - base);
+    need_item = base + n >= n_pass;
+    ring.meta[s] = make_int4(item, n, first, need_item);
+    if (n > 0) {
+      // the consumers' reads of this stage happen before the copy's writes
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_arrive_tx(&ring.full[s], n * kRow * 4);
+      bulk_copy(ring.tbl[s], band + static_cast<size_t>(base) * kRow, n * kRow * 4,
+                &ring.full[s]);
+    } else {
+      mbar_arrive(&ring.full[s]);
+    }
+    base += n;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm) vec_band_kernel(const Params p) {
+  __shared__ __align__(128) Ring ring;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&ring.full[s], 1);
+      mbar_init(&ring.empty[s], kWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (warp == kWarps) {
+    if (lane == 0) produce(p, ring);
+    return;
   }
 
-  const float4* band4 = reinterpret_cast<const float4*>(
-      btbl + (static_cast<size_t>(b) * R + r) * K * kRow);
-  const int cnt = count[b * R + r];
-  const int n_pass = min((cnt + kVecP - 1) / kVecP * kVecP, K);
+  const int wx = (warp % (kBlockX / kWarpX)) * kWarpX;    // warp tile origin
+  const int wy = (warp / (kBlockX / kWarpX)) * kWarpY;
+  const int tx = wx + (lane % (kWarpX / kCols)) * kCols;  // thread micro-tile origin
+  const int ty = wy + (lane / (kWarpX / kCols)) * kRows;
 
-  for (int base = 0; base < n_pass; base += kChunk) {
-    const int n = min(kChunk, n_pass - base);   // a multiple of kVecP
-    __syncthreads();
-    for (int j = tid; j < n * (kRow / 4); j += nthreads) {
-      s_tbl4[j] = band4[static_cast<size_t>(base) * (kRow / 4) + j];
+  int b = 0, r = 0, x0 = 0, y0 = 0;
+  float px[kCols], py[kRows];
+  float cx_lo = 0.0f, cx_hi = 0.0f, cy_lo = 0.0f, cy_hi = 0.0f;
+  bool warp_live = false;
+  int kmin[kRows][kCols];
+
+  for (unsigned g = 0;; ++g) {
+    const int s = g % kStages;
+    mbar_wait(&ring.full[s], (g / kStages) & 1);
+    const int4 m = ring.meta[s];
+    if (m.x < 0) break;
+    const int n = m.y;
+    if (m.z) {   // an item's first chunk: its pixel centres and warp-tile corners
+      const int xs = m.x % p.n_xs;
+      int rest = m.x / p.n_xs;
+      y0 = (rest % p.n_ys) * kBlockY;
+      rest /= p.n_ys;
+      r = rest % p.R;
+      b = rest / p.R;
+      x0 = xs * kBlockX;
+      const float y_off = __fadd_rn(static_cast<float>(r * p.tile_rows), 0.5f);
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) px[j] = __fadd_rn(static_cast<float>(x0 + tx + j), 0.5f);
+#pragma unroll
+      for (int k = 0; k < kRows; ++k) py[k] = __fadd_rn(static_cast<float>(y0 + ty + k), y_off);
+      const int cx0 = x0 + wx, cy0 = y0 + wy;
+      warp_live = cx0 < p.W && cy0 < p.tile_rows;
+      cx_lo = __fadd_rn(static_cast<float>(cx0), 0.5f);
+      cx_hi = __fadd_rn(static_cast<float>(min(cx0 + kWarpX, p.W) - 1), 0.5f);
+      cy_lo = __fadd_rn(static_cast<float>(cy0), y_off);
+      cy_hi = __fadd_rn(static_cast<float>(min(cy0 + kWarpY, p.tile_rows) - 1), y_off);
+#pragma unroll
+      for (int k = 0; k < kRows; ++k)
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) kmin[k][j] = kMissKey;
     }
-    __syncthreads();
-    for (int g = 0; g < n; g += kVecP) {
-      int gmin[kMaxRows];
+    const float* tb = ring.tbl[s];
+
+    // warp-tile cull: surviving positions of this chunk, in list order
+    int wcount = 0;
+    for (int e0 = 0; e0 < n; e0 += 32) {
+      const int e = e0 + lane;
+      bool keep = false;
+      if (warp_live && e < n) {
+        const float4* co = reinterpret_cast<const float4*>(tb + e * kRow);
+        const float4 q0 = co[0], q1 = co[1];
+        const float c2 = tb[e * kRow + 8];
+        const float a[3] = {q0.x, q0.w, q1.z}, bb[3] = {q0.y, q1.x, q1.w}, c[3] = {q0.z, q1.y, c2};
+        keep = true;
 #pragma unroll
-      for (int i = 0; i < kMaxRows; ++i) gmin[i] = kMissKey;
-#pragma unroll
-      for (int p = 0; p < kVecP; ++p) {
-        const float* co = s_tbl + (g + p) * kRow;
-        const float ax0 = __fmul_rn(co[0], px);
-        const float ax1 = __fmul_rn(co[3], px);
-        const float ax2 = __fmul_rn(co[6], px);
-        const float axz = __fmul_rn(co[9], px);
-        const float b0 = co[1], c0 = co[2];
-        const float b1 = co[4], c1 = co[5];
-        const float b2 = co[7], c2 = co[8];
-        const float bz = co[10], cz = co[11];
-        const int lum = static_cast<int>(co[12]);
-#pragma unroll
-        for (int i = 0; i < kMaxRows; ++i) {
-          if (i < rows_per_thread) {
-            const float e0 = __fadd_rn(ax0, __fadd_rn(__fmul_rn(b0, py[i]), c0));
-            const float e1 = __fadd_rn(ax1, __fadd_rn(__fmul_rn(b1, py[i]), c1));
-            const float e2 = __fadd_rn(ax2, __fadd_rn(__fmul_rn(b2, py[i]), c2));
-            const float zn = __fadd_rn(axz, __fadd_rn(__fmul_rn(bz, py[i]), cz));
-            const bool inside = fminf(fminf(e0, e1), e2) > 0.0f;
-            const float den = __fadd_rn(__fadd_rn(e0, e1), e2);
-            const float z = __fmul_rn(zn, __frcp_rn(den));
-            const int key = (__float_as_int(z) & kKeyMask) | lum;
-            gmin[i] = min(gmin[i], (inside && z > near_z) ? key : kMissKey);
-          }
+        for (int i = 0; i < 3; ++i) {
+          const float x = a[i] > 0.0f ? cx_hi : cx_lo;
+          const float y = bb[i] > 0.0f ? cy_hi : cy_lo;
+          const float emax = __fadd_rn(__fmul_rn(a[i], x), __fadd_rn(__fmul_rn(bb[i], y), c[i]));
+          keep = keep && emax > 0.0f;
         }
       }
-#pragma unroll
-      for (int i = 0; i < kMaxRows; ++i) kmin[i] = min(kmin[i], gmin[i]);
+      const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+      if (keep) ring.wlist[warp][wcount + __popc(ballot & ((1u << lane) - 1u))] = static_cast<unsigned char>(e);
+      wcount += __popc(ballot);
     }
-  }
+    __syncwarp();
 
+    for (int q = 0; q < wcount; ++q) {
+      const float* ce = tb + ring.wlist[warp][q] * kRow;
+      const float4* co = reinterpret_cast<const float4*>(ce);
+      const float4 r0 = co[0], r1 = co[1], r2 = co[2];
+      // r0 = (a0 b0 c0 a1), r1 = (b1 c1 a2 b2), r2 = (c2 az bz cz)
+      float ax0[kCols], ax1[kCols], ax2[kCols], by0[kRows], by1[kRows], by2[kRows];
 #pragma unroll
-  for (int i = 0; i < kMaxRows; ++i) {
-    const int row = row0 + i;
-    if (i < rows_per_thread && row < tile_rows) {
-      const int k = kmin[i];
-      const float depth = __int_as_float(k & kKeyMask);
-      const float luma = __fmul_rn(static_cast<float>(k & kLumaMask), luma_scale);
-      const float shade = __frcp_rn(__fadd_rn(1.0f, __fmul_rn(0.004f, depth)));
-      const float t = __fmul_rn(__fsub_rn(py[i], 0.5f), t_scale);
-      const float sky = __fadd_rn(__fmul_rn(sky_top, __fsub_rn(1.0f, t)),
-                                  __fmul_rn(sky_hor, t));
-      float lit = __fmul_rn(luma, shade);
-      if (fog_density > 0.0f) {
-        const float f = expf(__fmul_rn(-fog_density, depth));
-        lit = __fadd_rn(__fmul_rn(lit, f), __fmul_rn(sky, __fsub_rn(1.0f, f)));
+      for (int j = 0; j < kCols; ++j) {
+        ax0[j] = __fmul_rn(r0.x, px[j]);
+        ax1[j] = __fmul_rn(r0.w, px[j]);
+        ax2[j] = __fmul_rn(r1.z, px[j]);
       }
-      const int y = r * tile_rows + row;
-      out[(static_cast<size_t>(b) * H + y) * W + x] = (k < far_key) ? lit : sky;
+#pragma unroll
+      for (int k = 0; k < kRows; ++k) {
+        by0[k] = __fadd_rn(__fmul_rn(r0.y, py[k]), r0.z);
+        by1[k] = __fadd_rn(__fmul_rn(r1.x, py[k]), r1.y);
+        by2[k] = __fadd_rn(__fmul_rn(r1.w, py[k]), r2.x);
+      }
+      unsigned inside = 0;
+#pragma unroll
+      for (int k = 0; k < kRows; ++k)
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) {
+          const bool in = __fadd_rn(ax0[j], by0[k]) > 0.0f && __fadd_rn(ax1[j], by1[k]) > 0.0f &&
+                          __fadd_rn(ax2[j], by2[k]) > 0.0f;
+          inside |= static_cast<unsigned>(in) << (k * kCols + j);
+        }
+      if (inside) {
+        const int lum = static_cast<int>(ce[12]);
+#pragma unroll
+        for (int k = 0; k < kRows; ++k)
+#pragma unroll
+          for (int j = 0; j < kCols; ++j) {
+            const float e0 = __fadd_rn(ax0[j], by0[k]);
+            const float e1 = __fadd_rn(ax1[j], by1[k]);
+            const float e2 = __fadd_rn(ax2[j], by2[k]);
+            const float zn = __fadd_rn(__fmul_rn(r2.y, px[j]), __fadd_rn(__fmul_rn(r2.z, py[k]), r2.w));
+            const float z = __fmul_rn(zn, __frcp_rn(__fadd_rn(__fadd_rn(e0, e1), e2)));
+            const int key = (__float_as_int(z) & kKeyMask) | lum;
+            const bool take = ((inside >> (k * kCols + j)) & 1u) && z > p.near_z;
+            kmin[k][j] = take ? min(kmin[k][j], key) : kmin[k][j];
+          }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&ring.empty[s]);
+    if (!m.w) continue;
+
+    // the item's last chunk: decode the keys of this thread's pixels
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      const int row = y0 + ty + k;
+      if (row < p.tile_rows) {
+        const float t = __fmul_rn(__fsub_rn(py[k], 0.5f), p.t_scale);
+        const float sky = __fadd_rn(__fmul_rn(p.sky_top, __fsub_rn(1.0f, t)),
+                                    __fmul_rn(p.sky_hor, t));
+        float v[kCols];
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) {
+          const int key = kmin[k][j];
+          const float depth = __int_as_float(key & kKeyMask);
+          const float luma = __fmul_rn(static_cast<float>(key & kLumaMask), p.luma_scale);
+          const float shade = __frcp_rn(__fadd_rn(1.0f, __fmul_rn(0.004f, depth)));
+          float lit = __fmul_rn(luma, shade);
+          if (p.fog_density > 0.0f) {
+            const float f = expf(__fmul_rn(-p.fog_density, depth));
+            lit = __fadd_rn(__fmul_rn(lit, f), __fmul_rn(sky, __fsub_rn(1.0f, f)));
+          }
+          v[j] = (key < p.far_key) ? lit : sky;
+        }
+        const int y = r * p.tile_rows + row;
+        const int x = x0 + tx;
+        store_row(p.out + (static_cast<size_t>(b) * p.H + y) * p.W + x, v, x, p.W);
+      }
     }
   }
 }
 
+int grid_size(int n_items) {
+  static int blocks = 0;
+  if (blocks == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, vec_band_kernel, kThreads, 0);
+    blocks = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  return n_items < blocks ? n_items : blocks;
+}
+
 }  // namespace
 
+// `queue` is one int of device scratch; it is zeroed on `stream` before the
+// launch. `btbl` must be 16-byte aligned.
 extern "C" int raster_vec_launch(
-    const float* btbl, const int* count, float* out, int B, int R, int K,
+    const float* btbl, const int* count, float* out, int* queue, int B, int R, int K,
     int H, int W, int tile_rows, float near_z, int far_key, float sky_top,
     float sky_hor, float t_scale, float luma_scale, float fog_density,
     void* stream) {
-  const int rows_per_thread = tile_rows < kMaxRows ? tile_rows : kMaxRows;
-  const int groups = (tile_rows + rows_per_thread - 1) / rows_per_thread;
-  vec_band_kernel<<<dim3(R, B), dim3(W, groups), 0, static_cast<cudaStream_t>(stream)>>>(
-      btbl, count, out, R, K, H, W, tile_rows, rows_per_thread, near_z,
-      far_key, sky_top, sky_hor, t_scale, luma_scale, fog_density);
+  Params p{btbl, count, out, queue, R, K, H, W, tile_rows,
+           (W + kBlockX - 1) / kBlockX, (tile_rows + kBlockY - 1) / kBlockY, 0,
+           near_z, far_key, sky_top, sky_hor, t_scale, luma_scale, fog_density};
+  p.n_items = p.n_xs * p.n_ys * R * B;
+  if (p.n_items == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(queue, 0, sizeof(int), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  vec_band_kernel<<<grid_size(p.n_items), kThreads, 0, st>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Launch facts for reports: registers and local (spill) bytes a thread,
+// static shared memory a block, threads a block and resident blocks per SM.
+extern "C" int raster_vec_info(int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, vec_band_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, vec_band_kernel, kThreads, 0);
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.localSizeBytes);
+  out[2] = static_cast<int>(a.sharedSizeBytes);
+  out[3] = kThreads;
+  out[4] = per_sm;
+  return static_cast<int>(err);
 }

@@ -409,10 +409,11 @@ def prim_bands(tbl, idx, count, height: int, width: int, near: float,
                          f"H={height} W={width} K={K}")
     fn = cuda_lib.entry_point(
         "raster_prim", "raster_prim_launch",
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int]
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int]
         + [ctypes.c_float] * 5 + [ctypes.c_void_p])
     out = torch.empty((B, height, width), dtype=torch.float32, device=tbl.device)
-    err = fn(tbl.data_ptr(), idx.data_ptr(), count.data_ptr(), out.data_ptr(),
+    queue = torch.empty(1, dtype=torch.int32, device=tbl.device)   # zeroed by the launch
+    err = fn(tbl.data_ptr(), idx.data_ptr(), count.data_ptr(), out.data_ptr(), queue.data_ptr(),
              B, P, R, K, height, width, tile_rows, float(np.float32(1.0 / near)),
              prim_far_key(far), SKY_TOP_L, SKY_HOR_L, 1.0 / max(height - 1, 1),
              1.0 / LUMA_MASK, fog_density, cuda_lib.stream_ptr(tbl.device))
@@ -468,7 +469,8 @@ def vec_bands(btbl, count, height: int, width: int, near: float, far: float,
               fog_density: float, tile_rows: int):
     """Kernel D on CUDA tensors (``csrc/raster_vec.cu``), its plain PyTorch
     version on CPU tensors. btbl (B, R, K, 16) f32 with K a multiple of
-    VEC_P, count (B, R) int32 → gray (B, H, W) f32."""
+    VEC_P, 16-byte aligned (the kernel bulk-copies its rows), count (B, R)
+    int32 → gray (B, H, W) f32."""
     if not btbl.is_cuda:
         return vec_bands_plain(btbl, count, height, width, near, far,
                                fog_density, tile_rows)
@@ -478,12 +480,15 @@ def vec_bands(btbl, count, height: int, width: int, near: float, far: float,
     if R * tile_rows != height or K % VEC_P or width > 256:
         raise ValueError(f"unsupported band layout: R={R} rows={tile_rows} "
                          f"H={height} W={width} K={K}")
+    if btbl.data_ptr() % 16:
+        raise ValueError("btbl must be 16-byte aligned")
     fn = cuda_lib.entry_point(
         "raster_vec", "raster_vec_launch",
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int]
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int]
         + [ctypes.c_float] * 5 + [ctypes.c_void_p])
     out = torch.empty((B, height, width), dtype=torch.float32, device=btbl.device)
-    err = fn(btbl.data_ptr(), count.data_ptr(), out.data_ptr(),
+    queue = torch.empty(1, dtype=torch.int32, device=btbl.device)   # zeroed by the launch
+    err = fn(btbl.data_ptr(), count.data_ptr(), out.data_ptr(), queue.data_ptr(),
              B, R, K, height, width, tile_rows, near, pack_key_const(far),
              SKY_TOP_L, SKY_HOR_L, 1.0 / max(height - 1, 1), 1.0 / LUMA_MASK,
              fog_density, cuda_lib.stream_ptr(btbl.device))

@@ -8,10 +8,10 @@ Phases (any failure exits nonzero, with no result line):
    the issue rate the bounds divide operation counts by (SMs × 128 lanes ×
    the maximum SM clock);
 2. build: every hand-written kernel from ``csrc/`` (one nvcc per source,
-   all started together), with ptxas's registers and spills and, for
-   kernels A, A-tex and B, their launch facts (resident blocks per SM);
-   then kernels A (flat and textured, C = 1 and 3) and B bit for bit
-   against their plain versions on the synthetic edge cases of
+   all started together), with ptxas's registers and spills and every
+   kernel's launch facts (registers, spills, shared memory, resident blocks
+   per SM); then kernels A (flat and textured, C = 1 and 3), B, C and D bit
+   for bit against their plain versions on the synthetic edge cases of
    ``edge_case_tables``;
 3. kernel A (exact z-buffer) vs its plain PyTorch version, and
 4. kernel B (fast grayscale) vs its plain version and vs kernel A's luma, on
@@ -19,7 +19,8 @@ Phases (any failure exits nonzero, with no result line):
    kernel and plain version is timed with CUDA events at those shapes;
    bounds count the (entry, pixel) pairs in the 16 × 16 warp tiles that the
    exact cull keeps (the band-list figure, every listed entry on every pixel
-   of its band, is reported beside them);
+   of its band, is reported beside them) and, for B, C and D, the table and
+   list bytes of the positions they walk;
 5. the main path on 8 envs, on the card vs on the CPU's plain versions: an
    expert rollout with auto-resets, and an fp32 ``PolicyCNN`` forward (TF32
    is switched off for that comparison and restored after it);
@@ -94,6 +95,12 @@ OPS_PER_PIXEL_TEX = 24
 # mul, 1 add, 1 reciprocal, 1 mul) and the hit-or-sky compare and select.
 OPS_PER_PIXEL_EPILOGUE_A = 2
 OPS_PER_PIXEL_EPILOGUE_B = 10
+# Bytes a band kernel reads per walked list position: B gathers 13 floats
+# through a 4-byte index, C 16 floats through one, D reads a 64-byte row of
+# its band's own table.
+FAST_ENTRY_BYTES = 13 * 4 + 4
+PRIM_ENTRY_BYTES = 16 * 4 + 4
+VEC_ENTRY_BYTES = 16 * 4
 
 
 class SmokeFailure(RuntimeError):
@@ -262,10 +269,29 @@ def fast_args(setup, t: int, near: float, far: float, rows: int, lod: float = 2.
     return (rf.pack_setup_fast(setup), idx, cnt, HW, HW, near, far, 0.0, rows)
 
 
+def prim_args(setup, t: int, near: float, far: float, rows: int):
+    """Kernel C's arguments for a fleet's quad-ready setup at HW²: the fused
+    primitives' table, their band lists at 2 px LOD, no fog."""
+    from carla_imitation_learning_tpu_torch.ops import raster_fast as rf
+
+    prims = rf.fuse_prims(setup)
+    idx, cnt = rf.tile_lists_fast(prims, HW, t, width=HW, lod_px=2.0, rows_per_band=rows)
+    return (rf.pack_setup_prims(prims), idx, cnt, HW, HW, near, far, 0.0, rows)
+
+
+def vec_args(args_b):
+    """Kernel D's arguments from kernel B's: B's table gathered through its
+    lists (T_RICH is a multiple of VEC_P, so no padding is needed)."""
+    from carla_imitation_learning_tpu_torch.ops import raster_fast as rf
+
+    return (rf.gather_band_tables(args_b[0], args_b[1]), *args_b[2:])
+
+
 def kernel_inputs(kernel: str, dev, seed: int = 0):
     """(wrapper, plain version, arguments) of kernel A (luma, T = 512),
-    A-tex (luma, the rich preset, T = 1408), B (T = 512) or B-rich (B on the
-    rich preset's lists) on ``seed``'s 1024-env fleet: the inputs that the
+    A-tex (luma, the rich preset, T = 1408), B (T = 512), B-rich (B on the
+    rich preset's lists), C (the rich preset's fused quads) or D (B-rich's
+    lists as band tables) on ``seed``'s 1024-env fleet: the inputs that the
     kernel phases time."""
     import torch
 
@@ -275,17 +301,23 @@ def kernel_inputs(kernel: str, dev, seed: int = 0):
     from carla_imitation_learning_tpu_torch.sim.world import reset_env
 
     params, town = bench_fleet(dev)
-    rcfg, t = {"A": (RenderConfig(height=HW, width=HW, max_triangles=T), T),
-               "B": (RenderConfig(height=HW, width=HW, max_triangles=T), T),
-               "A-tex": (rich_config(), T_RICH),
-               "B-rich": (rich_config(rgb=False, fast=True, quads=True), T_RICH)}[kernel]
+    standard = RenderConfig(height=HW, width=HW, max_triangles=T)
+    quad_ready = rich_config(rgb=False, fast=True, quads=True)
+    rcfg, t = {"A": (standard, T), "B": (standard, T), "A-tex": (rich_config(), T_RICH),
+               "B-rich": (quad_ready, T_RICH), "C": (quad_ready, T_RICH),
+               "D": (quad_ready, T_RICH)}[kernel]
     states = reset_env(params, town, torch.Generator().manual_seed(seed), N_ENVS)
     setup = make_scene_setup(params, town, rcfg, device=dev)(states)
     rows = ra.band_rows(HW)
     if kernel.startswith("A"):
         return (ra.raster_bands, ra.raster_bands_plain,
                 exact_args(setup, t, rcfg.near, rcfg.far, 1, rows))
-    return rf.fast_bands, rf.fast_bands_plain, fast_args(setup, t, rcfg.near, rcfg.far, rows)
+    if kernel == "C":
+        return rf.prim_bands, rf.prim_bands_plain, prim_args(setup, t, rcfg.near, rcfg.far, rows)
+    args = fast_args(setup, t, rcfg.near, rcfg.far, rows)
+    if kernel == "D":
+        return rf.vec_bands, rf.vec_bands_plain, vec_args(args)
+    return rf.fast_bands, rf.fast_bands_plain, args
 
 
 def check_exact(args, what: str) -> tuple[float, int]:
@@ -352,10 +384,11 @@ def run(args) -> dict:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
     facts = {"A": launch_facts("raster_exact", 1, 0), "A-tex": launch_facts("raster_exact", 1, 1),
-             "B": launch_facts("raster_fast")}
+             "B": launch_facts("raster_fast"), "C": launch_facts("raster_prim"),
+             "D": launch_facts("raster_vec")}
     log(json.dumps({"launch_facts": facts}))
 
-    # --- phase 2b: kernels A and B vs plain on synthetic edge cases
+    # --- phase 2b: kernels A to D vs plain on synthetic edge cases
     t0 = time.perf_counter()
     edges = edge_case_phase(dev)
     log(json.dumps({"edge_cases": {**edges, "s": time.perf_counter() - t0}}))
@@ -408,6 +441,7 @@ def run(args) -> dict:
                      rf.fast_bands_plain, b_args, errs["B"], rate,
                      ops=b_kept * OPS_PER_PASS_B + frame_px * OPS_PER_PIXEL_EPILOGUE_B,
                      band_list_ops=listed(b_args[2], rows) * OPS_PER_PASS_B,
+                     table_bytes=walked_bytes(b_args[2], 2, b_args[1].shape[2], FAST_ENTRY_BYTES),
                      out_bytes=frame_px * 4, rows=rows, warp_tile_pairs=b_tiles,
                      kept_pairs=b_kept, passes_per_band=float(b_args[2].float().mean()),
                      **facts["B"]),
@@ -483,7 +517,7 @@ def run(args) -> dict:
     paths = {"main": launches}
     # the rich phases allocate gigabytes of temporaries; they run after the
     # main path has been timed
-    rich, b_rich_err = rich_kernels(params, town, dev, rows, rate, facts["A-tex"])
+    rich, b_rich_err = rich_kernels(params, town, dev, rows, rate, facts)
     kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], b_rich_err)
     kernels += rich
     paths["rich_collection"] = rich_collection(params, town, dev)
@@ -517,6 +551,16 @@ def read_counts() -> dict:
     return {name: c.launches for name, c in counters().items()}
 
 
+def walked_bytes(count, group: int, k: int, entry_bytes: int) -> float:
+    """Bytes of table and list that a band kernel reads: ``entry_bytes`` for
+    each list position it walks (the count rounded up to a ``group``, at most
+    ``k``), and the counts."""
+    import torch
+
+    n_pass = torch.clamp((count.long() + group - 1) // group * group, max=k)
+    return float(n_pass.sum()) * entry_bytes + count.numel() * 4
+
+
 def listed(count, rows: int) -> float:
     """(entry, pixel) pairs of band lists of ``count`` entries over bands of
     ``rows`` × HW pixels: what a pass without a cull walks."""
@@ -524,7 +568,7 @@ def listed(count, rows: int) -> float:
 
 
 def kernel_entry(name, counter, src, replaces, fn, plain, args, err, rate, ops, out_bytes,
-                 table_bytes=None, path="main", band_list_ops=None, rows=None,
+                 table_bytes=None, path="main", band_list_ops=None, rows=None, count=None,
                  **extra) -> dict:
     """One entry of the ``kernels`` line: the kernel and its plain version
     timed with CUDA events on ``args``, and the bound from ``ops`` at the
@@ -533,8 +577,9 @@ def kernel_entry(name, counter, src, replaces, fn, plain, args, err, rate, ops, 
     the (entry, pixel) pairs in the warp tiles that the exact cull keeps,
     plus the epilogue. With ``band_list_ops`` (the same count over every
     listed entry on every pixel of its band), also the band-list figure, and
-    with ``rows``, the listed pairs and the lane-instruction slots the
-    kernel's time held per listed pair."""
+    with ``rows``, the listed pairs (of the list counts ``count``, by
+    default ``args[2]``) and the lane-instruction slots the kernel's time
+    held per listed pair."""
     ms = cuda_ms(lambda: fn(*args), reps=20)
     plain_ms = cuda_ms(lambda: plain(*args), reps=2, warmup=1)
     if table_bytes is None:
@@ -544,12 +589,15 @@ def kernel_entry(name, counter, src, replaces, fn, plain, args, err, rate, ops, 
     if band_list_ops is not None:
         extra["band_list_bound_ms"] = bound(band_list_ops, table_bytes + out_bytes, rate)[0]
     if rows is not None:
-        pairs = listed(args[2], rows)
+        pairs = listed(args[2] if count is None else count, rows)
         extra.update(listed_pairs=pairs, slots_per_pair=ms * 1e-3 * rate / pairs,
                      band_tile_pairs=pairs / (rows * HW) * (HW // WARP_TILE) * (rows // WARP_TILE))
     log(f"{name}: {ms:.3f} ms (plain {plain_ms:.1f} ms, bound {bound_ms:.3f} ms "
         f"by {bound_by}, band-list bound {extra.get('band_list_bound_ms', float('nan')):.3f} ms, "
-        f"max|d| vs plain {err:.3e})")
+        f"max|d| vs plain {err:.3e})"
+        + (f", {extra['registers']} registers, {extra['spill_bytes']} spill bytes, "
+           f"{extra['smem_bytes']} B shared, {extra['blocks_per_sm']} blocks/SM"
+           if "registers" in extra else ""))
     return {"name": name, "route": "cuda",
             "source": f"carla_imitation_learning_tpu_torch/csrc/{src}",
             "replaces": replaces, "launches": 0, "max_abs_err": err, "ms": ms,
@@ -562,6 +610,7 @@ def kernel_entry(name, counter, src, replaces, fn, plain, args, err, rate, ops, 
 EDGE_FRAMES = ((64, 64), (96, 96), (48, 80), (40, 160), (40, 150))
 EDGE_T = 640             # table width of the synthetic frames
 EDGE_LONG = 300          # entries on the long list: more than two staging chunks
+EDGE_NEAR, EDGE_FAR = 0.5, 300.0
 
 
 def _screen_rows(xy, w, depth, uv):
@@ -582,16 +631,74 @@ def _screen_rows(xy, w, depth, uv):
     return edges, znum, unum, vnum, det
 
 
-def _edge_frame(rng, n_envs: int, height: int, width: int, rows: int):
-    """One synthetic frame shape: → (tex (B, 23, T), fast (B, 13, T),
-    lists_a, lists_b) with nested per-(env, band) index lists; ``lists_b``
-    entries are (listed count, list) pairs."""
+def _plane_rows(xy, values):
+    """Rows (a, b, c) of the screen-affine functions through ``values`` (n,
+    3) at the vertices ``xy`` (n, 3, 2), in float64; zeros where the
+    vertices are collinear."""
+    import numpy as np
+
+    m = np.concatenate([xy, np.ones(xy.shape[:2] + (1,))], -1)       # (n, 3, 3)
+    ok = np.abs(np.linalg.det(m)) > 1e-9
+    out = np.zeros((len(xy), 3))
+    out[ok] = np.linalg.solve(m[ok], values[ok][..., None])[..., 0]
+    return out
+
+
+def _border_rows(quads):
+    """Sign-normalized border rows (n, 4, 3) of convex quads (n, 4, 2): the
+    line through corners i and i + 1, positive inside."""
+    import numpy as np
+
+    h = np.concatenate([quads, np.ones(quads.shape[:2] + (1,))], -1)
+    rows = np.cross(h, np.roll(h, -1, axis=1))
+    centre = np.concatenate([quads.mean(1), np.ones((len(quads), 1))], -1)
+    sign = np.where((rows * centre[:, None]).sum(-1) < 0, -1.0, 1.0)
+    return rows * sign[..., None]
+
+
+def _band_lists(meets, zmin, special: int, sub_lod: int, env: int):
+    """Nearest-first lists of what ``meets`` (R, n) each band, with the
+    ``special`` entry (one that lights nothing) inserted mid-list and the
+    last band of env 1 empty. → (the lists; (listed count, list) pairs in
+    which even bands list an odd count followed by the ``sub_lod`` entry;
+    and pairs in which even bands list a count 1 to 5 past a multiple of 8
+    followed by two ``special`` entries and the ``sub_lod`` entry, so that it
+    lies in the tail that kernel D's groups of 8 walk and B's pairs do
+    not)."""
+    import numpy as np
+
+    lists, counted, counted_d = [], [], []
+    for r in range(len(meets)):
+        cand = np.flatnonzero(meets[r])
+        order = [int(i) for i in cand[np.argsort(zmin[cand], kind="stable")]]
+        order.insert(len(order) // 2, special)
+        if env == 1 and r == len(meets) - 1:
+            order = []                       # an empty band
+        lists.append(order)
+        if r % 2 == 0 and len(order) > 1:    # an odd count, then the sub-LOD entry
+            listed = len(order) - (1 - len(order) % 2)
+            counted.append((listed, order[:listed] + [sub_lod] + order[listed:]))
+            listed = max(i for i in range(1, len(order)) if 1 <= i % 8 <= 5)
+            counted_d.append((listed, order[:listed] + [special, special, sub_lod]
+                              + order[listed:]))
+        else:
+            counted.append((len(order), order))
+            counted_d.append((len(order), order))
+    return lists, counted, counted_d
+
+
+def _edge_frame(rng, rng_c, n_envs: int, height: int, width: int, rows: int):
+    """One synthetic frame shape: → (tex (B, 23, T), fast (B, 13, T), prim
+    (B, 16, T), lists_a, lists_b, lists_c, lists_d) with nested per-(env,
+    band) index lists; those of B, C and D are (listed count, list) pairs.
+    ``rng_c`` draws what only kernel C's table adds."""
     import numpy as np
 
     n_bands = height // rows
     tex = np.zeros((n_envs, 23, EDGE_T), np.float32)
     fast = np.zeros((n_envs, 13, EDGE_T), np.float32)
-    lists_a, lists_b = [], []
+    prim = np.zeros((n_envs, 16, EDGE_T), np.float32)
+    lists_a, lists_b, lists_c, lists_d = [], [], [], []
     for b in range(n_envs):
         xy, w, depth, flip = [], [], [], []
 
@@ -674,36 +781,60 @@ def _edge_frame(rng, n_envs: int, height: int, width: int, rows: int):
         pts = np.asarray(xy, np.float64)[..., 1]
         behind = (np.asarray(w) <= 0).any(-1)
         zmin = np.asarray(depth).min(-1)
-        band_a, band_b = [], []
-        for r in range(n_bands):
-            meets = behind | ((pts.max(-1) >= r * rows) & (pts.min(-1) <= (r + 1) * rows))
-            meets[sub_lod] = False
-            if b != 0 or r != 0:
-                meets[long_first:] = False
-            cand = np.flatnonzero(meets)
-            order = [int(i) for i in cand[np.argsort(zmin[cand], kind="stable")]]
-            order.insert(len(order) // 2, den0)
-            if b == 1 and r == n_bands - 1:
-                order = []                       # an empty band
-            band_a.append(order)
-            if r % 2 == 0 and len(order) > 1:    # an odd count, then the sub-LOD entry
-                listed = len(order) - (1 - len(order) % 2)
-                band_b.append((listed, order[:listed] + [sub_lod] + order[listed:]))
-            else:
-                band_b.append((len(order), order))
+        y_band = np.arange(n_bands)[:, None] * rows
+        meets = behind | ((pts.max(-1) >= y_band) & (pts.min(-1) <= y_band + rows))
+        meets[:, sub_lod] = False
+        meets[1 if b == 0 else 0:, long_first:] = False
+        band_a, band_b, band_d = _band_lists(meets, zmin, den0, sub_lod, b)
         lists_a.append(band_a)
         lists_b.append(band_b)
-    return tex, fast, lists_a, lists_b
+        lists_d.append(band_d)
+
+        # kernel C's table: the same triangles as 4-border primitives (the
+        # first edge row repeated) with the 1/z row through their vertices,
+        # then quads whose corners lie on warp-tile corners and pixel centres
+        # (borders through both), and two full-width strips whose 1/z is
+        # 1/near exactly: on the whole of one, and on the other left of x = 64
+        # (right of it, 1/z rounds below 1/near)
+        prim[b, :9, :n + 1] = fast[b, :9, :n + 1]
+        prim[b, 9:12, :n + 1] = fast[b, :3, :n + 1]
+        prim[b, 12:15, :n] = _plane_rows(np.asarray(xy, np.float64),
+                                         1.0 / np.asarray(depth, np.float64)).T
+        prim[b, 15, :n] = lum
+        corners, quad_z = [], []
+        for gx in range(0, width, 16):
+            for gy in range(0, height, 16):
+                h = 0.5 * rng_c.integers(0, 2, 3)
+                corners.append([(gx + h[0], gy + h[0]), (gx + 16 + h[1], gy + 0.5),
+                                (gx + 16.5, gy + 16 + h[2]), (gx + 0.5, gy + 16 + h[1])])
+                quad_z.append(rng_c.uniform(3, 40, 4))
+        corners += [[(0, 4), (width, 4), (width, 12), (0, 12)]] * 2
+        quad_z += [np.full(4, EDGE_NEAR)] * 2
+        corners, quad_z = np.asarray(corners, np.float64), np.asarray(quad_z)
+        q0, nq = den0 + 1, len(corners)
+        prim[b, :12, q0:q0 + nq] = _border_rows(corners).reshape(nq, 12).T
+        prim[b, 12:15, q0:q0 + nq] = _plane_rows(corners[:, :3], 1.0 / quad_z[:, :3]).T
+        prim[b, 15, q0:q0 + nq] = rng_c.integers(0, 4096, nq)
+        inv_near = np.float32(1.0 / EDGE_NEAR)
+        prim[b, 12:15, q0 + nq - 2] = [0.0, 0.0, inv_near]
+        prim[b, 12:15, q0 + nq - 1] = [-2.0 ** -30, 0.0, inv_near]
+        meets_c = np.concatenate([meets, np.zeros((n_bands, 1), bool),
+                                  (corners[..., 1].max(-1) >= y_band)
+                                  & (corners[..., 1].min(-1) <= y_band + rows)], 1)
+        zmin_c = np.concatenate([zmin, [np.inf], quad_z.min(-1)])
+        lists_c.append(_band_lists(meets_c, zmin_c, den0, sub_lod, b)[1])
+    return tex, fast, prim, lists_a, lists_b, lists_c, lists_d
 
 
-def _pack_lists(lists, n_envs: int, n_bands: int, counted: bool):
-    """Nested per-(env, band) lists → (idx (B, R, K) int32 with K even and
-    unused slots pointing at table column 0, count (B, R) int32)."""
+def _pack_lists(lists, n_envs: int, n_bands: int, counted: bool, multiple: int = 2):
+    """Nested per-(env, band) lists → (idx (B, R, K) int32 with K a multiple
+    of ``multiple`` and unused slots pointing at table column 0, count (B,
+    R) int32)."""
     import numpy as np
 
     items = [[lst if counted else (len(lst), lst) for lst in env] for env in lists]
     k = max(2, max(len(lst) for env in items for _, lst in env) + 1)
-    k += k % 2
+    k += -k % multiple
     idx = np.zeros((n_envs, n_bands, k), np.int32)
     count = np.zeros((n_envs, n_bands), np.int32)
     for b, env in enumerate(items):
@@ -714,52 +845,67 @@ def _pack_lists(lists, n_envs: int, n_bands: int, counted: bool):
 
 
 def edge_case_tables(device, n_envs: int = 8, seed: int = 0) -> list:
-    """Synthetic band tables for kernels A and B at the cases that warp-tile
-    culling and deferred shading could get wrong: edges through pixel
-    centres and warp-tile corners (integer and half-integer vertices),
-    slivers, both windings (and all-negative regions of triangles crossing
-    the eye plane), entries whose den is 0 on every pixel, equal-z
+    """Synthetic band tables for kernels A to D at the cases that warp-tile
+    culling, deferred shading and a staging ring could get wrong: edges
+    through pixel centres and warp-tile corners (integer and half-integer
+    vertices), slivers, both windings (and all-negative regions of triangles
+    crossing the eye plane), entries whose den is 0 on every pixel, equal-z
     duplicates and a shared-diagonal tie, a list longer than two staging
     chunks, an empty band, odd counts followed by a sub-LOD triangle that
     covers pixels, depths in front of near and beyond far, and frames whose
     bands are 32, 24 and 20 rows, up to 160 columns, one of them a width
-    that is no multiple of 4. Built with numpy
-    from ``seed`` and moved to ``device``. → one dict per frame shape:
-    height, width, rows, tex (B, 23, T) f32 (its first 17 rows are the flat
-    table), idx_a / count_a (exact lists), fast (B, 13, T) f32, idx_b /
-    count_b (fast lists)."""
+    that is no multiple of 4. Kernel D walks B's table gathered through its
+    own lists (``gather_band_tables``) in groups of 8: their counts end 1 to
+    5 entries into a group, and the sub-LOD triangle lies in the tail that D
+    walks and B does not. Kernel C gets the same triangles as 16-row
+    primitives (the first edge row repeated, 1/z through the vertices),
+    quads whose corners are warp-tile corners and pixel centres, strips with
+    1/z exactly at 1/near, and lists built the same way (equal keys from the
+    duplicates, the empty band, odd counts with the sub-LOD entry). Built
+    with numpy from ``seed`` and moved to ``device``. → one dict per frame shape: height, width, rows, tex (B,
+    23, T) f32 (its first 17 rows are the flat table), idx_a / count_a
+    (exact lists), fast (B, 13, T) f32, idx_b / count_b (fast lists), idx_d
+    / count_d (D's lists, K a multiple of 8), prim (B, 16, T) f32, idx_c /
+    count_c."""
     import numpy as np
     import torch
 
     from carla_imitation_learning_tpu_torch.ops.raster import band_rows
 
-    rng = np.random.default_rng(seed)
+    rng, rng_c = np.random.default_rng(seed), np.random.default_rng(seed + 1)
     cases = []
     for height, width in EDGE_FRAMES:
         rows = band_rows(height)
-        tex, fast, lists_a, lists_b = _edge_frame(rng, n_envs, height, width, rows)
-        idx_a, count_a = _pack_lists(lists_a, n_envs, height // rows, counted=False)
-        idx_b, count_b = _pack_lists(lists_b, n_envs, height // rows, counted=True)
+        tex, fast, prim, lists_a, lists_b, lists_c, lists_d = _edge_frame(
+            rng, rng_c, n_envs, height, width, rows)
+        n_bands = height // rows
+        idx_a, count_a = _pack_lists(lists_a, n_envs, n_bands, counted=False)
+        idx_b, count_b = _pack_lists(lists_b, n_envs, n_bands, counted=True)
+        idx_d, count_d = _pack_lists(lists_d, n_envs, n_bands, counted=True, multiple=8)
+        idx_c, count_c = _pack_lists(lists_c, n_envs, n_bands, counted=True)
 
         def dev(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
         cases.append({"height": height, "width": width, "rows": rows,
                       "tex": dev(tex), "idx_a": dev(idx_a), "count_a": dev(count_a),
-                      "fast": dev(fast), "idx_b": dev(idx_b), "count_b": dev(count_b)})
+                      "fast": dev(fast), "idx_b": dev(idx_b), "count_b": dev(count_b),
+                      "idx_d": dev(idx_d), "count_d": dev(count_d), "prim": dev(prim),
+                      "idx_c": dev(idx_c),
+                      "count_c": dev(count_c)})
     return cases
 
 
 def edge_case_phase(dev) -> dict:
-    """Kernels A (flat and textured, C = 1 and C = 3) and B bit for bit
+    """Kernels A (flat and textured, C = 1 and C = 3), B, C and D bit for bit
     against their plain versions on ``edge_case_tables``. → a summary."""
     import torch
 
     from carla_imitation_learning_tpu_torch.ops import raster as ra
     from carla_imitation_learning_tpu_torch.ops import raster_fast as rf
 
-    near, far = 0.5, 300.0
-    summary = {"frames": [], "pixels_hit_A": 0, "pixels_hit_B": 0}
+    near, far = EDGE_NEAR, EDGE_FAR
+    summary = {"frames": [], **{f"pixels_hit_{k}": 0 for k in "ABCD"}}
     for case in edge_case_tables(dev):
         h, w, rows = case["height"], case["width"], case["rows"]
         for textured in (False, True):
@@ -774,15 +920,23 @@ def edge_case_phase(dev) -> dict:
                       f"(max|d| {float((got[1] - want[1]).abs().max()):.3e}, "
                       f"{float((got[2] - want[2]).abs().max()):.3e})")
             summary["pixels_hit_A"] += int((want[2] < far).sum())
-        args_b = (case["fast"], case["idx_b"], case["count_b"], h, w, near, far, 0.0, rows)
-        got, want = rf.fast_bands(*args_b), rf.fast_bands_plain(*args_b)
-        check(torch.equal(got, want), f"edge cases {h}x{w} kernel B: max|d| "
-              f"{float((got - want).abs().max()):.3e}")
-        sky = rf.fast_bands_plain(case["fast"], case["idx_b"], torch.zeros_like(case["count_b"]),
+        count_b = case["count_b"]
+        sky = rf.fast_bands_plain(case["fast"], case["idx_b"], torch.zeros_like(count_b),
                                   h, w, near, far, 0.0, rows)
-        summary["pixels_hit_B"] += int((want != sky).sum())
+        btbl = rf.gather_band_tables(case["fast"], case["idx_d"])
+        for name, fn, plain, args in (
+                ("B", rf.fast_bands, rf.fast_bands_plain, (case["fast"], case["idx_b"], count_b)),
+                ("C", rf.prim_bands, rf.prim_bands_plain,
+                 (case["prim"], case["idx_c"], case["count_c"])),
+                ("D", rf.vec_bands, rf.vec_bands_plain, (btbl, case["count_d"]))):
+            args = (*args, h, w, near, far, 0.0, rows)
+            got, want = fn(*args), plain(*args)
+            check(torch.equal(got, want), f"edge cases {h}x{w} kernel {name}: max|d| "
+                  f"{float((got - want).abs().max()):.3e}")
+            summary[f"pixels_hit_{name}"] += int((want != sky).sum())
         summary["frames"].append({"hw": [h, w], "rows": rows,
                                   "max_count_a": int(case["count_a"].max()),
+                                  "max_count_c": int(case["count_c"].max()),
                                   "empty_bands": int((case["count_a"] == 0).sum())})
     return summary
 
@@ -799,9 +953,9 @@ def rich_kernels(params, town, dev, rows, rate, facts) -> tuple[list, float]:
     """Phase 7: kernel A's textured variant, B, C and D on the rich fleet vs
     their plain versions (and C, D vs B) from three seeds; → their entries
     of the ``kernels`` line, timed on seed 0's inputs (bounds at the issue
-    ``rate``; ``facts``: A-tex's launch facts), and kernel B's max|d| vs its
-    plain version on these lists. Kernel B on the same fleet's lists is
-    timed too and reported in the ``rich_kernels`` line."""
+    ``rate``; ``facts``: every kernel's launch facts), and kernel B's max|d|
+    vs its plain version on these lists. Kernel B on the same fleet's lists
+    is timed too and reported in the ``rich_kernels`` line."""
     import torch
 
     from carla_imitation_learning_tpu_torch.ops import raster as ra
@@ -831,23 +985,18 @@ def rich_kernels(params, town, dev, rows, rate, facts) -> tuple[list, float]:
         del s_tex, args
 
         s_q = quad_setup(states)
-        prims = rf.fuse_prims(s_q)
-        tbl_c = rf.pack_setup_prims(prims)
-        idx_c, cnt_c = rf.tile_lists_fast(prims, HW, T_RICH, width=HW, lod_px=2.0,
-                                          rows_per_band=rows)
-        args_c = (tbl_c, idx_c, cnt_c, HW, HW, near, far, 0.0, rows)
-        out_c = rf.prim_bands(*args_c)
-        err = float((out_c - rf.prim_bands_plain(*args_c)).abs().max())
-        check(err < 1e-5, f"kernel C seed {seed}: max|d| vs plain {err:.3e}")
+        args_c = prim_args(s_q, T_RICH, near, far, rows)
+        out_c, want_c = rf.prim_bands(*args_c), rf.prim_bands_plain(*args_c)
+        err = float((out_c - want_c).abs().max())
+        check(torch.equal(out_c, want_c), f"kernel C seed {seed}: max|d| vs plain {err:.3e}")
         errs["C"] = max(errs["C"], err)
 
-        seen, counts = {}, {"A-tex": lists[1], "C": cnt_c}
+        seen, counts = {}, {"A-tex": lists[1], "C": args_c[2]}
         for lod in (2.0, 0.0):
             args_b = fast_args(s_q, T_RICH, near, far, rows, lod=lod)
             err, out_b = check_fast(args_b, f"kernel B seed {seed} lod {lod} (rich lists)")
             errs["B"] = max(errs["B"], err)
-            args_d = (rf.gather_band_tables(args_b[0], args_b[1]), args_b[2], HW, HW, near, far,
-                      0.0, rows)
+            args_d = vec_args(args_b)
             out_d = rf.vec_bands(*args_d)
             check(torch.equal(out_d, rf.vec_bands_plain(*args_d)),
                   f"kernel D seed {seed} lod {lod}: differs from its plain version")
@@ -875,7 +1024,7 @@ def rich_kernels(params, town, dev, rows, rate, facts) -> tuple[list, float]:
                                 "fog_D_vs_B_max": fog_err,
                                 "passes_per_band": {k: float(v.float().mean())
                                                     for k, v in counts.items()}})
-        del s_q, prims
+        del s_q
         torch.cuda.synchronize()
         log(f"rich seed {seed}: A-tex and B vs plain ok, C vs B {quad}, D vs B pixels "
             f"differing {seen}")
@@ -884,7 +1033,7 @@ def rich_kernels(params, town, dev, rows, rate, facts) -> tuple[list, float]:
     a_args, b_args, c_args, d_args = (inputs[k] for k in ("A-tex", "B-rich", "C", "D"))
     b_ms = cuda_ms(lambda: rf.fast_bands(*b_args), reps=20)
     b_tiles, b_kept = warp_tile_pairs(*b_args[:5], rows, exact=False)
-    b_bytes = sum(a.numel() * a.element_size() for a in b_args[:3]) + frame_px * 4
+    b_bytes = walked_bytes(b_args[2], 2, b_args[1].shape[2], FAST_ENTRY_BYTES) + frame_px * 4
     b_listed = listed(b_args[2], rows)
     report["kernel_ms_per_frame"] = {"B": b_ms}
     report["B_rich_lists"] = {
@@ -908,23 +1057,26 @@ def rich_kernels(params, town, dev, rows, rate, facts) -> tuple[list, float]:
                      band_list_ops=listed(a_args[2], rows) * (OPS_PER_PASS_A + 1)
                      + hits * (OPS_PER_PIXEL_TEX + 1),
                      out_bytes=frame_px * 4 * 3, path="rich_collection", rows=rows,
-                     warp_tile_pairs=a_tiles, kept_pairs=a_kept, **facts),
+                     warp_tile_pairs=a_tiles, kept_pairs=a_kept, **facts["A-tex"]),
         kernel_entry("raster_prim (kernel C)", "C", "raster_prim.cu",
                      "carla_imitation_learning_tpu/ops/raster_fast.py:265", rf.prim_bands,
                      rf.prim_bands_plain, c_args, errs["C"], rate,
                      ops=c_kept * OPS_PER_PASS_C + frame_px * OPS_PER_PIXEL_EPILOGUE_B,
                      band_list_ops=listed(c_args[2], rows) * OPS_PER_PASS_C,
+                     table_bytes=walked_bytes(c_args[2], 2, c_args[1].shape[2], PRIM_ENTRY_BYTES),
                      out_bytes=frame_px * 4, path="quad_vec_ab", rows=rows,
-                     warp_tile_pairs=c_tiles, kept_pairs=c_kept, b_ms_same_scene=b_ms),
+                     warp_tile_pairs=c_tiles, kept_pairs=c_kept, b_ms_same_scene=b_ms,
+                     **facts["C"]),
         kernel_entry("raster_vec (kernel D)", "D", "raster_vec.cu",
                      "carla_imitation_learning_tpu/ops/raster_fast.py:341", rf.vec_bands,
                      rf.vec_bands_plain, d_args, errs["D"], rate,
                      ops=d_kept * OPS_PER_PASS_D + frame_px * OPS_PER_PIXEL_EPILOGUE_B,
                      band_list_ops=listed(d_args[1], rows) * OPS_PER_PASS_D,
-                     # the listed entries it needs (64 B each), counts, output
-                     table_bytes=float(d_args[1].sum()) * 64 + d_args[1].numel() * 4,
-                     out_bytes=frame_px * 4, path="quad_vec_ab",
-                     warp_tile_pairs=d_tiles, kept_pairs=d_kept, b_ms_same_scene=b_ms),
+                     table_bytes=walked_bytes(d_args[1], rf.VEC_P, d_args[0].shape[2],
+                                              VEC_ENTRY_BYTES),
+                     out_bytes=frame_px * 4, path="quad_vec_ab", rows=rows, count=d_args[1],
+                     warp_tile_pairs=d_tiles, kept_pairs=d_kept, b_ms_same_scene=b_ms,
+                     **facts["D"]),
     ]
     for e in entries:
         report["kernel_ms_per_frame"][e["counter"]] = e["ms"]

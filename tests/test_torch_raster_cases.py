@@ -1,17 +1,21 @@
-"""The yardsticks of kernels A and B on their edge cases, on the CPU.
+"""The yardsticks of kernels A to D on their edge cases, on the CPU.
 
-On the card, ``chip_smoke.py`` holds kernel A (``raster_bands``) and kernel
-B (``fast_bands``) bit for bit against their plain PyTorch versions on the
-synthetic band tables of ``chip_smoke.edge_case_tables``: edges through
-pixel centres and warp-tile corners, slivers, both windings, den = 0,
-equal-z duplicates, lists longer than two staging chunks, empty bands, odd
-counts followed by a covering sub-LOD triangle, and bands of 32, 24 and 20
-rows. Here the plain versions themselves are held, on the same tables at a
-small size, against a straightforward numpy walk of each list one entry at
-a time, as the TPU kernels walk it (``ops/raster.py:172-176`` of the JAX
-package; the pair walk of ``ops/raster_fast.py:444-452`` for B), with the
-plain versions' float32 expression order. Tolerance: none — semantic planes,
-colours, depths and gray frames must be equal.
+On the card, ``chip_smoke.py`` holds kernel A (``raster_bands``), B
+(``fast_bands``), C (``prim_bands``) and D (``vec_bands``) bit for bit
+against their plain PyTorch versions on the synthetic band tables of
+``chip_smoke.edge_case_tables``: edges through pixel centres and warp-tile
+corners, slivers, both windings, den = 0, equal-z duplicates, lists longer
+than two staging chunks, empty bands, odd counts followed by a covering
+sub-LOD triangle (in D's walked tail of its group of 8), C's quads with
+corners on tile corners and pixel centres and 1/z exactly at 1/near, and
+bands of 32, 24 and 20 rows. Here the plain versions themselves are held,
+on the same tables at a small size, against a straightforward numpy walk of
+each list one entry at a time, as the TPU kernels walk it
+(``ops/raster.py:172-176`` of the JAX package; the pair walk of
+``ops/raster_fast.py:444-452`` for B and C, the groups of 8 of
+``ops/raster_fast.py:356-397`` for D), with the plain versions' float32
+expression order. Tolerance: none — semantic planes, colours, depths and
+gray frames must be equal.
 
 The walk computes the speckle factor with the port's ``texture_factor``,
 because one ulp of ``sin`` moves the hash anywhere. torch's CPU ``sin``
@@ -24,7 +28,8 @@ are.
 The last tests check the argument behind the kernels' warp-tile culling on
 the same tables: every entry that ``chip_smoke.warp_tile_keep`` (the
 kernels' corner test, with their expressions) drops from a 16 x 16 tile
-has no pixel of the tile inside; and the same for kernel C's 4-edge
+has no pixel of the tile inside, over the positions each kernel walks (D's
+lists rounded up to whole groups of 8); and the same for kernel C's 4-edge
 primitives on a small rich fleet, whose kept pairs ``chip_smoke.py``'s
 bounds count.
 """
@@ -147,6 +152,80 @@ def _walk_fast(frame: str):
     return gray
 
 
+def _luma_frame(kbest, hit, py, h, ziw_shade):
+    """Kernel B/C/D epilogue without fog: the gray of one band's keys."""
+    lum = (kbest & np.int32(p_fast.LUMA_MASK)).astype(F32) * F32(1.0 / p_fast.LUMA_MASK)
+    t = (py - F32(0.5)) * F32(1.0 / max(h - 1, 1))
+    sky = F32(p_fast.SKY_TOP_L) * (F32(1.0) - t) + F32(p_fast.SKY_HOR_L) * t
+    return np.where(hit, lum * ziw_shade, sky)
+
+
+def _walk_prim(frame: str):
+    """Kernel C's function: the pair walk of the packed 1/z key's running max
+    over four borders, and its epilogue → gray (B, H, W)."""
+    case = _cases()[frame]
+    h, w, rows = case["height"], case["width"], case["rows"]
+    tbl, idx, count = case["prim"].numpy(), case["idx_c"].numpy(), case["count_c"].numpy()
+    B, R, K = idx.shape
+    inv_near = F32(1.0 / NEAR)
+    gray = np.zeros((B, h, w), F32)
+    px = (np.arange(w, dtype=F32) + F32(0.5))[None, :]
+    with np.errstate(all="ignore"):
+        for b in range(B):
+            for r in range(R):
+                py = (np.arange(rows, dtype=F32) + (F32(r * rows) + F32(0.5)))[:, None]
+                kmax = np.zeros((rows, w), np.int32)
+                for p in range(min((count[b, r] + 1) // 2 * 2, K)):
+                    c = tbl[b, :, idx[b, r, p]]
+                    ok = np.ones((rows, w), bool)
+                    for i in range(4):
+                        ok &= c[3 * i] * px + (c[3 * i + 1] * py + c[3 * i + 2]) > 0
+                    zi = c[12] * px + (c[13] * py + c[14])
+                    key = (zi.view(np.int32) & np.int32(p_fast.KEY_MASK)) | np.int32(c[15])
+                    kmax = np.maximum(kmax, np.where(ok & (zi < inv_near), key, np.int32(0)))
+                ziw = (kmax & np.int32(p_fast.KEY_MASK)).view(F32)
+                shade = ziw * (F32(1.0) / (ziw + F32(0.004)))
+                gray[b, r * rows:(r + 1) * rows] = _luma_frame(
+                    kmax, kmax > np.int32(p_fast.prim_far_key(FAR)), py, h, shade)
+    return gray
+
+
+def _walk_vec(frame: str):
+    """Kernel D's function: B's pass over the band's gathered table in groups
+    of 8 list positions (a group's min, then the running min), and B's
+    epilogue → gray (B, H, W)."""
+    case = _cases()[frame]
+    h, w, rows = case["height"], case["width"], case["rows"]
+    btbl = p_fast.gather_band_tables(case["fast"], case["idx_d"]).numpy()
+    count = case["count_d"].numpy()
+    B, R, K, _ = btbl.shape
+    gray = np.zeros((B, h, w), F32)
+    px = (np.arange(w, dtype=F32) + F32(0.5))[None, :]
+    miss = np.int32(p_fast.MISS_KEY)
+    with np.errstate(all="ignore"):
+        for b in range(B):
+            for r in range(R):
+                py = (np.arange(rows, dtype=F32) + (F32(r * rows) + F32(0.5)))[:, None]
+                kmin = np.full((rows, w), miss, np.int32)
+                for g in range(0, min((count[b, r] + 7) // 8 * 8, K), p_fast.VEC_P):
+                    gmin = np.full((rows, w), miss, np.int32)
+                    for c in btbl[b, r, g:g + p_fast.VEC_P]:
+                        e0 = c[0] * px + (c[1] * py + c[2])
+                        e1 = c[3] * px + (c[4] * py + c[5])
+                        e2 = c[6] * px + (c[7] * py + c[8])
+                        zn = c[9] * px + (c[10] * py + c[11])
+                        inside = (e0 > 0) & (e1 > 0) & (e2 > 0)
+                        z = zn * (F32(1.0) / (e0 + e1 + e2))
+                        key = (z.view(np.int32) & np.int32(p_fast.KEY_MASK)) | np.int32(c[12])
+                        gmin = np.minimum(gmin, np.where(inside & (z > F32(NEAR)), key, miss))
+                    kmin = np.minimum(kmin, gmin)
+                z = (kmin & np.int32(p_fast.KEY_MASK)).view(F32)
+                shade = F32(1.0) / (F32(1.0) + F32(0.004) * z)
+                gray[b, r * rows:(r + 1) * rows] = _luma_frame(
+                    kmin, kmin < np.int32(p_fast.pack_key_const(FAR)), py, h, shade)
+    return gray
+
+
 def test_cases_cover_what_they_claim():
     for frame, case in _cases().items():
         count_a, count_b = case["count_a"].numpy(), case["count_b"].numpy()
@@ -156,6 +235,32 @@ def test_cases_cover_what_they_claim():
         assert case["rows"] in (32, 24, 20) and case["height"] % case["rows"] == 0
     assert {c["rows"] for c in _cases().values()} == {32, 24, 20}
     assert max(c["width"] for c in _cases().values()) > 128     # two column segments
+
+
+def test_prim_and_vec_cases_cover_what_they_claim():
+    """Kernel D's lists end within a group of 8 with the covering sub-LOD
+    entry in the walked tail; kernel C's lists hold quads, strips with 1/z
+    at 1/near, an empty band and lists longer than two chunks."""
+    tail_lit = 0
+    for frame, case in _cases().items():
+        count_d, count_c = case["count_d"].numpy(), case["count_c"].numpy()
+        idx_d, prim = case["idx_d"].numpy(), case["prim"].numpy()
+        assert idx_d.shape[2] % p_fast.VEC_P == 0
+        assert (count_d % p_fast.VEC_P != 0).any(), frame
+        assert count_c[0, 0] > 2 * 128 and (count_c == 0).any(), frame
+        assert (count_c % 2 == 1).any(), frame
+        listed = case["idx_c"].numpy()[0, 0, :count_c[0, 0]]
+        zi_c = prim[0, 14, listed]
+        assert (zi_c == np.float32(1.0 / NEAR)).sum() == 2, frame      # both strips listed
+        assert (prim[0, 9:12, listed] != prim[0, 0:3, listed]).any(), frame   # quads listed
+        # D walks up to 7 positions past the count, B at most one: the
+        # covering entry there lights pixels in D's frame only
+        args = (case["height"], case["width"], NEAR, FAR, 0.0, case["rows"])
+        gray_b = p_fast.fast_bands_plain(case["fast"], case["idx_d"], case["count_d"], *args)
+        gray_d = p_fast.vec_bands_plain(p_fast.gather_band_tables(case["fast"], case["idx_d"]),
+                                        case["count_d"], *args)
+        tail_lit += int((gray_b != gray_d).sum())
+    assert tail_lit > 0
 
 
 @pytest.mark.parametrize("n_ch", [1, 3])
@@ -182,17 +287,21 @@ def test_fast_plain_matches_walk(frame):
     np.testing.assert_array_equal(gray.numpy(), _walk_fast(frame))
 
 
-@pytest.mark.parametrize("kernel", ["A", "B"])
+@pytest.mark.parametrize("kernel", ["A", "B", "C", "D"])
 @pytest.mark.parametrize("frame", FRAMES)
 def test_warp_tile_cull_is_exact(frame, kernel):
     case = _cases()[frame]
     h, w, rows = case["height"], case["width"], case["rows"]
     exact = kernel == "A"
-    tbl = case["tex"] if exact else case["fast"]
-    idx = case["idx_a"] if exact else case["idx_b"]
-    count = case["count_a"] if exact else case["count_b"]
+    tbl, idx, count = {"A": ("tex", "idx_a", "count_a"), "B": ("fast", "idx_b", "count_b"),
+                       "C": ("prim", "idx_c", "count_c"),
+                       "D": ("fast", "idx_d", "count_d")}[kernel]
+    tbl, idx, count = case[tbl], case[idx], case[count]
+    edges = 4 if kernel == "C" else 3
+    group = p_fast.VEC_P if kernel == "D" else 2
     culled = kept = 0
-    for x0, x1, y0, y1, keep, live in chip_smoke.warp_tile_keep(tbl, idx, count, w, rows, exact):
+    for x0, x1, y0, y1, keep, live in chip_smoke.warp_tile_keep(tbl, idx, count, w, rows, exact,
+                                                                edges=edges, group=group):
         for b in range(idx.shape[0]):
             for r in range(idx.shape[1]):
                 gone = (live[b, r] & ~keep[b, r]).numpy()
@@ -207,14 +316,31 @@ def test_warp_tile_cull_is_exact(frame, kernel):
                     py = (np.arange(y0, y1 + 1, dtype=F32) + (F32(r * rows) + F32(0.5)))[None, :, None]
                     e = [co[3 * i, :, None, None] * px
                          + (co[3 * i + 1, :, None, None] * py + co[3 * i + 2, :, None, None])
-                         for i in range(3)]
-                inside = (e[0] > 0) & (e[1] > 0) & (e[2] > 0)
+                         for i in range(edges)]
+                inside = np.logical_and.reduce([ei > 0 for ei in e])
                 if exact:
                     inside |= (e[0] < 0) & (e[1] < 0) & (e[2] < 0)
                 assert not inside.any(), (frame, kernel, b, r, x0, y0)
                 culled += int(gone.sum())
                 kept += int((live[b, r] & keep[b, r]).sum())
     assert culled > kept / 10, (culled, kept)
+
+
+@pytest.mark.parametrize("frame", FRAMES)
+def test_prim_plain_matches_walk(frame):
+    case = _cases()[frame]
+    gray = p_fast.prim_bands_plain(case["prim"], case["idx_c"], case["count_c"], case["height"],
+                                   case["width"], NEAR, FAR, 0.0, case["rows"])
+    np.testing.assert_array_equal(gray.numpy(), _walk_prim(frame))
+
+
+@pytest.mark.parametrize("frame", FRAMES)
+def test_vec_plain_matches_walk(frame):
+    case = _cases()[frame]
+    btbl = p_fast.gather_band_tables(case["fast"], case["idx_d"])
+    gray = p_fast.vec_bands_plain(btbl, case["count_d"], case["height"], case["width"], NEAR, FAR,
+                                  0.0, case["rows"])
+    np.testing.assert_array_equal(gray.numpy(), _walk_vec(frame))
 
 
 def test_quad_cull_is_exact():
