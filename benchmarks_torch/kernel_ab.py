@@ -19,12 +19,6 @@ plain version's (``equal``), and the variants are timed with CUDA events (20
 launches after warm-up) in ``--rounds`` rounds, in turns, on one card.
 Prints one JSON object: per variant the median and each round's ms, and
 whether it equals the plain version.
-
-``--entry-major NAME`` (kernel C only) hands variant NAME the primitive
-table as an entry-major (B, P, 16) copy, viewed with the (B, 16, P) shape
-the wrapper checks: a source written to read that layout. The copy is made
-once, and its own time (``transpose_ms``, the pass a wrapper would add) is
-reported beside the variants.
 """
 
 from __future__ import annotations
@@ -55,8 +49,6 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernel", choices=tuple(LIBRARIES), required=True)
     parser.add_argument("--variant", action="append", required=True, metavar="NAME=PATH[:FLAGS]")
-    parser.add_argument("--entry-major", action="append", default=[], metavar="NAME",
-                        help="kernel C: variant NAME reads an entry-major copy of the table")
     parser.add_argument("--rounds", type=int, default=3)
     args = parser.parse_args()
 
@@ -66,8 +58,6 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
-    if args.entry_major and args.kernel != "C":
-        raise SystemExit("--entry-major applies to kernel C only")
     lib = LIBRARIES[args.kernel]
     variants = {}
     for item in args.variant:
@@ -78,21 +68,14 @@ def main() -> int:
     want = plain(*inputs)
 
     res = {"kernel": args.kernel, "card": chip_smoke.nvidia_smi(), "variants": {}}
-    per_variant = {name: inputs for name in variants}
-    if args.entry_major:
-        tbl = inputs[0]
-        major = tbl.transpose(1, 2).contiguous().view(tbl.shape)
-        per_variant.update({name: (major, *inputs[1:]) for name in args.entry_major})
-        res["transpose_ms"] = chip_smoke.cuda_ms(lambda: tbl.transpose(1, 2).contiguous(), reps=20)
     for name, path in variants.items():
         cuda_lib.use_library(lib, path)
-        res["variants"][name] = {"equal": equal(wrapper(*per_variant[name]), want), "ms": []}
+        res["variants"][name] = {"equal": equal(wrapper(*inputs), want), "ms": []}
     for rnd in range(args.rounds):
         order = list(variants) if rnd % 2 == 0 else list(variants)[::-1]
         for name in order:
             cuda_lib.use_library(lib, variants[name])
-            res["variants"][name]["ms"].append(
-                chip_smoke.cuda_ms(lambda: wrapper(*per_variant[name]), reps=20))
+            res["variants"][name]["ms"].append(chip_smoke.cuda_ms(lambda: wrapper(*inputs), reps=20))
     for v in res["variants"].values():
         v["median_ms"] = sorted(v["ms"])[len(v["ms"]) // 2]
     print(json.dumps(res))

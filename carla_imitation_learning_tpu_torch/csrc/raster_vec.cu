@@ -39,7 +39,9 @@
 //   (item += gridDim.x) gives a block the same band of every env it walks,
 //   since the grid is a multiple of an env's 16 items. The producer takes
 //   the next item when it starts one, so blocks finish together; the fixed
-//   assignment measured 1.5x slower.
+//   assignment measured 1.5x slower. The counter stays on the card between
+//   launches and the last producer to finish sets it back to zero, so a
+//   launch needs no memset before it.
 // - Warp-tile culling, as in kernel B: each consumer warp owns a 16 x 16
 //   tile, tests each staged entry at the tile's extreme pixel centre with the
 //   pass's own expression and rounding (exact, no margin: rounded products
@@ -49,6 +51,8 @@
 //   computed once per column and b*py + c once per row, per entry.
 // - Depth only where covered: the depth numerator, the reciprocal and the
 //   key run only when one of a thread's 8 pixels is inside, as in kernel B.
+//   The inside test joins its three comparisons with a bitwise & (a
+//   short-circuit && chain measured 1.4x slower).
 // - Output: a thread stores its 4 adjacent columns of a row as one 16-byte
 //   store.
 // - Occupancy: 4 consumer warps and 1 producer warp a block, at most 64
@@ -131,7 +135,7 @@ struct Params {
   const float* btbl;
   const int* count;
   float* out;
-  int* queue;         // next item to hand out, 0 at launch
+  int* queue;         // next item to hand out and producers done, 0 at launch
   int R, K, H, W, tile_rows, n_xs, n_ys, n_items;
   float near_z;
   int far_key;
@@ -145,6 +149,16 @@ struct Ring {
   uint64_t empty[kStages];      // 1 arrival per consumer warp
   unsigned char wlist[kWarps][kChunk];
 };
+
+// Called once by each block's producer after it has taken its last item.
+// The last of the grid's producers to finish leaves the counters at zero.
+__device__ void release_queue(const Params& p) {
+  __threadfence();
+  if (atomicAdd(p.queue + 1, 1) == static_cast<int>(gridDim.x) - 1) {
+    p.queue[0] = 0;
+    p.queue[1] = 0;
+  }
+}
 
 // The producer: lane 0 of the last warp. Walks items from the queue and
 // their chunks in order, one ring stage per chunk (an empty item still takes
@@ -162,6 +176,7 @@ __device__ void produce(const Params& p, Ring& ring) {
       if (item >= p.n_items) {
         ring.meta[s] = make_int4(-1, 0, 0, 0);
         mbar_arrive(&ring.full[s]);
+        release_queue(p);
         return;
       }
       const int br = item / (p.n_xs * p.n_ys);   // env * R + band
@@ -294,8 +309,8 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) vec_band_kernel(const 
       for (int k = 0; k < kRows; ++k)
 #pragma unroll
         for (int j = 0; j < kCols; ++j) {
-          const bool in = __fadd_rn(ax0[j], by0[k]) > 0.0f && __fadd_rn(ax1[j], by1[k]) > 0.0f &&
-                          __fadd_rn(ax2[j], by2[k]) > 0.0f;
+          const bool in = (__fadd_rn(ax0[j], by0[k]) > 0.0f) & (__fadd_rn(ax1[j], by1[k]) > 0.0f) &
+                          (__fadd_rn(ax2[j], by2[k]) > 0.0f);
           inside |= static_cast<unsigned>(in) << (k * kCols + j);
         }
       if (inside) {
@@ -363,8 +378,10 @@ int grid_size(int n_items) {
 
 }  // namespace
 
-// `queue` is one int of device scratch; it is zeroed on `stream` before the
-// launch. `btbl` must be 16-byte aligned.
+// `queue` is two ints of device memory, zero at the launch: the next item
+// and the count of producers done. The last producer to finish sets both
+// to zero again, so the next launch on `stream` can reuse them. `btbl`
+// must be 16-byte aligned.
 extern "C" int raster_vec_launch(
     const float* btbl, const int* count, float* out, int* queue, int B, int R, int K,
     int H, int W, int tile_rows, float near_z, int far_key, float sky_top,
@@ -376,8 +393,6 @@ extern "C" int raster_vec_launch(
   p.n_items = p.n_xs * p.n_ys * R * B;
   if (p.n_items == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(queue, 0, sizeof(int), st);
-  if (err != cudaSuccess) return static_cast<int>(err);
   vec_band_kernel<<<grid_size(p.n_items), kThreads, 0, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

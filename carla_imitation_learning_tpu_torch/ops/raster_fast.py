@@ -341,6 +341,20 @@ def pack_setup_prims(prims: PrimSetup) -> torch.Tensor:
     return torch.where(prims.valid[..., None], flat, 0.0).transpose(1, 2).contiguous()
 
 
+_ITEM_QUEUES: dict = {}
+
+
+def item_queue(device: torch.device) -> torch.Tensor:
+    """The item counter of kernels C and D on ``device``'s current stream:
+    two int32 that are zero between launches (each launch's last block sets
+    them back), made once per stream so that launches on two streams never
+    share one."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    if key not in _ITEM_QUEUES:
+        _ITEM_QUEUES[key] = torch.zeros(2, dtype=torch.int32, device=device)
+    return _ITEM_QUEUES[key]
+
+
 def prim_far_key(far: float) -> int:
     """Smallest packed key strictly nearer than ``far`` (max luma at 1/far):
     a pixel is a hit iff its running-max key exceeds it."""
@@ -412,7 +426,7 @@ def prim_bands(tbl, idx, count, height: int, width: int, near: float,
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int]
         + [ctypes.c_float] * 5 + [ctypes.c_void_p])
     out = torch.empty((B, height, width), dtype=torch.float32, device=tbl.device)
-    queue = torch.empty(1, dtype=torch.int32, device=tbl.device)   # zeroed by the launch
+    queue = item_queue(tbl.device)
     err = fn(tbl.data_ptr(), idx.data_ptr(), count.data_ptr(), out.data_ptr(), queue.data_ptr(),
              B, P, R, K, height, width, tile_rows, float(np.float32(1.0 / near)),
              prim_far_key(far), SKY_TOP_L, SKY_HOR_L, 1.0 / max(height - 1, 1),
@@ -487,7 +501,7 @@ def vec_bands(btbl, count, height: int, width: int, near: float, far: float,
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int]
         + [ctypes.c_float] * 5 + [ctypes.c_void_p])
     out = torch.empty((B, height, width), dtype=torch.float32, device=btbl.device)
-    queue = torch.empty(1, dtype=torch.int32, device=btbl.device)   # zeroed by the launch
+    queue = item_queue(btbl.device)
     err = fn(btbl.data_ptr(), count.data_ptr(), out.data_ptr(), queue.data_ptr(),
              B, R, K, height, width, tile_rows, near, pack_key_const(far),
              SKY_TOP_L, SKY_HOR_L, 1.0 / max(height - 1, 1), 1.0 / LUMA_MASK,

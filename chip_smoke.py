@@ -611,6 +611,8 @@ EDGE_FRAMES = ((64, 64), (96, 96), (48, 80), (40, 160), (40, 150))
 EDGE_T = 640             # table width of the synthetic frames
 EDGE_LONG = 300          # entries on the long list: more than two staging chunks
 EDGE_NEAR, EDGE_FAR = 0.5, 300.0
+EDGE_FOG = 0.02          # the fog density the edge cases also run at
+EDGE_OVER_Z = 0.6        # depth of kernel C's strip with an overflowing border
 
 
 def _screen_rows(xy, w, depth, uv):
@@ -793,9 +795,13 @@ def _edge_frame(rng, rng_c, n_envs: int, height: int, width: int, rows: int):
         # kernel C's table: the same triangles as 4-border primitives (the
         # first edge row repeated) with the 1/z row through their vertices,
         # then quads whose corners lie on warp-tile corners and pixel centres
-        # (borders through both), and two full-width strips whose 1/z is
-        # 1/near exactly: on the whole of one, and on the other left of x = 64
-        # (right of it, 1/z rounds below 1/near)
+        # (borders through both), two full-width strips whose 1/z is 1/near
+        # exactly: on the whole of one, and on the other left of x = 64
+        # (right of it, 1/z rounds below 1/near), and a strip over rows 0-4
+        # whose top border overflows: below the first row its a·px and b·py
+        # round to +inf and -inf, so the border is NaN there while the warp
+        # tile's corner test keeps the strip (a border test that drops a
+        # NaN, as fminf does, would light those pixels)
         prim[b, :9, :n + 1] = fast[b, :9, :n + 1]
         prim[b, 9:12, :n + 1] = fast[b, :3, :n + 1]
         prim[b, 12:15, :n] = _plane_rows(np.asarray(xy, np.float64),
@@ -818,10 +824,17 @@ def _edge_frame(rng, rng_c, n_envs: int, height: int, width: int, rows: int):
         inv_near = np.float32(1.0 / EDGE_NEAR)
         prim[b, 12:15, q0 + nq - 2] = [0.0, 0.0, inv_near]
         prim[b, 12:15, q0 + nq - 1] = [-2.0 ** -30, 0.0, inv_near]
+        over = q0 + nq
+        prim[b, :12, over] = _border_rows(np.asarray(
+            [[(0, 0), (width, 0), (width, 4), (0, 4)]], np.float64)).reshape(12)
+        prim[b, :3, over] = [3e38, -3e38, 0.0]
+        prim[b, 12:15, over] = [0.0, 0.0, 1.0 / EDGE_OVER_Z]
+        prim[b, 15, over] = 4095
         meets_c = np.concatenate([meets, np.zeros((n_bands, 1), bool),
                                   (corners[..., 1].max(-1) >= y_band)
-                                  & (corners[..., 1].min(-1) <= y_band + rows)], 1)
-        zmin_c = np.concatenate([zmin, [np.inf], quad_z.min(-1)])
+                                  & (corners[..., 1].min(-1) <= y_band + rows),
+                                  y_band == 0], 1)
+        zmin_c = np.concatenate([zmin, [np.inf], quad_z.min(-1), [EDGE_OVER_Z]])
         lists_c.append(_band_lists(meets_c, zmin_c, den0, sub_lod, b)[1])
     return tex, fast, prim, lists_a, lists_b, lists_c, lists_d
 
@@ -860,7 +873,8 @@ def edge_case_tables(device, n_envs: int = 8, seed: int = 0) -> list:
     walks and B does not. Kernel C gets the same triangles as 16-row
     primitives (the first edge row repeated, 1/z through the vertices),
     quads whose corners are warp-tile corners and pixel centres, strips with
-    1/z exactly at 1/near, and lists built the same way (equal keys from the
+    1/z exactly at 1/near, a strip with a border that is NaN inside a tile
+    its corner test keeps, and lists built the same way (equal keys from the
     duplicates, the empty band, odd counts with the sub-LOD entry). Built
     with numpy from ``seed`` and moved to ``device``. → one dict per frame shape: height, width, rows, tex (B,
     23, T) f32 (its first 17 rows are the flat table), idx_a / count_a
@@ -898,14 +912,15 @@ def edge_case_tables(device, n_envs: int = 8, seed: int = 0) -> list:
 
 def edge_case_phase(dev) -> dict:
     """Kernels A (flat and textured, C = 1 and C = 3), B, C and D bit for bit
-    against their plain versions on ``edge_case_tables``. → a summary."""
+    against their plain versions on ``edge_case_tables``; B, C and D with no
+    fog and at ``EDGE_FOG``. → a summary."""
     import torch
 
     from carla_imitation_learning_tpu_torch.ops import raster as ra
     from carla_imitation_learning_tpu_torch.ops import raster_fast as rf
 
     near, far = EDGE_NEAR, EDGE_FAR
-    summary = {"frames": [], **{f"pixels_hit_{k}": 0 for k in "ABCD"}}
+    summary = {"frames": [], "fog": EDGE_FOG, **{f"pixels_hit_{k}": 0 for k in "ABCD"}}
     for case in edge_case_tables(dev):
         h, w, rows = case["height"], case["width"], case["rows"]
         for textured in (False, True):
@@ -929,11 +944,13 @@ def edge_case_phase(dev) -> dict:
                 ("C", rf.prim_bands, rf.prim_bands_plain,
                  (case["prim"], case["idx_c"], case["count_c"])),
                 ("D", rf.vec_bands, rf.vec_bands_plain, (btbl, case["count_d"]))):
-            args = (*args, h, w, near, far, 0.0, rows)
-            got, want = fn(*args), plain(*args)
-            check(torch.equal(got, want), f"edge cases {h}x{w} kernel {name}: max|d| "
-                  f"{float((got - want).abs().max()):.3e}")
-            summary[f"pixels_hit_{name}"] += int((want != sky).sum())
+            for fog in (0.0, EDGE_FOG):
+                full = (*args, h, w, near, far, fog, rows)
+                got, want = fn(*full), plain(*full)
+                check(torch.equal(got, want), f"edge cases {h}x{w} kernel {name} fog {fog}: "
+                      f"max|d| {float((got - want).abs().max()):.3e}")
+                if fog == 0.0:
+                    summary[f"pixels_hit_{name}"] += int((want != sky).sum())
         summary["frames"].append({"hw": [h, w], "rows": rows,
                                   "max_count_a": int(case["count_a"].max()),
                                   "max_count_c": int(case["count_c"].max()),

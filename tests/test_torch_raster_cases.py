@@ -117,14 +117,13 @@ def _walk_exact(frame: str, textured: bool):
 
 
 def _walk_fast(frame: str):
-    """Kernel B's function: the pair walk of the packed-key running min and
-    its epilogue → gray (B, H, W)."""
+    """Kernel B's pass: the pair walk of the packed-key running min → keys
+    (B, H, W) int32."""
     case = _cases()[frame]
     h, w, rows = case["height"], case["width"], case["rows"]
     tbl, idx, count = case["fast"].numpy(), case["idx_b"].numpy(), case["count_b"].numpy()
     B, R, K = idx.shape
-    far_key = np.int32(p_fast.pack_key_const(FAR))
-    gray = np.zeros((B, h, w), F32)
+    keys = np.zeros((B, h, w), np.int32)
     px = (np.arange(w, dtype=F32) + F32(0.5))[None, :]
     with np.errstate(all="ignore"):
         for b in range(B):
@@ -143,32 +142,46 @@ def _walk_fast(frame: str):
                     key = (z.view(np.int32) & np.int32(p_fast.KEY_MASK)) | np.int32(c[12])
                     kmin = np.minimum(kmin, np.where(inside & (z > F32(NEAR)), key,
                                                      np.int32(p_fast.MISS_KEY)))
-                z = (kmin & np.int32(p_fast.KEY_MASK)).view(F32)
-                lum = (kmin & np.int32(p_fast.LUMA_MASK)).astype(F32) * F32(1.0 / p_fast.LUMA_MASK)
-                shade = F32(1.0) / (F32(1.0) + F32(0.004) * z)
-                t = (py - F32(0.5)) * F32(1.0 / max(h - 1, 1))
-                sky = F32(p_fast.SKY_TOP_L) * (F32(1.0) - t) + F32(p_fast.SKY_HOR_L) * t
-                gray[b, r * rows:(r + 1) * rows] = np.where(kmin < far_key, lum * shade, sky)
-    return gray
+                keys[b, r * rows:(r + 1) * rows] = kmin
+    return keys
 
 
-def _luma_frame(kbest, hit, py, h, ziw_shade):
-    """Kernel B/C/D epilogue without fog: the gray of one band's keys."""
-    lum = (kbest & np.int32(p_fast.LUMA_MASK)).astype(F32) * F32(1.0 / p_fast.LUMA_MASK)
-    t = (py - F32(0.5)) * F32(1.0 / max(h - 1, 1))
-    sky = F32(p_fast.SKY_TOP_L) * (F32(1.0) - t) + F32(p_fast.SKY_HOR_L) * t
-    return np.where(hit, lum * ziw_shade, sky)
+def _luma_gray(keys, h: int, fog: float, prim: bool):
+    """Kernel B's and D's epilogue on running-min keys, or kernel C's
+    (``prim``) on running-max 1/z keys, over whole frames → gray (B, H, W).
+    The fog factor is taken with torch's ``exp`` on the whole frame, laid
+    out as the plain versions lay it out, so that each element takes the
+    same vectorized path."""
+    with np.errstate(all="ignore"):
+        zw = (keys & np.int32(p_fast.KEY_MASK)).view(F32)
+        if prim:
+            hit = keys > np.int32(p_fast.prim_far_key(FAR))
+            shade = zw * (F32(1.0) / (zw + F32(0.004)))
+            depth = F32(1.0) / np.maximum(zw, F32(1e-9))
+        else:
+            hit = keys < np.int32(p_fast.pack_key_const(FAR))
+            shade = F32(1.0) / (F32(1.0) + F32(0.004) * zw)
+            depth = zw
+        lum = (keys & np.int32(p_fast.LUMA_MASK)).astype(F32) * F32(1.0 / p_fast.LUMA_MASK)
+        py = (np.arange(h, dtype=F32) + F32(0.5))[:, None]
+        t = (py - F32(0.5)) * F32(1.0 / max(h - 1, 1))
+        sky = F32(p_fast.SKY_TOP_L) * (F32(1.0) - t) + F32(p_fast.SKY_HOR_L) * t
+        lit = lum * shade
+        if fog > 0.0:
+            f = torch.exp(torch.from_numpy(np.ascontiguousarray(F32(-fog) * depth))).numpy()
+            lit = lit * f + sky * (F32(1.0) - f)
+        return np.where(hit, lit, sky)
 
 
 def _walk_prim(frame: str):
-    """Kernel C's function: the pair walk of the packed 1/z key's running max
-    over four borders, and its epilogue → gray (B, H, W)."""
+    """Kernel C's pass: the pair walk of the packed 1/z key's running max
+    over four borders → keys (B, H, W) int32."""
     case = _cases()[frame]
     h, w, rows = case["height"], case["width"], case["rows"]
     tbl, idx, count = case["prim"].numpy(), case["idx_c"].numpy(), case["count_c"].numpy()
     B, R, K = idx.shape
     inv_near = F32(1.0 / NEAR)
-    gray = np.zeros((B, h, w), F32)
+    keys = np.zeros((B, h, w), np.int32)
     px = (np.arange(w, dtype=F32) + F32(0.5))[None, :]
     with np.errstate(all="ignore"):
         for b in range(B):
@@ -183,23 +196,20 @@ def _walk_prim(frame: str):
                     zi = c[12] * px + (c[13] * py + c[14])
                     key = (zi.view(np.int32) & np.int32(p_fast.KEY_MASK)) | np.int32(c[15])
                     kmax = np.maximum(kmax, np.where(ok & (zi < inv_near), key, np.int32(0)))
-                ziw = (kmax & np.int32(p_fast.KEY_MASK)).view(F32)
-                shade = ziw * (F32(1.0) / (ziw + F32(0.004)))
-                gray[b, r * rows:(r + 1) * rows] = _luma_frame(
-                    kmax, kmax > np.int32(p_fast.prim_far_key(FAR)), py, h, shade)
-    return gray
+                keys[b, r * rows:(r + 1) * rows] = kmax
+    return keys
 
 
 def _walk_vec(frame: str):
-    """Kernel D's function: B's pass over the band's gathered table in groups
-    of 8 list positions (a group's min, then the running min), and B's
-    epilogue → gray (B, H, W)."""
+    """Kernel D's pass: B's pass over the band's gathered table in groups of
+    8 list positions (a group's min, then the running min) → keys (B, H, W)
+    int32."""
     case = _cases()[frame]
     h, w, rows = case["height"], case["width"], case["rows"]
     btbl = p_fast.gather_band_tables(case["fast"], case["idx_d"]).numpy()
     count = case["count_d"].numpy()
     B, R, K, _ = btbl.shape
-    gray = np.zeros((B, h, w), F32)
+    keys = np.zeros((B, h, w), np.int32)
     px = (np.arange(w, dtype=F32) + F32(0.5))[None, :]
     miss = np.int32(p_fast.MISS_KEY)
     with np.errstate(all="ignore"):
@@ -219,11 +229,8 @@ def _walk_vec(frame: str):
                         key = (z.view(np.int32) & np.int32(p_fast.KEY_MASK)) | np.int32(c[12])
                         gmin = np.minimum(gmin, np.where(inside & (z > F32(NEAR)), key, miss))
                     kmin = np.minimum(kmin, gmin)
-                z = (kmin & np.int32(p_fast.KEY_MASK)).view(F32)
-                shade = F32(1.0) / (F32(1.0) + F32(0.004) * z)
-                gray[b, r * rows:(r + 1) * rows] = _luma_frame(
-                    kmin, kmin < np.int32(p_fast.pack_key_const(FAR)), py, h, shade)
-    return gray
+                keys[b, r * rows:(r + 1) * rows] = kmin
+    return keys
 
 
 def test_cases_cover_what_they_claim():
@@ -240,7 +247,8 @@ def test_cases_cover_what_they_claim():
 def test_prim_and_vec_cases_cover_what_they_claim():
     """Kernel D's lists end within a group of 8 with the covering sub-LOD
     entry in the walked tail; kernel C's lists hold quads, strips with 1/z
-    at 1/near, an empty band and lists longer than two chunks."""
+    at 1/near, a strip whose top border is NaN inside a warp tile that its
+    corner test keeps, an empty band and lists longer than two chunks."""
     tail_lit = 0
     for frame, case in _cases().items():
         count_d, count_c = case["count_d"].numpy(), case["count_c"].numpy()
@@ -253,6 +261,12 @@ def test_prim_and_vec_cases_cover_what_they_claim():
         zi_c = prim[0, 14, listed]
         assert (zi_c == np.float32(1.0 / NEAR)).sum() == 2, frame      # both strips listed
         assert (prim[0, 9:12, listed] != prim[0, 0:3, listed]).any(), frame   # quads listed
+        over = listed[np.abs(prim[0, 0, listed]) > 1e38]
+        assert len(over) == 1, frame
+        a, b, c = prim[0, 0:3, over[0]]
+        with np.errstate(over="ignore", invalid="ignore"):
+            assert np.isnan(a * F32(1.5) + (b * F32(1.5) + c)), frame    # NaN at pixel (1, 1)
+            assert a * F32(15.5) + (b * F32(0.5) + c) > 0, frame         # tile (0, 0) keeps it
         # D walks up to 7 positions past the count, B at most one: the
         # covering entry there lights pixels in D's frame only
         args = (case["height"], case["width"], NEAR, FAR, 0.0, case["rows"])
@@ -284,11 +298,13 @@ def test_fast_plain_matches_walk(frame):
     case = _cases()[frame]
     gray = p_fast.fast_bands_plain(case["fast"], case["idx_b"], case["count_b"],
                                    case["height"], case["width"], NEAR, FAR, 0.0, case["rows"])
-    np.testing.assert_array_equal(gray.numpy(), _walk_fast(frame))
+    np.testing.assert_array_equal(gray.numpy(), _luma_gray(_walk_fast(frame), case["height"],
+                                                           0.0, prim=False))
 
 
 @pytest.mark.parametrize("kernel", ["A", "B", "C", "D"])
 @pytest.mark.parametrize("frame", FRAMES)
+@np.errstate(over="ignore", invalid="ignore")   # kernel C's overflowing strip
 def test_warp_tile_cull_is_exact(frame, kernel):
     case = _cases()[frame]
     h, w, rows = case["height"], case["width"], case["rows"]
@@ -331,7 +347,8 @@ def test_prim_plain_matches_walk(frame):
     case = _cases()[frame]
     gray = p_fast.prim_bands_plain(case["prim"], case["idx_c"], case["count_c"], case["height"],
                                    case["width"], NEAR, FAR, 0.0, case["rows"])
-    np.testing.assert_array_equal(gray.numpy(), _walk_prim(frame))
+    np.testing.assert_array_equal(gray.numpy(), _luma_gray(_walk_prim(frame), case["height"],
+                                                           0.0, prim=True))
 
 
 @pytest.mark.parametrize("frame", FRAMES)
@@ -340,7 +357,30 @@ def test_vec_plain_matches_walk(frame):
     btbl = p_fast.gather_band_tables(case["fast"], case["idx_d"])
     gray = p_fast.vec_bands_plain(btbl, case["count_d"], case["height"], case["width"], NEAR, FAR,
                                   0.0, case["rows"])
-    np.testing.assert_array_equal(gray.numpy(), _walk_vec(frame))
+    np.testing.assert_array_equal(gray.numpy(), _luma_gray(_walk_vec(frame), case["height"],
+                                                           0.0, prim=False))
+
+
+@pytest.mark.parametrize("kernel", ["B", "C", "D"])
+@pytest.mark.parametrize("frame", FRAMES)
+def test_band_plain_with_fog_matches_walk(frame, kernel):
+    """The fog branch of kernels B, C and D's epilogues at the density the
+    card's edge-case phase also runs."""
+    case = _cases()[frame]
+    args = (case["height"], case["width"], NEAR, FAR, chip_smoke.EDGE_FOG, case["rows"])
+    if kernel == "B":
+        gray = p_fast.fast_bands_plain(case["fast"], case["idx_b"], case["count_b"], *args)
+        keys = _walk_fast(frame)
+    elif kernel == "C":
+        gray = p_fast.prim_bands_plain(case["prim"], case["idx_c"], case["count_c"], *args)
+        keys = _walk_prim(frame)
+    else:
+        btbl = p_fast.gather_band_tables(case["fast"], case["idx_d"])
+        gray = p_fast.vec_bands_plain(btbl, case["count_d"], *args)
+        keys = _walk_vec(frame)
+    want = _luma_gray(keys, case["height"], chip_smoke.EDGE_FOG, prim=kernel == "C")
+    assert (want != _luma_gray(keys, case["height"], 0.0, prim=kernel == "C")).any()
+    np.testing.assert_array_equal(gray.numpy(), want)
 
 
 def test_quad_cull_is_exact():
