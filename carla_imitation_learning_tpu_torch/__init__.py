@@ -6,10 +6,14 @@ into the sim — as plain PyTorch on batched tensors, with the rasterizer
 kernels written by hand in CUDA C++ for ``sm_90a`` (``csrc/``): the exact
 z-buffer (flat and textured), the fast rollout kernel and its fused-quad and
 grouped-table variants. The rich scene (facade bands, markings, shadows,
-textures) and the semantic class stream of collection rollouts are ported.
+textures) and the semantic class stream of collection rollouts are ported,
+and so is behaviour-cloning training on the card: collection into a
+``FrameStore``, the device-resident ``DeviceDataset``, Adam train steps and
+the ``Trainer``.
 
 Layout mirrors the JAX package: ``sim/``, ``render/``, ``ops/``, ``models/``,
-``data/actions.py``, ``training/closed_loop.py``. The env axis that the JAX
+``data/`` (actions, state log, pipeline), ``training/`` (closed loop,
+losses, steps, loop), ``utils/profiling.py``. The env axis that the JAX
 package ``vmap``s is a leading ``B`` dimension here. Entry points take an
 explicit ``device`` (default ``"cuda"``, which raises when there is no card)
 and explicit ``torch.Generator``s. ``convert.py`` turns numpy pytrees of the

@@ -2,8 +2,9 @@
 
 Everything here reads its input through ``np.asarray`` on named fields, so
 it takes the JAX package's objects (flax params, ``TownMap``, ``WorldState``,
-packed spawn pool, ``TriangleSetup``, ``PrimSetup``, rollout carry) without importing JAX.
-The port can then run on exactly what the JAX package computed.
+packed spawn pool, ``TriangleSetup``, ``PrimSetup``, rollout carry, train
+state) without importing JAX. The port can then run on exactly what the JAX
+package computed.
 """
 
 from __future__ import annotations
@@ -13,10 +14,14 @@ import dataclasses
 import numpy as np
 import torch
 
+from carla_imitation_learning_tpu_torch.models.cnn import PolicyCNN
 from carla_imitation_learning_tpu_torch.ops.raster_fast import PrimSetup
 from carla_imitation_learning_tpu_torch.render.camera import TriangleSetup
 from carla_imitation_learning_tpu_torch.sim.town import TownMap
 from carla_imitation_learning_tpu_torch.sim.world import WorldState
+from carla_imitation_learning_tpu_torch.training.steps import (
+    AdamConfig, TrainState, create_train_state,
+)
 
 _STATE_INTS = ("ego_route", "agents_route", "peds_crossing", "t", "goal", "rng")
 
@@ -119,3 +124,45 @@ def carry_from_jax(carry):
     states, framebuf, just_reset = carry[:3]
     return (world_state_from_jax(states), _tensor(framebuf, torch.uint8),
             _tensor(just_reset, torch.bool))
+
+
+def _adam_state(node):
+    """The first node of an optax state tree that carries Adam's ``count``,
+    ``mu`` and ``nu`` (``ScaleByAdamState``, inside any chain)."""
+    if all(hasattr(node, k) for k in ("count", "mu", "nu")):
+        return node
+    if isinstance(node, (tuple, list)):
+        for child in node:
+            found = _adam_state(child)
+            if found is not None:
+                return found
+    return None
+
+
+def train_state_from_jax(state, tx: AdamConfig, dtype: torch.dtype = torch.float32,
+                         device: str | torch.device = "cpu") -> TrainState:
+    """JAX ``TrainState`` of a ``PolicyCNN`` (optax Adam, optionally behind
+    a clip) → port ``TrainState`` on ``device``: the params, Adam's ``mu``
+    and ``nu`` through the same transposes as the params, its ``count`` as
+    each parameter's Adam step and as the schedule's step, and the EMA
+    shadow. ``tx`` is the port's optimizer config for the same run, so a
+    step taken from here continues the JAX run."""
+    params = state.params
+    obs_size = np.asarray(params["ConvTrunk_0"]["Conv_0"]["kernel"]).shape[2]
+    head = params["MLPHead_0"]
+    n_actions = np.asarray(head[f"Dense_{len(head) - 1}"]["kernel"]).shape[1]
+    model = PolicyCNN(obs_size=obs_size, n_actions=n_actions, dtype=dtype)
+    model.load_state_dict(policy_state_dict(params))
+    out = create_train_state(model, tx, ema_decay=float(state.ema_decay), device=device)
+    adam = _adam_state(state.opt_state)
+    count = int(np.asarray(adam.count))
+    mu, nu = policy_state_dict(adam.mu), policy_state_dict(adam.nu)
+    opt = out.optimizer.state_dict()
+    opt["state"] = {i: {"step": torch.tensor(float(count)), "exp_avg": mu[name],
+                        "exp_avg_sq": nu[name]}
+                    for i, (name, _) in enumerate(model.named_parameters())}
+    out.optimizer.load_state_dict(opt)
+    out.step = count
+    if state.ema_params is not None:
+        out.ema.load_state_dict(policy_state_dict(state.ema_params))
+    return out

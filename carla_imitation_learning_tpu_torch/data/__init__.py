@@ -1,1 +1,1 @@
-"""Data semantics shared by the closed loop (action labels)."""
+"""Action labels, the state log, frame stores and the device dataset."""

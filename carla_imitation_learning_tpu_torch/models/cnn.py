@@ -59,7 +59,8 @@ class ConvTrunk(nn.Module):
 
 
 class MLPHead(nn.Module):
-    """Dense→ReLU stack ending in float32 logits."""
+    """Dense→ReLU stack ending in logits of the parameters' dtype (float32;
+    float64 when the module is cast to it for a reference)."""
 
     def __init__(self, in_features: int, features: Sequence[int],
                  dtype: torch.dtype = torch.bfloat16):
@@ -74,7 +75,7 @@ class MLPHead(nn.Module):
             x = F.relu(F.linear(x.to(self.dtype), layer.weight.to(self.dtype),
                                 layer.bias.to(self.dtype)))
         last = self.layers[-1]
-        return F.linear(x.to(torch.float32), last.weight, last.bias)
+        return F.linear(x.to(last.weight.dtype), last.weight, last.bias)
 
 
 class PolicyCNN(nn.Module):

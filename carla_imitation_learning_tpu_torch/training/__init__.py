@@ -1,1 +1,2 @@
-"""Closed-loop rollout and evaluation (``training.closed_loop``)."""
+"""Closed loop and collection (``closed_loop``), BC losses, train steps and
+the ``Trainer`` (``losses``, ``steps``, ``loop``)."""

@@ -9,6 +9,7 @@ batched tensor ops on the device and the loop runs on the host.
 ``record_semantic`` the rollout also records the driving view's per-pixel
 class ids, rendered on the exact path (kernel A, textured when the config
 asks for textures), the supervision stream of segmentation collection.
+``collect_dataset`` packs a rollout into a ``FrameStore`` for training.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ import torch
 from carla_imitation_learning_tpu_torch.data.actions import (
     continuous_to_discrete, discrete_to_continuous,
 )
+from carla_imitation_learning_tpu_torch.data.frame_log import StateLog
+from carla_imitation_learning_tpu_torch.data.pipeline import FrameStore
 from carla_imitation_learning_tpu_torch.device import resolve_device
 from carla_imitation_learning_tpu_torch.ops.raster import rasterize_exact_luma
 from carla_imitation_learning_tpu_torch.render.pipeline import (
@@ -170,6 +173,63 @@ def semantic_stream(traj: dict) -> np.ndarray:
     stream a collection writes."""
     sem = traj["semantic"]                                  # (T, B, H, W)
     return sem.transpose(0, 1).reshape((-1,) + tuple(sem.shape[2:])).cpu().numpy()
+
+
+def collect_dataset(params: SimParams, town: TownMap, rcfg: RenderConfig,
+                    generator: torch.Generator, n_envs: int = 16, n_steps: int = 256,
+                    frame_skip: int = 4, policy_fn: Callable | None = None,
+                    noise=None, control_space: str = "discrete", goal_ids=None,
+                    cameras: tuple = ("camera",), record_semantic: bool = False,
+                    device: str | torch.device = "cuda"):
+    """Rollouts → (FrameStore, StateLog, traj): uint8 frames, expert labels
+    and sensors, laid out env-major so each env's stream is contiguous.
+
+    With ``policy_fn=None`` the expert drives; with a policy the policy
+    drives and the expert labels (the DAgger form). ``store.starts`` marks
+    every env stream's first frame and the frame after every auto-reset, so
+    a dataset never samples a window across an episode boundary. The
+    trajectory stays on the device until one host copy per field."""
+    unported = {"noise": noise is not None, "goal_ids": goal_ids is not None,
+                "cameras": tuple(cameras) != ("camera",),
+                "control_space": control_space != "discrete"}
+    if any(unported.values()):
+        raise NotImplementedError(
+            f"collection options not ported yet: {[k for k, v in unported.items() if v]}")
+    init_fn, rollout_fn = make_rollout(params, town, rcfg, policy_fn, frame_skip,
+                                       device=device, record_semantic=record_semantic)
+    _, traj = rollout_fn(init_fn(generator, n_envs), n_steps)
+
+    def flat(x: torch.Tensor) -> np.ndarray:
+        """(T, B, ...) → env-major (B·T, ...) on the host."""
+        return x.transpose(0, 1).reshape((-1,) + tuple(x.shape[2:])).cpu().numpy()
+
+    sensor = flat(traj["sensor"])
+    steer = flat(traj.get("clean_steer", traj["steer"]))
+    traffic = flat(traj["traffic"])
+    state = StateLog(
+        steer=steer.astype(np.float64),
+        throttle=flat(traj["throttle"]).astype(np.float64),
+        brake=flat(traj["brake"]).astype(np.float64),
+        trafficlight=traffic.astype(np.float64),
+        current_steer=sensor[:, 0].astype(np.float64),
+        speed_long=sensor[:, 1].astype(np.float64),
+        speed=sensor[:, 2].astype(np.float64),
+    )
+    done_flat = flat(traj["done"]).astype(bool)
+    starts = np.zeros(n_envs * n_steps, bool)
+    starts[::n_steps] = True
+    starts[1:] |= done_flat[:-1]
+    store = FrameStore(
+        frames=flat(traj["gray"]),
+        actions=flat(traj["expert_action"]).astype(np.int32),
+        traffic=traffic.astype(np.int32),
+        sensors=sensor.astype(np.float32),
+        commands=flat(traj["command"]).astype(np.int32),
+        starts=starts,
+        controls=np.stack([flat(traj["expert_steer"]).astype(np.float32),
+                           flat(traj["expert_accel"]).astype(np.float32)], axis=1),
+    )
+    return store, state, traj
 
 
 def evaluate_policy(params: SimParams, town: TownMap, rcfg: RenderConfig,

@@ -30,6 +30,15 @@ Phases (any failure exits nonzero, with no result line):
    (``make_rollout``), timed as marginal env-steps/s between rollouts of 16
    and 96 steps (median of 3 pairs), each ending in a host fetch of a
    reduced value;
+6b. BC training (``bc_training``), counts reset just before its
+   collection: an expert ``collect_dataset`` at 1024 envs × 24 steps (kernel
+   B once per step plus the first frame), a shuffled ``DeviceDataset`` on the
+   card (batch 256) with a validation tail cut by ``FrameStore.slice``, one
+   fp32 train step on the card against the CPU (TF32 off, the clip
+   triggered), a bf16 ``Trainer.fit`` of 2 epochs of at most 40 batches,
+   the train step timed with CUDA events (median of 3 runs of 50 steps) and
+   the trained policy in ``evaluate_policy`` at 256 envs × 50 steps; its
+   tensors are freed before the rich phases;
 7. the rich fleet (same town and envs, the rich128 preset: facade bands,
    markings, shadows, textures, T=1408) from three seeds: kernel A's
    textured variant (C=1 and C=3), kernel B on the rich lists (2 px and 0
@@ -45,7 +54,8 @@ Phases (any failure exits nonzero, with no result line):
    rollout without the semantic stream with ``quads=False``, ``quads=True``
    and ``vec=True``, in turns, marginal env-steps/s between 16 and 64 steps
    (median of 3 pairs each) — an A/B of kernels C and D against B.
-``--profile`` adds a per-stage breakdown and a torch.profiler summary.
+``--profile`` adds a per-stage breakdown and torch.profiler summaries (the
+policy rollout, the rich fast render, and 10 train steps in ``bc_training``).
 
 The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -69,6 +79,11 @@ ROLLOUT_SHORT, ROLLOUT_LONG = 16, 96   # marginal rollout pair
 ROLLOUT_REPEATS = 3      # marginal pairs; the median is reported
 AB_SHORT, AB_LONG = 16, 64   # the quad / vec A/B's marginal pair
 CROSS_ENVS, CROSS_STEPS = 8, 8   # the card-vs-CPU check of the main path
+BC_ENVS, BC_STEPS = 1024, 24     # the BC phase's expert collection (≈ 400 MB of frames)
+BC_BATCH, BC_EPOCHS, BC_BATCHES = 256, 2, 40   # its bf16 fit: batches per epoch at most
+BC_TIMED_STEPS, BC_TIMED_REPEATS = 50, 3       # train-step timing: median of 3 runs of 50
+BC_EVAL_ENVS, BC_EVAL_STEPS = 256, 50          # the trained policy in the closed loop
+BC_CLIP, BC_LR = 0.5, 1e-3       # the JAX package's trainer and model defaults
 LANES_PER_SM = 128       # lane-instructions an SM issues per clock (4 × 32)
 HBM_RATE = 3.35e12       # H100 SXM device memory, B/s
 WARP_TILE = 16           # kernels A and B cull per 16 × 16 pixel warp tile
@@ -515,6 +530,7 @@ def run(args) -> dict:
                "max_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     log(json.dumps({"rollout": rollout}))
     paths = {"main": launches}
+    bc_training(params, town, rcfg, dev, profile=args.profile is not None)
     # the rich phases allocate gigabytes of temporaries; they run after the
     # main path has been timed
     rich, b_rich_err = rich_kernels(params, town, dev, rows, rate, facts)
@@ -1099,6 +1115,242 @@ def rich_kernels(params, town, dev, rows, rate, facts) -> tuple[list, float]:
         report["kernel_ms_per_frame"][e["counter"]] = e["ms"]
     log(json.dumps({"rich_kernels": report}))
     return entries, errs["B"]
+
+
+def bc_card_vs_cpu(train, dev) -> dict:
+    """One fp32 train step from the same weights and batch on the card and
+    on the CPU, TF32 off, with the global-norm clip triggered, each held
+    against the same step in float64 on the CPU. The loss within rtol 1e-5
+    of float64; per tensor, the card's gradient no further from float64
+    than 4× the CPU's fp32 gradient is, plus 1e-6 of the tensor's scale (a
+    convolution's weight gradient sums hundreds of thousands of products
+    that cancel, so fp32 rounding in either reduction order is visible at
+    1e-3 of the scale); after the step, no more parameters off float64's
+    by over 1 % of the learning rate on the card than 4× the CPU's count
+    plus 1 in 10,000 (Adam's first step moves each weight by about lr ·
+    sign(g), so a near-zero gradient may flip its step). → the errors."""
+    import numpy as np
+    import torch
+
+    from carla_imitation_learning_tpu_torch.models import PolicyCNN
+    from carla_imitation_learning_tpu_torch.training.losses import bc_loss_fn
+    from carla_imitation_learning_tpu_torch.training.steps import (
+        create_train_state, make_optimizer,
+    )
+
+    cpu = torch.device("cpu")
+    tx = make_optimizer({"LEARNING_RATE": BC_LR, "gradient_clip_val": BC_CLIP})
+    x, y = train.make_batch(np.arange(BC_BATCH))
+    init = create_train_state(PolicyCNN(dtype=torch.float32), tx,
+                              generator=torch.Generator().manual_seed(3), device=cpu)
+    runs = {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        for name, d, dtype in (("card", dev, torch.float32), ("cpu", cpu, torch.float32),
+                               ("f64", cpu, torch.float64)):
+            model = PolicyCNN(dtype=dtype).to(dtype)
+            model.load_state_dict(init.model.state_dict())
+            state = create_train_state(model, tx, device=d)
+            loss, _ = bc_loss_fn(state.model, (x.to(d, dtype), y.to(d)))
+            loss.backward()
+            grads = {k: p.grad.to(cpu, torch.float64).clone()
+                     for k, p in state.model.named_parameters()}
+            state.apply_gradients()
+            runs[name] = (float(loss.detach()), grads,
+                          {k: v.to(cpu, torch.float64) for k, v in state.model.state_dict().items()})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    loss64, g64, p64 = runs["f64"]
+    sides = ("card", "cpu")
+    res = {"grad_norm": float(torch.sqrt(sum((g ** 2).sum() for g in g64.values()))),
+           "loss_f64": loss64, "tensors": {}}
+    for side in sides:
+        res[f"loss_rel_err_{side}"] = abs(runs[side][0] - loss64) / abs(loss64)
+        res[f"params_off_{side}"] = 0
+    for k, g in g64.items():
+        scale = float(g.abs().max())
+        res["tensors"][k] = {"grad_scale": scale}
+        for side in sides:
+            res["tensors"][k][f"grad_err_{side}"] = float((runs[side][1][k] - g).abs().max())
+            res[f"params_off_{side}"] += int(((runs[side][2][k] - p64[k]).abs()
+                                              > 0.01 * BC_LR).sum())
+    res["params"] = sum(p.numel() for p in p64.values())
+    res["param_max_diff_card_cpu"] = max(float((runs["card"][2][k] - runs["cpu"][2][k])
+                                               .abs().max()) for k in p64)
+    for side in sides:
+        res[f"grad_max_rel_err_{side}"] = max(t[f"grad_err_{side}"] / max(t["grad_scale"], 1e-30)
+                                              for t in res["tensors"].values())
+    log(json.dumps({"bc_card_vs_cpu": res}))
+    check(res["grad_norm"] > BC_CLIP,
+          f"BC card vs CPU: gradient norm {res['grad_norm']:.3f} does not trigger the clip")
+    for side in sides:
+        check(res[f"loss_rel_err_{side}"] <= 1e-5,
+              f"BC card vs CPU: {side} loss {runs[side][0]} vs float64 {loss64}")
+    for k, t in res["tensors"].items():
+        check(t["grad_err_card"] <= 4 * t["grad_err_cpu"] + 1e-6 * t["grad_scale"],
+              f"BC card vs CPU: {k} gradient {t['grad_err_card']:.3e} from float64, "
+              f"CPU {t['grad_err_cpu']:.3e} (scale {t['grad_scale']:.3e})")
+    check(res["params_off_card"] <= 4 * res["params_off_cpu"] + res["params"] // 10000,
+          f"BC card vs CPU: {res['params_off_card']} parameters off float64's step by "
+          f"> 1 % of lr (CPU {res['params_off_cpu']})")
+    return res
+
+
+def bc_training(params, town, rcfg, dev, profile: bool = False) -> None:
+    """Phase 6b: BC training on the card. An expert ``collect_dataset`` at
+    BC_ENVS × BC_STEPS (kernel B once per step plus the first frame, counts
+    reset just before it), a shuffled ``DeviceDataset`` on the card with a
+    validation tail cut by ``FrameStore.slice``, one fp32 step on the card
+    against the CPU, a bf16 ``Trainer.fit`` of BC_EPOCHS epochs of at most
+    BC_BATCHES batches, the train step timed with CUDA events, and the
+    trained policy in ``evaluate_policy``. Prints one ``bc_training`` line
+    and frees its tensors."""
+    import numpy as np
+    import torch
+
+    from carla_imitation_learning_tpu_torch.data.pipeline import DeviceDataset
+    from carla_imitation_learning_tpu_torch.models import PolicyCNN
+    from carla_imitation_learning_tpu_torch.training.closed_loop import (
+        collect_dataset, evaluate_policy,
+    )
+    from carla_imitation_learning_tpu_torch.training.loop import Trainer
+    from carla_imitation_learning_tpu_torch.training.losses import bc_loss_fn
+    from carla_imitation_learning_tpu_torch.training.steps import (
+        create_train_state, make_eval_step, make_fused_epoch, make_optimizer,
+    )
+
+    res = {}
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    store, _, traj = collect_dataset(params, town, rcfg, torch.Generator().manual_seed(21),
+                                     BC_ENVS, BC_STEPS, device=dev)
+    collect_s = time.perf_counter() - t0
+    launches = read_counts()
+    del traj
+    check(launches["B"] == BC_STEPS + 1,
+          f"BC collection launched kernel B {launches['B']} times for {BC_STEPS} steps")
+    check(launches["A"] + launches["A-tex"] + launches["C"] + launches["D"] == 0,
+          "BC collection launched a kernel it does not run")
+    check(store.frames.shape == (BC_ENVS * BC_STEPS, HW, HW) and store.frames.std() > 1.0,
+          "BC collection frames are blank or misshapen")
+    check(bool(np.isfinite(store.sensors).all() and np.isfinite(store.controls).all()),
+          "BC collection sensors or controls not finite")
+    res["collect"] = {"n_envs": BC_ENVS, "steps": BC_STEPS, "seconds": collect_s,
+                      "env_steps_per_s": BC_ENVS * BC_STEPS / collect_s, "launches": launches,
+                      "frames_mib": store.frames.nbytes / 2 ** 20,
+                      "episode_starts": int(store.starts.sum())}
+
+    n_val = len(store) // 10
+    train = DeviceDataset(store.slice(0, len(store) - n_val), BC_BATCH, shuffle=True,
+                          device=dev)
+    val = DeviceDataset(store.slice(len(store) - n_val, len(store)), BC_BATCH,
+                        drop_last=False, device=dev)
+    del store
+    res["dataset"] = {"train_windows": train.n_samples, "val_windows": val.n_samples,
+                      "train_batches": len(train),
+                      "device_mib": (train.frames.nbytes + val.frames.nbytes) / 2 ** 20}
+    res["card_vs_cpu"] = bc_card_vs_cpu(train, dev)
+
+    cfg = {"LEARNING_RATE": BC_LR, "gradient_clip_val": BC_CLIP,
+           "trainer": {"max_epochs": BC_EPOCHS, "num_sanity_val_steps": 1,
+                       "limit_train_batches": BC_BATCHES}}
+    state = create_train_state(PolicyCNN(dtype=torch.bfloat16),
+                               make_optimizer(cfg, steps_per_epoch=BC_BATCHES),
+                               generator=torch.Generator().manual_seed(0), device=dev)
+    first = train.fork(0).epoch_indices()[:BC_BATCH]    # the fit's first batch
+    first_loss = float(make_eval_step(bc_loss_fn)(state, train.make_batch(first))["loss"])
+    fit = Trainer(cfg, device=dev).fit(state, bc_loss_fn,
+                                       {"train_dataloader": train, "val_dataloader": val})
+    hist = fit.history
+    check(all(np.isfinite(v) for row in hist for v in row.values()),
+          f"BC fit: non-finite history {hist}")
+    check(hist[-1]["train_loss"] < first_loss,
+          f"BC fit: last epoch's train loss {hist[-1]['train_loss']:.4f} not below the "
+          f"first batch's {first_loss:.4f}")
+    res["fit"] = {"first_batch_loss": first_loss, "history": hist, "steps": state.step,
+                  "throughput": fit.throughput}
+
+    # the train step alone: fused epochs of BC_TIMED_STEPS on a copy of the state
+    snap = state.snapshot()
+    epoch = make_fused_epoch(bc_loss_fn, train.pure_batch)
+    order = torch.from_numpy(train.epoch_indices()[:BC_TIMED_STEPS * BC_BATCH]
+                             .reshape(BC_TIMED_STEPS, BC_BATCH)).to(dev)
+    epoch(state, order[:5])
+    times = []
+    for _ in range(BC_TIMED_REPEATS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, _, metrics = epoch(state, order)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / BC_TIMED_STEPS)
+        check(bool(torch.isfinite(metrics["loss"]).all()), "BC timed steps: loss not finite")
+    ms = sorted(times)[len(times) // 2]
+    res["train_step"] = {"batch": BC_BATCH, "dtype": "bfloat16", "ms_per_step": ms,
+                         "ms_runs": times, "images_per_s": BC_BATCH / ms * 1e3}
+    if profile:
+        res["train_step"]["profile"] = profile_train_step(epoch, state, order[:10])
+    state.restore(snap)
+
+    reset_counts()
+    model = state.model
+    metrics = evaluate_policy(params, town, rcfg, lambda obs: model(obs).argmax(-1),
+                              torch.Generator().manual_seed(22), n_envs=BC_EVAL_ENVS,
+                              n_steps=BC_EVAL_STEPS, device=dev)
+    eval_launches = read_counts()
+    check(eval_launches["B"] == BC_EVAL_STEPS + 1, "BC evaluation skipped kernel B")
+    for key in ("driving_score", "route_completion", "mean_speed", "action_agreement",
+                "collisions_per_1k_steps", "clean_episode_rate"):
+        check(np.isfinite(metrics[key]), f"BC evaluation: {key} = {metrics[key]}")
+    res["eval"] = {"n_envs": BC_EVAL_ENVS, "steps": BC_EVAL_STEPS,
+                   "launches": eval_launches, **metrics}
+    res["max_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(json.dumps({"bc_training": res}))
+    del train, val, state, snap, epoch, order, fit, model
+    torch.cuda.empty_cache()
+
+
+def profile_train_step(epoch, state, order) -> dict:
+    """torch.profiler over a fused epoch of len(order) train steps: device
+    launches per step, device busy ms per step and the idle share of the
+    host-clock window, the device time by kernel group and the operators
+    with the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        epoch(state, order)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    groups: dict[str, list] = {}
+    for e in events:
+        name = e.name.lower()
+        group = ("convolution" if any(s in name for s in ("conv", "xmma", "cudnn", "nchw",
+                                                          "nhwc", "implicit"))
+                 else "matmul" if any(s in name for s in ("gemm", "cublas", "cutlass"))
+                 else "optimizer" if any(s in name for s in ("foreach", "multi_tensor",
+                                                             "adam"))
+                 else "other")
+        g = groups.setdefault(group, [0.0, 0])
+        g[0] += e.time_range.elapsed_us()
+        g[1] += 1
+    n = len(order)
+    busy_us = sum(g[0] for g in groups.values())
+    ops = sorted((e for e in prof.key_averages() if e.device_time_total > 0),
+                 key=lambda e: -e.device_time_total)
+    return {"steps": n, "wall_ms_per_step": wall * 1e3 / n,
+            "top_ops": [{"op": e.key[:60], "device_ms_per_step": e.device_time_total / 1e3 / n,
+                         "calls_per_step": e.count / n} for e in ops[:10]],
+            "device_busy_ms_per_step": busy_us / 1e3 / n,
+            "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+            "device_launches_per_step": len(events) / n,
+            "groups": {k: {"device_ms_per_step": v[0] / 1e3 / n, "launches_per_step": v[1] / n}
+                       for k, v in sorted(groups.items(), key=lambda kv: -kv[1][0])}}
 
 
 def marginal(rollout_fn, carry, short: int, long: int, repeats: int):
