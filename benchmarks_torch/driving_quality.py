@@ -1,27 +1,38 @@
 #!/usr/bin/env python3
-"""End-to-end driving quality of the PyTorch port: expert vs untrained vs BC.
+"""End-to-end driving quality of the PyTorch port: expert vs untrained vs BC
+vs DAgger.
 
 The rungs of the JAX package's ``benchmarks/driving_quality.py`` that the
 port can run: the expert's closed-loop driving score, an untrained
-``PolicyCNN``'s, and a ``PolicyCNN`` trained by behaviour cloning on data
-the expert collected on the card. Per seed, the whole pipeline runs anew:
+``PolicyCNN``'s, a ``PolicyCNN`` trained by behaviour cloning on data the
+expert collected on the card, and that policy refined by DAgger. Per seed,
+the whole pipeline runs anew:
 
 1. expert: ``evaluate_policy`` with the autopilot driving;
 2. untrained: a bf16 ``PolicyCNN`` drawn as flax draws it
    (``create_train_state`` with a generator), evaluated on its own fleet;
-3. BC: ``collect_dataset`` with the expert (kernel B renders every step),
+3. BC: ``collect_dataset`` with the expert (kernel B renders every step;
+   with ``--noise`` the executed steer carries ``NoiseConfig(seed=seed)``),
    a shuffled ``DeviceDataset``, ``--epochs`` epochs of Adam(1e-3) without
-   clipping through the fused epoch, then ``evaluate_policy``.
+   clipping through the fused epoch, then ``evaluate_policy``;
+4. DAgger, ``--dagger`` rounds (default 2): each collects at the BC
+   collection's size with the current policy driving and the expert
+   labelling (``dagger_iteration``), trains ``max(2, epochs // 2)`` epochs
+   on ``FrameStore.concat`` of every store so far (shuffle seed 1000 +
+   17·seed + round), and is evaluated on one fleet (key 103) for every
+   round: the rungs ``dagger_r1``, ``dagger_r2``, ... and ``dagger`` (the
+   last); the report carries ``dagger_frames``.
 
 Defaults are the JAX harness's: eval 256 envs × 300 steps, collection 64 ×
 500, 8 epochs, batch 256, the bench town, 128², bf16 ``PolicyCNN``. Each
 rung and seed draws from its own ``torch.Generator`` (eval fleets
-1000·seed + 100, 101, 102; init 1000·seed + 1; collection 1000·seed + 2),
+1000·seed + 100, 101, 102, 103; init 1000·seed + 1; collection 1000·seed +
+2, DAgger round r's 1000·seed + 10 + r),
 so the streams differ from the JAX package's: compare ranges across seeds,
 not values.
 
     python3 benchmarks_torch/driving_quality.py --out REPORT.json
-        [--seeds 3] [--device cuda]
+        [--seeds 3] [--dagger 2] [--noise] [--device cuda]
 
 The report is written to ``--out`` after every rung (never under
 ``reports/``, which holds the JAX package's records); the last line of
@@ -42,7 +53,6 @@ ROOT = Path(__file__).resolve().parents[1]
 KEEP = ("driving_score", "route_completion", "clean_episode_rate", "collisions_per_km",
         "red_violations_per_km", "mean_speed", "action_agreement", "km_driven",
         "steer_rate", "driving_score_arc", "route_completion_arc", "route_km")
-TIERS = ("expert", "untrained", "bc")
 
 
 def card_line() -> str:
@@ -52,12 +62,12 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def summarize(runs: dict) -> dict:
+def summarize(runs: dict, tiers) -> dict:
     """Per tier and metric: mean, min, max and the values over seeds."""
     import numpy as np
 
     summary = {}
-    for tier in TIERS:
+    for tier in tiers:
         if not all(tier in r for r in runs.values()):
             continue
         summary[tier] = {}
@@ -77,6 +87,10 @@ def main(argv=None) -> dict:
     ap.add_argument("--collect-steps", type=int, default=500)
     ap.add_argument("--epochs", type=int, default=8)
     ap.add_argument("--batch", type=int, default=256)
+    ap.add_argument("--dagger", type=int, default=2,
+                    help="DAgger rounds on top of BC (0 to skip)")
+    ap.add_argument("--noise", action="store_true",
+                    help="steering noise on the BC expert collection (labels stay clean)")
     ap.add_argument("--seed", type=int, default=0, help="base seed")
     ap.add_argument("--seeds", type=int, default=1,
                     help="full pipeline repetitions (seed, seed + 1, ...)")
@@ -90,7 +104,7 @@ def main(argv=None) -> dict:
     sys.path.insert(0, str(ROOT))
     import torch
 
-    from carla_imitation_learning_tpu_torch.data.pipeline import DeviceDataset
+    from carla_imitation_learning_tpu_torch.data.pipeline import DeviceDataset, FrameStore
     from carla_imitation_learning_tpu_torch.device import resolve_device
     from carla_imitation_learning_tpu_torch.models import PolicyCNN
     from carla_imitation_learning_tpu_torch.render.pipeline import RenderConfig
@@ -124,6 +138,20 @@ def main(argv=None) -> dict:
         if dev.type == "cuda":
             torch.cuda.synchronize()
 
+    def train(state, ds, epochs: int):
+        """``epochs`` fused epochs → (state, images, seconds, last metrics)."""
+        epoch = make_fused_epoch(bc_loss_fn, ds.pure_batch)
+        sync()
+        t0 = time.perf_counter()
+        metrics, images = None, 0
+        for _ in range(epochs):
+            nb = len(ds)
+            order = ds.epoch_indices()[:nb * args.batch].reshape(nb, -1)
+            state, _, metrics = epoch(state, torch.from_numpy(order).to(dev))
+            images += order.size
+        sync()
+        return state, images, time.perf_counter() - t0, metrics
+
     def run_seed(seed: int) -> None:
         r: dict = {}
         result["runs"][str(seed)] = r
@@ -145,25 +173,17 @@ def main(argv=None) -> dict:
         save()
 
         tc = time.perf_counter()
+        noise = cl.NoiseConfig(seed=seed) if args.noise else None
         store, _, traj = cl.collect_dataset(params, town, rcfg, gen(1000 * seed + 2),
                                             args.collect_envs, args.collect_steps,
-                                            device=dev)
+                                            noise=noise, device=dev)
         del traj
         r["collect_seconds"] = time.perf_counter() - tc
         r["dataset_frames"] = len(store)
 
         ds = DeviceDataset(store, args.batch, shuffle=True, seed=seed, device=dev)
-        epoch = make_fused_epoch(bc_loss_fn, ds.pure_batch)
-        sync()
-        tt = time.perf_counter()
-        metrics, images = None, 0
-        for _ in range(args.epochs):
-            nb = len(ds)
-            order = ds.epoch_indices()[:nb * args.batch].reshape(nb, -1)
-            state, _, metrics = epoch(state, torch.from_numpy(order).to(dev))
-            images += order.size
-        sync()
-        r["train_seconds"] = time.perf_counter() - tt
+        state, images, r["train_seconds"], metrics = train(state, ds, args.epochs)
+        del ds
         r["train_steps"] = state.step
         r["train_images_per_s"] = images / r["train_seconds"]
         if metrics is not None:
@@ -174,20 +194,47 @@ def main(argv=None) -> dict:
         print(f"[seed {seed}] bc: {r['bc']}", flush=True)
         save()
 
+        stores = [store]
+        for rnd in range(args.dagger):
+            tc = time.perf_counter()
+            dstore, _, traj = cl.dagger_iteration(
+                params, town, rcfg, policy_from(state.model), gen(1000 * seed + 10 + rnd),
+                args.collect_envs, args.collect_steps, device=dev)
+            del traj
+            stores.append(dstore)
+            ds = DeviceDataset(FrameStore.concat(stores), args.batch, shuffle=True,
+                               seed=1000 + 17 * seed + rnd, device=dev)
+            state, images, seconds, metrics = train(state, ds, max(2, args.epochs // 2))
+            del ds
+            tier = f"dagger_r{rnd + 1}"
+            r[f"{tier}_collect_seconds"] = time.perf_counter() - tc - seconds
+            r[f"{tier}_train_seconds"] = seconds
+            r[f"{tier}_final_loss"] = float(metrics["loss"][-1])
+            r[tier] = ev(policy_from(state.model), 103)
+            print(f"[seed {seed}] {tier}: {r[tier]}", flush=True)
+            save()
+        if args.dagger:
+            r["dagger_frames"] = sum(len(s) for s in stores)
+            r["dagger"] = r[f"dagger_r{args.dagger}"]
+            save()
+
     t0 = time.perf_counter()
     for seed in range(args.seed, args.seed + max(1, args.seeds)):
         ts = time.perf_counter()
         run_seed(seed)
         result["runs"][str(seed)]["seed_seconds"] = time.perf_counter() - ts
         save()
-    result["summary"] = summarize(result["runs"])
+    tiers = ["expert", "untrained", "bc"] + [f"dagger_r{i + 1}" for i in range(args.dagger)]
+    tiers += ["dagger"] if args.dagger else []
+    result["summary"] = summarize(result["runs"], tiers)
     result["wall_seconds"] = time.perf_counter() - t0
     save()
-    line = {"metric": "closed_loop_driving_score_bc", "seeds": args.seeds,
+    line = {"metric": "closed_loop_driving_score_dagger" if args.dagger
+            else "closed_loop_driving_score_bc", "seeds": args.seeds, "noise": args.noise,
             "device": str(dev), "card": result.get("card"),
-            **{t: result["summary"][t]["driving_score"]["mean"] for t in TIERS},
+            **{t: result["summary"][t]["driving_score"]["mean"] for t in tiers},
             "spread": {t: [result["summary"][t]["driving_score"]["min"],
-                           result["summary"][t]["driving_score"]["max"]] for t in TIERS}}
+                           result["summary"][t]["driving_score"]["max"]] for t in tiers}}
     print(json.dumps(line), flush=True)
     return result
 

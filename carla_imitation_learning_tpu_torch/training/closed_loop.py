@@ -9,7 +9,10 @@ batched tensor ops on the device and the loop runs on the host.
 ``record_semantic`` the rollout also records the driving view's per-pixel
 class ids, rendered on the exact path (kernel A, textured when the config
 asks for textures), the supervision stream of segmentation collection.
-``collect_dataset`` packs a rollout into a ``FrameStore`` for training.
+``collect_dataset`` packs a rollout into a ``FrameStore`` for training;
+with a ``NoiseConfig`` it perturbs the executed steering with triangular
+impulses while the labels stay the clean driver's, and with a policy it is
+the DAgger aggregation step (``dagger_iteration``).
 """
 
 from __future__ import annotations
@@ -59,6 +62,68 @@ def control_from_discrete(action: torch.Tensor) -> VehicleControl:
     return VehicleControl(steer=steer, throttle=throttle, brake=brake)
 
 
+@dataclasses.dataclass(frozen=True)
+class NoiseConfig:
+    """Collection noise (the CIL recovery-data trick): triangular steering
+    impulses added to the EXECUTED steer, while ``expert_action``, the
+    policy's ``action`` and the state-log steer stay the clean driver's.
+
+    prob: per-step, per-env chance that an impulse starts; duration: its
+    length in steps (a triangle over ``max(duration, 3)`` points);
+    magnitude: its largest |steer| offset, also the clip of overlapping
+    impulses; seed: the schedule's seed, combined with the fleet's state so
+    each collection draws its own schedule."""
+
+    prob: float = 0.005
+    duration: int = 20
+    magnitude: float = 0.6
+    seed: int = 0
+
+
+def noise_draws(generator: torch.Generator, n_steps: int, n_envs: int,
+                ncfg: NoiseConfig) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The random part of a noise schedule, (T, B) each on the generator's
+    device: impulse starts (bool, chance ``prob``), signs (±1.0) and peak
+    fractions uniform in [0.3, 1)."""
+    shape = (n_steps, n_envs)
+    starts = torch.rand(shape, generator=generator) < ncfg.prob
+    sign = torch.where(torch.rand(shape, generator=generator) < 0.5, 1.0, -1.0)
+    mag = 0.3 + 0.7 * torch.rand(shape, generator=generator)
+    return starts, sign, mag
+
+
+def noise_shape(starts: torch.Tensor, sign: torch.Tensor, mag: torch.Tensor,
+                ncfg: NoiseConfig) -> torch.Tensor:
+    """(T, B) steering noise from its draws: the signed impulse train
+    convolved causally with a triangle of ``max(duration, 3)`` points (the
+    first T terms of the full convolution), clipped to ±magnitude. Summed
+    one tap at a time in float32, so every device gives the same values."""
+    train = starts.to(torch.float32) * sign.to(torch.float32) * mag.to(torch.float32) \
+        * ncfg.magnitude
+    n_steps = train.shape[0]
+    tri = 1.0 - torch.linspace(-1.0, 1.0, max(int(ncfg.duration), 3)).abs()
+    conv = torch.zeros_like(train)
+    for j in range(min(len(tri), n_steps)):
+        conv[j:] += tri[j] * train[:n_steps - j]
+    return conv.clamp(-ncfg.magnitude, ncfg.magnitude)
+
+
+def _noise_schedule(generator: torch.Generator, n_steps: int, n_envs: int,
+                    ncfg: NoiseConfig) -> torch.Tensor:
+    """(T, B) steering-noise schedule: ``noise_shape`` of ``noise_draws``."""
+    return noise_shape(*noise_draws(generator, n_steps, n_envs, ncfg), ncfg)
+
+
+def noise_generator(ncfg: NoiseConfig, states) -> torch.Generator:
+    """A CPU generator seeded from ``ncfg.seed`` and the sum of the fleet's
+    per-env keys (one host read), so collections from different fleet
+    states draw different schedules and a repeat draws the same one. Both
+    are hashed into the 32 bits the CPU generator's seed keeps."""
+    key_sum = int(states.rng.sum())
+    seed = np.random.SeedSequence([int(ncfg.seed), key_sum]).generate_state(1)[0]
+    return torch.Generator().manual_seed(int(seed))
+
+
 def rollout_spawn_pool(params: SimParams, town: TownMap) -> torch.Tensor:
     """The packed auto-reset spawn pool a rollout draws from by default
     (fixed seed and size, on the town's device)."""
@@ -74,11 +139,17 @@ def make_rollout(params: SimParams, town: TownMap, rcfg: RenderConfig,
                  policy_fn: Callable | None, frame_skip: int = 4,
                  spawn_pool: torch.Tensor | None = None,
                  device: str | torch.device = "cuda",
-                 record_semantic: bool = False):
+                 record_semantic: bool = False, noise: NoiseConfig | None = None):
     """Build (init_fn, rollout_fn) for a single-camera, discrete-action fleet.
 
     ``policy_fn(obs)`` maps the NHWC float window (B, H, W, frame_skip) in
-    [0, 1] to (B,) integer actions; None drives with the autopilot expert.
+    [0, 1] to (B,) integer actions, or to ``(actions, extra)`` with a (B,)
+    per-env scalar (an ensemble's disagreement) logged as
+    ``traj["policy_extra"]``; None drives with the autopilot expert.
+    ``noise`` adds a ``NoiseConfig`` schedule, drawn once per
+    ``rollout_fn`` call, to the executed steer (clipped to [-1, 1]);
+    ``traj["clean_steer"]`` then holds the steer before the noise, and the
+    labels and ``traj["action"]`` stay clean.
     ``spawn_pool`` is a packed (size, D) pool (``sim.world.pack_spawn_pool``
     layout, so the JAX package's pool can be passed in); None builds the
     default one. The renderer is forced onto the fast grayscale kernel with
@@ -112,7 +183,7 @@ def make_rollout(params: SimParams, town: TownMap, rcfg: RenderConfig,
         framebuf = _quantize(render(states)["gray"])[..., None].repeat(1, 1, 1, frame_skip)
         return states, framebuf, torch.zeros(n_envs, dtype=torch.bool, device=dev)
 
-    def one_step(carry):
+    def one_step(carry, steer_noise):
         states, framebuf, just_reset = carry
         gray_u8 = _quantize(render(states)["gray"])
         framebuf = update_framebuf(framebuf, gray_u8, just_reset)
@@ -121,11 +192,20 @@ def make_rollout(params: SimParams, town: TownMap, rcfg: RenderConfig,
         expert = autopilot_control(params, town, states)
         expert_action = continuous_to_discrete(
             expert.steer, expert.throttle, expert.brake).to(torch.int64)
+        policy_extra = None
         if policy_fn is None:
             control, action = expert, expert_action
         else:
-            action = policy_fn(obs).to(torch.int64)
+            action = policy_fn(obs)
+            if isinstance(action, tuple):
+                action, policy_extra = action
+            action = action.to(torch.int64)
             control = control_from_discrete(action)
+        clean_steer = None
+        if steer_noise is not None:
+            clean_steer = control.steer
+            control = dataclasses.replace(
+                control, steer=torch.clamp(control.steer + steer_noise, -1.0, 1.0))
 
         sensors = sensor_vector(params, states)
         traffic = traffic_light_state(params, town, states)
@@ -154,13 +234,22 @@ def make_rollout(params: SimParams, town: TownMap, rcfg: RenderConfig,
             _, sem, _ = rasterize_exact_luma(sem_setup(states), rcfg.height, rcfg.width,
                                              near=rcfg.near, far=rcfg.far)
             out["semantic"] = sem.to(torch.uint8)
+        if policy_extra is not None:
+            out["policy_extra"] = policy_extra
+        if clean_steer is not None:
+            out["clean_steer"] = clean_steer
         return (new_states, framebuf, info["done"]), out
 
     @torch.no_grad()
     def rollout_fn(carry, n_steps: int):
+        schedule = None
+        if noise is not None:
+            n_envs = carry[0].t.shape[0]
+            schedule = _noise_schedule(noise_generator(noise, carry[0]), n_steps, n_envs,
+                                       noise).to(dev)
         outs = []
-        for _ in range(n_steps):
-            carry, out = one_step(carry)
+        for t in range(n_steps):
+            carry, out = one_step(carry, None if schedule is None else schedule[t])
             outs.append(out)
         return carry, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
@@ -187,16 +276,19 @@ def collect_dataset(params: SimParams, town: TownMap, rcfg: RenderConfig,
     With ``policy_fn=None`` the expert drives; with a policy the policy
     drives and the expert labels (the DAgger form). ``store.starts`` marks
     every env stream's first frame and the frame after every auto-reset, so
-    a dataset never samples a window across an episode boundary. The
-    trajectory stays on the device until one host copy per field."""
-    unported = {"noise": noise is not None, "goal_ids": goal_ids is not None,
+    a dataset never samples a window across an episode boundary. ``noise``
+    (a ``NoiseConfig``) perturbs the executed steer; the state log's steer
+    column and the labels stay the clean driver's. The trajectory stays on
+    the device until one host copy per field."""
+    unported = {"goal_ids": goal_ids is not None,
                 "cameras": tuple(cameras) != ("camera",),
                 "control_space": control_space != "discrete"}
     if any(unported.values()):
         raise NotImplementedError(
             f"collection options not ported yet: {[k for k, v in unported.items() if v]}")
     init_fn, rollout_fn = make_rollout(params, town, rcfg, policy_fn, frame_skip,
-                                       device=device, record_semantic=record_semantic)
+                                       device=device, record_semantic=record_semantic,
+                                       noise=noise)
     _, traj = rollout_fn(init_fn(generator, n_envs), n_steps)
 
     def flat(x: torch.Tensor) -> np.ndarray:
@@ -230,6 +322,19 @@ def collect_dataset(params: SimParams, town: TownMap, rcfg: RenderConfig,
                            flat(traj["expert_accel"]).astype(np.float32)], axis=1),
     )
     return store, state, traj
+
+
+def dagger_iteration(params: SimParams, town: TownMap, rcfg: RenderConfig,
+                     policy_fn: Callable, generator: torch.Generator, n_envs: int = 16,
+                     n_steps: int = 256, frame_skip: int = 4,
+                     noise: NoiseConfig | None = None, control_space: str = "discrete",
+                     goal_ids=None, cameras: tuple = ("camera",),
+                     device: str | torch.device = "cuda"):
+    """One DAgger round: the policy drives, the expert labels →
+    ``collect_dataset``'s (FrameStore, StateLog, traj)."""
+    return collect_dataset(params, town, rcfg, generator, n_envs, n_steps, frame_skip,
+                           policy_fn=policy_fn, noise=noise, control_space=control_space,
+                           goal_ids=goal_ids, cameras=cameras, device=device)
 
 
 def evaluate_policy(params: SimParams, town: TownMap, rcfg: RenderConfig,

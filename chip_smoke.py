@@ -39,6 +39,18 @@ Phases (any failure exits nonzero, with no result line):
    the train step timed with CUDA events (median of 3 runs of 50 steps) and
    the trained policy in ``evaluate_policy`` at 256 envs × 50 steps; its
    tensors are freed before the rich phases;
+6c. DAgger (``dagger_phase``), from 6b's trained state, counts reset just
+   before it: a ``dagger_iteration`` round at 1024 envs × 24 steps with the
+   trained policy driving, a noisy expert collection at the same size (the
+   executed steer is the clean steer plus the schedule, the labels the
+   clean driver's), one online-DAgger masked train step in fp32 on the
+   card and on the CPU, each against float64, ``make_online_dagger`` for 4
+   rounds × 256 envs × 32 steps × 200 train steps at batch 256 (agreement
+   1 in round 0, above 2/9 in the last round), its train step timed with
+   CUDA events, and a K = 4 ensemble round at 256 × 24 (disagreement
+   within [0, 1 − 1/K]) with its masked dataset and 5 ensemble steps, then
+   the ensemble in fp32 against its members one at a time (forward and two
+   train steps); kernel B's launches counted;
 7. the rich fleet (same town and envs, the rich128 preset: facade bands,
    markings, shadows, textures, T=1408) from three seeds: kernel A's
    textured variant (C=1 and C=3), kernel B on the rich lists (2 px and 0
@@ -55,7 +67,10 @@ Phases (any failure exits nonzero, with no result line):
    and ``vec=True``, in turns, marginal env-steps/s between 16 and 64 steps
    (median of 3 pairs each) — an A/B of kernels C and D against B.
 ``--profile`` adds a per-stage breakdown and torch.profiler summaries (the
-policy rollout, the rich fast render, and 10 train steps in ``bc_training``).
+policy rollout, the rich fast render, 10 train steps in ``bc_training`` and
+a short online-DAgger run in ``dagger_phase``). The train-step checks
+against float64 also run the CPU side once with oneDNN (mkldnn) off, and
+the device phase prints torch's CPU build settings.
 
 The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -84,6 +99,18 @@ BC_BATCH, BC_EPOCHS, BC_BATCHES = 256, 2, 40   # its bf16 fit: batches per epoch
 BC_TIMED_STEPS, BC_TIMED_REPEATS = 50, 3       # train-step timing: median of 3 runs of 50
 BC_EVAL_ENVS, BC_EVAL_STEPS = 256, 50          # the trained policy in the closed loop
 BC_CLIP, BC_LR = 0.5, 1e-3       # the JAX package's trainer and model defaults
+DAGGER_ENVS, DAGGER_STEPS = 1024, 24   # a DAgger round and a noisy collection
+ONLINE_ROUNDS, ONLINE_ENVS, ONLINE_STEPS = 4, 256, 32   # online DAgger's run
+ONLINE_TRAIN_STEPS, ONLINE_BATCH = 200, 256              # its train steps per round
+ONLINE_TIMED_STEPS = 20                                  # the masked step's timing
+# A policy that plays one action, as one trained too little does, agrees
+# with the expert as often as the expert picks that action: 0.09-0.13 of
+# the time after its first round, against 0.27-0.40 in rounds 3 and 4 of
+# runs that train 200 steps a round (benchmarks_torch/online_dagger_ablation.py
+# on the card, PERF.md).
+ONLINE_MIN_AGREEMENT = 2 / 9
+ENSEMBLE_K, ENSEMBLE_ENVS, ENSEMBLE_STEPS = 4, 256, 24   # the uncertainty-gated round
+ENSEMBLE_TAU, ENSEMBLE_TRAIN_STEPS = 0.25, 5
 LANES_PER_SM = 128       # lane-instructions an SM issues per clock (4 × 32)
 HBM_RATE = 3.35e12       # H100 SXM device memory, B/s
 WARP_TILE = 16           # kernels A and B cull per 16 × 16 pixel warp tile
@@ -387,6 +414,9 @@ def run(args) -> dict:
     smi = nvidia_smi()
     log(f"device: {kind} (count {count}); nvidia-smi: {smi}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    log(json.dumps({"torch_cpu_config": [
+        line.strip() for line in torch.__config__.show().splitlines()
+        if any(k in line for k in ("CPU capability", "MKL", "oneDNN", "OpenMP", "LAPACK"))]}))
 
     rate = issue_rate()
     t0 = time.perf_counter()
@@ -530,7 +560,11 @@ def run(args) -> dict:
                "max_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     log(json.dumps({"rollout": rollout}))
     paths = {"main": launches}
-    bc_training(params, town, rcfg, dev, profile=args.profile is not None)
+    bc_state = bc_training(params, town, rcfg, dev, profile=args.profile is not None)
+    paths["dagger"] = dagger_phase(params, town, rcfg, dev, bc_state,
+                                   profile=args.profile is not None)
+    del bc_state
+    torch.cuda.empty_cache()
     # the rich phases allocate gigabytes of temporaries; they run after the
     # main path has been timed
     rich, b_rich_err = rich_kernels(params, town, dev, rows, rate, facts)
@@ -1118,9 +1152,21 @@ def rich_kernels(params, town, dev, rows, rate, facts) -> tuple[list, float]:
 
 
 def bc_card_vs_cpu(train, dev) -> dict:
-    """One fp32 train step from the same weights and batch on the card and
-    on the CPU, TF32 off, with the global-norm clip triggered, each held
-    against the same step in float64 on the CPU. The loss within rtol 1e-5
+    """``step_card_vs_cpu`` of the BC loss on the first BC_BATCH windows of
+    ``train``, printed as the ``bc_card_vs_cpu`` line."""
+    import numpy as np
+
+    from carla_imitation_learning_tpu_torch.training.losses import bc_loss_fn
+
+    return step_card_vs_cpu("bc_card_vs_cpu", bc_loss_fn,
+                            train.make_batch(np.arange(BC_BATCH)), dev)
+
+
+def step_card_vs_cpu(name: str, loss_fn, batch, dev, require_clip: bool = True) -> dict:
+    """One fp32 train step of ``loss_fn`` from the same weights and batch on
+    the card and on the CPU, TF32 off, with the global-norm clip (when
+    ``require_clip``, checked to trigger), each held against the same step
+    in float64 on the CPU. The loss within rtol 1e-5
     of float64; per tensor, the card's gradient no further from float64
     than 4× the CPU's fp32 gradient is, plus 1e-6 of the tensor's scale (a
     convolution's weight gradient sums hundreds of thousands of products
@@ -1128,43 +1174,48 @@ def bc_card_vs_cpu(train, dev) -> dict:
     1e-3 of the scale); after the step, no more parameters off float64's
     by over 1 % of the learning rate on the card than 4× the CPU's count
     plus 1 in 10,000 (Adam's first step moves each weight by about lr ·
-    sign(g), so a near-zero gradient may flip its step). → the errors."""
-    import numpy as np
+    sign(g), so a near-zero gradient may flip its step). Float tensors of
+    ``batch`` take each run's dtype. Prints the ``name`` line; → the errors."""
     import torch
 
     from carla_imitation_learning_tpu_torch.models import PolicyCNN
-    from carla_imitation_learning_tpu_torch.training.losses import bc_loss_fn
     from carla_imitation_learning_tpu_torch.training.steps import (
         create_train_state, make_optimizer,
     )
 
     cpu = torch.device("cpu")
     tx = make_optimizer({"LEARNING_RATE": BC_LR, "gradient_clip_val": BC_CLIP})
-    x, y = train.make_batch(np.arange(BC_BATCH))
     init = create_train_state(PolicyCNN(dtype=torch.float32), tx,
                               generator=torch.Generator().manual_seed(3), device=cpu)
     runs = {}
     tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
-        for name, d, dtype in (("card", dev, torch.float32), ("cpu", cpu, torch.float32),
-                               ("f64", cpu, torch.float64)):
+        # the CPU's fp32 step also once with oneDNN (mkldnn) convolutions off
+        for side, d, dtype, mkldnn in (("card", dev, torch.float32, True),
+                                       ("cpu", cpu, torch.float32, True),
+                                       ("cpu_no_mkldnn", cpu, torch.float32, False),
+                                       ("f64", cpu, torch.float64, True)):
             model = PolicyCNN(dtype=dtype).to(dtype)
             model.load_state_dict(init.model.state_dict())
             state = create_train_state(model, tx, device=d)
-            loss, _ = bc_loss_fn(state.model, (x.to(d, dtype), y.to(d)))
-            loss.backward()
+            with torch.backends.mkldnn.flags(enabled=mkldnn and torch.backends.mkldnn.enabled):
+                loss, _ = loss_fn(state.model, tuple(
+                    t.to(d, dtype) if t.is_floating_point() else t.to(d) for t in batch))
+                loss.backward()
             grads = {k: p.grad.to(cpu, torch.float64).clone()
                      for k, p in state.model.named_parameters()}
             state.apply_gradients()
-            runs[name] = (float(loss.detach()), grads,
+            runs[side] = (float(loss.detach()), grads,
                           {k: v.to(cpu, torch.float64) for k, v in state.model.state_dict().items()})
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     loss64, g64, p64 = runs["f64"]
-    sides = ("card", "cpu")
+    sides = ("card", "cpu", "cpu_no_mkldnn")
     res = {"grad_norm": float(torch.sqrt(sum((g ** 2).sum() for g in g64.values()))),
-           "loss_f64": loss64, "tensors": {}}
+           "loss_f64": loss64, "tensors": {},
+           "mkldnn": {"available": torch.backends.mkldnn.is_available(),
+                      "enabled": torch.backends.mkldnn.enabled}}
     for side in sides:
         res[f"loss_rel_err_{side}"] = abs(runs[side][0] - loss64) / abs(loss64)
         res[f"params_off_{side}"] = 0
@@ -1181,31 +1232,33 @@ def bc_card_vs_cpu(train, dev) -> dict:
     for side in sides:
         res[f"grad_max_rel_err_{side}"] = max(t[f"grad_err_{side}"] / max(t["grad_scale"], 1e-30)
                                               for t in res["tensors"].values())
-    log(json.dumps({"bc_card_vs_cpu": res}))
-    check(res["grad_norm"] > BC_CLIP,
-          f"BC card vs CPU: gradient norm {res['grad_norm']:.3f} does not trigger the clip")
-    for side in sides:
+    res["clip_triggered"] = res["grad_norm"] > BC_CLIP
+    log(json.dumps({name: res}))
+    if require_clip:
+        check(res["clip_triggered"],
+              f"{name}: gradient norm {res['grad_norm']:.3f} does not trigger the clip")
+    for side in ("card", "cpu"):
         check(res[f"loss_rel_err_{side}"] <= 1e-5,
-              f"BC card vs CPU: {side} loss {runs[side][0]} vs float64 {loss64}")
+              f"{name}: {side} loss {runs[side][0]} vs float64 {loss64}")
     for k, t in res["tensors"].items():
         check(t["grad_err_card"] <= 4 * t["grad_err_cpu"] + 1e-6 * t["grad_scale"],
-              f"BC card vs CPU: {k} gradient {t['grad_err_card']:.3e} from float64, "
+              f"{name}: {k} gradient {t['grad_err_card']:.3e} from float64, "
               f"CPU {t['grad_err_cpu']:.3e} (scale {t['grad_scale']:.3e})")
     check(res["params_off_card"] <= 4 * res["params_off_cpu"] + res["params"] // 10000,
-          f"BC card vs CPU: {res['params_off_card']} parameters off float64's step by "
+          f"{name}: {res['params_off_card']} parameters off float64's step by "
           f"> 1 % of lr (CPU {res['params_off_cpu']})")
     return res
 
 
-def bc_training(params, town, rcfg, dev, profile: bool = False) -> None:
+def bc_training(params, town, rcfg, dev, profile: bool = False):
     """Phase 6b: BC training on the card. An expert ``collect_dataset`` at
     BC_ENVS × BC_STEPS (kernel B once per step plus the first frame, counts
     reset just before it), a shuffled ``DeviceDataset`` on the card with a
     validation tail cut by ``FrameStore.slice``, one fp32 step on the card
     against the CPU, a bf16 ``Trainer.fit`` of BC_EPOCHS epochs of at most
     BC_BATCHES batches, the train step timed with CUDA events, and the
-    trained policy in ``evaluate_policy``. Prints one ``bc_training`` line
-    and frees its tensors."""
+    trained policy in ``evaluate_policy``. Prints one ``bc_training`` line,
+    frees its tensors and returns the trained ``TrainState``."""
     import numpy as np
     import torch
 
@@ -1308,8 +1361,352 @@ def bc_training(params, town, rcfg, dev, profile: bool = False) -> None:
                    "launches": eval_launches, **metrics}
     res["max_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     log(json.dumps({"bc_training": res}))
-    del train, val, state, snap, epoch, order, fit, model
+    del train, val, snap, epoch, order, fit, model
     torch.cuda.empty_cache()
+    return state
+
+
+def dagger_phase(params, town, rcfg, dev, bc_state, profile: bool = False) -> dict:
+    """Phase 6c: DAgger on the card, from the BC phase's trained state,
+    counts reset just before it. A DAgger round (``dagger_iteration``, the
+    trained policy driving) and a noisy expert collection at DAGGER_ENVS ×
+    DAGGER_STEPS, each launching kernel B once per step plus the first
+    frame; ``make_online_dagger`` from a copy of the trained state, which
+    must have learned (the last round's agreement above
+    ONLINE_MIN_AGREEMENT); a K-member ensemble round with its masked
+    dataset and a few ensemble steps, and the ensemble against its members
+    (``ensemble_card_vs_members``); one online-DAgger masked train step in
+    fp32 on the card and on the CPU, each against float64. Prints one
+    ``dagger`` line; → the phase's launch counts."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from carla_imitation_learning_tpu_torch.data.actions import continuous_to_discrete
+    from carla_imitation_learning_tpu_torch.data.pipeline import DeviceDataset
+    from carla_imitation_learning_tpu_torch.models import PolicyCNN
+    from carla_imitation_learning_tpu_torch.training import closed_loop as cl
+    from carla_imitation_learning_tpu_torch.training import dagger
+    from carla_imitation_learning_tpu_torch.training import online_dagger as od
+    from carla_imitation_learning_tpu_torch.training.steps import flax_init_, make_optimizer
+
+    res = {}
+    model = bc_state.model
+
+    def policy_fn(obs):
+        return model(obs).argmax(-1)
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    store, _, traj = cl.dagger_iteration(params, town, rcfg, policy_fn,
+                                         torch.Generator().manual_seed(31), DAGGER_ENVS,
+                                         DAGGER_STEPS, device=dev)
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    check(launches["B"] == DAGGER_STEPS + 1,
+          f"DAgger round launched kernel B {launches['B']} times for {DAGGER_STEPS} steps")
+    check(store.frames.shape == (DAGGER_ENVS * DAGGER_STEPS, HW, HW) and store.frames.std() > 1,
+          "DAgger round frames are blank or misshapen")
+    check(bool(np.array_equal(store.actions, traj["expert_action"].T.reshape(-1).cpu().numpy())),
+          "DAgger round: the store's labels are not the expert's actions")
+    res["round"] = {"n_envs": DAGGER_ENVS, "steps": DAGGER_STEPS, "seconds": seconds,
+                    "env_steps_per_s": DAGGER_ENVS * DAGGER_STEPS / seconds,
+                    "launches_B": launches["B"],
+                    "agreement": float((traj["action"] == traj["expert_action"])
+                                       .float().mean()),
+                    "policy_action_counts": torch.bincount(traj["action"].reshape(-1).long(),
+                                                           minlength=9).tolist(),
+                    "expert_action_counts": torch.bincount(
+                        traj["expert_action"].reshape(-1).long(), minlength=9).tolist()}
+
+    # masked online-DAgger windows from the round's trajectory (first
+    # ONLINE_BATCH envs as a one-round buffer): the fp32 step on card and CPU
+    buf = (traj["gray"][None, :, :ONLINE_BATCH], traj["expert_action"][None, :, :ONLINE_BATCH],
+           traj["done"][None, :, :ONLINE_BATCH])
+    windows = od.sample_windows(torch.Generator().manual_seed(32), *buf, 0, 1, 4)
+    del traj, store
+
+    def masked_loss(m, batch):
+        obs, y, w = batch
+        return od.masked_cross_entropy(m(obs), y, w), {}
+
+    masked = step_card_vs_cpu("online_dagger_card_vs_cpu", masked_loss, windows, dev,
+                              require_clip=False)
+    res["masked_step_card_vs_cpu"] = {k: v for k, v in masked.items() if k != "tensors"}
+
+    ncfg = cl.NoiseConfig(seed=5)
+    init_fn, rollout_fn = cl.make_rollout(params, town, rcfg, None, noise=ncfg, device=dev)
+    carry = init_fn(torch.Generator().manual_seed(33), DAGGER_ENVS)
+    sched = cl._noise_schedule(cl.noise_generator(ncfg, carry[0]), DAGGER_STEPS, DAGGER_ENVS,
+                               ncfg).to(dev)
+    t0 = time.perf_counter()
+    _, traj = rollout_fn(carry, DAGGER_STEPS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    clean, steer = traj["clean_steer"], traj["steer"]
+    check(torch.equal(steer, torch.where(sched != 0, torch.clamp(clean + sched, -1, 1), clean)),
+          "noisy collection: the executed steer is not the clean steer plus the schedule")
+    labels = continuous_to_discrete(clean, traj["throttle"], traj["brake"]).to(torch.int64)
+    check(torch.equal(traj["expert_action"], labels) and torch.equal(traj["action"], labels),
+          "noisy collection: the labels are not the clean driver's")
+    res["noisy_collection"] = {
+        "n_envs": DAGGER_ENVS, "steps": DAGGER_STEPS, "prob": ncfg.prob,
+        "env_steps_per_s": DAGGER_ENVS * DAGGER_STEPS / seconds,
+        "perturbed_share": float((steer != clean).float().mean()),
+        "schedule_active_share": float((sched != 0).float().mean()),
+        "max_abs_noise": float((steer - clean).abs().max())}
+    check(res["noisy_collection"]["perturbed_share"] > 0, "noisy collection: no noise fired")
+    del traj, carry
+
+    state = copy.deepcopy(bc_state)
+    run = od.make_online_dagger(PolicyCNN.__call__, params, town, rcfg,
+                                n_envs=ONLINE_ENVS, n_steps=ONLINE_STEPS,
+                                rounds=ONLINE_ROUNDS, train_steps=ONLINE_TRAIN_STEPS,
+                                batch=ONLINE_BATCH, device=dev)
+    t0 = time.perf_counter()
+    state, metrics = run(state, torch.Generator().manual_seed(34))
+    seconds = time.perf_counter() - t0
+    check(metrics["agreement"][0] == 1.0,
+          f"online DAgger: round 0 agreement {metrics['agreement'][0]} is not 1")
+    check(bool(np.isfinite(metrics["loss"]).all() and np.isfinite(metrics["valid_frac"]).all()),
+          f"online DAgger: non-finite metrics {metrics}")
+    check(metrics["agreement"][-1] > ONLINE_MIN_AGREEMENT,
+          f"online DAgger: the last round's agreement {metrics['agreement'][-1]:.3f} is not "
+          f"above {ONLINE_MIN_AGREEMENT:.3f}; the policy has not learned")
+    # the train step alone: sampled masked steps on a one-round buffer
+    frames = torch.zeros((1, ONLINE_STEPS, ONLINE_ENVS, HW, HW), dtype=torch.uint8, device=dev)
+    labels = torch.zeros((1, ONLINE_STEPS, ONLINE_ENVS), dtype=torch.int64, device=dev)
+    dones = torch.zeros((1, ONLINE_STEPS, ONLINE_ENVS), dtype=torch.bool, device=dev)
+    n = min(DAGGER_STEPS, ONLINE_STEPS)
+    for whole, part in zip((frames, labels, dones), buf):
+        whole[0, :n] = part[0, :n, :ONLINE_ENVS]
+    gen = torch.Generator().manual_seed(35)
+
+    def train_step():
+        obs, y, w = od.sample_windows(gen, frames, labels, dones, 0,
+                                      ONLINE_BATCH // ONLINE_ENVS, 4)
+        state.optimizer.zero_grad(set_to_none=True)
+        od.masked_cross_entropy(state.model(obs), y, w).backward()
+        state.apply_gradients()
+
+    for _ in range(3):
+        train_step()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(ONLINE_TIMED_STEPS):
+        train_step()
+    end.record()
+    torch.cuda.synchronize()
+    res["online"] = {
+        "rounds": ONLINE_ROUNDS, "n_envs": ONLINE_ENVS, "steps": ONLINE_STEPS,
+        "train_steps": ONLINE_TRAIN_STEPS, "batch": ONLINE_BATCH, "seconds": seconds,
+        "env_steps_per_s_with_training": ONLINE_ROUNDS * ONLINE_STEPS * ONLINE_ENVS / seconds,
+        "ms_per_train_step": start.elapsed_time(end) / ONLINE_TIMED_STEPS,
+        "buffer_mib": ONLINE_ROUNDS * ONLINE_STEPS * ONLINE_ENVS * (HW * HW + 9) / 2 ** 20,
+        **{k: v.tolist() for k, v in metrics.items()}}
+    if profile:
+        res["online"]["profile"] = profile_online_dagger(params, town, rcfg, dev, state)
+    del state, run, frames, labels, dones, buf
+
+    members = [copy.deepcopy(model)] + [
+        flax_init_(PolicyCNN(dtype=torch.bfloat16), torch.Generator().manual_seed(40 + i))
+        for i in range(ENSEMBLE_K - 1)]
+    ens = dagger.Ensemble(members, make_optimizer({"LEARNING_RATE": BC_LR,
+                                                   "gradient_clip_val": BC_CLIP}), device=dev)
+    t0 = time.perf_counter()
+    store, _, traj = cl.dagger_iteration(params, town, rcfg, dagger.ensemble_policy_from(ens),
+                                         torch.Generator().manual_seed(36), ENSEMBLE_ENVS,
+                                         ENSEMBLE_STEPS, device=dev)
+    seconds = time.perf_counter() - t0
+    unc = traj["policy_extra"]
+    check(tuple(unc.shape) == (ENSEMBLE_STEPS, ENSEMBLE_ENVS)
+          and float(unc.min()) >= 0.0 and float(unc.max()) <= 1.0 - 1.0 / ENSEMBLE_K,
+          f"ensemble round: disagreement outside [0, {1.0 - 1.0 / ENSEMBLE_K}]")
+    mask = unc.T.reshape(-1).cpu().numpy() >= ENSEMBLE_TAU
+    kept_all = not mask.any()
+    if kept_all:
+        mask[:] = True
+    ds = DeviceDataset(store, BC_BATCH, shuffle=True, sample_mask=mask, device=dev)
+    losses = [ens.train_step(batch)["loss"] for _, batch in zip(range(ENSEMBLE_TRAIN_STEPS), ds)]
+    losses = torch.stack(losses).cpu().numpy()
+    check(bool(np.isfinite(losses).all()), "ensemble steps: non-finite loss")
+    res["ensemble"] = {"k": ENSEMBLE_K, "n_envs": ENSEMBLE_ENVS, "steps": ENSEMBLE_STEPS,
+                       "env_steps_per_s": ENSEMBLE_ENVS * ENSEMBLE_STEPS / seconds,
+                       "ms_per_step": seconds / ENSEMBLE_STEPS * 1e3,
+                       "mean_disagreement": float(unc.mean()),
+                       "max_disagreement": float(unc.max()), "tau": ENSEMBLE_TAU,
+                       "kept_windows": ds.n_samples, "kept_whole_round": kept_all,
+                       "member_losses": losses.tolist()}
+    obs = windows[0][:ENSEMBLE_ENVS].to(dev, torch.bfloat16)
+    if profile:
+        res["ensemble"]["profile"] = profile_ensemble_forward(ens, members, obs)
+    res["ensemble_vs_members"] = ensemble_card_vs_members(members, windows, dev)
+    del windows, obs
+    launches = read_counts()
+    # one launch per rollout step plus each rollout's first frame
+    want_b = (2 * (DAGGER_STEPS + 1) + ENSEMBLE_STEPS + 1 + ONLINE_ROUNDS * ONLINE_STEPS + 1
+              + (2 * (2 * 8 + 1) if profile else 0))
+    check(launches["B"] == want_b,
+          f"the DAgger phase launched kernel B {launches['B']} times, not {want_b}")
+    check(launches["A"] + launches["A-tex"] + launches["C"] + launches["D"] == 0,
+          "the DAgger phase launched a kernel it does not run")
+    res["launches"] = launches
+    res["max_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(json.dumps({"dagger": res}))
+    del ens, members, store, traj, ds
+    torch.cuda.empty_cache()
+    return launches
+
+
+def ensemble_card_vs_members(members, windows, dev) -> dict:
+    """The K-member ``Ensemble`` on the card in fp32 (TF32 off) against its
+    members run one at a time on the card, from fp32 copies of
+    ``members`` and on the windows ``(obs, labels, _)``:
+    - the vmapped forward's logits and each member's own, each held against
+      the member's forward in float64 on the CPU: the ensemble no further
+      from float64 than 4× the single forward is, plus 1e-6 of the logits'
+      scale;
+    - two ``Ensemble.train_step``s (on the windows' halves) against two
+      ``make_train_step`` steps of each member alone, with the global-norm
+      clip set between the members' gradient norms, so that it triggers for
+      some members and not for others: each member's loss within rtol 1e-5,
+      and after the steps no more parameters off the single steps' by over
+      1 % of the learning rate than 1 in 10,000 (Adam's first steps move a
+      weight by about lr · sign(g), so a near-zero gradient may flip).
+    Prints the ``ensemble_vs_members`` line; → its numbers."""
+    import statistics
+
+    import torch
+
+    from carla_imitation_learning_tpu_torch.models import PolicyCNN
+    from carla_imitation_learning_tpu_torch.training import dagger
+    from carla_imitation_learning_tpu_torch.training.losses import bc_loss_fn
+    from carla_imitation_learning_tpu_torch.training.steps import (
+        create_train_state, make_optimizer, make_train_step,
+    )
+
+    def copy_as(m, dtype, device):
+        new = PolicyCNN(dtype=dtype).to(dtype)
+        new.load_state_dict(m.state_dict())
+        return new.to(device)
+
+    cpu = torch.device("cpu")
+    obs, y = windows[0].to(dev, torch.float32), windows[1].to(dev)
+    half = len(y) // 2
+    fp32 = [copy_as(m, torch.float32, dev) for m in members]
+    res = {"k": len(fp32), "windows": len(y)}
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        ens = dagger.Ensemble(fp32, make_optimizer({}), device=dev)
+        with torch.no_grad():
+            got = ens.logits(obs).to(cpu, torch.float64)
+            single = torch.stack([m(obs) for m in fp32]).to(cpu, torch.float64)
+            want = torch.stack([copy_as(m, torch.float64, cpu)(obs.to(cpu, torch.float64))
+                                for m in fp32])
+        scale = float(want.abs().max())
+        res["forward"] = {"logit_scale": scale,
+                          "err_ensemble": float((got - want).abs().max()),
+                          "err_single": float((single - want).abs().max()),
+                          "ensemble_vs_single": float((got - single).abs().max())}
+        norms = []
+        for m in fp32:
+            m.zero_grad(set_to_none=True)
+            bc_loss_fn(m, (obs[:half], y[:half]))[0].backward()
+            norms.append(float(torch.sqrt(sum((p.grad.double() ** 2).sum()
+                                              for p in m.parameters()))))
+            m.zero_grad(set_to_none=True)
+        clip = statistics.median(norms)
+        tx = make_optimizer({"LEARNING_RATE": BC_LR, "gradient_clip_val": clip})
+        ens = dagger.Ensemble(fp32, tx, device=dev)
+        singles = [create_train_state(copy_as(m, torch.float32, dev), tx, device=dev)
+                   for m in fp32]
+        step = make_train_step(bc_loss_fn)
+        loss_err = 0.0
+        for part in (slice(0, half), slice(half, 2 * half)):
+            batch = (obs[part], y[part])
+            ens_loss = ens.train_step(batch)["loss"].to(cpu, torch.float64)
+            for i, s in enumerate(singles):
+                single_loss = float(step(s, batch)[1]["loss"])
+                loss_err = max(loss_err, abs(float(ens_loss[i]) - single_loss) / abs(single_loss))
+        off, worst, n_params = 0, 0.0, 0
+        for i, s in enumerate(singles):
+            got_p = ens.member(i)
+            for k, v in s.model.state_dict().items():
+                d = (got_p[k] - v).abs()
+                off += int((d > 0.01 * BC_LR).sum())
+                worst = max(worst, float(d.max()))
+                n_params += v.numel()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    res["step"] = {"grad_norms": norms, "clip": clip, "steps": 2, "loss_rel_err": loss_err,
+                   "params": n_params, "params_off": off, "param_max_diff": worst}
+    log(json.dumps({"ensemble_vs_members": res}))
+    fwd = res["forward"]
+    check(fwd["err_ensemble"] <= 4 * fwd["err_single"] + 1e-6 * scale,
+          f"ensemble forward: {fwd['err_ensemble']:.3e} from float64, a single member "
+          f"{fwd['err_single']:.3e} (scale {scale:.3e})")
+    check(min(norms) < clip < max(norms), f"ensemble step: clip {clip} not between {norms}")
+    check(loss_err <= 1e-5, f"ensemble step: member loss {loss_err:.3e} from the single step's")
+    check(off <= n_params // 10000,
+          f"ensemble step: {off} of {n_params} parameters off the single steps' by > 1 % of lr")
+    return res
+
+
+def profile_ensemble_forward(ens, members, obs) -> dict:
+    """torch.profiler over one vmapped ensemble forward, one member's own
+    forward and the K members' forwards one after another, on the same bf16
+    windows: device launches and device busy ms of each."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    runs = {"ensemble": lambda: ens.logits(obs), "single": lambda: members[0](obs),
+            "members_one_by_one": lambda: [m(obs) for m in members]}
+    res = {"k": len(members), "batch": len(obs)}
+    with torch.no_grad():
+        for name, fn in runs.items():
+            fn()
+            torch.cuda.synchronize()
+            with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            events = [e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+            res[name] = {"device_launches": len(events),
+                         "device_busy_ms": sum(e.time_range.elapsed_us() for e in events) / 1e3}
+    return res
+
+
+def profile_online_dagger(params, town, rcfg, dev, state) -> dict:
+    """torch.profiler over one online-DAgger round of ONLINE_ENVS × 8 steps
+    and 5 train steps: device launches, device busy ms and the idle share
+    of the host-clock window, per rollout step and in all."""
+    import copy
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from carla_imitation_learning_tpu_torch.models import PolicyCNN
+    from carla_imitation_learning_tpu_torch.training import online_dagger as od
+
+    run = od.make_online_dagger(PolicyCNN.__call__, params, town, rcfg, n_envs=ONLINE_ENVS,
+                                n_steps=8, rounds=2, train_steps=5, batch=ONLINE_BATCH,
+                                device=dev)
+    run(copy.deepcopy(state), torch.Generator().manual_seed(37))
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(copy.deepcopy(state), torch.Generator().manual_seed(38))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in events)
+    return {"rounds": 2, "steps": 8, "train_steps": 5, "wall_ms": wall * 1e3,
+            "device_busy_ms": busy_us / 1e3, "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+            "device_launches": len(events),
+            "fast_kernel_launches": sum("fast_band_kernel" in e.name for e in events)}
 
 
 def profile_train_step(epoch, state, order) -> dict:

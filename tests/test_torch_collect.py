@@ -185,7 +185,7 @@ def test_bc_step_on_collected_store(expert_collection):
 def test_collect_refuses():
     town = convert.town_from_jax(TOWN)
     gen = torch.Generator().manual_seed(0)
-    for kw in ({"noise": object()}, {"goal_ids": [0]}, {"cameras": ("camera", "FL")},
+    for kw in ({"goal_ids": [0]}, {"cameras": ("camera", "FL")},
                {"control_space": "continuous"}):
         with pytest.raises(NotImplementedError):
             p_cl.collect_dataset(P_PARAMS, town, P_RCFG, gen, device="cpu", **kw)
