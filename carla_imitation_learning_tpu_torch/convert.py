@@ -10,6 +10,7 @@ package computed.
 from __future__ import annotations
 
 import dataclasses
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -126,9 +127,18 @@ def carry_from_jax(carry):
             _tensor(just_reset, torch.bool))
 
 
+def _field(node, name: str):
+    return node[name] if isinstance(node, dict) else getattr(node, name)
+
+
 def _adam_state(node):
     """The first node of an optax state tree that carries Adam's ``count``,
-    ``mu`` and ``nu`` (``ScaleByAdamState``, inside any chain)."""
+    ``mu`` and ``nu`` (``ScaleByAdamState`` inside any chain, or its dict
+    form in a checkpoint restored without a template)."""
+    if isinstance(node, dict):
+        if {"count", "mu", "nu"} <= set(node):
+            return node
+        return None
     if all(hasattr(node, k) for k in ("count", "mu", "nu")):
         return node
     if isinstance(node, (tuple, list)):
@@ -155,8 +165,8 @@ def train_state_from_jax(state, tx: AdamConfig, dtype: torch.dtype = torch.float
     model.load_state_dict(policy_state_dict(params))
     out = create_train_state(model, tx, ema_decay=float(state.ema_decay), device=device)
     adam = _adam_state(state.opt_state)
-    count = int(np.asarray(adam.count))
-    mu, nu = policy_state_dict(adam.mu), policy_state_dict(adam.nu)
+    count = int(np.asarray(_field(adam, "count")))
+    mu, nu = policy_state_dict(_field(adam, "mu")), policy_state_dict(_field(adam, "nu"))
     opt = out.optimizer.state_dict()
     opt["state"] = {i: {"step": torch.tensor(float(count)), "exp_avg": mu[name],
                         "exp_avg_sq": nu[name]}
@@ -165,4 +175,21 @@ def train_state_from_jax(state, tx: AdamConfig, dtype: torch.dtype = torch.float
     out.step = count
     if state.ema_params is not None:
         out.ema.load_state_dict(policy_state_dict(state.ema_params))
+    return out
+
+
+def checkpoint_from_jax(payload: dict) -> dict:
+    """A JAX ``PolicyCNN`` checkpoint, restored as numpy arrays (``{"params",
+    "opt_state", "step"[, "ema_params"]}``, e.g. Orbax's templateless
+    restore), → this package's checkpoint payload (``TrainState.payload()``:
+    state_dicts of the model, Adam and the EMA shadow, and the step), for
+    ``utils.checkpoint.save_pytree``. Adam's moments and count come through
+    ``train_state_from_jax``; the learning rate is set from the schedule at
+    every step, so the one stored here is a placeholder."""
+    ema = payload.get("ema_params")
+    jstate = SimpleNamespace(params=payload["params"], opt_state=payload["opt_state"],
+                             ema_params=ema, ema_decay=0.5 if ema is not None else 0.0)
+    state = train_state_from_jax(jstate, AdamConfig(schedule=lambda count: 1e-3))
+    out = state.payload()
+    out["step"] = int(np.asarray(payload["step"]))
     return out

@@ -1,1 +1,2 @@
-"""Action labels, the state log, frame stores and the device dataset."""
+"""Action labels, the frame-log files and state log, frame stores, the
+device dataset and its iterators, evaluation statistics and ETL."""

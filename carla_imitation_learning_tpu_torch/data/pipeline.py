@@ -16,12 +16,19 @@ action[k + label_offset] (``frame_skip`` by default); a window never
 crosses an episode start (``FrameStore.starts``). The epoch order comes
 from ``np.random.default_rng(seed)`` with the same calls as the JAX
 package, so both draw the same windows.
+
+Stores load from the frame-log files (``FrameStore.from_processed_dir``,
+``from_raw_camera``), and the iterator factories build the train / val /
+test datasets of the sequential, pooled and large layouts.
+``device_prefetch`` copies host batches to the card ahead of the consumer.
 """
 
 from __future__ import annotations
 
+import collections
 import copy
 import dataclasses
+from pathlib import Path
 from typing import Iterator
 
 import numpy as np
@@ -87,12 +94,43 @@ class FrameStore:
         )
 
     @classmethod
+    def from_frame_log(cls, frame_dir, state_path) -> "FrameStore":
+        """Frames of a ``FrameLog`` folder aligned with a state.csv."""
+        flog = fl.FrameLog(frame_dir)
+        return cls.from_arrays(flog.read_all_gray_u8(), fl.load_state_csv(state_path),
+                               flog.file_idx)
+
+    @classmethod
     def from_processed_dir(cls, cfg, split: str, log: str | None = None) -> "FrameStore":
-        raise NotImplementedError("frame-log file IO is not ported yet")
+        """Load the processed sequential layout
+        ``<data_dir>/processed/<log>/<split>/<log>/`` with the log's
+        state.csv; without that folder, the configured camera's folder
+        under the split, else the split's sole subfolder."""
+        log = log or cfg["train_logs"][0]
+        data_dir = Path(cfg["data_dir"])
+        split_dir = data_dir / "processed" / log / split
+        frame_dir = split_dir / log
+        if not frame_dir.is_dir():
+            camera = cfg.get("camera")
+            camera = camera[0] if isinstance(camera, list) else camera
+            cam_dir = split_dir / str(camera)
+            if cam_dir.is_dir():
+                frame_dir = cam_dir
+            else:
+                subdirs = [p for p in split_dir.iterdir() if p.is_dir()]
+                if len(subdirs) != 1:
+                    raise FileNotFoundError(
+                        f"expected {frame_dir}, {cam_dir}, or exactly one frame "
+                        f"folder, got {subdirs}")
+                frame_dir = subdirs[0]
+        return cls.from_frame_log(frame_dir, state_csv_path(data_dir, log))
 
     @classmethod
     def from_raw_camera(cls, cfg, log: str, camera: str) -> "FrameStore":
-        raise NotImplementedError("frame-log file IO is not ported yet")
+        """Load straight from ``<data_dir>/raw/<log>/<camera>/``."""
+        data_dir = Path(cfg["data_dir"])
+        return cls.from_frame_log(data_dir / "raw" / log / camera,
+                                  state_csv_path(data_dir, log))
 
     @classmethod
     def synthetic(cls, n: int = 64, height: int = 64, width: int = 64,
@@ -141,6 +179,12 @@ class FrameStore:
             controls=(np.concatenate([s.controls for s in stores])
                       if all_ctl else None),
         )
+
+
+def state_csv_path(data_dir: Path, log: str) -> Path:
+    """``raw/<log>/state.csv``, else ``raw/state.csv``."""
+    path = data_dir / "raw" / log / "state.csv"
+    return path if path.exists() else data_dir / "raw" / "state.csv"
 
 
 def gather_windows(frames: torch.Tensor, idx: torch.Tensor, frame_skip: int,
@@ -318,3 +362,134 @@ class DeviceDataset:
         order = self.epoch_indices()
         for b in range(len(self)):
             yield self.make_batch(order[b * self.batch_size:(b + 1) * self.batch_size])
+
+
+# ---------------------------------------------------------------------------
+# Iterator factories: each returns {'train_dataloader', 'val_dataloader',
+# 'test_dataloader'}.
+# ---------------------------------------------------------------------------
+
+def _loaders_from_stores(cfg, stores: dict[str, FrameStore], aux: bool, frame_skip: int,
+                         sharding=None, label_offset: int | None = None,
+                         device: str | torch.device = "cuda") -> dict:
+    """Train shuffles (``shuffle_train``) and drops its partial batch; val and
+    test keep theirs, so small splits still give metrics. Balanced sampling
+    (``balanced_sampling``) applies to train only."""
+    batch = int(cfg["BATCH_SIZE"])
+    shuffle = bool(cfg.get("shuffle_train", False))
+    seed = int(cfg.get("seed", 0))
+    out = {}
+    for split, name in (("train", "train_dataloader"), ("val", "val_dataloader"),
+                        ("test", "test_dataloader")):
+        out[name] = DeviceDataset(
+            stores[split], batch, frame_skip=frame_skip,
+            shuffle=(shuffle and split == "train"), seed=seed, aux=aux,
+            drop_last=(split == "train"),
+            dtype=str(cfg.get("compute_dtype_input", "float32")),
+            sharding=(sharding if split == "train" else None),
+            label_offset=label_offset,
+            balanced=(bool(cfg.get("balanced_sampling", False)) and split == "train"),
+            device=device,
+        )
+    return out
+
+
+def sequential_train_val_test_iterator(cfg, stores: dict[str, FrameStore] | None = None,
+                                       sharding=None,
+                                       device: str | torch.device = "cuda") -> dict:
+    """BC datasets over ``frame_skip`` windows of the processed sequential
+    split (``FrameStore.from_processed_dir``)."""
+    stores = stores or {s: FrameStore.from_processed_dir(cfg, s)
+                        for s in ("train", "val", "test")}
+    return _loaders_from_stores(cfg, stores, aux=False, frame_skip=int(cfg["frame_skip"]),
+                                sharding=sharding, device=device)
+
+
+def sequential_aux_train_val_test_iterator(cfg, stores=None, sharding=None,
+                                           device: str | torch.device = "cuda") -> dict:
+    raise NotImplementedError("aux datasets are not ported yet")
+
+
+def _pooled_split(cfg, store: FrameStore) -> dict[str, FrameStore]:
+    """Sequential (1 - 2t, t, t) split over pooled frames, t = ``TEST_SIZE``."""
+    t = float(cfg["TEST_SIZE"])
+    n = len(store)
+    i1, i2 = int((1 - 2 * t) * n), int((1 - t) * n)
+    return {"train": store.slice(0, i1), "val": store.slice(i1, i2),
+            "test": store.slice(i2, n)}
+
+
+def train_val_test_iterator(cfg, data_split_type: str = "pooled_data", sharding=None,
+                            device: str | torch.device = "cuda") -> dict:
+    """Pooled single-frame datasets over every ``train_logs`` log's raw
+    camera folder (windows of one frame, labelled by that frame)."""
+    camera = cfg["camera"][0] if isinstance(cfg["camera"], list) else cfg["camera"]
+    per_log = [FrameStore.from_raw_camera(cfg, log, camera) for log in cfg["train_logs"]]
+    pooled = FrameStore(
+        frames=np.concatenate([s.frames for s in per_log]),
+        actions=np.concatenate([s.actions for s in per_log]),
+        traffic=np.concatenate([s.traffic for s in per_log]),
+        sensors=np.concatenate([s.sensors for s in per_log]),
+    )
+    return _loaders_from_stores(cfg, _pooled_split(cfg, pooled), aux=False, frame_skip=1,
+                                sharding=sharding, label_offset=0, device=device)
+
+
+def large_train_val_test_iterator(cfg, sharding=None,
+                                  device: str | torch.device = "cuda") -> dict:
+    """Single-frame datasets over the processed per-camera layout
+    ``processed/<log>/<split>/<camera>/``."""
+    log = cfg["train_logs"][0]
+    camera = cfg["camera"][0] if isinstance(cfg["camera"], list) else cfg["camera"]
+    data_dir = Path(cfg["data_dir"])
+    state_path = state_csv_path(data_dir, log)
+    stores = {split: FrameStore.from_frame_log(data_dir / "processed" / log / split / camera,
+                                               state_path)
+              for split in ("train", "val", "test")}
+    return _loaders_from_stores(cfg, stores, aux=False, frame_skip=1, sharding=sharding,
+                                label_offset=0, device=device)
+
+
+def device_prefetch(iterator, size: int = 2, transform=None,
+                    device: str | torch.device = "cuda"):
+    """Copy host batches (tuples of numpy arrays or tensors) to ``device``
+    ``size`` batches ahead of the consumer, so the copy of batch i + 1 runs
+    under the work queued for batch i.
+
+    On the card each array is pinned and copied with ``non_blocking=True``
+    on a side stream; a batch is handed out after the consumer's stream
+    waits for its copy, and ``record_stream`` keeps the caching allocator
+    from reusing its memory while that stream still reads it.
+    ``transform(batch)`` runs on the host before the copy."""
+    dev = resolve_device(device)
+    copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+
+    def put(batch):
+        if transform is not None:
+            batch = transform(batch)
+        host = [torch.as_tensor(a) for a in batch]
+        if copy_stream is None:
+            return tuple(t.to(dev) for t in host), None
+        host = [t.pin_memory() for t in host]
+        with torch.cuda.stream(copy_stream):
+            out = tuple(t.to(dev, non_blocking=True) for t in host)
+            done = torch.cuda.Event()
+            done.record(copy_stream)
+        return out, done
+
+    def take(entry):
+        out, done = entry
+        if done is not None:
+            stream = torch.cuda.current_stream(dev)
+            stream.wait_event(done)
+            for t in out:
+                t.record_stream(stream)
+        return out
+
+    queue = collections.deque()
+    for batch in iterator:
+        queue.append(put(batch))
+        if len(queue) >= size:
+            yield take(queue.popleft())
+    while queue:
+        yield take(queue.popleft())

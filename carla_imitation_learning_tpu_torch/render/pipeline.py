@@ -55,6 +55,24 @@ class RenderConfig:
     sun: float = 1.0
     rain: float = 0.0
 
+    @classmethod
+    def from_cfg(cls, cfg) -> "RenderConfig":
+        """The ``render`` block of a composed config."""
+        r = cfg.render
+        return cls(height=int(r.height), width=int(r.width),
+                   fov_deg=float(r.fov_deg), max_triangles=int(r.max_triangles),
+                   near=float(r.near), far=float(r.far),
+                   rgb=bool(r.get("rgb", True)), fast=bool(r.get("fast", False)),
+                   active_cap=int(r["active_cap"]) if r.get("active_cap") else None,
+                   fog_density=float(r.get("fog_density", 0.0)),
+                   lod_px=float(r.get("lod_px", -1.0)),
+                   facade_bands=int(r.get("facade_bands", 0)),
+                   shadows=bool(r.get("shadows", False)),
+                   markings=bool(r.get("markings", False)),
+                   texture_detail=bool(r.get("texture_detail", False)),
+                   quads=bool(r.get("quads", False)), vec=bool(r.get("vec", False)),
+                   sun=float(r.get("sun", 1.0)), rain=float(r.get("rain", 0.0)))
+
     @property
     def fast_path(self) -> bool:
         return self.fast and not self.rgb

@@ -260,6 +260,21 @@ def make_town(
     )
 
 
+def make_town_from_cfg(cfg, seed: int = 0) -> TownMap:
+    """``make_town`` with the arguments of a composed config's ``sim``
+    block (``n_lights`` from ``sim``, the rest from ``sim.town``)."""
+    t = cfg.sim.town
+    return make_town(
+        blocks=int(t.blocks), block_size=float(t.block_size),
+        lane_width=float(t.lane_width), n_buildings=int(t.n_buildings),
+        n_lights=int(cfg.sim.n_lights), seed=seed,
+        corner_radius=float(t.get("corner_radius", 0.0)),
+        lanes_per_direction=int(t.get("lanes_per_direction", 1)),
+        superblocks=bool(t.get("superblocks", False)),
+        turn_fans=bool(t.get("turn_fans", False)),
+    )
+
+
 def norm2(v: torch.Tensor) -> torch.Tensor:
     """Euclidean norm over the last axis as sqrt(Σ v²) (jnp.linalg.norm)."""
     return torch.sqrt((v * v).sum(-1))

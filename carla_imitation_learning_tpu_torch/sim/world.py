@@ -57,6 +57,36 @@ class SimParams:
     turn_period: int = 0
     agent_turn_prob: float = 0.0
 
+    @classmethod
+    def from_cfg(cls, cfg) -> "SimParams":
+        """The ``sim`` block of a composed config."""
+        s = cfg.sim
+        return cls(
+            dt=float(s.dt), wheelbase=float(s.wheelbase), max_steer=float(s.max_steer),
+            max_accel=float(s.max_accel), max_brake=float(s.max_brake),
+            drag=float(s.drag), tire_stiffness=float(s.tire_stiffness),
+            n_agents=int(s.n_agents), agent_target_speed=float(s.agent_target_speed),
+            light_green=float(s.light_green), light_yellow=float(s.light_yellow),
+            light_red=float(s.light_red), collision_radius=float(s.collision_radius),
+            episode_len=int(s.episode_len),
+            n_pedestrians=int(s.get("n_pedestrians", 0)),
+            ped_speed=float(s.get("ped_speed", 1.4)),
+            ped_sidewalk_frac=float(s.get("ped_sidewalk_frac", 0.0)),
+            lane_change_period=int(s.get("lane_change_period", 0)),
+            lane_change_window=int(s.get("lane_change_window", 12)),
+            turn_period=int(s.get("turn_period", 0)),
+            agent_turn_prob=float(s.get("agent_turn_prob", 0.0)),
+            arrive_radius=float(s.get("arrive_radius", 4.0)),
+            headway_gap=float(s.get("headway_gap", 7.0)),
+            headway_ttc=float(s.get("headway_ttc", 1.2)),
+            headway_corridor=float(s.get("headway_corridor", 2.6)),
+            yield_gap=float(s.get("yield_gap", 8.0)),
+            turn_speed=float(s.get("turn_speed", 0.0)),
+            collision_model=str(s.get("collision_model", "capsule")),
+            vehicle_half_len=float(s.get("vehicle_half_len", 1.3)),
+            vehicle_radius=float(s.get("vehicle_radius", 1.0)),
+        )
+
 
 @dataclasses.dataclass(frozen=True)
 class WorldState:

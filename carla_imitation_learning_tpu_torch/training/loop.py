@@ -183,11 +183,7 @@ class Trainer:
                 self.logger.add_scalars_flat(
                     {k: v for k, v in epoch_row.items() if k != "epoch"}, step=epoch)
             if self.ckpt is not None:
-                payload = {"params": state.model.state_dict(),
-                           "opt_state": state.optimizer.state_dict(), "step": state.step}
-                if state.ema is not None:
-                    payload["ema_params"] = state.ema.state_dict()
-                self.ckpt.save(epoch, payload, epoch_row)
+                self.ckpt.save(epoch, state.payload(), epoch_row)
             self._callback("on_epoch_end", state=state, epoch=epoch, metrics=epoch_row,
                            loaders=loaders)
 

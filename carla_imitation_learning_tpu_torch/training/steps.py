@@ -86,6 +86,23 @@ class TrainState:
                 "step": self.step,
                 "ema": None if self.ema is None else _clone(self.ema.state_dict())}
 
+    def payload(self) -> dict:
+        """The checkpoint payload: ``{"params", "opt_state", "step"[,
+        "ema_params"]}`` (state_dicts and the step count)."""
+        out = {"params": self.model.state_dict(),
+               "opt_state": self.optimizer.state_dict(), "step": self.step}
+        if self.ema is not None:
+            out["ema_params"] = self.ema.state_dict()
+        return out
+
+    def load_payload(self, payload: dict) -> None:
+        """Continue from a checkpoint ``payload`` (``payload()``'s form)."""
+        self.model.load_state_dict(payload["params"])
+        self.optimizer.load_state_dict(payload["opt_state"])
+        self.step = int(payload["step"])
+        if self.ema is not None:
+            self.ema.load_state_dict(payload["ema_params"])
+
     def restore(self, snap: dict) -> None:
         """Set the state back to ``snap`` (which stays untouched)."""
         self.model.load_state_dict(snap["model"])

@@ -1,1 +1,2 @@
-"""Throughput counters (``utils/profiling.py``)."""
+"""Throughput counters (``profiling``), best-k checkpoints
+(``checkpoint``) and metric sinks (``logging``, ``tb_writer``)."""

@@ -8,9 +8,9 @@ Phases (any failure exits nonzero, with no result line):
    the issue rate the bounds divide operation counts by (SMs × 128 lanes ×
    the maximum SM clock);
 2. build: every hand-written kernel from ``csrc/`` (one nvcc per source,
-   all started together), with ptxas's registers and spills and every
-   kernel's launch facts (registers, spills, shared memory, resident blocks
-   per SM); then kernels A (flat and textured, C = 1 and 3), B, C and D bit
+   all started together, beside g++ for the frame store's library), with
+   ptxas's registers and spills and every kernel's launch facts
+   (registers, spills, shared memory, resident blocks per SM); then kernels A (flat and textured, C = 1 and 3), B, C and D bit
    for bit against their plain versions on the synthetic edge cases of
    ``edge_case_tables``;
 3. kernel A (exact z-buffer) vs its plain PyTorch version, and
@@ -51,6 +51,19 @@ Phases (any failure exits nonzero, with no result line):
    within [0, 1 − 1/K]) with its masked dataset and 5 ensemble steps, then
    the ensemble in fp32 against its members one at a time (forward and two
    train steps); kernel B's launches counted;
+6d. file-backed BC (``file_io_phase``), through the port's CLI in this
+   process on temporary directories, kernel B's launches counted per run:
+   ``run collect_data`` at 256 envs × 48 steps (PNG log, state.csv and a
+   packed store, reopened equal to the collected store; a 4-thread
+   ``PrefetchReader`` yields the 1-thread batches), ``run split_folders``,
+   ``run bc`` at 128², batch 256, 2 epochs (frames read back from PNG bit
+   for bit; the best-k checkpoint restores its epoch's weights and fp32
+   logits bit for bit; an in-memory fit beside it), ``run closed_loop_eval``
+   from the checkpoint at 256 × 50, ``run bc_streaming`` in both tiers at
+   1024 × 24 (the store also saved sharded: one epoch of each sharded
+   reader covers exactly ``DeviceDataset``'s windows), and ``run bc`` on an
+   empty data_dir (a synthetic 256² log, 2048 frames); ``--profile`` adds
+   the idle share of each streaming tier's train steps;
 7. the rich fleet (same town and envs, the rich128 preset: facade bands,
    markings, shadows, textures, T=1408) from three seeds: kernel A's
    textured variant (C=1 and C=3), kernel B on the rich lists (2 px and 0
@@ -83,6 +96,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -111,6 +125,11 @@ ONLINE_TIMED_STEPS = 20                                  # the masked step's tim
 ONLINE_MIN_AGREEMENT = 2 / 9
 ENSEMBLE_K, ENSEMBLE_ENVS, ENSEMBLE_STEPS = 4, 256, 24   # the uncertainty-gated round
 ENSEMBLE_TAU, ENSEMBLE_TRAIN_STEPS = 0.25, 5
+FILE_COLLECT_ENVS, FILE_COLLECT_STEPS = 256, 48      # the file phase's PNG log
+FILE_EVAL_ENVS, FILE_EVAL_STEPS = 256, 50            # closed_loop_eval of its checkpoint
+FILE_STREAM_ENVS, FILE_STREAM_STEPS = 1024, 24       # bc_streaming's collection
+FILE_BATCH, FILE_EPOCHS, FILE_SHARD_FRAMES = 256, 2, 4096
+FILE_SYNTHETIC_FRAMES = 2048     # the README's first command: bc on an empty data_dir
 LANES_PER_SM = 128       # lane-instructions an SM issues per clock (4 × 32)
 HBM_RATE = 3.35e12       # H100 SXM device memory, B/s
 WARP_TILE = 16           # kernels A and B cull per 16 × 16 pixel warp tile
@@ -397,6 +416,7 @@ def run(args) -> dict:
     sys.path.insert(0, str(ROOT))
     try:
         from carla_imitation_learning_tpu_torch.models import PolicyCNN
+        from carla_imitation_learning_tpu_torch.native import framestore
         from carla_imitation_learning_tpu_torch.ops import cuda_lib
         from carla_imitation_learning_tpu_torch.ops import raster as ra
         from carla_imitation_learning_tpu_torch.ops import raster_fast as rf
@@ -420,9 +440,14 @@ def run(args) -> dict:
 
     rate = issue_rate()
     t0 = time.perf_counter()
+    # the frame store's g++ build runs beside the kernels' nvcc builds
+    host_lib = threading.Thread(target=framestore.build_library)
+    host_lib.start()
     reports = cuda_lib.build()
     for name in cuda_lib.SOURCES:
         cuda_lib.load(name)
+    host_lib.join()
+    framestore.build_library()  # raises here if the threaded build failed
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for name, rep in reports.items():
         for line in rep.splitlines():
@@ -564,6 +589,8 @@ def run(args) -> dict:
     paths["dagger"] = dagger_phase(params, town, rcfg, dev, bc_state,
                                    profile=args.profile is not None)
     del bc_state
+    torch.cuda.empty_cache()
+    paths["file_io"] = file_io_phase(dev, profile=args.profile is not None)
     torch.cuda.empty_cache()
     # the rich phases allocate gigabytes of temporaries; they run after the
     # main path has been timed
@@ -1364,6 +1391,395 @@ def bc_training(params, town, rcfg, dev, profile: bool = False):
     del train, val, snap, epoch, order, fit, model
     torch.cuda.empty_cache()
     return state
+
+
+def cli_run(*argv) -> dict:
+    """``cli.main(["run", *argv, "-o", "device=<DEVICE>", "--json"])`` in
+    this process; its result (the last stdout line) parsed, its stdout kept
+    off this script's."""
+    import contextlib
+    import io
+
+    from carla_imitation_learning_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["run", *argv, "-o", f"device={DEVICE}", "--json"])
+    check(rc == 0, f"cli run {' '.join(argv)} exited {rc}")
+    return json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+class Capture:
+    """Wrap ``module.name`` (a module's function or a class's method) while
+    the ``with`` block runs, appending ``record(args, kwargs, result)`` of
+    every call to ``calls``; ``record`` runs when the call returns."""
+
+    def __init__(self, module, name: str, record=lambda a, k, out: out):
+        self.module, self.name, self.record, self.calls = module, name, record, []
+
+    def __enter__(self) -> "Capture":
+        orig = self.orig = getattr(self.module, self.name)
+
+        def spy(*a, **k):
+            out = orig(*a, **k)
+            self.calls.append(self.record(a, k, out))
+            return out
+
+        setattr(self.module, self.name, spy)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        setattr(self.module, self.name, self.orig)
+
+
+def window_keys(windows, labels, weights):
+    """Order-free identity of windows: a weighted sum of each (B, fs, H, W)
+    uint8 window's pixels (int64, random weights below 2^20) times 16 plus
+    its label, so multisets of windows compare as sorted key vectors."""
+    import torch
+
+    fp = (windows.to(torch.int64) * weights).sum(dim=(1, 2, 3))
+    return fp * 16 + labels.to(torch.int64)
+
+
+def file_io_phase(dev, profile: bool = False) -> dict:
+    """Phase 6d: BC from CARLA-contract logs on disk, through the port's CLI
+    in this process, on temporary ``data_dir`` and ``log_dir``, kernel B's
+    launches counted per step:
+    1. ``run collect_data`` (FILE_COLLECT_ENVS × FILE_COLLECT_STEPS, PNG +
+       state.csv + a packed store): the packed file reopened equals the
+       in-memory store; a 4-thread ``PrefetchReader`` yields the 1-thread
+       batch sequence;
+    2. ``run split_folders`` and ``run bc`` on the log at 128², batch 256,
+       2 epochs: the frames read back from PNG equal the collected ones bit
+       for bit; the best-k checkpoint restores its epoch's weights bit for
+       bit (fp32 logits of one batch); a ``Trainer.fit`` on the in-memory
+       store gives the same-process rate to hold the file path against;
+    3. ``run closed_loop_eval`` from the best checkpoint;
+    4. ``run bc_streaming`` in both tiers at FILE_STREAM_ENVS ×
+       FILE_STREAM_STEPS; the collected store saved sharded, and one epoch
+       of ``ShardedPrefetchReader`` and of ``DeviceShardStreamer`` each
+       cover exactly the multiset of windows ``DeviceDataset`` draws;
+    5. ``run bc`` on an empty ``data_dir`` (a synthetic 256² log of
+       FILE_SYNTHETIC_FRAMES frames, 1 epoch at the model preset's batch).
+    Prints one ``file_io`` line; returns kernel B's launches of steps 1–4's
+    main path (collect, eval, streaming)."""
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from carla_imitation_learning_tpu_torch.config import compose
+    from carla_imitation_learning_tpu_torch.data.pipeline import DeviceDataset, FrameStore
+    from carla_imitation_learning_tpu_torch.models import PolicyCNN
+    from carla_imitation_learning_tpu_torch.native import (
+        DeviceShardStreamer, NativeFrameStore, PrefetchReader, ShardedFrameStore,
+        ShardedPrefetchReader, save_sharded_framestore,
+    )
+    from carla_imitation_learning_tpu_torch.training import closed_loop as cl
+    from carla_imitation_learning_tpu_torch.training.loop import Trainer
+    from carla_imitation_learning_tpu_torch.training.losses import bc_loss_fn
+    from carla_imitation_learning_tpu_torch.training.steps import (
+        create_train_state, make_optimizer,
+    )
+    from carla_imitation_learning_tpu_torch.utils import checkpoint as ckpt_lib
+
+    res, launches = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_file_io_") as tmp:
+        tmp = Path(tmp)
+        base = ["-o", f"data_dir={tmp / 'data'}", "-o", f"log_dir={tmp / 'logs'}",
+                "-o", "train_logs=['SimLog1']"]
+
+        # 1. collect_data → PNG log + state.csv + packed store
+        torch.cuda.synchronize()
+        reset_counts()
+        with Capture(cl, "collect_dataset", lambda a, k, out: out[0]) as cap:
+            out = cli_run("collect_data", *base, "-o", f"n_envs={FILE_COLLECT_ENVS}",
+                          "-o", f"n_steps={FILE_COLLECT_STEPS}")
+        launches["collect"] = read_counts()
+        check(launches["collect"]["B"] == FILE_COLLECT_STEPS + 1,
+              f"collect_data launched kernel B {launches['collect']['B']} times for "
+              f"{FILE_COLLECT_STEPS} steps")
+        check(sum(launches["collect"].values()) == launches["collect"]["B"],
+              "collect_data launched a kernel it does not run")
+        store = cap.calls[0]
+        n = FILE_COLLECT_ENVS * FILE_COLLECT_STEPS
+        check(out["frames"] == n and store.frames.shape == (n, HW, HW), "collect_data size")
+        packed = Path(out["framestore"])
+        with NativeFrameStore(packed) as nfs:
+            for f in ("frames", "actions", "starts"):
+                check(np.array_equal(getattr(nfs, f), getattr(store, f)),
+                      f"packed store: {f} differ from the collected store")
+            t0 = time.perf_counter()
+            mapped = np.array(nfs.frames)
+            read_s = time.perf_counter() - t0
+            orders = []
+            for threads in (1, 4):
+                sums = [(f.astype(np.int64).sum(axis=(1, 2, 3)), lab) for f, lab in
+                        PrefetchReader(nfs, FILE_BATCH, 4, n_threads=threads, shuffle=True,
+                                       seed=3)]
+                orders.append(sums)
+            check(len(orders[0]) == len(orders[1]) > 0, "prefetch: batch counts differ")
+            for (a, la), (b, lb) in zip(*orders):
+                check(np.array_equal(a, b) and np.array_equal(la, lb),
+                      "prefetch: 4 threads and 1 thread yield different batch sequences")
+        del mapped
+        secs = out["seconds"]
+        res["collect"] = {
+            "n_envs": FILE_COLLECT_ENVS, "steps": FILE_COLLECT_STEPS, "frames": n,
+            "frames_mb": store.frames.nbytes / 1e6, "launches": launches["collect"],
+            "collect_s": secs["collect"], "env_steps_per_s": n / secs["collect"],
+            "png_write_frames_per_s": n / secs["png_and_csv_write"],
+            "png_mb": sum(p.stat().st_size for p in
+                          (tmp / "data" / "raw" / "SimLog1" / "camera").iterdir()) / 1e6,
+            "packed_write_gb_per_s": packed.stat().st_size / secs["packed_write"] / 1e9,
+            "packed_mmap_read_gb_per_s": store.frames.nbytes / read_s / 1e9,
+            "prefetch_batches_compared": len(orders[0])}
+        del orders
+
+        # 2. split_folders + bc from the PNG log
+        split = cli_run("split_folders", *base)["counts"]
+        cfg = compose("config", overrides=["model=imitation", f"data_dir={tmp / 'data'}",
+                                           "train_logs=['SimLog1']", "camera=camera"])
+        t0 = time.perf_counter()
+        back = [FrameStore.from_processed_dir(cfg, s) for s in ("train", "val", "test")]
+        png_read_s = time.perf_counter() - t0
+        check(np.array_equal(np.concatenate([b.frames for b in back]), store.frames),
+              "frames read back from PNG differ from the collected frames")
+        check(split == {k: len(b) for k, b in zip(("train", "val", "test"), back)},
+              f"split counts {split}")
+        bc_args = [*base, "-o", "bc_cameras=['camera']", "-o", f"image_height={HW}",
+                   "-o", f"image_width={HW}", "-o", f"NUM_EPOCHS={FILE_EPOCHS}",
+                   "-o", f"BATCH_SIZE={FILE_BATCH}"]
+        # save(self, step, payload, metrics): the payload holds the live
+        # state's tensors, which later epochs change, so copy them at the call
+        with Capture(ckpt_lib.BestKCheckpointManager, "save", lambda a, k, out: (
+                a[1], {n: v.detach().clone() for n, v in a[2]["params"].items()})) as saves:
+            t0 = time.perf_counter()
+            bc = cli_run("bc", *bc_args)["camera"]
+            bc_wall = time.perf_counter() - t0
+        kept = dict(saves.calls)
+        best = Path(bc["best_path"])
+        check(best.is_dir() and (best.parent / "index.json").is_file(),
+              "bc wrote no best-k checkpoint")
+        step = int(best.name.rsplit("step", 1)[1])
+        model = PolicyCNN().to(dev)
+        t0 = time.perf_counter()
+        restored = ckpt_lib.restore_params(best, model.state_dict())
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        for k, v in kept[step].items():
+            check(torch.equal(restored[k], v), f"best checkpoint: {k} differs from epoch {step}")
+        trained = PolicyCNN().to(dev)
+        trained.load_state_dict(kept[step])
+        model.load_state_dict(restored)
+        val = DeviceDataset(back[1], FILE_BATCH, drop_last=False, device=dev)
+        x, _ = next(iter(val))
+        with torch.no_grad():
+            logits, want = model(x), trained(x)
+        check(logits.dtype == torch.float32 and torch.equal(logits, want),
+              "restored checkpoint: logits differ from the trained weights'")
+        t0 = time.perf_counter()
+        ckpt_lib.save_pytree(tmp / "ckpt_timing", {"params": kept[step]})
+        save_ms = (time.perf_counter() - t0) * 1e3
+        # the same fit on the in-memory store (no files): the rate to hold bc's against
+        n_train, n_val = len(back[0]), len(back[1])
+        mem = {"train_dataloader": DeviceDataset(store.slice(0, n_train), FILE_BATCH,
+                                                 shuffle=True, device=dev),
+               "val_dataloader": DeviceDataset(store.slice(n_train, n_train + n_val),
+                                               FILE_BATCH, drop_last=False, device=dev)}
+        mcfg = compose("config", overrides=["model=imitation"])
+        mstate = create_train_state(PolicyCNN(), make_optimizer(
+            mcfg, steps_per_epoch=len(mem["train_dataloader"])),
+            generator=torch.Generator().manual_seed(0), device=dev)
+        mfit = Trainer(mcfg, device=dev).fit(mstate, bc_loss_fn, mem, max_epochs=FILE_EPOCHS)
+        check(all(math.isfinite(r["train_loss"]) for r in bc["history"] + mfit.history),
+              "bc: non-finite loss")
+        res["bc"] = {
+            "split": split, "png_read_frames_per_s": n / png_read_s, "png_read_s": png_read_s,
+            "history": bc["history"], "test": bc["test"], "best_step": step,
+            "wall_s": bc_wall, "fit_images_per_s": bc["throughput"]["images_per_sec"],
+            "in_memory_fit_images_per_s": mfit.throughput["images_per_sec"],
+            "checkpoint_mb": (best / ckpt_lib.PAYLOAD_NAME).stat().st_size / 1e6,
+            "checkpoint_params_mb": (tmp / "ckpt_timing" / ckpt_lib.PAYLOAD_NAME)
+            .stat().st_size / 1e6,
+            "checkpoint_save_ms": save_ms, "checkpoint_restore_ms": restore_ms}
+        del mem, mstate, mfit, val, back, trained, model
+
+        # 3. closed_loop_eval from the best checkpoint
+        torch.cuda.synchronize()
+        reset_counts()
+        ev = cli_run("closed_loop_eval", *base, "--checkpoint", str(best),
+                     "-o", f"n_envs={FILE_EVAL_ENVS}", "-o", f"n_steps={FILE_EVAL_STEPS}")
+        launches["closed_loop_eval"] = read_counts()
+        check(launches["closed_loop_eval"]["B"] == 2 * (FILE_EVAL_STEPS + 1),
+              "closed_loop_eval did not render every step of both rollouts with kernel B")
+        for who in ("policy", "expert"):
+            check(math.isfinite(ev[who]["driving_score"]), f"closed_loop_eval: {who} score")
+        res["closed_loop_eval"] = {
+            "n_envs": FILE_EVAL_ENVS, "steps": FILE_EVAL_STEPS,
+            "launches": launches["closed_loop_eval"],
+            **{f"{who}_{k}": ev[who][k] for who in ("policy", "expert")
+               for k in ("driving_score", "route_completion", "action_agreement",
+                         "collisions_per_1k_steps")}}
+
+        # 4. bc_streaming, both tiers; the collected store sharded
+        res["streaming"] = {}
+        for tier in ("direct", "host"):
+            torch.cuda.synchronize()
+            reset_counts()
+            with Capture(cl, "collect_dataset", lambda a, k, out: out[0]) as cap:
+                st = cli_run("bc_streaming", "-o", f"log_dir={tmp / tier}",
+                             "-o", f"n_envs={FILE_STREAM_ENVS}",
+                             "-o", f"n_steps={FILE_STREAM_STEPS}", "-o", f"tier={tier}",
+                             "-o", f"epochs={FILE_EPOCHS}", "-o", f"BATCH_SIZE={FILE_BATCH}")
+            launches[f"streaming_{tier}"] = read_counts()
+            check(launches[f"streaming_{tier}"]["B"] == FILE_STREAM_STEPS + 1,
+                  f"bc_streaming ({tier}) did not render every step with kernel B")
+            check(math.isfinite(st["final_loss"]), f"bc_streaming ({tier}): loss")
+            res["streaming"][tier] = {k: st[k] for k in (
+                "frames", "final_loss", "images_per_sec_streaming", "images_per_sec_steady",
+                "first_epoch_seconds")}
+        stream_store = cap.calls[0]
+        if profile:
+            res["streaming"]["profile"] = profile_streaming(Path(st["framestore"]), dev)
+        shards = save_sharded_framestore(tmp / "shards", stream_store,
+                                         shard_frames=FILE_SHARD_FRAMES)
+        res["streaming"]["coverage"] = sharded_coverage(stream_store, shards, dev)
+        del stream_store, cap
+
+        # 5. bc on an empty data_dir: the synthetic 256² log
+        t0 = time.perf_counter()
+        first = cli_run("bc", "-o", f"data_dir={tmp / 'empty'}", "-o", f"log_dir={tmp / 'l5'}",
+                        "-o", f"synthetic_frames={FILE_SYNTHETIC_FRAMES}", "-o", "NUM_EPOCHS=1")
+        first_wall = time.perf_counter() - t0
+        for cam in ("camera", "semantic"):
+            check(Path(first[cam]["best_path"]).is_dir(), f"bc from scratch: no {cam} checkpoint")
+            check(math.isfinite(first[cam]["history"][0]["train_loss"]), "bc from scratch: loss")
+        res["bc_from_empty"] = {
+            "frames": FILE_SYNTHETIC_FRAMES, "hw": 256, "batch": int(mcfg["BATCH_SIZE"]),
+            "wall_s": first_wall,
+            **{f"{cam}_fit_images_per_s": first[cam]["throughput"]["images_per_sec"]
+               for cam in ("camera", "semantic")},
+            **{f"{cam}_train_loss": first[cam]["history"][0]["train_loss"]
+               for cam in ("camera", "semantic")}}
+    res["max_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(json.dumps({"file_io": res}))
+    return {k: sum(v[k] for v in launches.values()) for k in launches["collect"]}
+
+
+def sharded_coverage(store, shards, dev) -> dict:
+    """One epoch of ``ShardedPrefetchReader`` and of ``DeviceShardStreamer``
+    over ``shards`` against the windows ``DeviceDataset`` draws from
+    ``store``: the same multiset of (window, label), compared as sorted
+    keys (``window_keys``). The prefetcher's batch divides every shard's
+    window count (the largest such divisor up to FILE_BATCH) and the
+    streamer keeps its partial batches, so each covers every window once."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from carla_imitation_learning_tpu_torch.data.pipeline import DeviceDataset
+    from carla_imitation_learning_tpu_torch.native import (
+        DeviceShardStreamer, ShardedFrameStore, ShardedPrefetchReader,
+    )
+
+    fs = 4
+    gen = torch.Generator().manual_seed(0)
+    weights = torch.randint(0, 2 ** 20, (1, fs, HW, HW), generator=gen).to(dev)
+    ds = DeviceDataset(store, FILE_BATCH, frame_skip=fs, device=dev)
+    starts = ds.start_indices(np.arange(ds.n_samples))
+    want = []
+    for chunk in starts.split(2048):
+        win = ds.frames[chunk[:, None] + torch.arange(fs, device=dev)]
+        want.append(window_keys(win, ds.actions[chunk + fs], weights))
+    want = torch.sort(torch.cat(want)).values
+    sharded = ShardedFrameStore(shards)
+    counts = []
+    for i in range(sharded.n_shards):
+        with sharded.open_shard(i) as nfs:
+            counts.append(nfs.n_valid_windows(fs))
+    g = math.gcd(*counts)
+    batch = max(d for d in range(1, min(g, FILE_BATCH) + 1) if g % d == 0)
+    t0 = time.perf_counter()
+    got = [window_keys(torch.from_numpy(f).to(dev), torch.from_numpy(lab).to(dev), weights)
+           for f, lab in ShardedPrefetchReader(sharded, batch, fs, n_threads=4, seed=1)]
+    prefetch_s = time.perf_counter() - t0
+    got = torch.sort(torch.cat(got)).values
+    check(torch.equal(got, want), "ShardedPrefetchReader: the epoch's windows differ from "
+          "DeviceDataset's")
+    t0 = time.perf_counter()
+    streamed = [window_keys(torch.round(x * 255).to(torch.uint8).permute(0, 3, 1, 2), y, weights)
+                for x, y in DeviceShardStreamer(shards, FILE_BATCH, fs, seed=1,
+                                                drop_last=False, device=dev)]
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    streamed = torch.sort(torch.cat(streamed)).values
+    check(torch.equal(streamed, want), "DeviceShardStreamer: the epoch's windows differ from "
+          "DeviceDataset's")
+    return {"windows": int(want.numel()), "shards": sharded.n_shards,
+            "aligned_to_starts": sharded.aligned_to_starts, "prefetch_batch": batch,
+            "prefetch_epoch_s": prefetch_s, "streamer_epoch_s": stream_s}
+
+
+def profile_streaming(path, dev) -> dict:
+    """Device busy and idle share of 20 train steps of each streaming tier
+    over the packed store at ``path`` (torch.profiler, after 5 warm-up
+    steps): whether ``device_prefetch`` hides the host tier's copy."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from carla_imitation_learning_tpu_torch.config import compose
+    from carla_imitation_learning_tpu_torch.data.pipeline import device_prefetch
+    from carla_imitation_learning_tpu_torch.models import PolicyCNN
+    from carla_imitation_learning_tpu_torch.native import (
+        DeviceShardStreamer, NativeFrameStore, PrefetchReader,
+    )
+    from carla_imitation_learning_tpu_torch.training.losses import bc_loss_fn
+    from carla_imitation_learning_tpu_torch.training.steps import (
+        create_train_state, make_optimizer, make_train_step,
+    )
+
+    cfg = compose("config", overrides=["model=imitation"])
+    step = make_train_step(bc_loss_fn)
+    out = {}
+    with NativeFrameStore(path) as nfs:
+        tiers = {
+            "direct": lambda: DeviceShardStreamer(path, FILE_BATCH, 4, device=dev),
+            "host": lambda: ((f.permute(0, 2, 3, 1).to(torch.float32) / 255.0, lab)
+                             for f, lab in device_prefetch(
+                                 PrefetchReader(nfs, FILE_BATCH, 4, shuffle=True), device=dev)),
+        }
+
+        def epochs(make):
+            while True:
+                yield from make()
+
+        for tier, batches in tiers.items():
+            state = create_train_state(PolicyCNN(), make_optimizer(cfg),
+                                       generator=torch.Generator().manual_seed(0), device=dev)
+            it = epochs(batches)
+            for _ in range(5):
+                step(state, next(it))
+            torch.cuda.synchronize()
+            with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(20):
+                    _, m = step(state, next(it))
+                float(m["loss"])
+                wall = time.perf_counter() - t0
+            events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+            copies = [e for e in events if "Memcpy" in e.name or "memcpy" in e.name]
+            busy = sum(e.time_range.elapsed_us() for e in events) / 1e6
+            out[tier] = {"steps": 20, "wall_ms": wall * 1e3, "ms_per_step": wall / 20 * 1e3,
+                         "device_busy_ms": busy * 1e3,
+                         "device_idle_share": 1.0 - busy / wall,
+                         "h2d_copy_ms": sum(e.time_range.elapsed_us() for e in copies) / 1e3,
+                         "device_launches": len(events)}
+            del it
+    return out
 
 
 def dagger_phase(params, town, rcfg, dev, bc_state, profile: bool = False) -> dict:

@@ -143,16 +143,18 @@ def test_device_dataset_matches(case):
     np.testing.assert_array_equal(fp.epoch_indices(), fj.epoch_indices())
 
 
-def test_device_dataset_refuses():
-    """Unported batch kinds raise; the default device is the card."""
+def test_device_dataset_refuses(tmp_path):
+    """Unported batch kinds raise; a log that is not on disk raises; the
+    default device is the card."""
     p_store, _ = _stores()
     for kw in ({"aux": True}, {"cil": True}, {"sharding": object()},
                {"continuous_labels": p_store.controls},
                {"extra_frames": [p_store.frames]}):
         with pytest.raises(NotImplementedError):
             p_pipe.DeviceDataset(p_store, 8, device="cpu", **kw)
-    with pytest.raises(NotImplementedError):
-        p_pipe.FrameStore.from_processed_dir({}, "train")
+    with pytest.raises(FileNotFoundError):
+        p_pipe.FrameStore.from_processed_dir(
+            {"train_logs": ["Log1"], "data_dir": str(tmp_path)}, "train")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             p_pipe.DeviceDataset(p_store, 8)

@@ -1,9 +1,12 @@
 """The PyTorch port and chip_smoke.py import neither JAX, flax nor the JAX
-package: the machine with the card has none of them."""
+package, and read no file of the JAX package (its ``configs/``, its
+``native/framestore.cpp``): the machine with the card has none of them, and
+the port keeps its own copies."""
 
 import ast
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -43,3 +46,46 @@ def test_modules_leave_jax_unloaded():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
+
+
+# a path component or path into the JAX package; a ``file.py:line`` reference
+# (the "replaces" field of chip_smoke's kernel table) names code, reads nothing
+_JAX_PATH = re.compile(r"^(carla_imitation_learning_tpu|native)(/|$)|native/framestore\.cpp")
+_REFERENCE = re.compile(r"^carla_imitation_learning_tpu/[\w/]+\.py:\d+$")
+
+
+def _path_constants(path: pathlib.Path) -> list:
+    """String constants of ``path``'s code (docstrings excluded) that name a
+    path into the JAX package."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docstrings = {id(node.body[0].value) for node in ast.walk(tree)
+                  if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                                       ast.AsyncFunctionDef))
+                  and node.body and isinstance(node.body[0], ast.Expr)
+                  and isinstance(node.body[0].value, ast.Constant)}
+    return [node.value for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and id(node) not in docstrings and _JAX_PATH.search(node.value)
+            and not _REFERENCE.match(node.value)]
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_reads_no_jax_package_file(path):
+    assert not _path_constants(path), path
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.c*")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_native_sources_include_no_jax_package_file(path):
+    includes = re.findall(r'#include\s*[<"]([^>"]+)', path.read_text())
+    assert not [i for i in includes if _JAX_PATH.search(i) or ".." in i], path
+
+
+def test_path_check_catches_a_jax_path(tmp_path):
+    bad = tmp_path / "bad.py"
+    bad.write_text('"""Reads native/framestore.cpp of the JAX package."""\n'
+                   'from pathlib import Path\n'
+                   'SRC = Path(__file__).parents[2] / "native" / "framestore.cpp"\n'
+                   'CFG = ROOT / "carla_imitation_learning_tpu" / "configs"\n'
+                   'REF = "carla_imitation_learning_tpu/ops/raster.py:120"\n')
+    assert _path_constants(bad) == ["native", "carla_imitation_learning_tpu"]
