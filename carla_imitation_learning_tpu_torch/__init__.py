@@ -11,7 +11,9 @@ and so is behaviour-cloning training on the card: collection into a
 ``FrameStore``, the device-resident ``DeviceDataset``, Adam train steps and
 the ``Trainer``; so is training from CARLA-contract logs on disk through
 the ``run`` entry point (``python -m carla_imitation_learning_tpu_torch.cli``)
-with best-k checkpoints.
+with best-k checkpoints, and the scenario suite (``scenario_eval``: rain,
+night, busy streets, multi-lane towns with lane changes, junction turn fans
+whose draws are ``jax.random``'s, ``sim/prng.py``).
 
 Layout mirrors the JAX package: ``sim/``, ``render/``, ``ops/``, ``models/``,
 ``data/`` (actions, frame logs, pipeline, stats, ETL), ``native/`` (the

@@ -48,15 +48,24 @@ def policy_state_dict(params) -> dict:
     return sd
 
 
+_TRANSFER_DTYPES = {"transfer_route": torch.int64, "transfer_s": torch.float32,
+                    "transfer_valid": torch.bool}
+
+
 def town_from_jax(town) -> TownMap:
-    """JAX ``TownMap`` → port ``TownMap`` (CPU tensors)."""
-    if getattr(town, "transfer_route", None) is not None or \
-            getattr(town, "nav_slot", None) is not None:
-        raise NotImplementedError("turn-fan and navigation tables are not ported yet")
-    tensors = {f.name: _tensor(getattr(town, f.name), torch.float32)
-               for f in dataclasses.fields(TownMap)
-               if f.name not in ("lanes", "lane_width")}
-    return TownMap(**tensors, lanes=int(town.lanes), lane_width=float(town.lane_width))
+    """JAX ``TownMap`` → port ``TownMap`` (CPU tensors), with its turn-fan
+    tables when it has them. Navigation tables (goal-directed routes) raise:
+    they wait for ROADMAP Queue 1 item 6."""
+    if getattr(town, "nav_slot", None) is not None:
+        raise NotImplementedError(
+            "navigation tables are not ported yet (ROADMAP Queue 1, item 6)")
+    fields = {}
+    for f in dataclasses.fields(TownMap):
+        a = getattr(town, f.name)
+        if f.name in ("lanes", "lane_width") or a is None:
+            continue
+        fields[f.name] = _tensor(a, _TRANSFER_DTYPES.get(f.name, torch.float32))
+    return TownMap(**fields, lanes=int(town.lanes), lane_width=float(town.lane_width))
 
 
 def world_state_from_jax(state) -> WorldState:

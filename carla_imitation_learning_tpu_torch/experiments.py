@@ -14,7 +14,10 @@ the CLI dispatches by name.
   frames copied to the card once, windows gathered there) or ``tier=host``
   (the C++ prefetcher and ``device_prefetch``);
 - ``closed_loop_eval``: driving metrics of a checkpoint's policy and of the
-  expert, rendered by kernel B.
+  expert, rendered by kernel B;
+- ``scenario_eval``: the same two scores under each named world and
+  weather condition of ``SCENARIOS`` (rain, night, busy streets, multi-lane
+  towns with lane changes, junction turn fans).
 
 Everything runs on ``cfg.device`` (default ``"cuda"``; ``-o device=cpu``
 runs the plain versions on the CPU). Options that wait for unported modules
@@ -28,6 +31,7 @@ import inspect
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from carla_imitation_learning_tpu_torch.callbacks import (
@@ -405,3 +409,68 @@ def closed_loop_eval(cfg, checkpoint: str | None = None, artifact: str | None = 
     expert = cl.evaluate_policy(params, town, rcfg, None, _generator(cfg),
                                 n_envs=n_envs, n_steps=n_steps, device=dev)
     return {"policy": policy, "expert": expert}
+
+
+# Named evaluation scenarios: config deltas over the composed config, so the
+# caller's overrides (fleet size, small test shapes) survive.
+SCENARIOS: dict[str, dict] = {
+    "clear": {},
+    "fog": {"render.fog_density": 0.04},              # ~115 m visibility
+    "storm": {"render.fog_density": 0.02, "render.rain": 0.8},
+    "night": {"render.sun": 0.2},
+    "night_rain": {"render.sun": 0.25, "render.rain": 0.6},
+    "busy": {"sim.n_pedestrians": 12, "sim.n_agents": 24},
+    "multilane": {"sim.town.lanes_per_direction": 2,
+                  "sim.town.superblocks": True,
+                  "sim.lane_change_period": 120, "sim.lane_change_window": 12},
+    "turns": {"sim.town.lanes_per_direction": 2, "sim.town.superblocks": True,
+              "sim.town.turn_fans": True, "sim.turn_period": 80,
+              "sim.agent_turn_prob": 0.01},
+}
+
+
+def scenario_config(cfg, name: str):
+    """``cfg`` with scenario ``name``'s delta applied; walkers raise
+    ``render.max_triangles`` by the 10 triangles each one adds."""
+    scfg = cfg.copy()
+    for k, v in SCENARIOS[name].items():
+        scfg.set_dotted(k, v)
+    ped = int(scfg.get_dotted("sim.n_pedestrians", 0))
+    if ped:
+        cur = int(scfg.get_dotted("render.max_triangles", 512))
+        scfg.set_dotted("render.max_triangles", cur + 10 * ped)
+    return scfg
+
+
+@experiment("scenario_eval")
+def scenario_eval(cfg, checkpoint: str | None = None, artifact: str | None = None,
+                  n_envs: int = 64, n_steps: int = 200, scenarios: str = "all", **kw):
+    """Scenario suite: one policy's driving metrics under each named world
+    and weather condition of ``SCENARIOS``, beside the expert's from the
+    same fleet start as its ceiling."""
+    if artifact:
+        raise _not_ported("artifact=", 11)
+    _check_one_device(cfg)
+    names = (list(SCENARIOS) if scenarios in ("all", "", None)
+             else [n.strip() for n in str(scenarios).split(",")])
+    unknown = [n for n in names if n not in SCENARIOS]
+    if unknown:
+        raise ValueError(f"unknown scenarios {unknown}; have {list(SCENARIOS)}")
+    dev = _device(cfg)
+    policy_fn, _ = _policy_bits(cfg, checkpoint, int(cfg.get_dotted("render.height", 128)),
+                                int(cfg.get_dotted("render.width", 128)))
+    out, summary = {}, {}
+    for name in names:
+        town, params, rcfg = _sim_bits(scenario_config(cfg, name))
+        pm = cl.evaluate_policy(params, town, rcfg, policy_fn, _generator(cfg),
+                                n_envs=n_envs, n_steps=n_steps, device=dev)
+        em = cl.evaluate_policy(params, town, rcfg, None, _generator(cfg),
+                                n_envs=n_envs, n_steps=n_steps, device=dev)
+        out[name] = {"policy": pm, "expert": em}
+        summary[name] = {"policy": pm["driving_score"], "expert": em["driving_score"],
+                         "policy_arc": pm["driving_score_arc"],
+                         "expert_arc": em["driving_score_arc"]}
+    return {"scenarios": out, "summary": summary,
+            "mean_driving_score": float(np.mean([summary[n]["policy"] for n in names])),
+            "mean_driving_score_arc": float(np.mean(
+                [summary[n]["policy_arc"] for n in names]))}

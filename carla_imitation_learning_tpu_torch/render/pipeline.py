@@ -23,7 +23,7 @@ from carla_imitation_learning_tpu_torch.ops.raster_fast import rasterize_luma_fa
 from carla_imitation_learning_tpu_torch.render import geometry as geo
 from carla_imitation_learning_tpu_torch.render.camera import camera_from_ego, project_triangles
 from carla_imitation_learning_tpu_torch.render.plain_raster import semantic_to_rgb, sky_image
-from carla_imitation_learning_tpu_torch.render.weather import apply_fog
+from carla_imitation_learning_tpu_torch.render.weather import apply_fog, apply_rain
 from carla_imitation_learning_tpu_torch.sim import agents as agent_lib
 from carla_imitation_learning_tpu_torch.sim.pedestrians import ped_positions
 from carla_imitation_learning_tpu_torch.sim.town import TownMap
@@ -51,9 +51,8 @@ class RenderConfig:
     quads: bool = False    # fast path: fused quad primitives (kernel C)
     vec: bool = False      # fast path: grouped band tables (kernel D);
                            # ignored when quads=True
-    # Not ported yet (ROADMAP Queue 1); setting either raises.
-    sun: float = 1.0
-    rain: float = 0.0
+    rain: float = 0.0      # rain intensity in [0, 1]; 0 = dry
+    sun: float = 1.0       # exposure scale of the final frame: 1 noon, ~0.2 night
 
     @classmethod
     def from_cfg(cls, cfg) -> "RenderConfig":
@@ -76,12 +75,6 @@ class RenderConfig:
     @property
     def fast_path(self) -> bool:
         return self.fast and not self.rgb
-
-    def check_ported(self) -> None:
-        off = {"sun": self.sun < 1.0, "rain": self.rain > 0.0}
-        unported = [k for k, on in off.items() if on]
-        if unported:
-            raise NotImplementedError(f"render options not ported yet: {unported}")
 
 
 def make_scene_setup(params: SimParams, town: TownMap, rcfg: RenderConfig,
@@ -125,10 +118,18 @@ def make_renderer(params: SimParams, town: TownMap, rcfg: RenderConfig,
                   device: str | torch.device = "cuda"):
     """→ render(state) for a fleet state on ``device``: the fast branch
     returns {'gray'}; the exact branches add 'semantic', 'depth',
-    'semantic_rgb' (and 'rgb' for ``rgb=True``)."""
-    rcfg.check_ported()
+    'semantic_rgb' (and 'rgb' for ``rgb=True``). Every branch applies fog,
+    then rain (from each env's key and step), then the sun's exposure
+    scale, to its frame; the class ids stay as rendered."""
     dev = resolve_device(device)
     scene_setup = make_scene_setup(params, town, rcfg, dev)
+
+    def weather(img, state: WorldState):
+        if rcfg.rain > 0.0:
+            img = apply_rain(img, state.rng, state.t, rcfg.rain)
+        if rcfg.sun < 1.0:
+            img = img * rcfg.sun
+        return img
 
     def render(state: WorldState) -> dict:
         setup = scene_setup(state)
@@ -137,18 +138,18 @@ def make_renderer(params: SimParams, town: TownMap, rcfg: RenderConfig,
                 setup, rcfg.height, rcfg.width, near=rcfg.near, far=rcfg.far,
                 compact_cap=rcfg.active_cap, fog_density=rcfg.fog_density,
                 lod_px=max(rcfg.lod_px, 0.0), quads=rcfg.quads, vec=rcfg.vec)
-            return {"gray": gray}
+            return {"gray": weather(gray, state)}
         if not rcfg.rgb:
             gray, sem, depth = rasterize_exact_luma(
                 setup, rcfg.height, rcfg.width, near=rcfg.near, far=rcfg.far)
             sky_l = luma(sky_image(rcfg.height, rcfg.width, dev))
-            gray = apply_fog(gray, depth, sky_l, rcfg.fog_density)
+            gray = weather(apply_fog(gray, depth, sky_l, rcfg.fog_density), state)
             return {"semantic": sem, "gray": gray, "depth": depth,
                     "semantic_rgb": semantic_to_rgb(sem)}
         rgb, sem, depth = rasterize_exact(setup, rcfg.height, rcfg.width,
                                           near=rcfg.near, far=rcfg.far)
-        rgb = apply_fog(rgb, depth, sky_image(rcfg.height, rcfg.width, dev),
-                        rcfg.fog_density)
+        rgb = weather(apply_fog(rgb, depth, sky_image(rcfg.height, rcfg.width, dev),
+                                rcfg.fog_density), state)
         return {"rgb": rgb, "semantic": sem, "gray": luma(rgb), "depth": depth,
                 "semantic_rgb": semantic_to_rgb(sem)}
 

@@ -59,10 +59,17 @@ def step_agents(
     """One fleet step → (routes, s, v). Agents accelerate to the target
     speed and brake for red lights ahead, for the leader on the same route,
     for the ego in their forward corridor, and (first-come right-of-way) for
-    vehicles already inside the junction they are about to enter."""
-    if lane_changes and town.lanes > 1:
-        raise NotImplementedError(
-            "agent lane changes on multi-lane towns are not ported yet")
+    vehicles already inside the junction they are about to enter.
+
+    On multi-lane towns a leader-blocked agent overtakes into the adjacent
+    lane on its left, and an unblocked one drifts back right, as a route
+    rewrite: lane k of grid cell g is route g·lanes + k, and the fractional
+    loop position carries over (concentric loops). Block loops are offset
+    inward (k + 1 is the vehicle's left); the perimeter loops outward, so the
+    sense flips there. A change needs free headway on the target lane (twice
+    the gap for a move back right), no junction within its clearance, no
+    lower-index agent bound for the same slot, and a landing point clear of
+    the ego."""
     B, A = routes.shape
     pos, yaw = agent_positions(town, routes, s)
     junction_r = torch.clamp(town.road_half_width * 1.8, min=junction_radius)
@@ -107,4 +114,42 @@ def step_agents(
     dv = torch.clamp(target - v, -2.0 * accel * dt, accel * dt)
     v_new = torch.clamp(v + dv, min=0.0)
     s_new = torch.remainder(s + v_new * dt, total)
+    if not (lane_changes and town.lanes > 1):
+        return routes, s_new, v_new
+
+    lanes = town.lanes
+    frac = s_new / total
+    lane_k = routes % lanes
+    n_cells = town.routes.shape[0] // lanes
+    is_perim = (routes // lanes) == (n_cells - 1)
+    ldelta = torch.where(is_perim, -1, 1)
+    can_left = torch.where(is_perim, lane_k > 0, lane_k + 1 < lanes)
+    can_right = torch.where(is_perim, lane_k + 1 < lanes, lane_k > 0)
+    want_left = leader_close & can_left
+    want_right = ~leader_close & can_right
+    target_route = torch.where(want_left, routes + ldelta,
+                               torch.where(want_right, routes - ldelta, routes))
+    total_t = town.route_total[target_route]                   # (B, A)
+    # [b, i, j]: agent j seen from agent i's target lane
+    on_target = routes[:, None, :] == target_route[:, :, None]
+    df = torch.abs(torch.remainder(frac[:, None, :] - frac[:, :, None] + 0.5, 1.0) - 0.5)
+    gap_m = df * total_t[:, :, None]
+    need = torch.where(want_right, 2.0 * gap, gap)             # (B, A)
+    target_free = ~(on_target & is_other & (gap_m < need[:, :, None])).any(dim=2)
+    wants = want_left | want_right
+    change = wants & target_free
+    if d_junc_all is not None:
+        change = change & (d_junc_all.amin(dim=2) > junction_r + 2.0)
+    # two agents bound for the same slot in one step: the lower index wins
+    idx = torch.arange(A, device=routes.device)
+    rival = ((target_route[:, None, :] == target_route[:, :, None]) & wants[:, None, :]
+             & is_other & (gap_m < gap) & (idx[None, :] < idx[:, None]))
+    change = change & ~rival.any(dim=2)
+    if ego_pos is not None:
+        # a change is a lateral jump: veto it when the landing point sits
+        # within the same headway of the ego
+        land, _ = route_point(town, target_route, frac * total_t)
+        change = change & (norm2(land - ego_pos[:, None, :]) > need)
+    routes = torch.where(change, target_route, routes)
+    s_new = torch.where(change, frac * total_t, s_new)
     return routes, s_new, v_new

@@ -7,6 +7,25 @@ import torch
 from carla_imitation_learning_tpu_torch.sim.town import norm2
 
 
+def circle_circle(pos_a, radius_a: float, pos_b, radius_b: float):
+    """Circles at pos_a (B, 2) vs circles at pos_b (B, N, 2) → (B, N) bool
+    overlap."""
+    d = pos_b - pos_a[:, None, :]
+    r = radius_a + radius_b
+    return (d * d).sum(-1) < r * r
+
+
+def any_vehicle_collision(ego_pos, agents_pos, radius: float):
+    """(B,) legacy disc test: the ego's disc of ``radius`` against every
+    agent's."""
+    return circle_circle(ego_pos, radius, agents_pos, radius).any(dim=1)
+
+
+def any_building_collision(ego_pos, buildings, radius: float):
+    """(B,) legacy disc test against the axis-aligned buildings."""
+    return circle_aabb(ego_pos, radius, buildings).any(dim=1)
+
+
 def circle_aabb(pos, radius: float, boxes):
     """Circles at pos (B, 2) vs boxes (Nb, ≥4: cx, cy, half_w, half_h) →
     (B, Nb) bool overlap."""

@@ -42,6 +42,14 @@ class TownMap:
     # Lanes per direction: route r is lane r % lanes of grid cell r // lanes.
     lanes: int = 1
     lane_width: float = 3.5
+    # Junction turn fans (``make_town(turn_fans=True)``, else None): at
+    # sample point p of route r, up to K other routes whose polyline runs
+    # through the same point with the same heading. Taking slot k rewrites
+    # (route, s) to (transfer_route[r, p, k], transfer_s[r, p, k]), which
+    # lands on the same world point. (R, P, K) int64 / float32 / bool.
+    transfer_route: torch.Tensor | None = None
+    transfer_s: torch.Tensor | None = None
+    transfer_valid: torch.Tensor | None = None
 
     def to(self, device) -> "TownMap":
         return map_tensors(self, lambda t: t.to(device))
@@ -90,6 +98,60 @@ def _resample_loop(corners: np.ndarray, n_points: int) -> np.ndarray:
     return pts[idx] + frac[:, None] * seg[idx]
 
 
+def _build_transfer_table(routes: np.ndarray, arclen: np.ndarray,
+                          total: np.ndarray, K: int = 4, tol: float = 0.8,
+                          tangent_min: float = 0.95):
+    """Turn-fan table: for every sample point of every route, the other
+    routes whose polyline passes through that point with the same heading.
+
+    Candidates are matched by point-to-segment perpendicular distance
+    (< ``tol`` m) with a tangent alignment test that rejects the opposite
+    lane of adjacent blocks, nearest line first; ``transfer_s`` is the
+    projected arclength on the target. Host numpy, once per town build, the
+    JAX package's table entry for entry (ties included: the same stable
+    ``argsort`` and the same float64 arithmetic)."""
+    R, P, _ = routes.shape
+    seg = np.roll(routes, -1, axis=1) - routes            # (R, P, 2)
+    seg_len = np.linalg.norm(seg, axis=-1)                # (R, P)
+    tang = seg / np.maximum(seg_len, 1e-9)[..., None]
+    tr = np.zeros((R, P, K), np.int32)
+    ts = np.zeros((R, P, K), np.float32)
+    tv = np.zeros((R, P, K), bool)
+    flat_start = routes.reshape(R * P, 2)
+    flat_tang = tang.reshape(R * P, 2)
+    flat_len = seg_len.reshape(R * P)
+    rough = float(np.max(seg_len)) + tol  # start-point cull radius
+    for r in range(R):
+        pts = routes[r]
+        d0 = np.linalg.norm(pts[:, None] - flat_start[None], axis=-1)
+        dot = tang[r] @ flat_tang.T
+        cand_mask = (d0 < rough) & (dot > tangent_min)
+        cand_mask[:, r * P:(r + 1) * P] = False           # never self
+        for p in range(P):
+            cand = np.nonzero(cand_mask[p])[0]
+            if cand.size == 0:
+                continue
+            off = pts[p] - flat_start[cand]               # (C, 2)
+            proj = np.einsum("cd,cd->c", off, flat_tang[cand])
+            inside = (proj >= -0.25) & (proj <= flat_len[cand] + 0.25)
+            perp = np.linalg.norm(off - proj[:, None] * flat_tang[cand], axis=-1)
+            good = inside & (perp < tol)
+            cand, proj, perp = cand[good], proj[good], perp[good]
+            if cand.size == 0:
+                continue
+            seen, k = set(), 0
+            for idx in np.argsort(perp):                  # nearest line first
+                rr, pp = divmod(int(cand[idx]), P)
+                if rr in seen or k >= K:
+                    continue
+                seen.add(rr)
+                tr[r, p, k] = rr
+                ts[r, p, k] = (arclen[rr, pp] + max(float(proj[idx]), 0.0)) % total[rr]
+                tv[r, p, k] = True
+                k += 1
+    return tr, ts, tv
+
+
 def make_town(
     blocks: int = 3,
     block_size: float = 80.0,
@@ -111,10 +173,9 @@ def make_town(
     successive right-lane offsets, plus as many perimeter loops, each
     resampled to ``route_points`` points so route following is a gather.
     ``superblocks=True`` adds loops around 2×1/1×2 cell pairs and L-shaped
-    3-cell unions; ``corner_radius > 0`` fillets route corners."""
-    if turn_fans:
-        raise NotImplementedError(
-            "junction turn fans (make_town(turn_fans=True)) are not ported yet")
+    3-cell unions; ``corner_radius > 0`` fillets route corners;
+    ``turn_fans=True`` builds the route-transfer tables
+    (``_build_transfer_table``), meaningful with ``superblocks=True``."""
     rng = np.random.default_rng(seed)
     size = blocks * block_size
     half_lane = lane_width / 2.0
@@ -240,6 +301,11 @@ def make_town(
     def f32(a):
         return torch.as_tensor(np.asarray(a, np.float32))
 
+    transfers = {}
+    if turn_fans:
+        tr, ts, tv = _build_transfer_table(routes, arclen, total)
+        transfers = dict(transfer_route=torch.as_tensor(tr.astype(np.int64)),
+                         transfer_s=f32(ts), transfer_valid=torch.as_tensor(tv))
     return TownMap(
         routes=f32(routes),
         route_arclen=f32(arclen),
@@ -257,14 +323,16 @@ def make_town(
         sidewalk_total=f32(sidewalk_total),
         lanes=lanes,
         lane_width=float(lane_width),
+        **transfers,
     )
 
 
-def make_town_from_cfg(cfg, seed: int = 0) -> TownMap:
-    """``make_town`` with the arguments of a composed config's ``sim``
-    block (``n_lights`` from ``sim``, the rest from ``sim.town``)."""
+def town_kwargs_from_cfg(cfg, seed: int = 0) -> dict:
+    """The ``make_town`` arguments of a composed config's ``sim`` block
+    (``n_lights`` from ``sim``, the rest from ``sim.town``; ``superblocks``
+    and ``turn_fans`` may be absent from the preset)."""
     t = cfg.sim.town
-    return make_town(
+    return dict(
         blocks=int(t.blocks), block_size=float(t.block_size),
         lane_width=float(t.lane_width), n_buildings=int(t.n_buildings),
         n_lights=int(cfg.sim.n_lights), seed=seed,
@@ -273,6 +341,10 @@ def make_town_from_cfg(cfg, seed: int = 0) -> TownMap:
         superblocks=bool(t.get("superblocks", False)),
         turn_fans=bool(t.get("turn_fans", False)),
     )
+
+
+def make_town_from_cfg(cfg, seed: int = 0) -> TownMap:
+    return make_town(**town_kwargs_from_cfg(cfg, seed))
 
 
 def norm2(v: torch.Tensor) -> torch.Tensor:

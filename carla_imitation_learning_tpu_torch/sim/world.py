@@ -2,8 +2,10 @@
 
 Every function works on a whole fleet at once: each ``WorldState`` field
 carries a leading env axis ``B``. Integer fields are int64; the ``rng`` key
-is an int64 (B, 2) pair of uint32 values, of which only the first (the
-"salt") is read, to pick auto-reset states from the packed spawn pool.
+is an int64 (B, 2) pair of uint32 values, the JAX package's raw threefry
+key: its first word (the "salt") picks auto-reset states from the packed
+spawn pool and seeds the rain, and the turn-fan transfers draw from the
+whole key with ``sim.prng``, bit for bit as ``jax.random`` does.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from carla_imitation_learning_tpu_torch.device import map_tensors
 from carla_imitation_learning_tpu_torch.sim import agents as agent_lib
 from carla_imitation_learning_tpu_torch.sim import collision as col
 from carla_imitation_learning_tpu_torch.sim import pedestrians as ped_lib
+from carla_imitation_learning_tpu_torch.sim import prng
 from carla_imitation_learning_tpu_torch.sim.dynamics import bicycle_step
 from carla_imitation_learning_tpu_torch.sim.town import TownMap, norm2, route_point
 
@@ -122,14 +125,6 @@ class VehicleControl:
     brake: torch.Tensor     # [0, 1]
 
 
-def _check_ported(params: SimParams, town: TownMap) -> None:
-    if town.lanes > 1:
-        raise NotImplementedError("multi-lane towns are not ported yet")
-    if params.collision_model != "capsule":
-        raise NotImplementedError(
-            f"collision_model={params.collision_model!r} is not ported yet")
-
-
 def reset_env(params: SimParams, town: TownMap, generator: torch.Generator,
               n_envs: int) -> WorldState:
     """Spawn ``n_envs`` egos and their agents on random routes at spaced
@@ -186,12 +181,57 @@ def _junction_radius(town: TownMap):
     return torch.clamp(town.road_half_width * 1.8, min=6.0)
 
 
+def ego_lane_change_plan(params: SimParams, town: TownMap, state: WorldState):
+    """Scripted lane changes of the ego → (target_route, command), each
+    (B,) int64. The command is 0, 4 (change left) or 5 (change right),
+    active for ``lane_change_window`` steps around the switch at
+    ``t % period == period // 2``; a pure function of (t, route). The target
+    is the next lane up, or back down from the top lane; on the perimeter
+    loops (offset outward) a step up is the vehicle's right."""
+    if town.lanes <= 1 or params.lane_change_period <= 0:
+        return state.ego_route, torch.zeros_like(state.ego_route)
+    lanes, period = town.lanes, params.lane_change_period
+    k = state.ego_route % lanes
+    is_perim = (state.ego_route // lanes) == (town.routes.shape[0] // lanes - 1)
+    dk = torch.where(k + 1 < lanes, 1, -1)
+    left = torch.where(is_perim, dk < 0, dk > 0)
+    cmd = torch.where(left, 4, 5)
+    phase = torch.remainder(state.t, period)
+    active = torch.abs(phase - period // 2) < params.lane_change_window // 2 + 1
+    return state.ego_route + dk, torch.where(active, cmd, 0)
+
+
+def _apply_ego_lane_change(params: SimParams, town: TownMap, prev: WorldState,
+                           mid: WorldState) -> WorldState:
+    """The scheduled lane switch on ``mid`` (before the arclength refine):
+    the ego's route becomes the target lane at the same fractional loop
+    position, unless the ego is near a junction or an agent on the target
+    lane is within 10 m along it (judged on ``prev``); a blocked switch
+    waits for the next period."""
+    if town.lanes <= 1 or params.lane_change_period <= 0:
+        return mid
+    target_route, _ = ego_lane_change_plan(params, town, prev)
+    phase = torch.remainder(prev.t, params.lane_change_period)
+    do = (phase == params.lane_change_period // 2) & (target_route != prev.ego_route)
+    if town.junctions.shape[0] > 0:
+        d = norm2(prev.ego_pos[:, None, :] - town.junctions).amin(dim=1)
+        do = do & (d > _junction_radius(town) + 2.0)
+    total_t = town.route_total[target_route]
+    if prev.agents_s.shape[1] > 0:
+        frac = prev.ego_s / town.route_total[prev.ego_route]
+        af = prev.agents_s / town.route_total[prev.agents_route]
+        df = torch.abs(torch.remainder(af - frac[:, None] + 0.5, 1.0) - 0.5)
+        near = (prev.agents_route == target_route[:, None]) & (df * total_t[:, None] < 10.0)
+        do = do & ~near.any(dim=1)
+    frac = mid.ego_s / town.route_total[prev.ego_route]
+    return mid.replace(ego_route=torch.where(do, target_route, mid.ego_route),
+                       ego_s=torch.where(do, frac * total_t, mid.ego_s))
+
+
 def navigation_command(params: SimParams, town: TownMap, state: WorldState):
     """(B,) int64 CIL-style command: 0 follow, 1 left, 2 right, 3 straight
-    through the next junction. (Scripted lane changes, commands 4 and 5,
-    need multi-lane towns, which are not ported.)"""
-    if town.lanes > 1 and params.lane_change_period > 0:
-        raise NotImplementedError("scripted ego lane changes are not ported yet")
+    through the next junction, 4 / 5 change lane left / right (the scripted
+    plan of ``ego_lane_change_plan``, which takes precedence)."""
     _, yaw_now = route_point(town, state.ego_route, state.ego_s)
     _, yaw_ahead = route_point(town, state.ego_route, state.ego_s + 15.0)
     dyaw = _wrap_angle(yaw_ahead - yaw_now)
@@ -201,8 +241,59 @@ def navigation_command(params: SimParams, town: TownMap, state: WorldState):
         p_ahead, _ = route_point(town, state.ego_route, state.ego_s + 10.0)
         d = norm2(p_ahead[:, None, :] - town.junctions).amin(dim=1)
         straight_junc = d < _junction_radius(town) + 2.0
-    return torch.where(torch.abs(dyaw) >= 0.15, turn,
-                       torch.where(straight_junc, 3, 0))
+    base = torch.where(torch.abs(dyaw) >= 0.15, turn, torch.where(straight_junc, 3, 0))
+    _, lane_cmd = ego_lane_change_plan(params, town, state)
+    return torch.where(lane_cmd > 0, lane_cmd, base)
+
+
+def _route_index(town: TownMap, route, s):
+    """Sample-point index of arclength ``s`` on ``route`` (uniform
+    resampling makes it a multiply)."""
+    n = town.routes.shape[1]
+    total = town.route_total[route]
+    return (torch.remainder(s, total) / total * n).to(torch.int64).clamp(0, n - 1)
+
+
+def _transfer(town: TownMap, route, s, slot, do):
+    """Take turn-fan slot ``slot`` where ``do``: the same world point on the
+    target route, the source's offset within its segment carried over."""
+    i = _route_index(town, route, s)
+    do = do & town.transfer_valid[route, i, slot]
+    new_route = town.transfer_route[route, i, slot]
+    frac_off = torch.remainder(s, town.route_total[route]) - town.route_arclen[route, i]
+    new_s = torch.remainder(town.transfer_s[route, i, slot] + frac_off,
+                            town.route_total[new_route])
+    return torch.where(do, new_route, route), torch.where(do, new_s, s)
+
+
+def _apply_route_transfers(params: SimParams, town: TownMap, state: WorldState,
+                           mid: WorldState) -> WorldState:
+    """Junction turn fans: every ``turn_period`` steps the ego re-rolls a
+    uniform slot of the K-wide fan at its position (an invalid slot means
+    stay), and each agent takes a uniform slot with probability
+    ``agent_turn_prob`` a step. The draws are ``jax.random``'s from the
+    key ``fold_in(fold_in(rng, 0x7F2B), t)`` of the state before the step,
+    so a fleet converted from the JAX package takes the same turns."""
+    if town.transfer_route is None or (params.turn_period <= 0
+                                       and params.agent_turn_prob <= 0.0):
+        return mid
+    K = town.transfer_route.shape[-1]
+    key = prng.fold_in(prng.fold_in(state.rng, 0x7F2B), state.t)
+    keys = prng.split(key, 3)
+    k_slot, k_ag, k_agslot = keys[:, 0], keys[:, 1], keys[:, 2]
+    out = mid
+    if params.turn_period > 0:
+        slot = prng.randint(k_slot, (), 0, K)
+        hit = torch.remainder(mid.t, params.turn_period) == 0
+        route, s = _transfer(town, mid.ego_route, mid.ego_s, slot, hit)
+        out = out.replace(ego_route=route, ego_s=s)
+    if params.agent_turn_prob > 0.0:
+        A = mid.agents_route.shape[1]
+        slots = prng.randint(k_agslot, (A,), 0, K)
+        roll = prng.uniform(k_ag, (A,)) < params.agent_turn_prob
+        route, s = _transfer(town, mid.agents_route, mid.agents_s, slots, roll)
+        out = out.replace(agents_route=route, agents_s=s)
+    return out
 
 
 def _nearest_s_update(town: TownMap, state: WorldState):
@@ -221,8 +312,9 @@ def step_env(params: SimParams, town: TownMap, state: WorldState,
              control: VehicleControl, fresh: WorldState):
     """One sim tick for the fleet → (new_state, info). Envs that end their
     episode (collision, off-road, timeout) continue from ``fresh`` (picked
-    from the spawn pool, see ``pick_fresh_packed``)."""
-    _check_ported(params, town)
+    from the spawn pool, see ``pick_fresh_packed``). After the dynamics come
+    the ego's scripted lane change, the arclength refine and the turn-fan
+    transfers, in the JAX package's order."""
     phases = _phases(params, town, state)
 
     steer_cmd = control.steer.clamp(-1.0, 1.0) * params.max_steer
@@ -244,13 +336,19 @@ def step_env(params: SimParams, town: TownMap, state: WorldState,
         dt=params.dt, speed=params.ped_speed)
     peds_pos = ped_lib.ped_positions(town, state.peds_crossing, peds_s)
 
-    hl, vr = params.vehicle_half_len, params.vehicle_radius
-    hit_vehicle = col.capsule_vehicle_collision(
-        ego_pos, ego_yaw, agents_pos, agents_yaw, hl, vr)
-    hit_building = col.capsule_building_collision(
-        ego_pos, ego_yaw, hl, vr, town.buildings)
-    hit_ped = col.capsule_point_collision(
-        ego_pos, ego_yaw, hl, vr, peds_pos, ped_lib.PED_RADIUS)
+    if params.collision_model == "capsule":
+        hl, vr = params.vehicle_half_len, params.vehicle_radius
+        hit_vehicle = col.capsule_vehicle_collision(
+            ego_pos, ego_yaw, agents_pos, agents_yaw, hl, vr)
+        hit_building = col.capsule_building_collision(
+            ego_pos, ego_yaw, hl, vr, town.buildings)
+        hit_ped = col.capsule_point_collision(
+            ego_pos, ego_yaw, hl, vr, peds_pos, ped_lib.PED_RADIUS)
+    else:  # the legacy discs of collision_radius
+        r = params.collision_radius
+        hit_vehicle = col.any_vehicle_collision(ego_pos, agents_pos, r)
+        hit_building = col.any_building_collision(ego_pos, town.buildings, r)
+        hit_ped = col.circle_circle(ego_pos, r, peds_pos, ped_lib.PED_RADIUS).any(dim=1)
     off = col.offroad(ego_pos, town.road_segments, town.road_half_width)
     collided = hit_vehicle | hit_building | hit_ped
     t_new = state.t + 1
@@ -264,7 +362,9 @@ def step_env(params: SimParams, town: TownMap, state: WorldState,
         agents_route=agents_route, agents_s=agents_s, agents_v=agents_v,
         peds_crossing=state.peds_crossing, peds_s=peds_s, peds_phase=peds_phase,
         t=t_new, rng=state.rng, goal=state.goal)
+    mid = _apply_ego_lane_change(params, town, state, mid)
     mid = mid.replace(ego_s=_nearest_s_update(town, mid))
+    mid = _apply_route_transfers(params, town, state, mid)
 
     # auto-reset: branchless select between continued and fresh state; the
     # goal survives auto-resets

@@ -163,7 +163,8 @@ def make_rollout(params: SimParams, town: TownMap, rcfg: RenderConfig,
     -> (carry, traj)`` where traj stacks per-step (T, B, ...) tensors."""
     if policy_fn is not None and len(inspect.signature(policy_fn).parameters) != 1:
         raise NotImplementedError(
-            "policies taking extras (speed, command, sensor) are not ported yet")
+            "policies taking extras (speed, command, sensor) are not ported yet "
+            "(ROADMAP Queue 1, item 6)")
     dev = resolve_device(device)
     town = town.to(dev)
     rcfg = dataclasses.replace(rcfg, rgb=False, fast=True)
@@ -280,12 +281,14 @@ def collect_dataset(params: SimParams, town: TownMap, rcfg: RenderConfig,
     (a ``NoiseConfig``) perturbs the executed steer; the state log's steer
     column and the labels stay the clean driver's. The trajectory stays on
     the device until one host copy per field."""
-    unported = {"goal_ids": goal_ids is not None,
-                "cameras": tuple(cameras) != ("camera",),
-                "control_space": control_space != "discrete"}
-    if any(unported.values()):
+    # option → (asked for, the ROADMAP Queue 1 item it waits for)
+    unported = {"goal_ids": (goal_ids is not None, 6),
+                "cameras": (tuple(cameras) != ("camera",), 10),
+                "control_space": (control_space != "discrete", 5)}
+    asked = {k: item for k, (on, item) in unported.items() if on}
+    if asked:
         raise NotImplementedError(
-            f"collection options not ported yet: {[k for k, v in unported.items() if v]}")
+            f"collection options not ported yet: {asked} (option: ROADMAP Queue 1 item)")
     init_fn, rollout_fn = make_rollout(params, town, rcfg, policy_fn, frame_skip,
                                        device=device, record_semantic=record_semantic,
                                        noise=noise)

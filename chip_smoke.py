@@ -64,6 +64,16 @@ Phases (any failure exits nonzero, with no result line):
    reader covers exactly ``DeviceDataset``'s windows), and ``run bc`` on an
    empty data_dir (a synthetic 256² log, 2048 frames); ``--profile`` adds
    the idle share of each streaming tier's train steps;
+6e. the scenario suite (``scenarios_phase``), counts reset just before
+   it: ``run scenario_eval`` through the CLI on 6d's best checkpoint at
+   1024 envs × 100 steps, all eight scenarios (kernel B once per step of
+   each of the 16 rollouts plus their first frames), then kernel B bit for
+   bit against its plain version on one frame of each scenario's fleet
+   (T = 530, 650 on ``busy``; fog 0.04 on ``fog``), the ``storm`` and
+   ``night_rain`` frames on the card against the CPU (the rain hash and
+   rain on one frame bit for bit), and a direct 1024-env × 100-step expert
+   run on the ``turns`` and ``multilane`` worlds that must take ego and
+   agent route transfers and lane changes;
 7. the rich fleet (same town and envs, the rich128 preset: facade bands,
    markings, shadows, textures, T=1408) from three seeds: kernel A's
    textured variant (C=1 and C=3), kernel B on the rich lists (2 px and 0
@@ -96,6 +106,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -130,6 +141,13 @@ FILE_EVAL_ENVS, FILE_EVAL_STEPS = 256, 50            # closed_loop_eval of its c
 FILE_STREAM_ENVS, FILE_STREAM_STEPS = 1024, 24       # bc_streaming's collection
 FILE_BATCH, FILE_EPOCHS, FILE_SHARD_FRAMES = 256, 2, 4096
 FILE_SYNTHETIC_FRAMES = 2048     # the README's first command: bc on an empty data_dir
+SCENARIO_ENVS, SCENARIO_STEPS = 1024, 100   # scenario_eval: every scenario, policy and expert
+# ``busy`` adds 12 walkers and 9 vehicles, but its delta raises the table
+# by the walkers' 120 triangles only, so on the bench town its 650-triangle
+# scene overflows the preset's 512 + 120 (the JAX package raises alike);
+# a base of 530 gives busy exactly 650
+SCENARIO_T = 530
+SCENARIO_CROSS_ENVS = 8          # rainy frames on the card vs the CPU
 LANES_PER_SM = 128       # lane-instructions an SM issues per clock (4 × 32)
 HBM_RATE = 3.35e12       # H100 SXM device memory, B/s
 WARP_TILE = 16           # kernels A and B cull per 16 × 16 pixel warp tile
@@ -590,7 +608,11 @@ def run(args) -> dict:
                                    profile=args.profile is not None)
     del bc_state
     torch.cuda.empty_cache()
-    paths["file_io"] = file_io_phase(dev, profile=args.profile is not None)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as keep:
+        paths["file_io"] = file_io_phase(dev, profile=args.profile is not None,
+                                         keep=Path(keep))
+        torch.cuda.empty_cache()
+        paths["scenarios"] = scenarios_phase(dev, Path(keep) / "best")
     torch.cuda.empty_cache()
     # the rich phases allocate gigabytes of temporaries; they run after the
     # main path has been timed
@@ -1442,7 +1464,7 @@ def window_keys(windows, labels, weights):
     return fp * 16 + labels.to(torch.int64)
 
 
-def file_io_phase(dev, profile: bool = False) -> dict:
+def file_io_phase(dev, profile: bool = False, keep: Path | None = None) -> dict:
     """Phase 6d: BC from CARLA-contract logs on disk, through the port's CLI
     in this process, on temporary ``data_dir`` and ``log_dir``, kernel B's
     launches counted per step:
@@ -1463,8 +1485,10 @@ def file_io_phase(dev, profile: bool = False) -> dict:
     5. ``run bc`` on an empty ``data_dir`` (a synthetic 256² log of
        FILE_SYNTHETIC_FRAMES frames, 1 epoch at the model preset's batch).
     Prints one ``file_io`` line; returns kernel B's launches of steps 1–4's
-    main path (collect, eval, streaming)."""
+    main path (collect, eval, streaming). With ``keep``, the best
+    checkpoint is copied to ``keep / "best"`` for the scenario phase."""
     import math
+    import shutil
     import tempfile
 
     import numpy as np
@@ -1617,6 +1641,8 @@ def file_io_phase(dev, profile: bool = False) -> dict:
               "closed_loop_eval did not render every step of both rollouts with kernel B")
         for who in ("policy", "expert"):
             check(math.isfinite(ev[who]["driving_score"]), f"closed_loop_eval: {who} score")
+        if keep is not None:
+            shutil.copytree(best, keep / "best")
         res["closed_loop_eval"] = {
             "n_envs": FILE_EVAL_ENVS, "steps": FILE_EVAL_STEPS,
             "launches": launches["closed_loop_eval"],
@@ -1667,6 +1693,180 @@ def file_io_phase(dev, profile: bool = False) -> dict:
     res["max_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     log(json.dumps({"file_io": res}))
     return {k: sum(v[k] for v in launches.values()) for k in launches["collect"]}
+
+
+def scenario_fleets(dev):
+    """name → (params, town, rollout render config) of every scenario, as
+    ``scenario_eval`` composes it from the imitation preset (the render
+    config forced onto kernel B at a 2 px LOD, as ``make_rollout`` does)."""
+    from carla_imitation_learning_tpu_torch import experiments as ex
+    from carla_imitation_learning_tpu_torch.config import compose
+
+    cfg = compose("config", overrides=["model=imitation", f"render.max_triangles={SCENARIO_T}"])
+    out = {}
+    for name in ex.SCENARIOS:
+        town, params, rcfg = ex._sim_bits(ex.scenario_config(cfg, name))
+        rcfg = dataclasses.replace(rcfg, rgb=False, fast=True,
+                                   lod_px=2.0 if rcfg.lod_px < 0 else rcfg.lod_px)
+        out[name] = (params, town.to(dev), rcfg)
+    return out
+
+
+def route_changes(params, town, dev, n_envs: int, n_steps: int) -> dict:
+    """A direct expert run of ``n_envs`` × ``n_steps`` (no rendering) with
+    auto-resets from the rollout's spawn pool → route changes that were not
+    resets: within a grid cell (lane changes) and across cells (turn-fan
+    transfers), for the ego and the agents."""
+    import torch
+
+    from carla_imitation_learning_tpu_torch.sim import world
+    from carla_imitation_learning_tpu_torch.training.closed_loop import rollout_spawn_pool
+
+    states = world.reset_env(params, town, torch.Generator().manual_seed(5), n_envs)
+    pool = rollout_spawn_pool(params, town)
+    counts = torch.zeros(5, dtype=torch.int64, device=dev)
+    for _ in range(n_steps):
+        ctrl = world.autopilot_control(params, town, states)
+        new, info = world.step_env(params, town, states, ctrl,
+                                   world.pick_fresh_packed(pool, params, states))
+        kept = ~info["done"]
+        ego = (new.ego_route != states.ego_route) & kept
+        ego_cell = new.ego_route // town.lanes == states.ego_route // town.lanes
+        ag = (new.agents_route != states.agents_route) & kept[:, None]
+        ag_cell = new.agents_route // town.lanes == states.agents_route // town.lanes
+        counts += torch.stack([(ego & ego_cell).sum(), (ego & ~ego_cell).sum(),
+                               (ag & ag_cell).sum(), (ag & ~ag_cell).sum(),
+                               info["done"].sum()])
+        states = new
+    return dict(zip(("ego_lane_changes", "ego_transfers", "agent_lane_changes",
+                     "agent_transfers", "resets"), counts.tolist()))
+
+
+def scenarios_phase(dev, checkpoint: Path) -> dict:
+    """Phase 6e: the scenario suite.
+    1. ``run scenario_eval`` through the CLI on ``checkpoint`` at
+       SCENARIO_ENVS × SCENARIO_STEPS, all eight scenarios, counts reset
+       just before it: kernel B launched once per step and first frame of
+       each of the 16 rollouts, no other kernel; each rollout timed on the
+       host clock (synchronized) for its env-steps/s;
+    2. kernel B bit for bit against its plain version on one frame of each
+       scenario's SCENARIO_ENVS fleet, the arguments the render passes it;
+    3. ``storm`` and ``night_rain``: SCENARIO_CROSS_ENVS envs at steps that
+       put the streak phases below zero, rendered on the card and on the
+       CPU (within ``b_tolerance``); the rain hash of every pixel and rain
+       on the CPU frame, on both, bit for bit;
+    4. ``route_changes`` on the ``turns`` and ``multilane`` worlds: ego
+       transfers and agent transfers (turns), ego lane changes
+       (multilane) and agent lane changes (both) must all be non-zero.
+    Prints one ``scenarios`` line; returns the launches of step 1."""
+    import math
+
+    import torch
+
+    from carla_imitation_learning_tpu_torch.ops import raster_fast as rf
+    from carla_imitation_learning_tpu_torch.render import weather
+    from carla_imitation_learning_tpu_torch.render.pipeline import make_renderer
+    from carla_imitation_learning_tpu_torch.sim.world import reset_env
+    from carla_imitation_learning_tpu_torch.training import closed_loop as cl
+
+    walls = []
+    orig = cl.evaluate_policy
+
+    def evaluate(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(*a, **k)
+        walls.append(time.perf_counter() - t0)
+        return out
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    reset_counts()
+    cl.evaluate_policy = evaluate
+    try:
+        res = cli_run("scenario_eval", "--checkpoint", str(checkpoint),
+                      "-o", f"n_envs={SCENARIO_ENVS}", "-o", f"n_steps={SCENARIO_STEPS}",
+                      "-o", "scenarios=all", "-o", f"render.max_triangles={SCENARIO_T}")
+    finally:
+        cl.evaluate_policy = orig
+    launches = read_counts()
+    eval_s = time.perf_counter() - t0
+    fleets = scenario_fleets(dev)
+    per_rollout = SCENARIO_STEPS + 1
+    check(launches["B"] == 2 * len(fleets) * per_rollout,
+          f"scenario_eval launched kernel B {launches['B']} times, not "
+          f"{2 * len(fleets)} rollouts × {per_rollout}")
+    check(sum(launches.values()) == launches["B"], "scenario_eval launched a kernel it does not run")
+    check(list(res["summary"]) == list(fleets), f"scenario_eval ran {list(res['summary'])}")
+    check(len(walls) == 2 * len(fleets), "scenario_eval: not two rollouts a scenario")
+    report = {}
+    for i, (name, (params, town, rcfg)) in enumerate(fleets.items()):
+        out = res["scenarios"][name]
+        for who in ("policy", "expert"):
+            check(all(math.isfinite(out[who][k]) for k in ("driving_score", "driving_score_arc",
+                                                          "mean_speed", "route_km")),
+                  f"scenario {name}: {who} metrics not finite")
+            check(out[who]["env_steps"] == SCENARIO_ENVS * SCENARIO_STEPS,
+                  f"scenario {name}: {who} env_steps")
+        check(out["expert"]["km_driven"] > 0, f"scenario {name}: the expert did not drive")
+        report[name] = {
+            "T": rcfg.max_triangles, "fog": rcfg.fog_density, "rain": rcfg.rain,
+            "sun": rcfg.sun, "lanes": town.lanes,
+            **{f"{who}_{k}": out[who][k] for who in ("policy", "expert")
+               for k in ("driving_score", "driving_score_arc", "collisions_per_1k_steps")},
+            "policy_env_steps_per_s": SCENARIO_ENVS * SCENARIO_STEPS / walls[2 * i],
+            "expert_env_steps_per_s": SCENARIO_ENVS * SCENARIO_STEPS / walls[2 * i + 1],
+            "b_launches": 2 * per_rollout}
+    t1 = time.perf_counter()
+
+    # 2. kernel B vs its plain version on each scenario's fleet
+    gen = torch.Generator().manual_seed(3)
+    cross_t = torch.tensor([0, 7, 40, 99, 150, 300, 399, 5][:SCENARIO_CROSS_ENVS])
+    for name, (params, town, rcfg) in fleets.items():
+        states = reset_env(params, town, gen, SCENARIO_ENVS)
+        render = make_renderer(params, town, rcfg, device=dev)
+        with Capture(rf, "fast_bands", lambda a, k, out: a) as cap:
+            render(states)
+        args = cap.calls[0]
+        check(args[0].shape[2] == rcfg.max_triangles, f"scenario {name}: table width")
+        report[name]["b_max_abs_err"] = check_fast(args, f"kernel B, scenario {name}")[0]
+        if rcfg.rain <= 0.0:
+            continue
+        # 3. rainy frames, card vs CPU
+        few = dataclasses.replace(
+            states, **{f.name: getattr(states, f.name)[:SCENARIO_CROSS_ENVS]
+                       for f in dataclasses.fields(states)})
+        few = few.replace(t=cross_t.to(dev))
+        card = render(few)["gray"]
+        cpu = make_renderer(params, town.to("cpu"), rcfg, device="cpu")(few.to("cpu"))["gray"]
+        report[name]["card_vs_cpu_max_abs"] = b_tolerance(card.cpu(), cpu,
+                                                          f"scenario {name}: card vs CPU")
+        yy = torch.arange(HW)[:, None]
+        x = ((torch.arange(HW)[None, :] + yy // 3) * 9173
+             + torch.div(yy - 4 * cross_t[:, None, None], 24, rounding_mode="floor") * 271
+             + few.rng[:, 0].cpu()[:, None, None])
+        check(torch.equal(weather._hash_u32(x.to(dev)).cpu(), weather._hash_u32(x)),
+              f"scenario {name}: the rain hash differs on the card")
+        wet_cpu = weather.apply_rain(cpu, few.rng.cpu(), few.t.cpu(), rcfg.rain)
+        wet_card = weather.apply_rain(cpu.to(dev), few.rng, few.t, rcfg.rain)
+        check(torch.equal(wet_card.cpu(), wet_cpu), f"scenario {name}: rain differs on the card")
+    t2 = time.perf_counter()
+
+    # 4. route changes on the multi-lane worlds
+    changes = {name: route_changes(*fleets[name][:2], dev, SCENARIO_ENVS, SCENARIO_STEPS)
+               for name in ("turns", "multilane")}
+    for key, name in (("ego_transfers", "turns"), ("agent_transfers", "turns"),
+                      ("ego_lane_changes", "multilane"), ("agent_lane_changes", "turns"),
+                      ("agent_lane_changes", "multilane")):
+        check(changes[name][key] > 0, f"scenario {name}: no {key} in the direct expert run")
+    log(json.dumps({"scenarios": {
+        "n_envs": SCENARIO_ENVS, "steps": SCENARIO_STEPS, "per_scenario": report,
+        "mean_driving_score": res["mean_driving_score"],
+        "mean_driving_score_arc": res["mean_driving_score_arc"], "launches": launches,
+        "route_changes": changes, "scenario_eval_s": eval_s, "kernel_checks_s": t2 - t1,
+        "route_changes_s": time.perf_counter() - t2,
+        "max_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}}))
+    return launches
 
 
 def sharded_coverage(store, shards, dev) -> dict:

@@ -56,12 +56,13 @@ def test_compose_matches_jax(overrides):
 
 
 def test_presets_are_the_ported_experiments():
-    assert PRESETS == ["bc", "bc_streaming", "closed_loop_eval", "collect", "split_folders",
-                       "test_eval"]
+    assert PRESETS == ["bc", "bc_streaming", "closed_loop_eval", "collect", "scenario_eval",
+                       "split_folders", "test_eval"]
     names = {p_compose("config", overrides=[f"experiment={p}"])["experiment_name"]
              for p in PRESETS}
     assert names == set(ex.EXPERIMENTS) == {"bc", "bc_streaming", "closed_loop_eval",
-                                            "collect_data", "split_folders", "test_eval"}
+                                            "collect_data", "scenario_eval", "split_folders",
+                                            "test_eval"}
 
 
 def test_compose_interpolates_and_rejects(tmp_path):
