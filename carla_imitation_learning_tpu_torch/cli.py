@@ -60,7 +60,7 @@ def main(argv=None) -> int:
         return 2
     overrides = list(args.override)
     # the policy experiments default to the imitation model group
-    if name.startswith(("bc", "test", "closed", "collect", "scenario")) \
+    if name.startswith(("bc", "test", "closed", "collect", "scenario", "dagger")) \
             and not any(o.startswith("model=") for o in overrides):
         overrides.insert(0, "model=imitation")
     cfg = compose(args.config, overrides=overrides)

@@ -14,8 +14,10 @@ from types import SimpleNamespace
 
 import numpy as np
 import torch
+from torch import nn
 
-from carla_imitation_learning_tpu_torch.models.cnn import PolicyCNN
+from carla_imitation_learning_tpu_torch.models.cil import BranchedCILPolicy
+from carla_imitation_learning_tpu_torch.models.cnn import ContinuousPolicyCNN, PolicyCNN
 from carla_imitation_learning_tpu_torch.ops.raster_fast import PrimSetup
 from carla_imitation_learning_tpu_torch.render.camera import TriangleSetup
 from carla_imitation_learning_tpu_torch.sim.town import TownMap
@@ -31,40 +33,84 @@ def _tensor(a, dtype=None) -> torch.Tensor:
     return torch.as_tensor(np.array(a), dtype=dtype)
 
 
-def policy_state_dict(params) -> dict:
-    """Flax ``PolicyCNN`` params → ``models.cnn.PolicyCNN`` state_dict:
-    conv kernels HWIO → OIHW, Dense kernels (in, out) → Linear (out, in)."""
-    trunk, head = params["ConvTrunk_0"], params["MLPHead_0"]
+def _dense(dense) -> tuple[torch.Tensor, torch.Tensor]:
+    """Flax Dense params → (Linear weight (out, in), bias)."""
+    return (_tensor(np.asarray(dense["kernel"], np.float32).T),
+            _tensor(np.asarray(dense["bias"], np.float32)))
+
+
+def _trunk_state_dict(trunk) -> dict:
     sd = {}
     for i in range(len(trunk)):
         conv = trunk[f"Conv_{i}"]
         sd[f"trunk.convs.{i}.weight"] = _tensor(
             np.transpose(np.asarray(conv["kernel"], np.float32), (3, 2, 0, 1)))
         sd[f"trunk.convs.{i}.bias"] = _tensor(np.asarray(conv["bias"], np.float32))
-    for i in range(len(head)):
-        dense = head[f"Dense_{i}"]
-        sd[f"head.layers.{i}.weight"] = _tensor(np.asarray(dense["kernel"], np.float32).T)
-        sd[f"head.layers.{i}.bias"] = _tensor(np.asarray(dense["bias"], np.float32))
     return sd
 
 
-_TRANSFER_DTYPES = {"transfer_route": torch.int64, "transfer_s": torch.float32,
-                    "transfer_valid": torch.bool}
+def policy_state_dict(params) -> dict:
+    """Flax ``PolicyCNN`` (or ``ContinuousPolicyCNN``, the same tree with a
+    2-way head) params → ``models.cnn`` state_dict: conv kernels HWIO →
+    OIHW, Dense kernels (in, out) → Linear (out, in)."""
+    sd = _trunk_state_dict(params["ConvTrunk_0"])
+    head = params["MLPHead_0"]
+    for i in range(len(head)):
+        sd[f"head.layers.{i}.weight"], sd[f"head.layers.{i}.bias"] = _dense(head[f"Dense_{i}"])
+    return sd
+
+
+def cil_state_dict(params) -> dict:
+    """Flax ``BranchedCILPolicy`` params → ``models.cil`` state_dict: the
+    trunk and the three Dense layers (speed 32, fused 128, speed head 1, in
+    flax's creation order) as for ``policy_state_dict``; the branch tensors
+    copied in their (K, F, H) / (K, H, A) layouts."""
+    sd = _trunk_state_dict(params["ConvTrunk_0"])
+    for name, dense in (("speed_fc", "Dense_0"), ("fuse_fc", "Dense_1"),
+                        ("speed_head", "Dense_2")):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = _dense(params[dense])
+    for name in ("branch_w1", "branch_b1", "branch_w2", "branch_b2"):
+        sd[name] = _tensor(np.asarray(params[name], np.float32))
+    return sd
+
+
+def params_state_dict(params) -> dict:
+    """``cil_state_dict`` for a branched CIL tree, else ``policy_state_dict``."""
+    return cil_state_dict(params) if "branch_w1" in params else policy_state_dict(params)
+
+
+def model_for_params(params, dtype: torch.dtype = torch.bfloat16,
+                     continuous: bool = False) -> nn.Module:
+    """The port's module for a flax params tree, its shapes read from the
+    tree: ``BranchedCILPolicy`` when it has branch tensors, else
+    ``ContinuousPolicyCNN`` (``continuous``) or ``PolicyCNN``."""
+    obs_size = np.asarray(params["ConvTrunk_0"]["Conv_0"]["kernel"]).shape[2]
+    if "branch_w1" in params:
+        k, _, hidden = np.asarray(params["branch_w1"]).shape
+        n_actions = np.asarray(params["branch_w2"]).shape[2]
+        return BranchedCILPolicy(obs_size=obs_size, n_actions=n_actions, n_commands=k,
+                                 branch_hidden=hidden, dtype=dtype)
+    if continuous:
+        return ContinuousPolicyCNN(obs_size=obs_size, dtype=dtype)
+    head = params["MLPHead_0"]
+    n_actions = np.asarray(head[f"Dense_{len(head) - 1}"]["kernel"]).shape[1]
+    return PolicyCNN(obs_size=obs_size, n_actions=n_actions, dtype=dtype)
+
+
+_TOWN_DTYPES = {"transfer_route": torch.int64, "transfer_s": torch.float32,
+                "transfer_valid": torch.bool, "nav_slot": torch.int64,
+                "nav_dist": torch.float32, "nav_goals": torch.float32}
 
 
 def town_from_jax(town) -> TownMap:
     """JAX ``TownMap`` → port ``TownMap`` (CPU tensors), with its turn-fan
-    tables when it has them. Navigation tables (goal-directed routes) raise:
-    they wait for ROADMAP Queue 1 item 6."""
-    if getattr(town, "nav_slot", None) is not None:
-        raise NotImplementedError(
-            "navigation tables are not ported yet (ROADMAP Queue 1, item 6)")
+    and navigation tables when it has them."""
     fields = {}
     for f in dataclasses.fields(TownMap):
         a = getattr(town, f.name)
         if f.name in ("lanes", "lane_width") or a is None:
             continue
-        fields[f.name] = _tensor(a, _TRANSFER_DTYPES.get(f.name, torch.float32))
+        fields[f.name] = _tensor(a, _TOWN_DTYPES.get(f.name, torch.float32))
     return TownMap(**fields, lanes=int(town.lanes), lane_width=float(town.lane_width))
 
 
@@ -159,23 +205,21 @@ def _adam_state(node):
 
 
 def train_state_from_jax(state, tx: AdamConfig, dtype: torch.dtype = torch.float32,
-                         device: str | torch.device = "cpu") -> TrainState:
-    """JAX ``TrainState`` of a ``PolicyCNN`` (optax Adam, optionally behind
+                         device: str | torch.device = "cpu",
+                         continuous: bool = False) -> TrainState:
+    """JAX ``TrainState`` of a ``PolicyCNN``, ``ContinuousPolicyCNN``
+    (``continuous``) or ``BranchedCILPolicy`` (optax Adam, optionally behind
     a clip) → port ``TrainState`` on ``device``: the params, Adam's ``mu``
-    and ``nu`` through the same transposes as the params, its ``count`` as
+    and ``nu`` through the same conversion as the params, its ``count`` as
     each parameter's Adam step and as the schedule's step, and the EMA
     shadow. ``tx`` is the port's optimizer config for the same run, so a
     step taken from here continues the JAX run."""
-    params = state.params
-    obs_size = np.asarray(params["ConvTrunk_0"]["Conv_0"]["kernel"]).shape[2]
-    head = params["MLPHead_0"]
-    n_actions = np.asarray(head[f"Dense_{len(head) - 1}"]["kernel"]).shape[1]
-    model = PolicyCNN(obs_size=obs_size, n_actions=n_actions, dtype=dtype)
-    model.load_state_dict(policy_state_dict(params))
+    model = model_for_params(state.params, dtype, continuous)
+    model.load_state_dict(params_state_dict(state.params))
     out = create_train_state(model, tx, ema_decay=float(state.ema_decay), device=device)
     adam = _adam_state(state.opt_state)
     count = int(np.asarray(_field(adam, "count")))
-    mu, nu = policy_state_dict(_field(adam, "mu")), policy_state_dict(_field(adam, "nu"))
+    mu, nu = params_state_dict(_field(adam, "mu")), params_state_dict(_field(adam, "nu"))
     opt = out.optimizer.state_dict()
     opt["state"] = {i: {"step": torch.tensor(float(count)), "exp_avg": mu[name],
                         "exp_avg_sq": nu[name]}
@@ -183,18 +227,21 @@ def train_state_from_jax(state, tx: AdamConfig, dtype: torch.dtype = torch.float
     out.optimizer.load_state_dict(opt)
     out.step = count
     if state.ema_params is not None:
-        out.ema.load_state_dict(policy_state_dict(state.ema_params))
+        out.ema.load_state_dict(params_state_dict(state.ema_params))
     return out
 
 
 def checkpoint_from_jax(payload: dict) -> dict:
-    """A JAX ``PolicyCNN`` checkpoint, restored as numpy arrays (``{"params",
-    "opt_state", "step"[, "ema_params"]}``, e.g. Orbax's templateless
-    restore), → this package's checkpoint payload (``TrainState.payload()``:
-    state_dicts of the model, Adam and the EMA shadow, and the step), for
-    ``utils.checkpoint.save_pytree``. Adam's moments and count come through
-    ``train_state_from_jax``; the learning rate is set from the schedule at
-    every step, so the one stored here is a placeholder."""
+    """A JAX ``PolicyCNN``, ``ContinuousPolicyCNN`` (the same state dict as
+    a 2-way ``PolicyCNN``) or ``BranchedCILPolicy`` checkpoint, restored as
+    numpy arrays
+    (``{"params", "opt_state", "step"[, "ema_params"]}``, e.g. Orbax's
+    templateless restore), → this package's checkpoint payload
+    (``TrainState.payload()``: state_dicts of the model, Adam and the EMA
+    shadow, and the step), for ``utils.checkpoint.save_pytree``. Adam's
+    moments and count come through ``train_state_from_jax``; the learning
+    rate is set from the schedule at every step, so the one stored here is
+    a placeholder."""
     ema = payload.get("ema_params")
     jstate = SimpleNamespace(params=payload["params"], opt_state=payload["opt_state"],
                              ema_params=ema, ema_decay=0.5 if ema is not None else 0.0)

@@ -36,6 +36,17 @@ def continuous_to_discrete(steer, throttle, brake,
     return accel_to_class(throttle, brake) * 3 + steer_to_class(steer, threshold)
 
 
+def control_to_discrete_label(steer, throttle, brake,
+                              threshold: float = STEER_THRESHOLD):
+    """9-class int64 label of a continuous control anywhere in the control
+    square (what the closed loop logs as ``traj["action"]`` for a
+    continuous policy): the steer class as ``steer_to_class``; the accel
+    class 0 where brake > throttle, 2 where throttle > 0.75, else 1. On the
+    reference table's exact pairs it agrees with ``continuous_to_discrete``."""
+    accel = torch.where(brake > throttle, 0, torch.where(throttle > 0.75, 2, 1))
+    return (accel * 3 + steer_to_class(steer, threshold)).to(torch.int64)
+
+
 def discrete_to_continuous(action):
     """Class index → (steer, throttle, brake) float32 tensors."""
     action = action.to(torch.int64)

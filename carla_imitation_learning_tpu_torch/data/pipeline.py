@@ -222,7 +222,10 @@ def valid_window_starts(n_frames: int, starts: np.ndarray | None, span: int,
 
 class DeviceDataset:
     """Iterator over on-device ``(x, y)`` batches from a FrameStore:
-    x (B, H, W, frame_skip) in ``dtype``, y (B,) int64 actions.
+    x (B, H, W, frame_skip) in ``dtype``, y (B,) int64 actions; with
+    ``cil=True`` ``(x, speed (B,) float32, command (B,) int64, y)`` of the
+    labelled frame; with ``continuous_labels`` (an (n_frames, d) float
+    array aligned with the store) ``(x, the labelled frame's row)``.
 
     ``label_offset`` (default ``frame_skip``) picks the labeled frame;
     ``sample_mask`` keeps only windows whose labeled frame it marks;
@@ -251,13 +254,22 @@ class DeviceDataset:
         extra_frames: "list[np.ndarray] | None" = None,
         device: str | torch.device = "cuda",
     ):
-        unported = {"aux": aux, "cil": cil, "sharding": sharding is not None,
-                    "continuous_labels": continuous_labels is not None,
+        unported = {"aux": aux, "sharding": sharding is not None,
                     "extra_frames": bool(extra_frames)}
         if any(unported.values()):
             raise NotImplementedError(
                 f"batch kinds not ported yet: {[k for k, v in unported.items() if v]}")
+        cont = None
+        if continuous_labels is not None:
+            if aux or cil:
+                raise ValueError("continuous_labels is exclusive with aux/cil batches")
+            cont = np.asarray(continuous_labels, np.float32)
+            if cont.ndim != 2 or cont.shape[0] != len(store):
+                raise ValueError(
+                    f"continuous_labels must be (n_frames, d); got "
+                    f"{cont.shape} for a {len(store)}-frame store")
         self.device = resolve_device(device)
+        self.cil = cil
         self.store = store
         self.batch_size = batch_size
         self.frame_skip = frame_skip
@@ -292,6 +304,12 @@ class DeviceDataset:
                               else self._put(valid.astype(np.int64)))
         self.frames = self._put(store.frames)
         self.actions = self._put(store.actions.astype(np.int64))
+        self.continuous = None if cont is None else self._put(cont)
+        if cil:
+            commands = (store.commands if store.commands is not None
+                        else np.zeros(len(store), np.int64))
+            self.speeds = self._put(np.asarray(store.sensors, np.float32)[:, 2])
+            self.commands = self._put(commands.astype(np.int64))
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -340,7 +358,12 @@ class DeviceDataset:
         if self._valid_starts is not None:
             idx = self._valid_starts[idx]
         x = gather_windows(self.frames, idx, self.frame_skip, self.dtype)
-        return x, self.actions[idx + self.label_offset]
+        at = idx + self.label_offset
+        if self.continuous is not None:
+            return x, self.continuous[at]
+        if self.cil:
+            return x, self.speeds[at], self.commands[at], self.actions[at]
+        return x, self.actions[at]
 
     def make_batch(self, idx: np.ndarray):
         return self.pure_batch(torch.as_tensor(np.asarray(idx, np.int64)).to(self.device))

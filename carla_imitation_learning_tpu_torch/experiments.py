@@ -17,7 +17,20 @@ the CLI dispatches by name.
   expert, rendered by kernel B;
 - ``scenario_eval``: the same two scores under each named world and
   weather condition of ``SCENARIOS`` (rain, night, busy streets, multi-lane
-  towns with lane changes, junction turn fans).
+  towns with lane changes, junction turn fans);
+- ``bc_cil``: the command-conditioned branched policy (CIL) trained on an
+  expert collection, goal-directed with ``n_goals`` and half of it on the
+  mirrored town with ``mirror_collection``;
+- ``bc_continuous``: regression BC of the expert's (steer, accel), then
+  the closed loop under continuous control;
+- ``route_eval``: A→B driving to goals planned by ``sim.planner``, the
+  expert's arrival rate and, with a checkpoint, the policy's;
+- ``dagger`` and ``dagger_online``: the DAgger loops of
+  ``training/dagger.py``, in each policy family, goal-directed with
+  ``n_goals``.
+
+The closed-loop experiments read ``policy_family`` (``discrete``,
+``continuous`` or ``cil``) to build the policy and its control space.
 
 Everything runs on ``cfg.device`` (default ``"cuda"``; ``-o device=cpu``
 runs the plain versions on the CPU). Options that wait for unported modules
@@ -28,6 +41,7 @@ from __future__ import annotations
 
 import functools
 import inspect
+import sys
 import time
 from pathlib import Path
 
@@ -41,16 +55,22 @@ from carla_imitation_learning_tpu_torch.data import frame_log as fl
 from carla_imitation_learning_tpu_torch.data import pipeline as pipe
 from carla_imitation_learning_tpu_torch.data import stats as stats_lib
 from carla_imitation_learning_tpu_torch.device import resolve_device
-from carla_imitation_learning_tpu_torch.models.cnn import PolicyCNN
+from carla_imitation_learning_tpu_torch.models import (
+    BranchedCILPolicy, ContinuousPolicyCNN, PolicyCNN,
+)
 from carla_imitation_learning_tpu_torch.native import (
     DeviceShardStreamer, NativeFrameStore, PrefetchReader, save_framestore,
 )
 from carla_imitation_learning_tpu_torch.render.pipeline import RenderConfig
-from carla_imitation_learning_tpu_torch.sim.town import make_town_from_cfg
+from carla_imitation_learning_tpu_torch.sim.planner import goal_setup
+from carla_imitation_learning_tpu_torch.sim.town import make_town_from_cfg, mirror_town
 from carla_imitation_learning_tpu_torch.sim.world import SimParams
 from carla_imitation_learning_tpu_torch.training import closed_loop as cl
+from carla_imitation_learning_tpu_torch.training.dagger import run_dagger, run_dagger_online
 from carla_imitation_learning_tpu_torch.training.loop import Trainer
-from carla_imitation_learning_tpu_torch.training.losses import bc_loss_fn
+from carla_imitation_learning_tpu_torch.training.losses import (
+    bc_loss_fn, cil_loss_fn, continuous_bc_loss_fn,
+)
 from carla_imitation_learning_tpu_torch.training.steps import (
     create_train_state, flax_init_, make_optimizer, make_train_step,
 )
@@ -265,6 +285,33 @@ def _sim_bits(cfg):
     return town, SimParams.from_cfg(cfg), RenderConfig.from_cfg(cfg)
 
 
+def _force_turn_fans(cfg) -> None:
+    """The route planner plans over the turn-fan graph: make sure the town
+    that ``_sim_bits`` builds next carries the transfer tables."""
+    if not _flag(cfg, "sim.town.turn_fans"):
+        cfg.set_dotted("sim.town.turn_fans", True)
+
+
+def _goal_bits(cfg, n_goals: int, n_envs: int):
+    """``_sim_bits``, goal-directed when ``n_goals`` > 0 (turn fans forced,
+    ``sim.planner.goal_setup`` seeded by ``data_seed``) → (town, params,
+    rcfg, round-robin goal ids (B,) or None)."""
+    if n_goals > 0:
+        _force_turn_fans(cfg)
+    town, params, rcfg = _sim_bits(cfg)
+    goal_ids = None
+    if n_goals > 0:
+        town, _, goal_ids = goal_setup(town, n_goals, n_envs,
+                                       seed=int(cfg.get("data_seed", 0)))
+    return town, params, rcfg, goal_ids
+
+
+def _control_space(cfg) -> str:
+    """The closed loop's control space for the configured policy family."""
+    return ("continuous" if str(cfg.get("policy_family", "discrete")) == "continuous"
+            else "discrete")
+
+
 def _noise_bits(cfg) -> "cl.NoiseConfig | None":
     """Collection noise (``noise_injection=true``; ``noise_prob``,
     ``noise_duration``, ``noise_magnitude`` override its defaults)."""
@@ -280,15 +327,15 @@ def _noise_bits(cfg) -> "cl.NoiseConfig | None":
 @experiment("collect_data")
 def collect_data(cfg, n_envs: int = 32, n_steps: int = 300, n_goals: int = 0, **kw):
     """Expert collection on the card, written as a raw log in the CARLA
-    contract (PNG frames and state.csv) and as a packed frame store."""
-    if n_goals > 0:
-        raise _not_ported("n_goals > 0", 6)
-    town, params, rcfg = _sim_bits(cfg)
+    contract (PNG frames and state.csv) and as a packed frame store.
+    ``n_goals`` > 0 collects goal-directed runs: the expert drives to goals
+    of the route planner, and the commands announce its turns."""
+    town, params, rcfg, goal_ids = _goal_bits(cfg, n_goals, n_envs)
     t0 = time.perf_counter()
     store, state_log, _ = cl.collect_dataset(
         params, town, rcfg, _generator(cfg), n_envs=n_envs, n_steps=n_steps,
         frame_skip=int(cfg.get("frame_skip", 4)), noise=_noise_bits(cfg),
-        device=_device(cfg))
+        goal_ids=goal_ids, device=_device(cfg))
     t1 = time.perf_counter()
     data_dir = Path(cfg["data_dir"])
     log = kw.get("log_name", "SimLog1")
@@ -373,20 +420,39 @@ def bc_streaming(cfg, n_envs: int = 32, n_steps: int = 200, epochs: int = 2,
 
 
 def _policy_bits(cfg, checkpoint: str | None, height: int, width: int):
-    """The discrete policy (flax's initializer from ``seed``, then the
-    checkpoint's weights, EMA preferred) → (argmax policy_fn, model)."""
+    """The policy of ``policy_family`` (flax's initializer from ``seed``,
+    then the checkpoint's weights, EMA preferred) → (policy_fn, model):
+    ``discrete``, the ConvNet1 shape and its argmax; ``continuous``,
+    ``ContinuousPolicyCNN`` and its (steer, accel) controls (run it with
+    ``_control_space(cfg)``); ``cil``, ``BranchedCILPolicy`` with
+    ``n_commands`` branches and its ``as_policy_fn``, which reads the
+    rollout's speed and navigation command."""
     family = str(cfg.get("policy_family", "discrete"))
-    if family != "discrete":
-        raise _not_ported(f"policy_family={family}", 5 if family == "continuous" else 6)
     if cfg.get("surround_cameras"):
         raise _not_ported("surround_cameras", 10)
-    model = flax_init_(_discrete_policy_model(cfg, int(cfg.get("frame_skip", 4))),
-                       _generator(cfg)).to(_device(cfg))
+    fs = int(cfg.get("frame_skip", 4))
+    if family == "continuous":
+        if _flag(cfg, "s2d_stem"):
+            raise _not_ported("s2d_stem", 3)
+        model = ContinuousPolicyCNN(obs_size=fs, dtype=_dtype(cfg))
+    elif family == "cil":
+        model = BranchedCILPolicy(obs_size=fs, n_actions=int(cfg.get("n_actions", 9)),
+                                  n_commands=int(cfg.get("n_commands", 6)), dtype=_dtype(cfg))
+    elif family == "discrete":
+        model = _discrete_policy_model(cfg, fs)
+    else:
+        raise ValueError(f"unknown policy_family {family!r} "
+                         "(want 'discrete', 'continuous' or 'cil')")
+    model = flax_init_(model, _generator(cfg)).to(_device(cfg))
     if checkpoint:
         model.load_state_dict(restore_params(checkpoint, model.state_dict()))
+    if family == "cil":
+        return model.as_policy_fn(), model
 
+    @torch.no_grad()
     def policy_fn(obs):
-        return model(obs).argmax(-1)
+        out = model(obs)
+        return out if family == "continuous" else out.argmax(-1)
 
     return policy_fn, model
 
@@ -405,7 +471,8 @@ def closed_loop_eval(cfg, checkpoint: str | None = None, artifact: str | None = 
     town, params, rcfg = _sim_bits(cfg)
     policy_fn, _ = _policy_bits(cfg, checkpoint, rcfg.height, rcfg.width)
     policy = cl.evaluate_policy(params, town, rcfg, policy_fn, _generator(cfg),
-                                n_envs=n_envs, n_steps=n_steps, device=dev)
+                                n_envs=n_envs, n_steps=n_steps,
+                                control_space=_control_space(cfg), device=dev)
     expert = cl.evaluate_policy(params, town, rcfg, None, _generator(cfg),
                                 n_envs=n_envs, n_steps=n_steps, device=dev)
     return {"policy": policy, "expert": expert}
@@ -463,7 +530,8 @@ def scenario_eval(cfg, checkpoint: str | None = None, artifact: str | None = Non
     for name in names:
         town, params, rcfg = _sim_bits(scenario_config(cfg, name))
         pm = cl.evaluate_policy(params, town, rcfg, policy_fn, _generator(cfg),
-                                n_envs=n_envs, n_steps=n_steps, device=dev)
+                                n_envs=n_envs, n_steps=n_steps,
+                                control_space=_control_space(cfg), device=dev)
         em = cl.evaluate_policy(params, town, rcfg, None, _generator(cfg),
                                 n_envs=n_envs, n_steps=n_steps, device=dev)
         out[name] = {"policy": pm, "expert": em}
@@ -474,3 +542,179 @@ def scenario_eval(cfg, checkpoint: str | None = None, artifact: str | None = Non
             "mean_driving_score": float(np.mean([summary[n]["policy"] for n in names])),
             "mean_driving_score_arc": float(np.mean(
                 [summary[n]["policy_arc"] for n in names]))}
+
+
+def _split3(store):
+    """Sequential 80/10/10 split of a store → {"train", "val", "test"}."""
+    n = len(store)
+    bounds = {"train": (0, int(0.8 * n)), "val": (int(0.8 * n), int(0.9 * n)),
+              "test": (int(0.9 * n), n)}
+    return {k: store.slice(a, b) for k, (a, b) in bounds.items()}
+
+
+@experiment("bc_cil")
+def bc_cil(cfg, n_envs: int = 32, n_steps: int = 300, n_goals: int = 0, **kw):
+    """Command-conditioned branched policy (CIL) with a speed head, trained
+    on an expert collection on the card.
+
+    ``n_goals`` > 0 makes the collection goal-directed (route planner), so
+    the commands announce the planner's turns — what a CIL policy needs to
+    drive A→B (score it with ``route_eval``). ``mirror_collection`` runs
+    the second half of the budget on the mirrored town (every left turn a
+    right, since ``make_town``'s loops all run counterclockwise); each half
+    is split 80/10/10 on its own, so both land in every split.
+    ``balance_key`` (``command`` or ``action_command``) balances epoch
+    sampling by branch. The result carries the command histogram."""
+    _check_one_device(cfg)
+    if cfg.get("surround_cameras"):
+        raise _not_ported("surround_cameras", 10)
+    town, params, rcfg, goal_ids = _goal_bits(cfg, n_goals, n_envs)
+    fs = int(cfg.get("frame_skip", 4))
+    dev, gen, noise = _device(cfg), _generator(cfg), _noise_bits(cfg)
+    worlds = [town, mirror_town(town)] if _flag(cfg, "mirror_collection") else [town]
+    steps = n_steps // len(worlds)
+    halves = [cl.collect_dataset(params, w, rcfg, gen, n_envs, steps, noise=noise,
+                                 goal_ids=goal_ids, device=dev)[0] for w in worlds]
+    parts = [_split3(h) for h in halves]
+    splits = {k: pipe.FrameStore.concat([p[k] for p in parts])
+              for k in ("train", "val", "test")}
+    batch = int(cfg.get("BATCH_SIZE", 64))
+    balanced = _flag(cfg, "balanced_sampling")
+    loaders = {f"{k}_dataloader": pipe.DeviceDataset(
+        st, batch, frame_skip=fs, shuffle=(k == "train"), cil=True,
+        drop_last=(k == "train"), balanced=balanced and k == "train",
+        balance_key=str(cfg.get("balance_key", "action")), device=dev)
+        for k, st in splits.items()}
+    n_commands = int(cfg.get("n_commands", 6))
+    model = BranchedCILPolicy(obs_size=fs, n_commands=n_commands, dtype=_dtype(cfg))
+    result = _fit(cfg, "bc_cil", model, cil_loss_fn(float(cfg.get("speed_weight", 0.1))),
+                  loaders)
+    commands = np.concatenate([h.commands for h in halves])
+    hist = np.bincount(commands, minlength=n_commands)
+    result["command_histogram"] = hist.tolist()
+    empty = [c for c in range(n_commands) if hist[c] == 0]
+    if empty:
+        print(f"bc_cil: commands {empty} have no samples, so their branches never train "
+              "(lanes_per_direction > 1, superblocks and lane_change_period give all six)",
+              file=sys.stderr)
+    return result
+
+
+@experiment("bc_continuous")
+def bc_continuous(cfg, n_envs: int = 32, n_steps: int = 300, eval_envs: int = 64,
+                  eval_steps: int = 200, **kw):
+    """Continuous-control BC: regress the expert's (steer, accel = throttle
+    − brake) from the state log (the clean steer under collection noise),
+    split 80/10/10, then drive the closed loop with continuous control."""
+    _check_one_device(cfg)
+    if cfg.get("surround_cameras"):
+        raise _not_ported("surround_cameras", 10)
+    town, params, rcfg = _sim_bits(cfg)
+    fs = int(cfg.get("frame_skip", 4))
+    dev, gen = _device(cfg), _generator(cfg)
+    store, state_log, _ = cl.collect_dataset(params, town, rcfg, gen, n_envs, n_steps,
+                                             frame_skip=fs, noise=_noise_bits(cfg), device=dev)
+    labels = np.stack([np.asarray(state_log.steer, np.float32),
+                       np.asarray(state_log.throttle, np.float32)
+                       - np.asarray(state_log.brake, np.float32)], axis=1)
+    n = len(store)
+    bounds = {"train": (0, int(0.8 * n)), "val": (int(0.8 * n), int(0.9 * n)),
+              "test": (int(0.9 * n), n)}
+    batch = int(cfg.get("BATCH_SIZE", 64))
+    loaders = {f"{k}_dataloader": pipe.DeviceDataset(
+        store.slice(a, b), batch, frame_skip=fs, shuffle=(k == "train"),
+        drop_last=(k == "train"), continuous_labels=labels[a:b], device=dev)
+        for k, (a, b) in bounds.items()}
+    model = ContinuousPolicyCNN(obs_size=fs, dtype=_dtype(cfg))
+    loss = continuous_bc_loss_fn(float(cfg.get("steer_weight", 1.0)),
+                                 float(cfg.get("accel_weight", 0.5)))
+    result = _fit(cfg, "bc_continuous", model, loss, loaders)
+    trained = result["state"].model
+
+    @torch.no_grad()
+    def policy_fn(obs):
+        return trained(obs)
+
+    result["eval"] = cl.evaluate_policy(params, town, rcfg, policy_fn, gen, n_envs=eval_envs,
+                                        n_steps=eval_steps, control_space="continuous",
+                                        device=dev)
+    result["label_stats"] = {"steer_std": float(labels[:, 0].std()),
+                             "accel_mean": float(labels[:, 1].mean())}
+    return result
+
+
+@experiment("route_eval")
+def route_eval(cfg, checkpoint: str | None = None, artifact: str | None = None,
+               n_envs: int = 64, n_steps: int = 600, n_goals: int = 8, **kw):
+    """A→B evaluation: ``n_goals`` goals sampled on the town's shared lane
+    stretches, shortest-path tables baked on the host once
+    (``sim.planner``), each env driving to its goal → arrival rate, steps to
+    arrival and infractions per km of the expert and, with a checkpoint, of
+    the policy (``policy_family=cil`` for a ``bc_cil`` checkpoint, which
+    then follows the planner's commands), from the same fleet start. The
+    town gets turn fans, the planner's graph."""
+    if artifact:
+        raise _not_ported("artifact=", 11)
+    _check_one_device(cfg)
+    dev = _device(cfg)
+    town, params, rcfg, goal_ids = _goal_bits(cfg, n_goals, n_envs)
+    expert = cl.evaluate_routes(params, town, rcfg, None, _generator(cfg), n_envs=n_envs,
+                                n_steps=n_steps, goal_ids=goal_ids, device=dev)
+    out = {"goals": town.nav_goals.cpu().numpy().tolist(), "expert": expert}
+    if checkpoint:
+        policy_fn, _ = _policy_bits(cfg, checkpoint, rcfg.height, rcfg.width)
+        out["policy"] = cl.evaluate_routes(params, town, rcfg, policy_fn, _generator(cfg),
+                                           n_envs=n_envs, n_steps=n_steps,
+                                           control_space=_control_space(cfg),
+                                           goal_ids=goal_ids, device=dev)
+    return out
+
+
+def _dagger_kw(cfg) -> dict:
+    """What ``run_dagger`` / ``run_dagger_online`` read from the config."""
+    return dict(batch_size=int(cfg.get("BATCH_SIZE", 64)),
+                policy_family=str(cfg.get("policy_family", "discrete")),
+                n_commands=int(cfg.get("n_commands", 6)),
+                goal_seed=int(cfg.get("data_seed", 0)), tx=make_optimizer(cfg, 1),
+                dtype=_dtype(cfg), device=_device(cfg))
+
+
+@experiment("dagger")
+def dagger(cfg, rounds: int = 3, n_envs: int = 16, n_steps: int = 200,
+           epochs_per_round: int = 3, n_goals: int = 0, **kw):
+    """DAgger: an expert collection, then rounds in which the policy drives
+    and the expert labels, each followed by training on every round's data
+    (``training.dagger.run_dagger``), in the configured policy family;
+    goal-directed with ``n_goals`` > 0, the final policy then also scored on
+    the routes."""
+    _check_one_device(cfg)
+    if n_goals > 0:
+        _force_turn_fans(cfg)
+    town, params, rcfg = _sim_bits(cfg)
+    return run_dagger(params, town, rcfg, _generator(cfg), rounds=rounds, n_envs=n_envs,
+                      n_steps=n_steps, epochs_per_round=epochs_per_round, n_goals=n_goals,
+                      noise=_noise_bits(cfg), balanced=_flag(cfg, "balanced_sampling"),
+                      speed_weight=float(cfg.get("speed_weight", 0.1)),
+                      steer_weight=float(cfg.get("steer_weight", 1.0)),
+                      accel_weight=float(cfg.get("accel_weight", 0.5)), **_dagger_kw(cfg))
+
+
+@experiment("dagger_online")
+def dagger_online(cfg, rounds: int = 3, n_envs: int = 16, n_steps: int = 200,
+                  train_steps_per_round: int = 200, eval_steps: int = 100,
+                  n_goals: int = 0, **kw):
+    """Online DAgger with the aggregation buffer on the card
+    (``training.dagger.run_dagger_online``): β-mixed rounds, β_r =
+    ``beta``**r; ``policy_family=cil`` runs it on commands, and ``n_goals``
+    > 0 makes every round goal-directed."""
+    _check_one_device(cfg)
+    if n_goals > 0:
+        _force_turn_fans(cfg)
+    town, params, rcfg = _sim_bits(cfg)
+    return run_dagger_online(params, town, rcfg, _generator(cfg), rounds=rounds,
+                             n_envs=n_envs, n_steps=n_steps,
+                             train_steps_per_round=train_steps_per_round,
+                             eval_steps=eval_steps, n_goals=n_goals,
+                             beta=float(cfg.get("beta", 0.0)),
+                             speed_weight=float(cfg.get("speed_weight", 0.1)),
+                             **_dagger_kw(cfg))

@@ -91,3 +91,19 @@ class PolicyCNN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.head(self.trunk(x))
+
+
+class ContinuousPolicyCNN(nn.Module):
+    """Continuous-control policy on the same trunk: (B, H, W, obs_size) →
+    (B, 2) = tanh of a 128→64→32→2 head, column 0 the steer and column 1
+    the signed acceleration (> 0 throttle, < 0 brake), each in [-1, 1] —
+    the closed loop's ``control_space="continuous"`` contract. The state
+    dict has ``PolicyCNN``'s names (a 2-way head)."""
+
+    def __init__(self, obs_size: int = 4, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.trunk = ConvTrunk(in_channels=obs_size, dtype=dtype)
+        self.head = MLPHead(128, (64, 32, 2), dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.tanh(self.head(self.trunk(x)))

@@ -50,9 +50,20 @@ class TownMap:
     transfer_route: torch.Tensor | None = None
     transfer_s: torch.Tensor | None = None
     transfer_valid: torch.Tensor | None = None
+    # Goal navigation tables (``sim.planner.plan_to_goals``, else None): for
+    # goal g at node (route r, sample point p), nav_slot[g, r, p] is the
+    # turn-fan slot to take (−1 = stay), nav_dist[g, r, p] the meters to the
+    # goal (inf = unreachable), nav_goals[g] the goal point. (G, R, P) int64
+    # / (G, R, P) float32 / (G, 2) float32.
+    nav_slot: torch.Tensor | None = None
+    nav_dist: torch.Tensor | None = None
+    nav_goals: torch.Tensor | None = None
 
     def to(self, device) -> "TownMap":
         return map_tensors(self, lambda t: t.to(device))
+
+    def replace(self, **kw) -> "TownMap":
+        return dataclasses.replace(self, **kw)
 
 
 def _round_corners(corners: np.ndarray, radius: float,
@@ -325,6 +336,34 @@ def make_town(
         lane_width=float(lane_width),
         **transfers,
     )
+
+
+def mirror_town(town: TownMap) -> TownMap:
+    """The town reflected about the y axis (x → −x): every left turn of
+    ``make_town``'s counterclockwise loops becomes a right turn, while
+    arclengths, lane offsets, the transfer tables' (r, p, k) indices and the
+    nav tables (pure topology and lengths) stay valid; only the goal points
+    move to their mirror images. Column 0 of the routes, buildings, lights,
+    crossings, junctions, sidewalks and goals is negated, and columns 0 and
+    2 of the road segments — the JAX package's ``mirror_town`` field for
+    field."""
+
+    def neg(a: torch.Tensor | None, cols=(0,)) -> torch.Tensor | None:
+        if a is None:
+            return None
+        a = a.clone()
+        for c in cols:
+            a[..., c] = -a[..., c]
+        return a
+
+    segs = town.road_segments
+    if segs is not None and segs.numel():
+        segs = neg(segs, (0, 2))
+    return town.replace(
+        routes=neg(town.routes), buildings=neg(town.buildings),
+        lights_pos=neg(town.lights_pos), road_segments=segs,
+        crossings=neg(town.crossings), junctions=neg(town.junctions),
+        sidewalks=neg(town.sidewalks), nav_goals=neg(town.nav_goals))
 
 
 def town_kwargs_from_cfg(cfg, seed: int = 0) -> dict:

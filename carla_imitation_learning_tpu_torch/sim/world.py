@@ -273,20 +273,50 @@ def _apply_route_transfers(params: SimParams, town: TownMap, state: WorldState,
     stay), and each agent takes a uniform slot with probability
     ``agent_turn_prob`` a step. The draws are ``jax.random``'s from the
     key ``fold_in(fold_in(rng, 0x7F2B), t)`` of the state before the step,
-    so a fleet converted from the JAX package takes the same turns."""
+    so a fleet converted from the JAX package takes the same turns.
+
+    With nav tables (``sim.planner.plan_to_goals``), an ego whose goal is
+    ≥ 0 instead takes the slot its goal's table prescribes at its node, on
+    every step, and only where the table distance at the node it lands on
+    is strictly smaller than at its node (the monotone-descent gate, which
+    keeps a ±1-node landing from bouncing between coincident loops). This
+    runs whenever the town has nav tables, ``turn_period`` 0 included."""
+    nav = town.nav_slot is not None
     if town.transfer_route is None or (params.turn_period <= 0
-                                       and params.agent_turn_prob <= 0.0):
+                                       and params.agent_turn_prob <= 0.0 and not nav):
         return mid
     K = town.transfer_route.shape[-1]
-    key = prng.fold_in(prng.fold_in(state.rng, 0x7F2B), state.t)
-    keys = prng.split(key, 3)
-    k_slot, k_ag, k_agslot = keys[:, 0], keys[:, 1], keys[:, 2]
+    if params.turn_period > 0 or params.agent_turn_prob > 0.0:
+        key = prng.fold_in(prng.fold_in(state.rng, 0x7F2B), state.t)
+        keys = prng.split(key, 3)
+        k_slot, k_ag, k_agslot = keys[:, 0], keys[:, 1], keys[:, 2]
     out = mid
-    if params.turn_period > 0:
-        slot = prng.randint(k_slot, (), 0, K)
-        hit = torch.remainder(mid.t, params.turn_period) == 0
-        route, s = _transfer(town, mid.ego_route, mid.ego_s, slot, hit)
-        out = out.replace(ego_route=route, ego_s=s)
+    if params.turn_period > 0 or nav:
+        route, s = mid.ego_route, mid.ego_s
+        i = _route_index(town, route, s)
+        if params.turn_period > 0:
+            slot = prng.randint(k_slot, (), 0, K)
+            hit = torch.remainder(mid.t, params.turn_period) == 0
+        else:
+            slot = torch.zeros_like(route)
+            hit = torch.zeros_like(route, dtype=torch.bool)
+        if nav:
+            g = mid.goal.clamp(0, town.nav_slot.shape[0] - 1)
+            nav_slot = town.nav_slot[g, route, i]
+            nav_on = mid.goal >= 0
+            slot = torch.where(nav_on, nav_slot.clamp(min=0), slot)
+            hit = torch.where(nav_on, nav_slot >= 0, hit)
+        do = hit & town.transfer_valid[route, i, slot]
+        new_route = town.transfer_route[route, i, slot]
+        frac_off = torch.remainder(s, town.route_total[route]) - town.route_arclen[route, i]
+        new_s = torch.remainder(town.transfer_s[route, i, slot] + frac_off,
+                                town.route_total[new_route])
+        if nav:
+            i_new = _route_index(town, new_route, new_s)
+            descent = town.nav_dist[g, new_route, i_new] < town.nav_dist[g, route, i]
+            do = do & (descent | ~nav_on)
+        out = out.replace(ego_route=torch.where(do, new_route, route),
+                          ego_s=torch.where(do, new_s, s))
     if params.agent_turn_prob > 0.0:
         A = mid.agents_route.shape[1]
         slots = prng.randint(k_agslot, (A,), 0, K)
@@ -311,7 +341,8 @@ def _nearest_s_update(town: TownMap, state: WorldState):
 def step_env(params: SimParams, town: TownMap, state: WorldState,
              control: VehicleControl, fresh: WorldState):
     """One sim tick for the fleet → (new_state, info). Envs that end their
-    episode (collision, off-road, timeout) continue from ``fresh`` (picked
+    episode (collision, off-road, timeout, and with nav tables arrival at
+    the goal or a node with no path to it) continue from ``fresh`` (picked
     from the spawn pool, see ``pick_fresh_packed``). After the dynamics come
     the ego's scripted lane change, the arclength refine and the turn-fan
     transfers, in the JAX package's order."""
@@ -354,7 +385,17 @@ def step_env(params: SimParams, town: TownMap, state: WorldState,
     t_new = state.t + 1
     timeout = t_new >= params.episode_len
     arrived = torch.zeros_like(timeout)
-    done = collided | off | timeout
+    unreachable = torch.zeros_like(timeout)
+    if town.nav_goals is not None:
+        # goal navigation: reaching the goal point ends the episode as a
+        # success; a node with no path to the goal (inf in the table) ends
+        # it at once, so the respawn tries again from a connected spawn
+        g = state.goal.clamp(0, town.nav_goals.shape[0] - 1)
+        nav_on = state.goal >= 0
+        arrived = nav_on & (norm2(ego_pos - town.nav_goals[g]) < params.arrive_radius)
+        i = _route_index(town, state.ego_route, state.ego_s)
+        unreachable = nav_on & ~torch.isfinite(town.nav_dist[g, state.ego_route, i])
+    done = collided | off | timeout | arrived | unreachable
 
     mid = WorldState(
         ego_pos=ego_pos, ego_yaw=ego_yaw, ego_v=ego_v, ego_steer=ego_steer,

@@ -5,7 +5,9 @@ fast grayscale render (kernel B) → uint8 4-frame window → policy forward →
 discrete action → sim step with auto-resets from the packed spawn pool. The
 JAX package runs it as one ``lax.scan``; here each step is a handful of
 batched tensor ops on the device and the loop runs on the host.
-``evaluate_policy`` turns a rollout into driving metrics. With
+``evaluate_policy`` turns a rollout into driving metrics, and
+``evaluate_routes`` scores goal-directed (A→B) driving on a town with nav
+tables (``assign_goals`` gives each env its goal). With
 ``record_semantic`` the rollout also records the driving view's per-pixel
 class ids, rendered on the exact path (kernel A, textured when the config
 asks for textures), the supervision stream of segmentation collection.
@@ -25,7 +27,7 @@ import numpy as np
 import torch
 
 from carla_imitation_learning_tpu_torch.data.actions import (
-    continuous_to_discrete, discrete_to_continuous,
+    continuous_to_discrete, control_to_discrete_label, discrete_to_continuous,
 )
 from carla_imitation_learning_tpu_torch.data.frame_log import StateLog
 from carla_imitation_learning_tpu_torch.data.pipeline import FrameStore
@@ -139,13 +141,25 @@ def make_rollout(params: SimParams, town: TownMap, rcfg: RenderConfig,
                  policy_fn: Callable | None, frame_skip: int = 4,
                  spawn_pool: torch.Tensor | None = None,
                  device: str | torch.device = "cuda",
-                 record_semantic: bool = False, noise: NoiseConfig | None = None):
-    """Build (init_fn, rollout_fn) for a single-camera, discrete-action fleet.
+                 record_semantic: bool = False, noise: NoiseConfig | None = None,
+                 control_space: str = "discrete",
+                 policy_rng: torch.Generator | None = None):
+    """Build (init_fn, rollout_fn) for a single-camera fleet.
 
     ``policy_fn(obs)`` maps the NHWC float window (B, H, W, frame_skip) in
     [0, 1] to (B,) integer actions, or to ``(actions, extra)`` with a (B,)
     per-env scalar (an ensemble's disagreement) logged as
-    ``traj["policy_extra"]``; None drives with the autopilot expert.
+    ``traj["policy_extra"]``; None drives with the autopilot expert. A
+    policy of two parameters is called ``policy_fn(obs, extras)`` with
+    ``extras = {"speed": (B,), "command": (B,) navigation command, "sensor":
+    (B, 3)}`` of the state before the step (and ``"rng"``, the
+    ``policy_rng`` generator, when one is given); one of three parameters
+    also gets ``rollout_fn``'s ``policy_params``.
+    ``control_space="continuous"`` takes the policy's output as (B, 2)
+    float controls, clipped to [-1, 1]: steer, and a signed acceleration
+    executed as throttle max(a, 0) and brake max(−a, 0);
+    ``traj["action"]`` then holds ``control_to_discrete_label`` of the
+    executed control.
     ``noise`` adds a ``NoiseConfig`` schedule, drawn once per
     ``rollout_fn`` call, to the executed steer (clipped to [-1, 1]);
     ``traj["clean_steer"]`` then holds the steer before the noise, and the
@@ -159,12 +173,13 @@ def make_rollout(params: SimParams, town: TownMap, rcfg: RenderConfig,
     the exact luma path (``replace(rcfg, fast=False, rgb=False)``).
 
     ``init_fn(generator, n_envs) -> carry`` with carry = (states, framebuf
-    (B, H, W, fs) uint8, just_reset (B,) bool); ``rollout_fn(carry, n_steps)
-    -> (carry, traj)`` where traj stacks per-step (T, B, ...) tensors."""
-    if policy_fn is not None and len(inspect.signature(policy_fn).parameters) != 1:
-        raise NotImplementedError(
-            "policies taking extras (speed, command, sensor) are not ported yet "
-            "(ROADMAP Queue 1, item 6)")
+    (B, H, W, fs) uint8, just_reset (B,) bool); ``rollout_fn(carry, n_steps,
+    policy_params=None) -> (carry, traj)`` where traj stacks per-step (T, B,
+    ...) tensors."""
+    if control_space not in ("discrete", "continuous"):
+        raise ValueError(f"unknown control_space {control_space!r}")
+    continuous = control_space == "continuous"
+    n_policy_args = 0 if policy_fn is None else len(inspect.signature(policy_fn).parameters)
     dev = resolve_device(device)
     town = town.to(dev)
     rcfg = dataclasses.replace(rcfg, rgb=False, fast=True)
@@ -184,12 +199,25 @@ def make_rollout(params: SimParams, town: TownMap, rcfg: RenderConfig,
         framebuf = _quantize(render(states)["gray"])[..., None].repeat(1, 1, 1, frame_skip)
         return states, framebuf, torch.zeros(n_envs, dtype=torch.bool, device=dev)
 
-    def one_step(carry, steer_noise):
+    def run_policy(obs, states, sensors, command, policy_params):
+        if n_policy_args < 2:
+            return policy_fn(obs)
+        extras = {"speed": states.ego_v, "command": command, "sensor": sensors}
+        if policy_rng is not None:
+            extras["rng"] = policy_rng
+        if n_policy_args >= 3:
+            return policy_fn(obs, extras, policy_params)
+        return policy_fn(obs, extras)
+
+    def one_step(carry, steer_noise, policy_params):
         states, framebuf, just_reset = carry
         gray_u8 = _quantize(render(states)["gray"])
         framebuf = update_framebuf(framebuf, gray_u8, just_reset)
         obs = framebuf.to(torch.float32) * (1.0 / 255.0)
 
+        sensors = sensor_vector(params, states)
+        traffic = traffic_light_state(params, town, states)
+        command = navigation_command(params, town, states)
         expert = autopilot_control(params, town, states)
         expert_action = continuous_to_discrete(
             expert.steer, expert.throttle, expert.brake).to(torch.int64)
@@ -197,20 +225,24 @@ def make_rollout(params: SimParams, town: TownMap, rcfg: RenderConfig,
         if policy_fn is None:
             control, action = expert, expert_action
         else:
-            action = policy_fn(obs)
-            if isinstance(action, tuple):
-                action, policy_extra = action
-            action = action.to(torch.int64)
-            control = control_from_discrete(action)
+            res = run_policy(obs, states, sensors, command, policy_params)
+            if isinstance(res, tuple):
+                res, policy_extra = res
+            if continuous:
+                ctrl = res.to(torch.float32).clamp(-1.0, 1.0)
+                control = VehicleControl(steer=ctrl[:, 0], throttle=ctrl[:, 1].clamp(min=0.0),
+                                         brake=(-ctrl[:, 1]).clamp(min=0.0))
+                action = control_to_discrete_label(control.steer, control.throttle,
+                                                   control.brake)
+            else:
+                action = res.to(torch.int64)
+                control = control_from_discrete(action)
         clean_steer = None
         if steer_noise is not None:
             clean_steer = control.steer
             control = dataclasses.replace(
                 control, steer=torch.clamp(control.steer + steer_noise, -1.0, 1.0))
 
-        sensors = sensor_vector(params, states)
-        traffic = traffic_light_state(params, town, states)
-        command = navigation_command(params, town, states)
         fresh = pick_fresh_packed(pool, params, states)
         new_states, info = step_env(params, town, states, control, fresh)
         # along-route progress this step, masked on resets
@@ -242,7 +274,7 @@ def make_rollout(params: SimParams, town: TownMap, rcfg: RenderConfig,
         return (new_states, framebuf, info["done"]), out
 
     @torch.no_grad()
-    def rollout_fn(carry, n_steps: int):
+    def rollout_fn(carry, n_steps: int, policy_params=None):
         schedule = None
         if noise is not None:
             n_envs = carry[0].t.shape[0]
@@ -250,11 +282,21 @@ def make_rollout(params: SimParams, town: TownMap, rcfg: RenderConfig,
                                        noise).to(dev)
         outs = []
         for t in range(n_steps):
-            carry, out = one_step(carry, None if schedule is None else schedule[t])
+            carry, out = one_step(carry, None if schedule is None else schedule[t],
+                                  policy_params)
             outs.append(out)
         return carry, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
     return init_fn, rollout_fn
+
+
+def assign_goals(carry, goal_ids):
+    """Give each env of a rollout carry a navigation goal: ``goal_ids`` (B,)
+    indexes ``town.nav_goals`` (``sim.planner.plan_to_goals``); −1 keeps
+    that env free-roaming, exactly as without goals."""
+    states = carry[0]
+    goal = torch.as_tensor(np.asarray(goal_ids), dtype=torch.int64).to(states.goal.device)
+    return (states.replace(goal=goal),) + tuple(carry[1:])
 
 
 def semantic_stream(traj: dict) -> np.ndarray:
@@ -279,20 +321,21 @@ def collect_dataset(params: SimParams, town: TownMap, rcfg: RenderConfig,
     every env stream's first frame and the frame after every auto-reset, so
     a dataset never samples a window across an episode boundary. ``noise``
     (a ``NoiseConfig``) perturbs the executed steer; the state log's steer
-    column and the labels stay the clean driver's. The trajectory stays on
-    the device until one host copy per field."""
-    # option → (asked for, the ROADMAP Queue 1 item it waits for)
-    unported = {"goal_ids": (goal_ids is not None, 6),
-                "cameras": (tuple(cameras) != ("camera",), 10),
-                "control_space": (control_space != "discrete", 5)}
-    asked = {k: item for k, (on, item) in unported.items() if on}
-    if asked:
+    column and the labels stay clean. ``goal_ids`` (B,) makes
+    the collection goal-directed on a town with nav tables, so the command
+    channel records the planner's turns; ``control_space="continuous"``
+    lets a continuous policy drive (labels stay the expert's). The
+    trajectory stays on the device until one host copy per field."""
+    if tuple(cameras) != ("camera",):
         raise NotImplementedError(
-            f"collection options not ported yet: {asked} (option: ROADMAP Queue 1 item)")
+            "multi-camera collection is not ported yet (ROADMAP Queue 1 item 10)")
     init_fn, rollout_fn = make_rollout(params, town, rcfg, policy_fn, frame_skip,
                                        device=device, record_semantic=record_semantic,
-                                       noise=noise)
-    _, traj = rollout_fn(init_fn(generator, n_envs), n_steps)
+                                       noise=noise, control_space=control_space)
+    carry = init_fn(generator, n_envs)
+    if goal_ids is not None:
+        carry = assign_goals(carry, goal_ids)
+    _, traj = rollout_fn(carry, n_steps)
 
     def flat(x: torch.Tensor) -> np.ndarray:
         """(T, B, ...) → env-major (B·T, ...) on the host."""
@@ -334,7 +377,10 @@ def dagger_iteration(params: SimParams, town: TownMap, rcfg: RenderConfig,
                      goal_ids=None, cameras: tuple = ("camera",),
                      device: str | torch.device = "cuda"):
     """One DAgger round: the policy drives, the expert labels →
-    ``collect_dataset``'s (FrameStore, StateLog, traj)."""
+    ``collect_dataset``'s (FrameStore, StateLog, traj). A continuous policy
+    drives with ``control_space="continuous"``; the store's ``actions`` and
+    ``controls`` stay the expert's. ``goal_ids`` makes the round
+    goal-directed: the policy attempts the routes."""
     return collect_dataset(params, town, rcfg, generator, n_envs, n_steps, frame_skip,
                            policy_fn=policy_fn, noise=noise, control_space=control_space,
                            goal_ids=goal_ids, cameras=cameras, device=device)
@@ -344,15 +390,84 @@ def evaluate_policy(params: SimParams, town: TownMap, rcfg: RenderConfig,
                     policy_fn: Callable | None, generator: torch.Generator,
                     n_envs: int = 64, n_steps: int = 200, frame_skip: int = 4,
                     spawn_pool: torch.Tensor | None = None,
+                    control_space: str = "discrete",
                     device: str | torch.device = "cuda") -> dict:
     """Driving metrics for a policy (or the expert when ``policy_fn`` is
     None): raw per-step rates plus the CARLA-leaderboard-style composite —
     per env stream, route completion (odometer and along-route) times the
     infraction penalty 0.60^collisions · 0.65^offroads · 0.70^red-runs."""
     init_fn, rollout_fn = make_rollout(params, town, rcfg, policy_fn, frame_skip,
-                                       spawn_pool=spawn_pool, device=device)
+                                       spawn_pool=spawn_pool, device=device,
+                                       control_space=control_space)
     _, traj = rollout_fn(init_fn(generator, n_envs), n_steps)
     return driving_metrics(params, traj)
+
+
+def evaluate_routes(params: SimParams, town: TownMap, rcfg: RenderConfig,
+                    policy_fn: Callable | None, generator: torch.Generator,
+                    n_envs: int = 64, n_steps: int = 600, frame_skip: int = 4,
+                    control_space: str = "discrete", goal_ids=None,
+                    spawn_pool: torch.Tensor | None = None,
+                    device: str | torch.device = "cuda") -> dict:
+    """Goal-directed (A→B) driving metrics on a town with nav tables: each
+    env drives to its goal (``goal_ids`` (B,), by default round-robin over
+    ``town.nav_goals``), arrivals end the episode and the env tries again
+    from a fresh spawn. → ``route_metrics`` of the rollout."""
+    if town.nav_goals is None:
+        raise ValueError("evaluate_routes needs a town with nav tables "
+                         "(sim.planner.plan_to_goals)")
+    init_fn, rollout_fn = make_rollout(params, town, rcfg, policy_fn, frame_skip,
+                                       spawn_pool=spawn_pool, device=device,
+                                       control_space=control_space)
+    carry = init_fn(generator, n_envs)
+    n_goals = int(town.nav_goals.shape[0])
+    if goal_ids is None:
+        goal_ids = np.arange(n_envs) % n_goals
+    _, traj = rollout_fn(assign_goals(carry, goal_ids), n_steps)
+    return route_metrics(params, traj, n_goals)
+
+
+def route_metrics(params: SimParams, traj: dict, n_goals: int) -> dict:
+    """The A→B metrics of a goal-directed rollout's (T, B) trajectory, from
+    a host walk over each env's episodes: an episode ends in an arrival, a
+    crash (collision or off-road), a timeout, or — length 1 with neither —
+    an unreachable spawn's respawn, which is not an attempt (the spawn
+    failed, not the driving). The unfinished last episode of each env is not
+    counted. Infractions count crash episodes, not flagged steps."""
+    done = traj["done"].cpu().numpy().astype(bool)               # (T, B)
+    arrived = traj["arrived"].cpu().numpy().astype(bool)
+    crashed = (traj["collision"] | traj["offroad"]).cpu().numpy().astype(bool)
+    km = float(traj["speed"].cpu().numpy().astype(np.float64).sum() * params.dt / 1000.0)
+    arrivals = crashes = timeouts = 0
+    steps_to_arrival = []
+    for b in range(done.shape[1]):
+        start = 0
+        for t in np.nonzero(done[:, b])[0]:
+            length = int(t) - start + 1
+            start = int(t) + 1
+            if arrived[t, b]:
+                arrivals += 1
+                steps_to_arrival.append(length)
+            elif crashed[t, b]:
+                crashes += 1
+            elif length > 1:
+                timeouts += 1
+    attempts = arrivals + crashes + timeouts
+    mean_steps = float(np.mean(steps_to_arrival)) if steps_to_arrival else None
+    return {
+        "goals": n_goals,
+        "attempts": attempts,
+        "arrivals": arrivals,
+        "arrival_rate": arrivals / attempts if attempts else 0.0,
+        "crashes": crashes,
+        "timeouts": timeouts,
+        "mean_steps_to_arrival": mean_steps,
+        "mean_seconds_to_arrival": None if mean_steps is None else mean_steps * params.dt,
+        "km_driven": km,
+        "arrivals_per_km": arrivals / km if km > 0 else None,
+        "infractions_per_km": crashes / km if km > 0 else None,
+        "env_steps": int(done.size),
+    }
 
 
 def driving_metrics(params: SimParams, traj: dict) -> dict:

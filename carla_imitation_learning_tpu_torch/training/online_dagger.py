@@ -37,7 +37,8 @@ from carla_imitation_learning_tpu_torch.device import resolve_device
 from carla_imitation_learning_tpu_torch.render.pipeline import RenderConfig, make_renderer
 from carla_imitation_learning_tpu_torch.sim.town import TownMap
 from carla_imitation_learning_tpu_torch.sim.world import (
-    SimParams, autopilot_control, pick_fresh_packed, reset_env, step_env,
+    SimParams, autopilot_control, navigation_command, pick_fresh_packed, reset_env,
+    step_env,
 )
 from carla_imitation_learning_tpu_torch.training.closed_loop import (
     control_from_discrete, rollout_spawn_pool, update_framebuf,
@@ -56,11 +57,14 @@ def window_indices(generator: torch.Generator, r: int, rounds: int, n_steps: int
 
 
 def gather_windows_at(frames: torch.Tensor, labels: torch.Tensor, dones: torch.Tensor,
-                      r_i: torch.Tensor, t_i: torch.Tensor, frame_skip: int):
+                      r_i: torch.Tensor, t_i: torch.Tensor, frame_skip: int,
+                      extras: tuple = ()):
     """Windows ending at (round r_i, step t_i) of each env row: frames
     (R, T, B, H, W) uint8, labels and dones (R, T, B); r_i, t_i (B, k).
     → env-major (obs (B·k, H, W, fs) float32 in [0, 1], labels (B·k,),
-    weights (B·k,) float32). The frames divide by 255 (the JAX package's
+    weights (B·k,) float32), then each of ``extras`` (more (R, T, B) grids,
+    e.g. CIL speeds and commands) at the same (round, step), flat.
+    The frames divide by 255 (the JAX package's
     spelling here, which can differ in the last bit from the rollout's
     multiply by 1/255). The weight is 0 where t < fs − 1 (the window starts
     before the trajectory) or where one of the window's first fs − 1 frames
@@ -82,17 +86,19 @@ def gather_windows_at(frames: torch.Tensor, labels: torch.Tensor, dones: torch.T
     obs = win.permute(0, 1, 3, 4, 2).to(torch.float32) / 255.0
     y = labels[r_i, t_i, env[..., 0]]
     flat = n_envs * k
+    ex = tuple(g[r_i, t_i, env[..., 0]].reshape(flat) for g in extras)
     return (obs.reshape((flat,) + tuple(obs.shape[2:])), y.reshape(flat),
-            ok.to(torch.float32).reshape(flat))
+            ok.to(torch.float32).reshape(flat)) + ex
 
 
 def sample_windows(generator: torch.Generator, frames: torch.Tensor, labels: torch.Tensor,
-                   dones: torch.Tensor, r: int, k_per_env: int, frame_skip: int):
+                   dones: torch.Tensor, r: int, k_per_env: int, frame_skip: int,
+                   extras: tuple = ()):
     """``B × k_per_env`` training windows from the buffer, stratified by env,
     rounds ≤ r eligible: ``gather_windows_at`` of ``window_indices``."""
     R, T, B = labels.shape
     r_i, t_i = window_indices(generator, r, R, T, B, k_per_env)
-    return gather_windows_at(frames, labels, dones, r_i, t_i, frame_skip)
+    return gather_windows_at(frames, labels, dones, r_i, t_i, frame_skip, extras)
 
 
 def masked_cross_entropy(logits: torch.Tensor, y: torch.Tensor, w: torch.Tensor):
@@ -107,7 +113,7 @@ def make_online_dagger(model_apply: Callable, params: SimParams, town: TownMap,
                        rcfg: RenderConfig, n_envs: int, n_steps: int, rounds: int,
                        train_steps: int, batch: int, frame_skip: int = 4,
                        beta: float = 0.0, mesh=None, cil: bool = False, goal_ids=None,
-                       device: str | torch.device = "cuda"):
+                       speed_weight: float = 0.1, device: str | torch.device = "cuda"):
     """Build ``run(state: TrainState, generator) -> (state, metrics)``.
 
     ``model_apply(module, obs) -> logits`` applies the state's model (e.g.
@@ -120,12 +126,18 @@ def make_online_dagger(model_apply: Callable, params: SimParams, town: TownMap,
     grayscale path: unlike ``make_rollout`` it forces no 2 px LOD, so the
     default ``lod_px = -1`` renders with none. The rollout draws the reset
     states, the β coins and the windows from ``generator``; auto-resets
-    draw from ``rollout_spawn_pool``."""
-    unported = {"mesh": mesh is not None, "cil": cil, "goal_ids": goal_ids is not None}
-    if any(unported.values()):
+    draw from ``rollout_spawn_pool``.
+
+    ``cil=True`` conditions the loop on commands: ``model_apply(module,
+    obs, speed, command) -> (logits, pred_speed)`` (``BranchedCILPolicy``),
+    the buffer also keeps each step's speed and navigation command, the
+    policy drives on the live command, and the loss adds ``speed_weight``
+    times the weighted MSE of the speed head (the ``cil_loss_fn`` recipe).
+    ``goal_ids`` (B,) sets each env's goal once on a town with nav tables
+    (goals survive auto-resets), so every round is goal-directed."""
+    if mesh is not None:
         raise NotImplementedError(
-            "online DAgger options not ported yet (mesh: ROADMAP Queue 1 item 12; "
-            f"cil, goal_ids: item 6): {[k for k, v in unported.items() if v]}")
+            "online DAgger over a mesh is not ported yet (ROADMAP Queue 1 item 12)")
     dev = resolve_device(device)
     town = town.to(dev)
     rcfg = dataclasses.replace(rcfg, rgb=False, fast=True)
@@ -137,11 +149,17 @@ def make_online_dagger(model_apply: Callable, params: SimParams, town: TownMap,
     def quantize(states):
         return torch.clamp(render(states)["gray"] * 255.0 + 0.5, 0, 255).to(torch.uint8)
 
+    def policy_logits(model, obs, speed, command):
+        if cil:
+            return model_apply(model, obs, speed, command)[0]
+        return model_apply(model, obs)
+
     @torch.no_grad()
     def rollout_round(model, states, framebuf, just_reset, generator, beta_r: float,
-                      frames, labels, dones):
+                      frames, labels, dones, speeds, commands):
         """β-mixed rollout writing its (T, B, ...) frames, labels and dones
-        into the buffer's round slices → (carry, agreement share)."""
+        (and with ``cil`` speeds and commands) into the buffer's round
+        slices → (carry, agreement share)."""
         agree = torch.zeros((), dtype=torch.int64, device=dev)
         for t in range(n_steps):
             gray_u8 = quantize(states)
@@ -149,11 +167,15 @@ def make_online_dagger(model_apply: Callable, params: SimParams, town: TownMap,
             expert = autopilot_control(params, town, states)
             expert_action = continuous_to_discrete(
                 expert.steer, expert.throttle, expert.brake).to(torch.int64)
+            if cil:
+                speeds[t] = states.ego_v
+                commands[t] = navigation_command(params, town, states)
             if beta_r >= 1.0:       # a uniform draw is always below 1
                 action = expert_action
             else:
                 obs = framebuf.to(torch.float32) * (1.0 / 255.0)
-                action = model_apply(model, obs).argmax(-1)
+                action = policy_logits(model, obs, states.ego_v,
+                                       commands[t] if cil else None).argmax(-1)
                 if beta_r > 0.0:
                     use_expert = (torch.rand(n_envs, generator=generator) < beta_r).to(dev)
                     action = torch.where(use_expert, expert_action, action)
@@ -164,13 +186,23 @@ def make_online_dagger(model_apply: Callable, params: SimParams, town: TownMap,
             agree += (action == expert_action).sum()
         return (states, framebuf, just_reset), agree / (n_steps * n_envs)
 
-    def train_on_buffer(state: TrainState, generator, frames, labels, dones, r: int):
+    def train_on_buffer(state: TrainState, generator, frames, labels, dones, r: int,
+                        speeds, commands):
         losses, vfracs = [], []
         for _ in range(train_steps):
-            obs, y, w = sample_windows(generator, frames, labels, dones, r, k_per_env,
-                                       frame_skip)
             state.optimizer.zero_grad(set_to_none=True)
-            loss = masked_cross_entropy(model_apply(state.model, obs), y, w)
+            if cil:
+                obs, y, w, sp, cm = sample_windows(generator, frames, labels, dones, r,
+                                                   k_per_env, frame_skip, (speeds, commands))
+                logits, pred_speed = model_apply(state.model, obs, sp, cm)
+                loss = masked_cross_entropy(logits, y, w)
+                wf = w.to(pred_speed.dtype)
+                loss = loss + speed_weight * (
+                    (wf * (pred_speed - sp) ** 2).sum() / torch.clamp(wf.sum(), min=1.0))
+            else:
+                obs, y, w = sample_windows(generator, frames, labels, dones, r, k_per_env,
+                                           frame_skip)
+                loss = masked_cross_entropy(model_apply(state.model, obs), y, w)
             loss.backward()
             state.apply_gradients()
             losses.append(loss.detach())
@@ -179,19 +211,29 @@ def make_online_dagger(model_apply: Callable, params: SimParams, town: TownMap,
 
     def run(state: TrainState, generator: torch.Generator):
         states = reset_env(params, town, generator, n_envs)
+        if goal_ids is not None:
+            states = states.replace(goal=torch.as_tensor(
+                np.asarray(goal_ids), dtype=torch.int64).to(dev))
         with torch.no_grad():
             framebuf = quantize(states)[..., None].repeat(1, 1, 1, frame_skip)
         just_reset = torch.zeros(n_envs, dtype=torch.bool, device=dev)
         frames = torch.zeros((rounds, n_steps, n_envs, H, W), dtype=torch.uint8, device=dev)
         labels = torch.zeros((rounds, n_steps, n_envs), dtype=torch.int64, device=dev)
         dones = torch.zeros((rounds, n_steps, n_envs), dtype=torch.bool, device=dev)
+        speeds = commands = None
+        if cil:
+            speeds = torch.zeros((rounds, n_steps, n_envs), dtype=torch.float32, device=dev)
+            commands = torch.zeros((rounds, n_steps, n_envs), dtype=torch.int64, device=dev)
         per_round = []
         for r in range(rounds):
             beta_r = float(np.float32(beta) ** r)            # 0 ** 0 == 1
             (states, framebuf, just_reset), agree = rollout_round(
                 state.model, states, framebuf, just_reset, generator, beta_r,
-                frames[r], labels[r], dones[r])
-            loss, vfrac = train_on_buffer(state, generator, frames, labels, dones, r)
+                frames[r], labels[r], dones[r],
+                None if speeds is None else speeds[r],
+                None if commands is None else commands[r])
+            loss, vfrac = train_on_buffer(state, generator, frames, labels, dones, r,
+                                          speeds, commands)
             per_round.append(torch.stack([loss.to(torch.float32),
                                           agree.to(torch.float32), vfrac]))
         host = torch.stack(per_round).cpu().numpy()

@@ -165,19 +165,31 @@ def flax_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     do: ``lecun_normal`` kernels (a normal truncated to ±2 std, scaled to
     std sqrt(1 / fan_in)) and zero biases, in module order, from
     ``generator`` (a CPU generator; the draws are copied to the model's
-    device)."""
+    device). A module may also list raw parameters that flax draws alike:
+    ``flax_kernels`` (fan-in over all but the last axis, as flax's
+    variance scaling counts a stacked kernel) and ``flax_biases`` (zeros)."""
+
+    def draw_(w: torch.Tensor, fan_in: int) -> None:
+        std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+        draw = torch.empty(w.shape, dtype=w.dtype)
+        torch.nn.init.trunc_normal_(draw, std=std, a=-2 * std, b=2 * std,
+                                    generator=generator)
+        with torch.no_grad():
+            w.copy_(draw)
+
     for module in model.modules():
         if isinstance(module, (nn.Conv2d, nn.Linear)):
             w = module.weight
-            fan_in = w.shape[1] * math.prod(w.shape[2:])
-            std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
-            draw = torch.empty(w.shape, dtype=w.dtype)
-            torch.nn.init.trunc_normal_(draw, std=std, a=-2 * std, b=2 * std,
-                                        generator=generator)
-            with torch.no_grad():
-                w.copy_(draw)
-                if module.bias is not None:
+            draw_(w, w.shape[1] * math.prod(w.shape[2:]))
+            if module.bias is not None:
+                with torch.no_grad():
                     module.bias.zero_()
+        for name in getattr(module, "flax_kernels", ()):
+            w = getattr(module, name)
+            draw_(w, math.prod(w.shape[:-1]))
+        for name in getattr(module, "flax_biases", ()):
+            with torch.no_grad():
+                getattr(module, name).zero_()
     return model
 
 

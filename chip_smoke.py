@@ -74,6 +74,19 @@ Phases (any failure exits nonzero, with no result line):
    rain on one frame bit for bit), and a direct 1024-env × 100-step expert
    run on the ``turns`` and ``multilane`` worlds that must take ego and
    agent route transfers and lane changes;
+6f. goal-directed driving and the policy families (``routes_phase``) on
+   the JAX route harness's world (2 lanes a direction, super-blocks, turn
+   fans, 8 goals, 2500-step attempts, 128²): kernel B bit for bit on the
+   mirrored town's 1024-env fleet, then, counts reset: the route planner's
+   tables, ``evaluate_routes`` of the expert at 1024 envs × 400 steps (it
+   arrives; a direct 64-env run checks each arrival against its goal
+   point), goal-directed collection on the town and on its mirror at 1024
+   × 96 (all six commands), 200 bf16 CIL train steps (the loss falls,
+   timed with CUDA events) and the CIL policy on the routes through the
+   rollout's extras, the fp32 CIL rollout and forward on the card against
+   the CPU, continuous BC (a noisy collection, 200 steps, a continuous
+   rollout whose controls stay in the unit square) and ``run route_eval``
+   on the CIL checkpoint through the CLI; kernel B once per rollout step;
 7. the rich fleet (same town and envs, the rich128 preset: facade bands,
    markings, shadows, textures, T=1408) from three seeds: kernel A's
    textured variant (C=1 and C=3), kernel B on the rich lists (2 px and 0
@@ -90,8 +103,11 @@ Phases (any failure exits nonzero, with no result line):
    and ``vec=True``, in turns, marginal env-steps/s between 16 and 64 steps
    (median of 3 pairs each) — an A/B of kernels C and D against B.
 ``--profile`` adds a per-stage breakdown and torch.profiler summaries (the
-policy rollout, the rich fast render, 10 train steps in ``bc_training`` and
-a short online-DAgger run in ``dagger_phase``). The train-step checks
+policy rollout, the rich fast render, 10 train steps in ``bc_training``, a
+short online-DAgger run in ``dagger_phase`` and 8 steps of the CIL route
+rollout in ``routes_phase``). Each entry of the ``kernels`` line counts
+its launches on its own path (``launches``) and on every path that ran it
+(``launches_by_path``). The train-step checks
 against float64 also run the CPU side once with oneDNN (mkldnn) off, and
 the device phase prints torch's CPU build settings.
 
@@ -148,6 +164,20 @@ SCENARIO_ENVS, SCENARIO_STEPS = 1024, 100   # scenario_eval: every scenario, pol
 # a base of 530 gives busy exactly 650
 SCENARIO_T = 530
 SCENARIO_CROSS_ENVS = 8          # rainy frames on the card vs the CPU
+# The routes phase, on the JAX route harness's world (benchmarks/route_quality.py):
+# 2 lanes a direction, super-blocks, turn fans, 8 goals, 2500-step attempts.
+ROUTE_ENVS, ROUTE_STEPS, ROUTE_GOALS = 1024, 400, 8      # evaluate_routes, expert and CIL
+# goal-directed collection per world (the town and its mirror): the scripted
+# lane changes announce commands 4 and 5 around t ≡ 80 (mod 160) only, so a
+# collection from reset needs 87 steps for all six commands
+ROUTE_COLLECT_STEPS = 96
+ROUTE_TRAIN_STEPS, ROUTE_BATCH, ROUTE_TIMED_FROM = 200, 256, 20   # CIL steps; timed after 20
+ROUTE_ARRIVE_ENVS, ROUTE_ARRIVE_STEPS = 64, 200   # direct step_env run from 15-40 m short
+ROUTE_CROSS_ENVS, ROUTE_CROSS_STEPS = 8, 24       # the CIL rollout on the card vs the CPU
+CONT_ENVS, CONT_STEPS, CONT_TRAIN_STEPS = 1024, 24, 200   # continuous BC
+CONT_EVAL_ENVS, CONT_EVAL_STEPS = 256, 50
+ROUTE_CLI_ENVS, ROUTE_CLI_STEPS = 1024, 100       # run route_eval on the CIL checkpoint
+ROUTE_PROFILE_WARM, ROUTE_PROFILE_STEPS = 4, 8    # --profile: the CIL route rollout
 LANES_PER_SM = 128       # lane-instructions an SM issues per clock (4 × 32)
 HBM_RATE = 3.35e12       # H100 SXM device memory, B/s
 WARP_TILE = 16           # kernels A and B cull per 16 × 16 pixel warp tile
@@ -614,6 +644,7 @@ def run(args) -> dict:
         torch.cuda.empty_cache()
         paths["scenarios"] = scenarios_phase(dev, Path(keep) / "best")
     torch.cuda.empty_cache()
+    paths["routes"] = routes_phase(dev, profile=args.profile is not None)
     # the rich phases allocate gigabytes of temporaries; they run after the
     # main path has been timed
     rich, b_rich_err = rich_kernels(params, town, dev, rows, rate, facts)
@@ -622,9 +653,10 @@ def run(args) -> dict:
     paths["rich_collection"] = rich_collection(params, town, dev)
     paths["quad_vec_ab"] = quad_vec_ab(params, town, dev, kernels)
     for k in kernels:
-        path = k.pop("path")
-        k["launches"] = paths[path][k.pop("counter")]
+        path, counter = k.pop("path"), k.pop("counter")
+        k["launches"] = paths[path][counter]
         k["launches_path"] = path
+        k["launches_by_path"] = {p: c[counter] for p, c in paths.items() if c[counter]}
 
     if args.profile:
         profile(args.profile, params, town, rcfg, model, policy_fn, carry, rollout_fn)
@@ -1869,6 +1901,393 @@ def scenarios_phase(dev, checkpoint: Path) -> dict:
     return launches
 
 
+def route_world():
+    """The JAX route harness's world on the CPU → (params, town, rollout
+    render config): ``make_town(blocks=3, n_buildings=24, n_lights=8,
+    lanes_per_direction=2, superblocks=True, turn_fans=True)``,
+    ``SimParams(n_agents=15, episode_len=2500, lane_change_period=160)``,
+    128² on kernel B at a 2 px LOD, as ``make_rollout`` forces it."""
+    from carla_imitation_learning_tpu_torch.render.pipeline import RenderConfig
+    from carla_imitation_learning_tpu_torch.sim.town import make_town
+    from carla_imitation_learning_tpu_torch.sim.world import SimParams
+
+    town = make_town(blocks=3, n_buildings=24, n_lights=8, lanes_per_direction=2,
+                     superblocks=True, turn_fans=True)
+    params = SimParams(n_agents=15, episode_len=2500, lane_change_period=160)
+    return params, town, RenderConfig(height=HW, width=HW, rgb=False, fast=True, lod_px=2.0)
+
+
+def arrival_run(params, town, dev) -> dict:
+    """A direct expert run of ROUTE_ARRIVE_ENVS envs × ROUTE_ARRIVE_STEPS,
+    env b driving to goal b mod G from rest on a node 15-40 m short of it
+    (by the goal's table). At every step that reports an arrival the ego
+    was, before the step, within ``arrive_radius`` plus the step's largest
+    travel of its goal; arrivals keep their goal across the reset."""
+    import numpy as np
+    import torch
+
+    from carla_imitation_learning_tpu_torch.sim import world
+    from carla_imitation_learning_tpu_torch.sim.town import route_point
+    from carla_imitation_learning_tpu_torch.training.closed_loop import rollout_spawn_pool
+
+    n, G = ROUTE_ARRIVE_ENVS, town.nav_goals.shape[0]
+    dist = town.nav_dist.cpu().numpy()
+    goal = torch.arange(n, device=dev) % G
+    route = torch.zeros(n, dtype=torch.int64)
+    point = torch.zeros(n, dtype=torch.int64)
+    for b in range(n):
+        g = b % G
+        r, p = np.nonzero((dist[g] > 15.0) & (dist[g] < 40.0))
+        check(len(r) > 0, f"routes: no node 15-40 m short of goal {g}")
+        k = (b // G) * 7 % len(r)
+        route[b], point[b] = int(r[k]), int(p[k])
+    route, point = route.to(dev), point.to(dev)
+    states = world.reset_env(params, town, torch.Generator().manual_seed(41), n)
+    s = town.route_arclen[route, point]
+    pos, yaw = route_point(town, route, s)
+    states = states.replace(ego_route=route, ego_s=s, ego_pos=pos, ego_yaw=yaw,
+                            ego_v=torch.zeros_like(s), goal=goal)
+    pool = rollout_spawn_pool(params, town)
+    reach = params.arrive_radius + (params.max_accel * params.dt) * params.dt + 1e-3
+    arrivals, farthest = 0, 0.0
+    for _ in range(ROUTE_ARRIVE_STEPS):
+        ctrl = world.autopilot_control(params, town, states)
+        new, info = world.step_env(params, town, states, ctrl,
+                                   world.pick_fresh_packed(pool, params, states))
+        arr = info["arrived"]
+        if bool(arr.any()):
+            d = world.norm2(states.ego_pos - town.nav_goals[states.goal])[arr]
+            farthest = max(farthest, float(d.max()))
+            check(bool((d < reach + states.ego_v[arr] * params.dt).all()),
+                  f"routes: an arrival {float(d.max()):.2f} m from its goal before the step")
+            check(bool(info["done"][arr].all()), "routes: an arrival did not end its episode")
+            arrivals += int(arr.sum())
+        check(torch.equal(new.goal, goal), "routes: the goals did not survive the resets")
+        states = new
+    check(arrivals > 0, "routes: no arrival in the direct expert run")
+    return {"n_envs": n, "steps": ROUTE_ARRIVE_STEPS, "arrivals": arrivals,
+            "farthest_before_arrival_m": farthest}
+
+
+def routes_phase(dev, profile: bool = False) -> dict:
+    """Phase 6f: goal-directed driving and the two policy families on the
+    JAX route harness's world (``route_world``), counts reset after the
+    mirrored town's kernel check:
+    1. route planning on the host (``sample_goals``, ``plan_to_goals``);
+       the share of nodes with a path, the tables' bytes on the card;
+       kernel B bit for bit against its plain version on one frame of the
+       ROUTE_ENVS fleet on ``mirror_town`` (every turn mirrored);
+    2. ``evaluate_routes`` of the expert at ROUTE_ENVS × ROUTE_STEPS:
+       arrivals, counts that add up; ``arrival_run`` checks arrivals
+       against the goal points;
+    3. goal-directed ``collect_dataset`` on the town and on its mirror at
+       ROUTE_ENVS × ROUTE_COLLECT_STEPS: all six commands collected;
+    4. ``DeviceDataset(cil=True, balanced by action_command)``,
+       ROUTE_TRAIN_STEPS bf16 ``cil_loss_fn`` steps at ROUTE_BATCH (CUDA
+       events over the steps after ROUTE_TIMED_FROM): the loss falls; then
+       ``evaluate_routes`` of the CIL policy through the rollout's extras;
+    5. an fp32 copy of the CIL policy driving ROUTE_CROSS_ENVS ×
+       ROUTE_CROSS_STEPS goal-directed on the card and on the CPU (TF32 off):
+       integer state, actions, commands, arrivals and ends equal, floats as
+       ``check_against_cpu`` holds them; one fp32 forward, card vs CPU;
+    6. continuous BC: a noisy expert collection at CONT_ENVS × CONT_STEPS,
+       CONT_TRAIN_STEPS ``continuous_bc_loss_fn`` steps, and
+       ``evaluate_policy(control_space="continuous")`` at CONT_EVAL_ENVS ×
+       CONT_EVAL_STEPS: executed controls in the unit square, the logged
+       action the label of the executed control;
+    7. ``run route_eval`` through the CLI on step 4's checkpoint with
+       ``policy_family=cil`` at ROUTE_CLI_ENVS × ROUTE_CLI_STEPS.
+    Kernel B runs once per rollout step and first frame, no other kernel.
+    ``--profile`` adds a torch.profiler window of the CIL route rollout.
+    Prints one ``routes`` line; returns the launches."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from carla_imitation_learning_tpu_torch.data.actions import control_to_discrete_label
+    from carla_imitation_learning_tpu_torch.data.pipeline import DeviceDataset, FrameStore
+    from carla_imitation_learning_tpu_torch.models import BranchedCILPolicy, ContinuousPolicyCNN
+    from carla_imitation_learning_tpu_torch.ops import raster_fast as rf
+    from carla_imitation_learning_tpu_torch.render.pipeline import make_renderer
+    from carla_imitation_learning_tpu_torch.sim import planner
+    from carla_imitation_learning_tpu_torch.sim.town import mirror_town
+    from carla_imitation_learning_tpu_torch.sim.world import reset_env
+    from carla_imitation_learning_tpu_torch.training import closed_loop as cl
+    from carla_imitation_learning_tpu_torch.training.losses import (
+        cil_loss_fn, continuous_bc_loss_fn,
+    )
+    from carla_imitation_learning_tpu_torch.training.steps import (
+        AdamConfig, create_train_state, make_fused_epoch,
+    )
+    from carla_imitation_learning_tpu_torch.utils.checkpoint import save_pytree
+
+    res, secs = {}, {}
+    params, town, rcfg = route_world()
+
+    # 1. planning, and kernel B on the mirrored town
+    t0 = time.perf_counter()
+    goals = planner.sample_goals(town, 0, ROUTE_GOALS)
+    town = planner.plan_to_goals(town, goals).to(dev)
+    secs["plan"] = time.perf_counter() - t0
+    finite = float(torch.isfinite(town.nav_dist).float().mean())
+    check(finite > 0.5, f"routes: only {finite:.1%} of the nodes have a path to their goal")
+    res["plan"] = {"goals": ROUTE_GOALS, "seconds": secs["plan"],
+                   "nodes": int(town.nav_dist[0].numel()), "finite_share": finite,
+                   "prescribed_share": float((town.nav_slot >= 0).float().mean()),
+                   "table_bytes": sum(t.numel() * t.element_size()
+                                      for t in (town.nav_slot, town.nav_dist, town.nav_goals))}
+    mirrored = mirror_town(town)
+    states = reset_env(params, mirrored, torch.Generator().manual_seed(40), ROUTE_ENVS)
+    with Capture(rf, "fast_bands", lambda a, k, out: a) as cap:
+        make_renderer(params, mirrored, rcfg, device=dev)(states)
+    res["b_mirrored_max_abs_err"] = check_fast(cap.calls[0], "kernel B, mirrored route town")[0]
+    del states, cap
+
+    torch.cuda.synchronize()
+    reset_counts()
+    expect_b = 0
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[key] = time.perf_counter() - t0
+        return out
+
+    def counts_add_up(m, who):
+        check(m["attempts"] == m["arrivals"] + m["crashes"] + m["timeouts"],
+              f"routes: {who}'s counts do not add up: {m}")
+        check(m["env_steps"] == ROUTE_ENVS * ROUTE_STEPS and math.isfinite(m["km_driven"]),
+              f"routes: {who}'s rollout: {m}")
+
+    # 2. the expert's A→B evaluation
+    expert = timed("expert_eval", lambda: cl.evaluate_routes(
+        params, town, rcfg, None, torch.Generator().manual_seed(42), n_envs=ROUTE_ENVS,
+        n_steps=ROUTE_STEPS, device=dev))
+    expect_b += ROUTE_STEPS + 1
+    counts_add_up(expert, "the expert")
+    check(expert["arrivals"] > 0, f"routes: the expert never arrived: {expert}")
+    res["expert"] = {**expert, "env_steps_per_s": ROUTE_ENVS * ROUTE_STEPS / secs["expert_eval"]}
+    res["arrival_run"] = timed("arrival_run", lambda: arrival_run(params, town, dev))
+
+    # 3. goal-directed collection on the town and its mirror
+    goal_ids = np.arange(ROUTE_ENVS) % ROUTE_GOALS
+    stores = []
+    for i, world_town in enumerate((town, mirrored)):
+        store, _, traj = timed(f"collect_{i}", lambda w=world_town, i=i: cl.collect_dataset(
+            params, w, rcfg, torch.Generator().manual_seed(43 + i), ROUTE_ENVS,
+            ROUTE_COLLECT_STEPS, goal_ids=goal_ids, device=dev))
+        expect_b += ROUTE_COLLECT_STEPS + 1
+        check(bool((traj["done"] | ~traj["arrived"]).all()), "routes: an arrival did not end")
+        stores.append(store)
+        del traj
+    store = FrameStore.concat(stores)
+    del stores
+    hist = np.bincount(store.commands, minlength=6)
+    check(bool((hist > 0).all()), f"routes: a command was never collected: {hist.tolist()}")
+    res["collect"] = {"n_envs": ROUTE_ENVS, "steps_per_world": ROUTE_COLLECT_STEPS,
+                      "frames": len(store), "command_histogram": hist.tolist(),
+                      "env_steps_per_s": 2 * ROUTE_ENVS * ROUTE_COLLECT_STEPS
+                      / (secs["collect_0"] + secs["collect_1"])}
+
+    # 4. CIL training, then the CIL policy on the routes
+    ds = DeviceDataset(store, ROUTE_BATCH, shuffle=True, cil=True, balanced=True,
+                       balance_key="action_command", device=dev)
+    del store
+    state = create_train_state(BranchedCILPolicy(n_commands=6),
+                               AdamConfig(schedule=lambda count: 1e-3),
+                               generator=torch.Generator().manual_seed(44), device=dev)
+    epoch = make_fused_epoch(cil_loss_fn(), ds.pure_batch)
+    order = torch.from_numpy(ds.epoch_indices()[:ROUTE_TRAIN_STEPS * ROUTE_BATCH]
+                             .reshape(ROUTE_TRAIN_STEPS, ROUTE_BATCH)).to(dev)
+    _, _, first = epoch(state, order[:ROUTE_TIMED_FROM])
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    _, _, rest = epoch(state, order[ROUTE_TIMED_FROM:])
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (ROUTE_TRAIN_STEPS - ROUTE_TIMED_FROM)
+    losses = torch.cat([first["loss"], rest["loss"]]).float().cpu().numpy()
+    check(bool(np.isfinite(losses).all()), "routes: CIL loss not finite")
+    check(losses[-10:].mean() < losses[:10].mean(),
+          f"routes: CIL loss did not fall ({losses[:10].mean():.4f} → {losses[-10:].mean():.4f})")
+    res["cil_train"] = {"steps": ROUTE_TRAIN_STEPS, "batch": ROUTE_BATCH, "dtype": "bfloat16",
+                        "windows": ds.n_samples, "ms_per_step": ms,
+                        "images_per_s": ROUTE_BATCH / ms * 1e3,
+                        "loss_first10": float(losses[:10].mean()),
+                        "loss_last10": float(losses[-10:].mean()),
+                        "accuracy_last10": float(rest["accuracy"][-10:].float().mean())}
+    del ds, epoch, order
+    model = state.model.eval()
+    cil = timed("cil_eval", lambda: cl.evaluate_routes(
+        params, town, rcfg, model.as_policy_fn(), torch.Generator().manual_seed(45),
+        n_envs=ROUTE_ENVS, n_steps=ROUTE_STEPS, device=dev))
+    expect_b += ROUTE_STEPS + 1
+    counts_add_up(cil, "the CIL policy")
+    res["cil"] = {**cil, "env_steps_per_s": ROUTE_ENVS * ROUTE_STEPS / secs["cil_eval"]}
+    if profile:
+        res["profile"] = profile_route_rollout(params, town, rcfg, model, dev)
+        expect_b += ROUTE_PROFILE_WARM + ROUTE_PROFILE_STEPS + 1
+
+    # 5. the CIL rollout and forward, card vs CPU
+    fp32 = BranchedCILPolicy(n_commands=6, dtype=torch.float32)
+    fp32.load_state_dict({k: v.float().cpu() for k, v in model.state_dict().items()})
+    res["card_vs_cpu"] = timed("card_vs_cpu", lambda: cil_card_vs_cpu(params, town, rcfg,
+                                                                      fp32, dev))
+    expect_b += ROUTE_CROSS_STEPS + 1
+
+    # 6. continuous BC
+    noise = cl.NoiseConfig(seed=6)
+    cstore, log_, _ = timed("cont_collect", lambda: cl.collect_dataset(
+        params, town, rcfg, torch.Generator().manual_seed(46), CONT_ENVS, CONT_STEPS,
+        noise=noise, device=dev))
+    expect_b += CONT_STEPS + 1
+    labels = np.stack([np.asarray(log_.steer, np.float32),
+                       np.asarray(log_.throttle, np.float32)
+                       - np.asarray(log_.brake, np.float32)], axis=1)
+    cds = DeviceDataset(cstore, ROUTE_BATCH, shuffle=True, continuous_labels=labels,
+                        device=dev)
+    del cstore
+    cstate = create_train_state(ContinuousPolicyCNN(), AdamConfig(schedule=lambda count: 1e-3),
+                                generator=torch.Generator().manual_seed(47), device=dev)
+    cepoch = make_fused_epoch(continuous_bc_loss_fn(), cds.pure_batch)
+    n_b = len(cds)
+    rows = [cds.epoch_indices()[:n_b * ROUTE_BATCH].reshape(n_b, ROUTE_BATCH)
+            for _ in range(-(-CONT_TRAIN_STEPS // n_b))]
+    corder = torch.from_numpy(np.concatenate(rows)[:CONT_TRAIN_STEPS]).to(dev)
+    _, _, cm = timed("cont_train", lambda: cepoch(cstate, corder))
+    closs = cm["loss"].float().cpu().numpy()
+    check(bool(np.isfinite(closs).all()) and closs[-10:].mean() < closs[:10].mean(),
+          f"routes: continuous loss did not fall ({closs[:10].mean():.4f} → "
+          f"{closs[-10:].mean():.4f})")
+    del cds, cepoch, corder
+    cmodel = cstate.model.eval()
+    with Capture(cl, "driving_metrics", lambda a, k, out: a[1]) as cap:
+        cmetrics = timed("cont_eval", lambda: cl.evaluate_policy(
+            params, town, rcfg, lambda obs: cmodel(obs), torch.Generator().manual_seed(48),
+            n_envs=CONT_EVAL_ENVS, n_steps=CONT_EVAL_STEPS, control_space="continuous",
+            device=dev))
+    expect_b += CONT_EVAL_STEPS + 1
+    traj = cap.calls[0]
+    steer, thr, brk = traj["steer"], traj["throttle"], traj["brake"]
+    check(bool((steer.abs() <= 1).all() & (thr >= 0).all() & (thr <= 1).all()
+               & (brk >= 0).all() & (brk <= 1).all() & (thr * brk == 0).all()),
+          "routes: continuous controls left the unit square")
+    check(torch.equal(traj["action"], control_to_discrete_label(steer, thr, brk)),
+          "routes: the logged action is not the label of the executed control")
+    res["continuous"] = {"collect_env_steps_per_s": CONT_ENVS * CONT_STEPS / secs["cont_collect"],
+                         "train_steps": CONT_TRAIN_STEPS,
+                         "ms_per_step": secs["cont_train"] / CONT_TRAIN_STEPS * 1e3,
+                         "loss_first10": float(closs[:10].mean()),
+                         "loss_last10": float(closs[-10:].mean()),
+                         "eval": {k: cmetrics[k] for k in (
+                             "driving_score", "mean_speed", "steer_rate", "action_agreement",
+                             "collisions_per_1k_steps")},
+                         "steer_range": [float(steer.min()), float(steer.max())],
+                         "action_histogram": torch.bincount(traj["action"].reshape(-1),
+                                                            minlength=9).tolist()}
+    del traj, cap, cmodel, cstate
+
+    # 7. the CLI on the CIL checkpoint
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cil_") as tmp:
+        ckpt = Path(tmp) / "bc_cil"
+        save_pytree(ckpt, {"params": {k: v.detach().cpu() for k, v in
+                                      state.model.state_dict().items()}})
+        cli = timed("cli", lambda: cli_run(
+            "route_eval", "--checkpoint", str(ckpt), "-o", "experiment=route_eval",
+            "-o", "policy_family=cil", "-o", f"n_envs={ROUTE_CLI_ENVS}",
+            "-o", f"n_steps={ROUTE_CLI_STEPS}", "-o", f"n_goals={ROUTE_GOALS}",
+            "-o", "sim.town.lanes_per_direction=2", "-o", "sim.lane_change_period=160"))
+    expect_b += 2 * (ROUTE_CLI_STEPS + 1)
+    for who in ("expert", "policy"):
+        m = cli[who]
+        check(m["attempts"] == m["arrivals"] + m["crashes"] + m["timeouts"]
+              and m["env_steps"] == ROUTE_CLI_ENVS * ROUTE_CLI_STEPS,
+              f"routes: run route_eval, {who}: {m}")
+    res["cli"] = {"seconds": secs["cli"], "expert": cli["expert"], "policy": cli["policy"]}
+
+    launches = read_counts()
+    check(launches["B"] == expect_b,
+          f"routes: kernel B launched {launches['B']} times, not once per rollout step "
+          f"and first frame ({expect_b})")
+    check(sum(launches.values()) == launches["B"], "routes: a kernel it does not run launched")
+    res.update(launches=launches, seconds=secs,
+               max_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    log(json.dumps({"routes": res}))
+    del state, model, fp32
+    torch.cuda.empty_cache()
+    return launches
+
+
+def cil_card_vs_cpu(params, town, rcfg, model, dev) -> dict:
+    """The fp32 CIL ``model`` driving ROUTE_CROSS_ENVS goal-directed envs for
+    ROUTE_CROSS_STEPS on the card and on the CPU (the plain versions), from
+    the same reset draws and pool, half the envs 3 steps short of their
+    episode limit, TF32 off: actions, commands, arrivals, ends and the
+    integer state equal, sim floats within rtol 1e-5 / atol 1e-4, frames
+    within the fast raster's tolerance; then one forward on the last window,
+    logits within 1e-4. → the largest differences."""
+    import copy
+    import dataclasses as dc
+
+    import torch
+
+    from carla_imitation_learning_tpu_torch.training import closed_loop as cl
+
+    cpu = torch.device("cpu")
+    pool = cl.rollout_spawn_pool(params, town.to(cpu))
+    runs = []
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        for d in (dev, cpu):
+            m = copy.deepcopy(model).to(d).eval()
+            init_fn, rollout_fn = cl.make_rollout(params, town, rcfg, m.as_policy_fn(),
+                                                  spawn_pool=pool, device=d)
+            carry = init_fn(torch.Generator().manual_seed(49), ROUTE_CROSS_ENVS)
+            states = carry[0]
+            near_end = torch.arange(ROUTE_CROSS_ENVS, device=d) % 2 == 0
+            states = states.replace(t=torch.where(near_end, params.episode_len - 3, states.t))
+            carry = cl.assign_goals((states,) + carry[1:],
+                                    torch.arange(ROUTE_CROSS_ENVS) % town.nav_goals.shape[0])
+            (states, framebuf, _), traj = rollout_fn(carry, ROUTE_CROSS_STEPS)
+            speed = states.ego_v
+            cmd = cl.navigation_command(params, town.to(d), states)
+            with torch.no_grad():
+                logits, _ = m(framebuf.float() / 255, speed, cmd.clamp(0, 5))
+            runs.append((states.to(cpu), {k: v.to(cpu) for k, v in traj.items()},
+                         logits.to(cpu)))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    (s_k, tr_k, lg_k), (s_p, tr_p, lg_p) = runs
+    check(bool(tr_p["done"].any()), "routes card vs CPU: no episode ended")
+    for key in ("action", "expert_action", "command", "arrived", "done", "collision",
+                "offroad", "traffic"):
+        check(torch.equal(tr_k[key], tr_p[key]), f"routes card vs CPU: {key} differs")
+    worst = {"sim": 0.0}
+    for f in dc.fields(s_k):
+        got, want = getattr(s_k, f.name), getattr(s_p, f.name)
+        if got.dtype == torch.int64:
+            check(torch.equal(got, want), f"routes card vs CPU: state {f.name} differs")
+            continue
+        excess = float(((got - want).abs() - 1e-5 * want.abs()).max()) if got.numel() else 0.0
+        check(excess <= 1e-4, f"routes card vs CPU: {f.name} off by {excess:.3e}")
+        if got.numel():
+            worst["sim"] = max(worst["sim"], float((got - want).abs().max()))
+    for key in ("speed", "sensor", "steer", "route_ds"):
+        excess = float(((tr_k[key] - tr_p[key]).abs() - 1e-5 * tr_p[key].abs()).max())
+        check(excess <= 1e-4, f"routes card vs CPU: {key} off by {excess:.3e}")
+    worst["frames"] = b_tolerance(tr_k["gray"].float() / 255, tr_p["gray"].float() / 255,
+                                  "routes card vs CPU frames")
+    worst["logits"] = float((lg_k - lg_p).abs().max())
+    check(worst["logits"] < 1e-4, f"routes card vs CPU: fp32 CIL logits off by "
+          f"{worst['logits']:.3e}")
+    worst["arrivals"] = int(tr_p["arrived"].sum())
+    return worst
+
+
 def sharded_coverage(store, shards, dev) -> dict:
     """One epoch of ``ShardedPrefetchReader`` and of ``DeviceShardStreamer``
     over ``shards`` against the windows ``DeviceDataset`` draws from
@@ -2614,6 +3033,18 @@ def profile(out_dir, params, town, rcfg, model, policy_fn, carry, rollout_fn) ->
         rollout_fn(carry, 8)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    summary = device_summary(prof, wall, 8)
+    summary["rich_fast_render"] = profile_rich_render(params, town)
+    (out / "profile_summary.json").write_text(json.dumps(summary, indent=1))
+    log(json.dumps({"profile": summary}))
+
+
+def device_summary(prof, wall: float, steps: int) -> dict:
+    """A torch.profiler window of ``steps`` rollout steps that took ``wall``
+    seconds: device busy ms, idle share and launches, and the device time by
+    group (kernel B, the policy's convolutions, sorts, the rest)."""
+    import torch
+
     # device-side events only (kernels, copies); one stream, so they do not
     # overlap and their durations sum to the device's busy time
     kernels = [e for e in prof.events()
@@ -2630,14 +3061,37 @@ def profile(out_dir, params, town, rcfg, model, policy_fn, carry, rollout_fn) ->
         g[0] += e.time_range.elapsed_us()
         g[1] += 1
     busy_us = sum(g[0] for g in groups.values())
-    summary = {"steps": 8, "wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
-               "device_idle_share": 1.0 - busy_us / 1e6 / wall,
-               "device_launches": len(kernels),
-               "groups": {k: {"device_ms": v[0] / 1e3, "launches": v[1]}
-                          for k, v in sorted(groups.items(), key=lambda kv: -kv[1][0])}}
-    summary["rich_fast_render"] = profile_rich_render(params, town)
-    (out / "profile_summary.json").write_text(json.dumps(summary, indent=1))
-    log(json.dumps({"profile": summary}))
+    return {"steps": steps, "wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+            "device_launches": len(kernels),
+            "groups": {k: {"device_ms": v[0] / 1e3, "launches": v[1]}
+                       for k, v in sorted(groups.items(), key=lambda kv: -kv[1][0])}}
+
+
+def profile_route_rollout(params, town, rcfg, model, dev) -> dict:
+    """A torch.profiler window of ROUTE_PROFILE_STEPS steps of the
+    goal-directed rollout at ROUTE_ENVS with the CIL ``model`` driving
+    (after ROUTE_PROFILE_WARM steps): ``device_summary`` and the host ms a
+    step."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from carla_imitation_learning_tpu_torch.training import closed_loop as cl
+
+    init_fn, rollout_fn = cl.make_rollout(params, town, rcfg, model.as_policy_fn(), device=dev)
+    carry = cl.assign_goals(init_fn(torch.Generator().manual_seed(50), ROUTE_ENVS),
+                            np.arange(ROUTE_ENVS) % town.nav_goals.shape[0])
+    carry, _ = rollout_fn(carry, ROUTE_PROFILE_WARM)
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rollout_fn(carry, ROUTE_PROFILE_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out = device_summary(prof, wall, ROUTE_PROFILE_STEPS)
+    out["host_ms_per_step"] = wall / ROUTE_PROFILE_STEPS * 1e3
+    return out
 
 
 def profile_rich_render(params, town) -> dict:

@@ -228,7 +228,8 @@ def test_run_dagger_tiny():
         assert np.isfinite(r["train_loss"]) and np.isfinite(r["driving_score"])
         assert r["env_steps"] == 3 * 100
     assert rounds[0]["action_agreement"] < 1.0 or rounds[1]["action_agreement"] < 1.0
-    with pytest.raises(NotImplementedError):
+    # goals plan over the turn-fan graph, which this town lacks
+    with pytest.raises(ValueError, match="turn_fans"):
         dagger.run_dagger(SMALL_PARAMS, P_TOWN, SMALL_RCFG, torch.Generator(), n_goals=2,
                           device="cpu")
     if not torch.cuda.is_available():

@@ -4,7 +4,9 @@ port carries, with overrides; ``list`` and ``run``; a tiny
 ``collect_data`` on the CPU (plain versions) writes a log that the JAX
 package's ``from_raw_camera`` reads to the port's store, bit for bit, and a
 packed store equal to it; ``bc`` on that log and ``closed_loop_eval`` from
-the saved checkpoint; the options that wait for other modules raise."""
+the saved checkpoint; the policy families (``bc_cil`` then ``route_eval``
+of its checkpoint, ``bc_continuous``, goal-directed and continuous DAgger)
+at toy size; the options that wait for other modules raise."""
 
 import contextlib
 import fcntl
@@ -56,13 +58,21 @@ def test_compose_matches_jax(overrides):
 
 
 def test_presets_are_the_ported_experiments():
-    assert PRESETS == ["bc", "bc_streaming", "closed_loop_eval", "collect", "scenario_eval",
+    assert PRESETS == ["bc", "bc_cil", "bc_continuous", "bc_streaming", "closed_loop_eval",
+                       "collect", "dagger", "dagger_online", "route_eval", "scenario_eval",
                        "split_folders", "test_eval"]
     names = {p_compose("config", overrides=[f"experiment={p}"])["experiment_name"]
              for p in PRESETS}
-    assert names == set(ex.EXPERIMENTS) == {"bc", "bc_streaming", "closed_loop_eval",
-                                            "collect_data", "scenario_eval", "split_folders",
-                                            "test_eval"}
+    assert names == set(ex.EXPERIMENTS) == {"bc", "bc_cil", "bc_continuous", "bc_streaming",
+                                            "closed_loop_eval", "collect_data", "dagger",
+                                            "dagger_online", "route_eval", "scenario_eval",
+                                            "split_folders", "test_eval"}
+
+
+def test_multilane_town_preset_matches_jax():
+    overrides = ["model=imitation", "sim=town_multilane", "experiment=bc_cil"]
+    assert p_compose("config", overrides=overrides).to_dict() == \
+        j_compose("config", overrides=overrides).to_dict()
 
 
 def test_compose_interpolates_and_rejects(tmp_path):
@@ -155,11 +165,9 @@ def test_bc_then_closed_loop_eval(collected, capsys):
 
 @pytest.mark.parametrize("experiment,overrides", [
     ("bc", ["augment=true"]), ("bc", ["mesh.enabled=true"]), ("bc", ["mesh.axes.data=4"]),
-    ("collect_data", ["n_goals=2"]),
     ("closed_loop_eval", ["artifact=some_dir"]), ("closed_loop_eval", ["safety_shield=true"]),
-    ("closed_loop_eval", ["policy_family=continuous"]),
-    ("closed_loop_eval", ["policy_family=cil"]), ("closed_loop_eval", ["policy_arch=vit"]),
-    ("closed_loop_eval", ["s2d_stem=true"]),
+    ("closed_loop_eval", ["policy_arch=vit"]), ("closed_loop_eval", ["s2d_stem=true"]),
+    ("route_eval", ["artifact=some_dir"]),
 ])
 def test_unported_options_raise(tmp_path, experiment, overrides):
     cfg = p_compose("config", overrides=["model=imitation", "device=cpu",
@@ -167,6 +175,90 @@ def test_unported_options_raise(tmp_path, experiment, overrides):
                                          *TINY, *overrides])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ex.EXPERIMENTS[experiment](cfg)
+
+
+@pytest.mark.parametrize("experiment,overrides", [
+    ("collect_data", ["n_goals=2", "n_envs=2", "n_steps=12"]),
+    ("closed_loop_eval", ["policy_family=continuous", "n_envs=2", "n_steps=4"]),
+    ("closed_loop_eval", ["policy_family=cil", "n_envs=2", "n_steps=4"]),
+])
+def test_options_now_run(tmp_path, experiment, overrides):
+    """The options these experiments raised on before the policy families
+    were ported now run, at toy size on the CPU."""
+    cfg = p_compose("config", overrides=["model=imitation", "device=cpu",
+                                         "compute_dtype=float32", f"data_dir={tmp_path}",
+                                         f"log_dir={tmp_path}", *TINY, *overrides])
+    res = ex.EXPERIMENTS[experiment](cfg)
+    if experiment == "collect_data":
+        assert res["frames"] == 24 and sum(res["action_histogram"]) == 24
+        assert cfg.get_dotted("sim.town.turn_fans") is True
+    else:
+        assert res["policy"]["env_steps"] == 8 and 0.0 <= res["policy"]["driving_score"] <= 1.0
+
+
+def test_policy_family_unknown(tmp_path):
+    cfg = p_compose("config", overrides=["model=imitation", "device=cpu", *TINY,
+                                         "policy_family=ppo"])
+    with pytest.raises(ValueError, match="policy_family"):
+        ex.EXPERIMENTS["closed_loop_eval"](cfg, n_envs=2, n_steps=2)
+
+
+def _family_base(tmp_path):
+    base = ["-o", f"data_dir={tmp_path / 'data'}", "-o", f"log_dir={tmp_path / 'logs'}",
+            "-o", "device=cpu", "-o", "compute_dtype=float32", "-o", "BATCH_SIZE=4"]
+    for t in TINY:
+        base += ["-o", t]
+    return base
+
+
+def test_bc_cil_then_route_eval(tmp_path, capsys):
+    """``bc_cil`` from its preset (multi-lane town with turn fans, mirrored
+    half, balanced by action and command), goal-directed with 2 goals; then
+    ``route_eval`` of its checkpoint as a CIL policy beside the expert."""
+    base = _family_base(tmp_path)
+    res = _run(capsys, "-o", "experiment=bc_cil", *base, "-o", "n_envs=2", "-o", "n_steps=60",
+               "-o", "n_goals=2", "-o", "NUM_EPOCHS=1")
+    assert len(res["command_histogram"]) == 6 and sum(res["command_histogram"]) == 120
+    assert np.isfinite(res["test"]["test_loss"]) and "test_speed_loss" in res["test"]
+    best = res["best_path"]
+    ev = _run(capsys, "-o", "experiment=route_eval", *base, "--checkpoint", best,
+              "-o", "policy_family=cil", "-o", "n_envs=2", "-o", "n_steps=8", "-o", "n_goals=2")
+    assert len(ev["goals"]) == 2
+    for who in ("policy", "expert"):
+        r = ev[who]
+        assert r["env_steps"] == 16 and r["goals"] == 2
+        assert r["attempts"] == r["arrivals"] + r["crashes"] + r["timeouts"]
+
+
+def test_bc_continuous(tmp_path, capsys):
+    res = _run(capsys, "-o", "experiment=bc_continuous", *_family_base(tmp_path),
+               "-o", "n_envs=2", "-o", "n_steps=40", "-o", "eval_envs=2", "-o", "eval_steps=6",
+               "-o", "NUM_EPOCHS=1")
+    assert {"steer_std", "accel_mean"} == set(res["label_stats"])
+    assert np.isfinite(res["test"]["test_steer_mse"])
+    assert res["eval"]["env_steps"] == 12
+
+
+@pytest.mark.parametrize("experiment,overrides", [
+    ("dagger", ["policy_family=cil", "n_goals=2", "rounds=2", "n_steps=24",
+                "epochs_per_round=1"]),
+    ("dagger", ["policy_family=continuous", "rounds=2", "n_steps=24", "epochs_per_round=1"]),
+    ("dagger_online", ["policy_family=cil", "n_goals=2", "rounds=2", "n_steps=12",
+                       "train_steps_per_round=2", "eval_steps=6"]),
+])
+def test_dagger_families(tmp_path, capsys, experiment, overrides):
+    args = [experiment, *_family_base(tmp_path), "-o", "n_envs=2"]
+    for o in overrides:
+        args += ["-o", o]
+    res = _run(capsys, *args)
+    if experiment == "dagger":
+        assert [r["round"] for r in res["rounds"]] == [0, 1]
+        assert all(np.isfinite(r["train_loss"]) for r in res["rounds"])
+    else:
+        assert len(res["loss_per_round"]) == 2 and res["agreement_per_round"][0] == 1.0
+    if "n_goals=2" in overrides:
+        r = res["routes"]
+        assert r["goals"] == 2 and r["attempts"] == r["arrivals"] + r["crashes"] + r["timeouts"]
 
 
 def test_flag_reads_cli_spellings():

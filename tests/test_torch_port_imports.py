@@ -1,5 +1,5 @@
-"""The PyTorch port and chip_smoke.py import neither JAX, flax nor the JAX
-package, and read no file of the JAX package (its ``configs/``, its
+"""The PyTorch port, chip_smoke.py and benchmarks_torch/ import neither
+JAX, flax nor the JAX package, and read no file of the JAX package (its ``configs/``, its
 ``native/framestore.cpp``): the machine with the card has none of them, and
 the port keeps its own copies."""
 
@@ -15,7 +15,8 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "carla_imitation_learning_tpu_torch"
 FORBIDDEN = ("jax", "flax", "carla_imitation_learning_tpu")
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+           + sorted((ROOT / "benchmarks_torch").glob("*.py")))
 
 
 def _imported_roots(path: pathlib.Path) -> set:
