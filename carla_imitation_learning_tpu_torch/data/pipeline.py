@@ -19,7 +19,9 @@ package, so both draw the same windows.
 
 Stores load from the frame-log files (``FrameStore.from_processed_dir``,
 ``from_raw_camera``), and the iterator factories build the train / val /
-test datasets of the sequential, pooled and large layouts.
+test datasets of the sequential (plain, aux and dual-stream), pooled and
+large layouts. ``AuxSegDataset`` adds per-pixel class labels to aux
+batches and ``PairedStreamDataset`` a second camera's windows.
 ``device_prefetch`` copies host batches to the card ahead of the consumer.
 """
 
@@ -224,8 +226,9 @@ class DeviceDataset:
     """Iterator over on-device ``(x, y)`` batches from a FrameStore:
     x (B, H, W, frame_skip) in ``dtype``, y (B,) int64 actions; with
     ``cil=True`` ``(x, speed (B,) float32, command (B,) int64, y)`` of the
-    labelled frame; with ``continuous_labels`` (an (n_frames, d) float
-    array aligned with the store) ``(x, the labelled frame's row)``.
+    labelled frame; with ``aux=True`` ``((x, sensor (B, 3) float32), (B, 2)
+    int32 (traffic, action))``; with ``continuous_labels`` (an (n_frames,
+    d) float array aligned with the store) ``(x, the labelled frame's row)``.
 
     ``label_offset`` (default ``frame_skip``) picks the labeled frame;
     ``sample_mask`` keeps only windows whose labeled frame it marks;
@@ -254,8 +257,7 @@ class DeviceDataset:
         extra_frames: "list[np.ndarray] | None" = None,
         device: str | torch.device = "cuda",
     ):
-        unported = {"aux": aux, "sharding": sharding is not None,
-                    "extra_frames": bool(extra_frames)}
+        unported = {"sharding": sharding is not None, "extra_frames": bool(extra_frames)}
         if any(unported.values()):
             raise NotImplementedError(
                 f"batch kinds not ported yet: {[k for k, v in unported.items() if v]}")
@@ -269,6 +271,7 @@ class DeviceDataset:
                     f"continuous_labels must be (n_frames, d); got "
                     f"{cont.shape} for a {len(store)}-frame store")
         self.device = resolve_device(device)
+        self.aux = aux
         self.cil = cil
         self.store = store
         self.batch_size = batch_size
@@ -305,6 +308,9 @@ class DeviceDataset:
         self.frames = self._put(store.frames)
         self.actions = self._put(store.actions.astype(np.int64))
         self.continuous = None if cont is None else self._put(cont)
+        if aux:
+            self.sensors = self._put(np.asarray(store.sensors, np.float32))
+            self.traffic = self._put(store.traffic.astype(np.int64))
         if cil:
             commands = (store.commands if store.commands is not None
                         else np.zeros(len(store), np.int64))
@@ -363,6 +369,9 @@ class DeviceDataset:
             return x, self.continuous[at]
         if self.cil:
             return x, self.speeds[at], self.commands[at], self.actions[at]
+        if self.aux:
+            y = torch.stack([self.traffic[at], self.actions[at]], dim=-1).to(torch.int32)
+            return (x, self.sensors[at]), y
         return x, self.actions[at]
 
     def make_batch(self, idx: np.ndarray):
@@ -428,9 +437,134 @@ def sequential_train_val_test_iterator(cfg, stores: dict[str, FrameStore] | None
                                 sharding=sharding, device=device)
 
 
-def sequential_aux_train_val_test_iterator(cfg, stores=None, sharding=None,
+def sequential_aux_train_val_test_iterator(cfg, stores: dict[str, FrameStore] | None = None,
+                                           sharding=None,
                                            device: str | torch.device = "cuda") -> dict:
-    raise NotImplementedError("aux datasets are not ported yet")
+    """Aux multi-task datasets, ``((frames, sensor), (traffic, action))``
+    batches, over the same windows as ``sequential_train_val_test_iterator``."""
+    stores = stores or {s: FrameStore.from_processed_dir(cfg, s)
+                        for s in ("train", "val", "test")}
+    return _loaders_from_stores(cfg, stores, aux=True, frame_skip=int(cfg["frame_skip"]),
+                                sharding=sharding, device=device)
+
+
+class PairedStreamDataset:
+    """A DeviceDataset zipped with a second camera stream, frame-aligned
+    with its store: ``(x, x_seg, y)`` batches for ``DualStreamCNN``, both
+    windows gathered at the same episode-valid start indices.
+    ``seg_frames`` must already be rebased to the store's positions
+    (``rebase_stream``)."""
+
+    def __init__(self, base: DeviceDataset, seg_frames: np.ndarray):
+        if len(seg_frames) != len(base.store):
+            raise ValueError(f"paired stream has {len(seg_frames)} frames for a "
+                             f"{len(base.store)}-frame base store")
+        self.base = base
+        self.seg = base._put(np.asarray(seg_frames))
+        self.batch_size = base.batch_size
+
+    def __len__(self) -> int:
+        return len(self.base)
+
+    def __iter__(self) -> Iterator:
+        order = self.base.epoch_indices()
+        bs = self.base.batch_size
+        for b in range(len(self.base)):
+            idx = order[b * bs:(b + 1) * bs]
+            x, y = self.base.make_batch(idx)
+            xs = gather_windows(self.seg, self.base.start_indices(idx), self.base.frame_skip,
+                                self.base.dtype)
+            yield x, xs, y
+
+
+class AuxSegDataset:
+    """An aux DeviceDataset zipped with per-pixel class ids:
+    ``((frames, sensor), (traffic, action), seg_labels (B, H, W) int32)``
+    batches for ``AuxNet`` with its seg decoder. ``seg_frames`` (N, H, W)
+    is the class-id stream of the same collection
+    (``closed_loop.semantic_stream``), frame-aligned with the store, kept
+    on the device in its own dtype; the seg label is the window's last
+    frame (start + frame_skip − 1).
+
+    ``speed_dropout``: the probability, per sample, of zeroing the speed
+    columns (speed_long, speed) of its sensor vector, drawn from
+    ``np.random.default_rng(seed)`` as in the JAX package; it keeps a
+    speed-conditioned policy from learning "stopped, so brake"."""
+
+    def __init__(self, base: DeviceDataset, seg_frames: np.ndarray,
+                 speed_dropout: float = 0.0, seed: int = 0):
+        if len(seg_frames) != len(base.store):
+            raise ValueError(f"semantic stream has {len(seg_frames)} frames for a "
+                             f"{len(base.store)}-frame base store")
+        if not base.aux:
+            raise ValueError("AuxSegDataset requires an aux=True base")
+        self.base = base
+        self.seg = base._put(np.asarray(seg_frames))
+        self.batch_size = base.batch_size
+        self.speed_dropout = float(speed_dropout)
+        self._drop_rng = np.random.default_rng(seed)
+
+    def __len__(self) -> int:
+        return len(self.base)
+
+    def speed_mask(self, n: int) -> np.ndarray:
+        """The next batch's (n, 3) sensor mask: 1 for current_steer, the
+        kept-speed flag for the two speed columns."""
+        keep = self._drop_rng.random(n) >= self.speed_dropout
+        return np.concatenate([np.ones((n, 1)), np.repeat(keep[:, None], 2, axis=1)], axis=1)
+
+    def __iter__(self) -> Iterator:
+        order = self.base.epoch_indices()
+        bs = self.base.batch_size
+        for b in range(len(self.base)):
+            idx = order[b * bs:(b + 1) * bs]
+            (frames, sensor), y = self.base.make_batch(idx)
+            if self.speed_dropout > 0.0:
+                mask = torch.from_numpy(self.speed_mask(sensor.shape[0]).astype(np.float32))
+                sensor = sensor * mask.to(sensor.device)
+            at = self.base.start_indices(idx) + self.base.frame_skip - 1
+            yield (frames, sensor), y, self.seg[at].to(torch.int32)
+
+
+def rebase_stream(frames: np.ndarray, frames_file_idx: np.ndarray,
+                  target_file_idx: np.ndarray | None) -> np.ndarray:
+    """The frames of a whole-log array whose raw-log ids are
+    ``target_file_idx``, in that order: pairs a second camera with a split
+    store frame for frame (the val and test splits sit at 80–90 % and
+    90–100 % of the log, so pairing by position would be wrong)."""
+    if target_file_idx is None:
+        return frames[:]
+    pos = np.searchsorted(frames_file_idx, target_file_idx)
+    pos = np.clip(pos, 0, len(frames_file_idx) - 1)
+    if not np.array_equal(np.asarray(frames_file_idx)[pos], target_file_idx):
+        raise ValueError("paired stream is missing frames present in the base camera log")
+    return frames[pos]
+
+
+def paired_sequential_iterator(cfg, sharding=None,
+                               device: str | torch.device = "cuda") -> dict:
+    """Dual-stream datasets: the sequential split's stores zipped with the
+    ``semantic`` camera of the same log, aligned by raw frame id (without a
+    semantic camera, each store is paired with itself)."""
+    stores = {s: FrameStore.from_processed_dir(cfg, s) for s in ("train", "val", "test")}
+    sem_dir = Path(cfg["data_dir"]) / "raw" / cfg["train_logs"][0] / "semantic"
+    sem_full = sem_file_idx = None
+    if sem_dir.is_dir():
+        sem_log = fl.FrameLog(sem_dir)
+        sem_full = sem_log.read_all_gray_u8()
+        sem_file_idx = sem_log.file_idx
+    out = {}
+    for split, name in (("train", "train_dataloader"), ("val", "val_dataloader"),
+                        ("test", "test_dataloader")):
+        base = DeviceDataset(stores[split], int(cfg["BATCH_SIZE"]),
+                             frame_skip=int(cfg["frame_skip"]), drop_last=(split == "train"),
+                             dtype=str(cfg.get("compute_dtype_input", "float32")),
+                             sharding=(sharding if split == "train" else None),
+                             device=device)
+        seg = (stores[split].frames if sem_full is None
+               else rebase_stream(sem_full, sem_file_idx, stores[split].file_idx))
+        out[name] = PairedStreamDataset(base, seg)
+    return out
 
 
 def _pooled_split(cfg, store: FrameStore) -> dict[str, FrameStore]:

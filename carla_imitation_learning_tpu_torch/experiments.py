@@ -5,7 +5,15 @@ the CLI dispatches by name.
 - ``split_folders``: sequential 80/10/10 split of a raw log;
 - ``bc``: behaviour cloning per camera from the processed split, with
   best-k checkpoints (a CARLA-contract log is synthesized when ``data_dir``
-  has none);
+  has none), and with ``augment`` the on-the-fly augmentation;
+- ``bc_aux``: the multi-task ``AuxNet`` (recon, traffic light, action) on
+  the same split; with ``aux_seg_weight`` > 0 its semantic-segmentation
+  decoder, trained on an expert collection whose class plane kernel A
+  renders, then scored in the closed loop;
+- ``bc_raw_segment``: the shared-trunk dual-stream policy over the raw and
+  semantic cameras;
+- ``vae_pooled`` and ``vae_leave_one_out``: the conv VAE on pooled or
+  leave-one-log-out splits of one camera;
 - ``test_eval``: accuracy of a checkpoint on each split, with the
   predictions dump and the histogram plot;
 - ``collect_data``: expert collection on the card, written as a raw log
@@ -43,6 +51,7 @@ import functools
 import inspect
 import sys
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -54,9 +63,10 @@ from carla_imitation_learning_tpu_torch.callbacks import (
 from carla_imitation_learning_tpu_torch.data import frame_log as fl
 from carla_imitation_learning_tpu_torch.data import pipeline as pipe
 from carla_imitation_learning_tpu_torch.data import stats as stats_lib
+from carla_imitation_learning_tpu_torch.data import vae_data
 from carla_imitation_learning_tpu_torch.device import resolve_device
 from carla_imitation_learning_tpu_torch.models import (
-    BranchedCILPolicy, ContinuousPolicyCNN, PolicyCNN,
+    AuxNet, BranchedCILPolicy, ContinuousPolicyCNN, ConvVAE, DualStreamCNN, PolicyCNN,
 )
 from carla_imitation_learning_tpu_torch.native import (
     DeviceShardStreamer, NativeFrameStore, PrefetchReader, save_framestore,
@@ -69,10 +79,11 @@ from carla_imitation_learning_tpu_torch.training import closed_loop as cl
 from carla_imitation_learning_tpu_torch.training.dagger import run_dagger, run_dagger_online
 from carla_imitation_learning_tpu_torch.training.loop import Trainer
 from carla_imitation_learning_tpu_torch.training.losses import (
-    bc_loss_fn, cil_loss_fn, continuous_bc_loss_fn,
+    aux_loss_fn, aux_seg_loss_fn, bc_augmented_loss_fn, bc_loss_fn, cil_loss_fn,
+    continuous_bc_loss_fn, dual_stream_loss_fn, vae_loss_fn,
 )
 from carla_imitation_learning_tpu_torch.training.steps import (
-    create_train_state, flax_init_, make_optimizer, make_train_step,
+    create_train_state, eval_params, flax_init_, make_optimizer, make_train_step,
 )
 from carla_imitation_learning_tpu_torch.utils.checkpoint import (
     BestKCheckpointManager, restore_params, restore_pytree,
@@ -174,18 +185,22 @@ def _trainer_bits(cfg, name: str):
 
 def _fit(cfg, name, model, loss_fn, loaders):
     """Initial state (flax's initializer from ``seed``, or
-    ``resume_checkpoint``'s payload) → ``Trainer.fit`` → test metrics."""
+    ``resume_checkpoint``'s payload) → ``Trainer.fit`` → test metrics. The
+    train steps draw (VAE noise, augmentation) from a generator on the
+    device seeded with ``seed``."""
     spe = max(1, len(loaders["train_dataloader"]))
+    dev = _device(cfg)
     state = create_train_state(model, make_optimizer(cfg, steps_per_epoch=spe),
                                generator=_generator(cfg),
                                ema_decay=float(cfg.get("EMA_DECAY", 0.0)),
-                               device=_device(cfg))
+                               device=dev)
     resume = cfg.get("resume_checkpoint")
     if resume:
         state.load_payload(restore_pytree(resume))
     trainer, _ = _trainer_bits(cfg, name)
+    step_gen = torch.Generator(device=dev).manual_seed(int(cfg.get("seed", 0)))
     try:
-        result = trainer.fit(state, loss_fn, loaders, max_epochs=int(
+        result = trainer.fit(state, loss_fn, loaders, step_gen, max_epochs=int(
             cfg.get("NUM_EPOCHS", cfg.get_dotted("trainer.max_epochs", 1))))
         test_metrics = trainer.test(result.state, loss_fn, loaders)
     finally:
@@ -243,8 +258,7 @@ def behavior_cloning(cfg, cameras=("camera", "semantic"), **kw):
     """Behaviour cloning of the ConvNet1 policy, one run per camera."""
     cameras = tuple(cfg.get("bc_cameras", cameras))
     _check_one_device(cfg)
-    if _flag(cfg, "augment"):
-        raise _not_ported("augment", 7)
+    loss = bc_augmented_loss_fn() if _flag(cfg, "augment") else bc_loss_fn
     results = {}
     for camera in cameras:
         cfg_c = cfg.copy()
@@ -252,8 +266,141 @@ def behavior_cloning(cfg, cameras=("camera", "semantic"), **kw):
         _maybe_synthesize(cfg_c, camera)
         loaders = pipe.sequential_train_val_test_iterator(cfg_c, device=_device(cfg))
         model = _discrete_policy_model(cfg, int(cfg["obs_size"]))
-        results[camera] = _fit(cfg_c, f"imitation_{camera}", model, bc_loss_fn, loaders)
+        results[camera] = _fit(cfg_c, f"imitation_{camera}", model, loss, loaders)
     return results
+
+
+@experiment("bc_aux")
+def behavior_cloning_aux(cfg, cameras=("camera",), n_envs: int = 16, n_steps: int = 300,
+                         eval_envs: int = 32, eval_steps: int = 200, **kw):
+    """Multi-task AuxNet BC (recon, traffic light, action) per camera.
+
+    ``aux_seg_weight`` > 0 trains the seg decoder instead, on an expert
+    collection of ``n_envs`` × ``n_steps`` that records the class plane,
+    then drives ``eval_envs`` × ``eval_steps`` in the closed loop
+    (``_bc_aux_seg``)."""
+    _check_one_device(cfg)
+    if float(cfg.get("aux_seg_weight", 0.0)) > 0.0:
+        return _bc_aux_seg(cfg, n_envs, n_steps, eval_envs, eval_steps)
+    results = {}
+    for camera in cameras:
+        cfg_c = cfg.copy()
+        cfg_c["camera"] = camera
+        _maybe_synthesize(cfg_c, camera)
+        loaders = pipe.sequential_aux_train_val_test_iterator(cfg_c, device=_device(cfg))
+        model = AuxNet(obs_size=int(cfg["obs_size"]), n_actions=int(cfg["n_actions"]),
+                       n_traffic_classes=int(cfg.get("n_traffic_classes", 2)),
+                       image_hw=int(cfg.get("image_height", 256)), dtype=_dtype(cfg))
+        loss = aux_loss_fn(float(cfg.get("aux_recon_weight", 0.0)),
+                           float(cfg.get("aux_traffic_weight", 0.0)),
+                           float(cfg.get("aux_action_weight", 1.0)))
+        results[camera] = _fit(cfg_c, f"imitation_aux_{camera}", model, loss, loaders)
+    return results
+
+
+def _bc_aux_seg(cfg, n_envs: int, n_steps: int, eval_envs: int, eval_steps: int):
+    """AuxNet with the seg decoder, supervised by the renderer's per-pixel
+    class plane (8 classes): an expert collection with ``record_semantic``,
+    split 80/10/10, trained on recon + traffic + action + seg (speed
+    dropout ``aux_speed_dropout`` on the train split), then the action
+    head (of the EMA shadow when tracked) drives the closed loop. The result
+    carries the test mIoU as ``seg_miou_test`` and the driving metrics as
+    ``eval``."""
+    town, params, rcfg = _sim_bits(cfg)
+    if rcfg.height != rcfg.width:
+        raise ValueError("aux_seg needs a square camera (AuxNet decoders upsample to "
+                         f"image_hw); got {rcfg.height}x{rcfg.width}")
+    fs = int(cfg.get("frame_skip", 4))
+    dev, gen = _device(cfg), _generator(cfg)
+    store, _, traj = cl.collect_dataset(params, town, rcfg, gen, n_envs, n_steps,
+                                        frame_skip=fs, noise=_noise_bits(cfg),
+                                        record_semantic=True, device=dev)
+    sem = cl.semantic_stream(traj)
+    del traj
+    n = len(store)
+    bounds = {"train": (0, int(0.8 * n)), "val": (int(0.8 * n), int(0.9 * n)),
+              "test": (int(0.9 * n), n)}
+    batch = int(cfg.get("BATCH_SIZE", 64))
+    dropout = float(cfg.get("aux_speed_dropout", 0.3))
+    loaders = {f"{k}_dataloader": pipe.AuxSegDataset(pipe.DeviceDataset(
+        store.slice(a, b), batch, frame_skip=fs, shuffle=(k == "train"), aux=True,
+        drop_last=(k == "train"), device=dev), sem[a:b],
+        speed_dropout=dropout if k == "train" else 0.0)
+        for k, (a, b) in bounds.items()}
+    model = AuxNet(obs_size=fs, image_hw=rcfg.height, seg_classes=int(cfg.get("seg_classes", 8)),
+                   dtype=_dtype(cfg))
+    loss = aux_seg_loss_fn(float(cfg.get("aux_recon_weight", 0.0)),
+                           float(cfg.get("aux_traffic_weight", 0.0)),
+                           float(cfg.get("aux_action_weight", 1.0)),
+                           float(cfg.get("aux_seg_weight", 0.5)))
+    result = _fit(cfg, "bc_aux_seg", model, loss, loaders)
+    trained = eval_params(result.pop("state"))
+    result["eval"] = cl.evaluate_policy(params, town, rcfg, trained.as_policy_fn(), gen,
+                                        n_envs=eval_envs, n_steps=eval_steps, frame_skip=fs,
+                                        device=dev)
+    result["seg_miou_test"] = result["test"].get("test_seg_miou")
+    return result
+
+
+@experiment("bc_raw_segment")
+def behavior_cloning_raw_segment(cfg, **kw):
+    """Shared-trunk dual-stream BC over the raw and semantic cameras."""
+    _check_one_device(cfg)
+    cfg_c = cfg.copy()
+    _maybe_synthesize(cfg_c, "camera")
+    loaders = pipe.paired_sequential_iterator(cfg_c, device=_device(cfg))
+    model = DualStreamCNN(obs_size=int(cfg["obs_size"]), n_actions=int(cfg["n_actions"]),
+                          dtype=_dtype(cfg))
+    return _fit(cfg_c, "imitation_raw_segment", model, dual_stream_loss_fn, loaders)
+
+
+@experiment("vae_pooled")
+def vae_pooled(cfg, **kw):
+    """Conv VAE on the pooled random split of every log in ``logs``."""
+    _check_one_device(cfg)
+    cfg_c = cfg.copy()
+    cfg_c["camera"] = kw.get("camera", "SL")
+    cfg_c["train_logs"] = cfg["logs"]
+    _maybe_synthesize_vae(cfg_c)
+    return _fit_vae(cfg_c, "vae_pooled", vae_data.train_val_test_iterator(
+        cfg_c, "pooled_data", device=_device(cfg)))
+
+
+@experiment("vae_leave_one_out")
+def vae_leave_one_out(cfg, **kw):
+    """Conv VAE trained on all of ``logs`` but the last, tested on the last."""
+    _check_one_device(cfg)
+    cfg_c = cfg.copy()
+    cfg_c["camera"] = kw.get("camera", "SL")
+    cfg_c["train_logs"] = cfg["logs"][:-1]
+    cfg_c["test_logs"] = cfg["logs"][-1:]
+    _maybe_synthesize_vae(cfg_c)
+    return _fit_vae(cfg_c, "vae_leave_one_out", vae_data.train_val_test_iterator(
+        cfg_c, "leave_one_out_data", device=_device(cfg)))
+
+
+def _maybe_synthesize_vae(cfg) -> None:
+    """A synthetic raw log of ``synthetic_frames`` frames at ``image_size``
+    for every train and test log without the camera's folder; each log's
+    seed is the CRC-32 of its name, so a rerun writes the same frames."""
+    data_dir = Path(cfg["data_dir"])
+    cam = cfg["camera"] if isinstance(cfg["camera"], str) else cfg["camera"][0]
+    h = int(cfg["image_size"][1])
+    for log in list(cfg["train_logs"]) + list(cfg.get("test_logs", [])):
+        if not (data_dir / "raw" / log / f"{cam}_resized_{h}_bw").is_dir() and \
+           not (data_dir / "raw" / log / cam).is_dir():
+            fl.write_synthetic_log(data_dir, log=log, cameras=(cam,),
+                                   n_frames=int(cfg.get("synthetic_frames", 60)),
+                                   height=h, width=int(cfg["image_size"][2]),
+                                   seed=zlib.crc32(log.encode()) % (2 ** 31))
+
+
+def _fit_vae(cfg, name: str, loaders: dict) -> dict:
+    c, h, w = (int(v) for v in cfg["image_size"])
+    model = ConvVAE(channels=c, height=h, width=w, z_size=int(cfg.get("z_size", 32)),
+                    dtype=_dtype(cfg))
+    return _fit(cfg, name, model, vae_loss_fn(float(cfg["alpha"]), float(cfg["beta"])),
+                loaders)
 
 
 @experiment("test_eval")

@@ -33,14 +33,16 @@ POOLS = (3, 2, 2, 2)
 
 
 class ConvTrunk(nn.Module):
-    """Conv→ReLU→MaxPool ×4 trunk (reference ConvNet1)."""
+    """Conv→ReLU→MaxPool ×4 trunk: the reference ConvNet1's channels by
+    default; ``DualStreamCNN`` passes its wider (32, 64, 128, 256)."""
 
-    def __init__(self, in_channels: int = 4, dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, in_channels: int = 4, dtype: torch.dtype = torch.bfloat16,
+                 channels: Sequence[int] = CHANNELS):
         super().__init__()
-        chans = (in_channels,) + CHANNELS
+        chans = (in_channels,) + tuple(channels)
         self.convs = nn.ModuleList(
             nn.Conv2d(chans[i], chans[i + 1], KERNELS[i], stride=STRIDES[i])
-            for i in range(len(CHANNELS)))
+            for i in range(len(KERNELS)))
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -107,3 +109,19 @@ class ContinuousPolicyCNN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.tanh(self.head(self.trunk(x)))
+
+
+class DualStreamCNN(nn.Module):
+    """Shared-trunk two-stream policy over raw and segmented frame stacks
+    (reference ConvNetRawSegment): one (32, 64, 128, 256) trunk applied to
+    both streams, the features summed, then a 256→200→48→n_actions head.
+    ``(x, x_seg)`` each (B, H, W, obs_size) → (B, n_actions) float32 logits."""
+
+    def __init__(self, obs_size: int = 4, n_actions: int = 9,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.trunk = ConvTrunk(in_channels=obs_size, dtype=dtype, channels=(32, 64, 128, 256))
+        self.head = MLPHead(256, (200, 48, n_actions), dtype=dtype)
+
+    def forward(self, x: torch.Tensor, x_seg: torch.Tensor) -> torch.Tensor:
+        return self.head(self.trunk(x) + self.trunk(x_seg))

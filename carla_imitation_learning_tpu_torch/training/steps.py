@@ -161,9 +161,10 @@ def make_optimizer(cfg, steps_per_epoch: int = 1) -> AdamConfig:
 
 
 def flax_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Draw ``model``'s weights as flax's ``nn.Conv`` / ``nn.Dense`` defaults
-    do: ``lecun_normal`` kernels (a normal truncated to ±2 std, scaled to
-    std sqrt(1 / fan_in)) and zero biases, in module order, from
+    """Draw ``model``'s weights as flax's ``nn.Conv`` / ``nn.Dense`` /
+    ``nn.ConvTranspose`` defaults do: ``lecun_normal`` kernels (a normal
+    truncated to ±2 std, scaled to std sqrt(1 / fan_in)) and zero biases,
+    in module order, from
     ``generator`` (a CPU generator; the draws are copied to the model's
     device). A module may also list raw parameters that flax draws alike:
     ``flax_kernels`` (fan-in over all but the last axis, as flax's
@@ -178,9 +179,12 @@ def flax_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             w.copy_(draw)
 
     for module in model.modules():
-        if isinstance(module, (nn.Conv2d, nn.Linear)):
+        if isinstance(module, (nn.Conv2d, nn.Linear, nn.ConvTranspose2d)):
             w = module.weight
-            draw_(w, w.shape[1] * math.prod(w.shape[2:]))
+            # a transposed conv's weight is (in, out, kh, kw); flax counts
+            # its (kh, kw, in, out) kernel's fan-in as kh · kw · in too
+            fan_in = w.shape[0] if isinstance(module, nn.ConvTranspose2d) else w.shape[1]
+            draw_(w, fan_in * math.prod(w.shape[2:]))
             if module.bias is not None:
                 with torch.no_grad():
                     module.bias.zero_()

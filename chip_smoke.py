@@ -87,6 +87,20 @@ Phases (any failure exits nonzero, with no result line):
    the CPU, continuous BC (a noisy collection, 200 steps, a continuous
    rollout whose controls stay in the unit square) and ``run route_eval``
    on the CIL checkpoint through the CLI; kernel B once per rollout step;
+6g. the aux, dual-stream, augmentation and VAE experiments
+   (``aux_vae_phase``), counts reset just before ``run bc_aux -o
+   aux_seg_weight=0.5`` through the CLI: an expert collection at 256 envs
+   × 200 steps that records the class plane (kernel A every step, B for
+   the frames), AuxNet with its seg decoder in bf16 at batch 64 for 2
+   epochs (the loss falls; the test mIoU above the test split's
+   majority-class share), the closed loop at 256 × 100 (B); A and B on the
+   collection's first inputs bit for bit against their plain versions; the
+   AuxNet-seg train step alone (CUDA events); then ``bc_aux`` and
+   ``bc_raw_segment`` at 256², ``bc -o augment=true``, ``vae_pooled`` and
+   ``vae_leave_one_out`` at 1×224×224 on synthetic logs through the CLI
+   (each loss falls, no kernel launched); one fp32 step of the AuxNet seg,
+   dual-stream, VAE (fixed noise) and augmented BC (fixed draws) losses on
+   the card and on the CPU against float64;
 7. the rich fleet (same town and envs, the rich128 preset: facade bands,
    markings, shadows, textures, T=1408) from three seeds: kernel A's
    textured variant (C=1 and C=3), kernel B on the rich lists (2 px and 0
@@ -178,6 +192,16 @@ CONT_ENVS, CONT_STEPS, CONT_TRAIN_STEPS = 1024, 24, 200   # continuous BC
 CONT_EVAL_ENVS, CONT_EVAL_STEPS = 256, 50
 ROUTE_CLI_ENVS, ROUTE_CLI_STEPS = 1024, 100       # run route_eval on the CIL checkpoint
 ROUTE_PROFILE_WARM, ROUTE_PROFILE_STEPS = 4, 8    # --profile: the CIL route rollout
+# The aux_vae phase: ``run bc_aux -o aux_seg_weight=0.5`` on the bench town at 128²
+AUX_ENVS, AUX_STEPS = 256, 200                # the record_semantic collection
+AUX_EVAL_ENVS, AUX_EVAL_STEPS = 256, 100
+AUX_BATCH, AUX_EPOCHS = 64, 2
+# each model's train step alone: warm-up, repeats of timed steps, profiled steps
+AUX_TIMED_WARM, AUX_TIMED_STEPS, AUX_TIMED_REPEATS, AUX_PROFILED_STEPS = 5, 50, 5, 10
+AUX_IMG = 256                                 # the file-backed runs' frames (the reference's)
+AUX_FILE_FRAMES, AUX_FILE_EPOCHS = 640, 3     # the synthetic log of the file runs (a gate)
+AUX_VAE_FRAMES = 120                          # per log, six logs at 224²
+AUX_CROSS_BATCH = 8                           # the card-vs-CPU steps
 LANES_PER_SM = 128       # lane-instructions an SM issues per clock (4 × 32)
 HBM_RATE = 3.35e12       # H100 SXM device memory, B/s
 WARP_TILE = 16           # kernels A and B cull per 16 × 16 pixel warp tile
@@ -645,6 +669,8 @@ def run(args) -> dict:
         paths["scenarios"] = scenarios_phase(dev, Path(keep) / "best")
     torch.cuda.empty_cache()
     paths["routes"] = routes_phase(dev, profile=args.profile is not None)
+    torch.cuda.empty_cache()
+    paths["aux_vae"] = aux_vae_phase(dev)
     # the rich phases allocate gigabytes of temporaries; they run after the
     # main path has been timed
     rich, b_rich_err = rich_kernels(params, town, dev, rows, rate, facts)
@@ -1243,7 +1269,15 @@ def bc_card_vs_cpu(train, dev) -> dict:
                             train.make_batch(np.arange(BC_BATCH)), dev)
 
 
-def step_card_vs_cpu(name: str, loss_fn, batch, dev, require_clip: bool = True) -> dict:
+def _move(obj, d, dtype):
+    """``obj`` (tensors in nested tuples) on ``d``, float tensors in ``dtype``."""
+    if isinstance(obj, (tuple, list)):
+        return tuple(_move(o, d, dtype) for o in obj)
+    return obj.to(d, dtype) if obj.is_floating_point() else obj.to(d)
+
+
+def step_card_vs_cpu(name: str, loss_fn, batch, dev, require_clip: bool = True,
+                     model_fn=None) -> dict:
     """One fp32 train step of ``loss_fn`` from the same weights and batch on
     the card and on the CPU, TF32 off, with the global-norm clip (when
     ``require_clip``, checked to trigger), each held against the same step
@@ -1256,7 +1290,9 @@ def step_card_vs_cpu(name: str, loss_fn, batch, dev, require_clip: bool = True) 
     by over 1 % of the learning rate on the card than 4× the CPU's count
     plus 1 in 10,000 (Adam's first step moves each weight by about lr ·
     sign(g), so a near-zero gradient may flip its step). Float tensors of
-    ``batch`` take each run's dtype. Prints the ``name`` line; → the errors."""
+    ``batch`` (nested tuples allowed) take each run's dtype. The model is
+    ``model_fn(dtype)`` (default a ``PolicyCNN``). Prints the ``name``
+    line; → the errors."""
     import torch
 
     from carla_imitation_learning_tpu_torch.models import PolicyCNN
@@ -1264,9 +1300,10 @@ def step_card_vs_cpu(name: str, loss_fn, batch, dev, require_clip: bool = True) 
         create_train_state, make_optimizer,
     )
 
+    make = model_fn or (lambda dtype: PolicyCNN(dtype=dtype))
     cpu = torch.device("cpu")
     tx = make_optimizer({"LEARNING_RATE": BC_LR, "gradient_clip_val": BC_CLIP})
-    init = create_train_state(PolicyCNN(dtype=torch.float32), tx,
+    init = create_train_state(make(torch.float32), tx,
                               generator=torch.Generator().manual_seed(3), device=cpu)
     runs = {}
     tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
@@ -1277,12 +1314,11 @@ def step_card_vs_cpu(name: str, loss_fn, batch, dev, require_clip: bool = True) 
                                        ("cpu", cpu, torch.float32, True),
                                        ("cpu_no_mkldnn", cpu, torch.float32, False),
                                        ("f64", cpu, torch.float64, True)):
-            model = PolicyCNN(dtype=dtype).to(dtype)
+            model = make(dtype).to(dtype)
             model.load_state_dict(init.model.state_dict())
             state = create_train_state(model, tx, device=d)
             with torch.backends.mkldnn.flags(enabled=mkldnn and torch.backends.mkldnn.enabled):
-                loss, _ = loss_fn(state.model, tuple(
-                    t.to(d, dtype) if t.is_floating_point() else t.to(d) for t in batch))
+                loss, _ = loss_fn(state.model, _move(batch, d, dtype))
                 loss.backward()
             grads = {k: p.grad.to(cpu, torch.float64).clone()
                      for k, p in state.model.named_parameters()}
@@ -2783,6 +2819,290 @@ def profile_train_step(epoch, state, order) -> dict:
             "device_launches_per_step": len(events) / n,
             "groups": {k: {"device_ms_per_step": v[0] / 1e3 / n, "launches_per_step": v[1] / n}
                        for k, v in sorted(groups.items(), key=lambda kv: -kv[1][0])}}
+
+
+def time_train_step(label: str, model, loss_fn, group: str, batch, dev) -> dict:
+    """One model's train step alone, as ``run`` builds it (the optimizer of
+    the ``model=<group>`` preset, flax init, the step's device generator),
+    on ``batch`` (AUX_BATCH rows) moved to ``dev``: AUX_TIMED_WARM warm-up steps, then
+    AUX_TIMED_REPEATS runs of AUX_TIMED_STEPS steps, each timed by CUDA
+    events around it (ms per step) and by the host clock up to the last
+    step's return before the sync (the host's ms to issue a step), then
+    torch.profiler over AUX_PROFILED_STEPS steps: the kernels' busy ms per
+    step, which the profiler's own host cost does not change, and
+    launches. ``idle_share`` is 1 − busy / the median's ms: where it is
+    large the card waits on the host's launches, and a spread of the runs
+    with the busy ms unchanged is the host's. → the median, every run and
+    the profile."""
+    import torch
+
+    from carla_imitation_learning_tpu_torch.config import compose
+    from carla_imitation_learning_tpu_torch.training.steps import (
+        create_train_state, make_optimizer, make_train_step,
+    )
+
+    def to_dev(b):
+        return tuple(to_dev(x) for x in b) if isinstance(b, tuple) else b.to(dev)
+
+    batch = to_dev(batch)
+    state = create_train_state(model, make_optimizer(compose("config", overrides=[f"model={group}"])),
+                               generator=torch.Generator().manual_seed(0), device=dev)
+    step = make_train_step(loss_fn)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for _ in range(AUX_TIMED_WARM):
+        step(state, batch, gen)
+    device_ms, host_ms = [], []
+    for _ in range(AUX_TIMED_REPEATS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(AUX_TIMED_STEPS):
+            _, metrics = step(state, batch, gen)
+        end.record()
+        host_ms.append((time.perf_counter() - t0) * 1e3 / AUX_TIMED_STEPS)
+        torch.cuda.synchronize()
+        device_ms.append(start.elapsed_time(end) / AUX_TIMED_STEPS)
+    check(bool(torch.isfinite(metrics["loss"])), f"{label} timed steps: loss not finite")
+    prof = profile_train_step(lambda st, order: [step(st, batch, gen) for _ in order], state,
+                              range(AUX_PROFILED_STEPS))
+    ms = sorted(device_ms)[len(device_ms) // 2]
+    out = {"batch": AUX_BATCH, "dtype": "bfloat16", "steps": AUX_TIMED_STEPS, "ms_per_step": ms,
+           "ms_runs": device_ms, "host_issue_ms_runs": host_ms,
+           "images_per_s": AUX_BATCH / ms * 1e3,
+           "idle_share": 1.0 - prof["device_busy_ms_per_step"] / ms,
+           "profile": {k: prof[k] for k in ("wall_ms_per_step", "device_busy_ms_per_step",
+                                            "device_idle_share", "device_launches_per_step",
+                                            "groups")}}
+    log(f"{label} train step: {ms:.3f} ms (runs {[round(t, 3) for t in device_ms]}, host issue "
+        f"{[round(t, 3) for t in host_ms]}), busy {prof['device_busy_ms_per_step']:.3f} ms, "
+        f"{prof['device_launches_per_step']:.0f} launches, idle {out['idle_share']:.3f}")
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def aux_vae_phase(dev) -> dict:
+    """Phase 6g: the aux, dual-stream, augmentation and VAE experiments.
+
+    1. ``run bc_aux -o aux_seg_weight=0.5`` through the CLI, counts reset
+       just before it: an expert collection of AUX_ENVS × AUX_STEPS with
+       ``record_semantic`` on the bench town at 128² (kernel B for the
+       frames, kernel A for the class plane, every step), AuxNet with its
+       seg decoder in bf16 at batch AUX_BATCH for AUX_EPOCHS epochs, then
+       the closed loop at AUX_EVAL_ENVS × AUX_EVAL_STEPS (kernel B). The
+       collection's env-steps/s on the host clock around it, the launches,
+       the test mIoU against the share of the test split's most frequent
+       class (it must be above it), the driving score; the loss falls;
+       kernels A and B on the first call's inputs of the collection bit for
+       bit against their plain versions; the AuxNet-seg train step alone
+       (``time_train_step``);
+    2. file-backed runs through the CLI on synthetic logs: ``bc_aux`` and
+       ``bc_raw_segment`` at 256², ``bc -o augment=true``, ``vae_pooled``
+       and ``vae_leave_one_out`` at 1×224×224: each loss falls; none
+       launches a kernel; then each model's train step alone at the runs'
+       shapes and batch (``time_train_step``; both VAE runs train the same
+       model): ms per step and images/s (a run's own throughput is not a
+       step time: its 7–8 steps an epoch share the epoch's validation,
+       checkpoint and host syncs);
+    3. one fp32 step (TF32 off) on the card and on the CPU, each against
+       float64 (``step_card_vs_cpu``): the AuxNet seg loss at 128², the
+       dual-stream loss at 256², the VAE loss at 224² with fixed noise and
+       the augmented BC loss at 256² with fixed draws.
+    Prints one ``aux_vae`` line; → the launch counts of part 1."""
+    import numpy as np
+    import torch
+
+    from carla_imitation_learning_tpu_torch.models import AuxNet, ConvVAE, DualStreamCNN, PolicyCNN
+    from carla_imitation_learning_tpu_torch.models import vae as vae_mod
+    from carla_imitation_learning_tpu_torch.ops import augment
+    from carla_imitation_learning_tpu_torch.ops import raster as ra
+    from carla_imitation_learning_tpu_torch.ops import raster_fast as rf
+    from carla_imitation_learning_tpu_torch.training import closed_loop as cl
+    from carla_imitation_learning_tpu_torch.training import losses
+
+    res: dict = {}
+    t_phase = time.perf_counter()
+    first: dict = {}
+
+    def keep_first(name):
+        def record(a, k, out):
+            if name not in first:
+                first[name] = tuple(x.clone() if isinstance(x, torch.Tensor) else x for x in a)
+        return record
+
+    collect: dict = {}
+    orig_collect = cl.collect_dataset
+
+    def timed_collect(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig_collect(*a, **k)
+        torch.cuda.synchronize()
+        collect["seconds"] = time.perf_counter() - t0
+        collect["launches"] = read_counts()
+        return out
+
+    def test_shares(a, k, sem):
+        cut = int(0.9 * len(sem))
+        counts = np.bincount(sem[cut:].reshape(-1), minlength=8)
+        return counts / counts.sum()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_aux_") as tmp:
+        tmp = Path(tmp)
+        base = ["-o", f"data_dir={tmp / 'seg_data'}", "-o", f"log_dir={tmp / 'seg_logs'}"]
+        torch.cuda.synchronize()
+        reset_counts()
+        cl.collect_dataset = timed_collect
+        try:
+            with Capture(ra, "raster_bands", keep_first("A")), \
+                    Capture(rf, "fast_bands", keep_first("B")), \
+                    Capture(cl, "semantic_stream", test_shares) as shares:
+                t0 = time.perf_counter()
+                out = cli_run("bc_aux", *base, "-o", "aux_seg_weight=0.5",
+                              "-o", f"n_envs={AUX_ENVS}", "-o", f"n_steps={AUX_STEPS}",
+                              "-o", f"eval_envs={AUX_EVAL_ENVS}",
+                              "-o", f"eval_steps={AUX_EVAL_STEPS}",
+                              "-o", f"BATCH_SIZE={AUX_BATCH}", "-o", f"NUM_EPOCHS={AUX_EPOCHS}")
+                torch.cuda.synchronize()
+                run_s = time.perf_counter() - t0
+        finally:
+            cl.collect_dataset = orig_collect
+        launches = read_counts()
+        hist = out["history"]
+        check(all(np.isfinite(v) for row in hist for v in row.values()),
+              f"bc_aux seg: non-finite history {hist}")
+        check(hist[-1]["train_loss"] < hist[0]["train_loss"],
+              f"bc_aux seg: the train loss did not fall: {[r['train_loss'] for r in hist]}")
+        share = float(shares.calls[0].max())
+        miou = out["seg_miou_test"]
+        check(miou is not None and miou > share,
+              f"bc_aux seg: test mIoU {miou} not above the majority class share {share:.4f}")
+        check(launches["A"] >= AUX_STEPS and collect["launches"]["A"] == launches["A"],
+              f"bc_aux seg: kernel A launched {launches['A']} times for {AUX_STEPS} "
+              "collection steps")
+        check(launches["B"] >= AUX_STEPS + AUX_EVAL_STEPS
+              and launches["B"] - collect["launches"]["B"] >= AUX_EVAL_STEPS,
+              f"bc_aux seg: kernel B launched {launches['B']} times")
+        check(launches["A-tex"] + launches["C"] + launches["D"] == 0,
+              "bc_aux seg launched a kernel it does not run")
+        ev = out["eval"]
+        check(np.isfinite(ev["driving_score"]) and ev["env_steps"] == AUX_EVAL_ENVS
+              * AUX_EVAL_STEPS, f"bc_aux seg: evaluation {ev}")
+        err_a, _ = check_exact(first["A"], "kernel A on a bc_aux collection step")
+        err_b, _ = check_fast(first["B"], "kernel B on a bc_aux collection step")
+        res["bc_aux_seg"] = {
+            "collect": {"n_envs": AUX_ENVS, "steps": AUX_STEPS, "seconds": collect["seconds"],
+                        "env_steps_per_s": AUX_ENVS * AUX_STEPS / collect["seconds"],
+                        "launches": collect["launches"]},
+            "run_seconds": run_s, "launches": launches, "history": hist,
+            "throughput": out["throughput"], "test": out["test"], "seg_miou_test": miou,
+            "test_class_shares": shares.calls[0].tolist(), "majority_share": share,
+            "driving_score": ev["driving_score"], "eval": ev,
+            "kernel_max_abs_err": {"A": err_a, "B": err_b}}
+        first.clear()
+
+        # the AuxNet-seg train step alone, bf16 at AUX_BATCH
+        gen = torch.Generator().manual_seed(4)
+        res["aux_seg_train_step"] = time_train_step(
+            "AuxNet-seg 128²", AuxNet(image_hw=HW, seg_classes=8, dtype=torch.bfloat16),
+            losses.aux_seg_loss_fn(), "imitation",
+            ((torch.rand(AUX_BATCH, HW, HW, 4, generator=gen), torch.rand(AUX_BATCH, 3, generator=gen)),
+             torch.randint(0, 2, (AUX_BATCH, 2), generator=gen, dtype=torch.int32),
+             torch.randint(0, 8, (AUX_BATCH, HW, HW), generator=gen, dtype=torch.int32)), dev)
+
+        # 2. the file-backed runs
+        res["file_runs"] = {}
+        reset_counts()
+        file_base = ["-o", f"data_dir={tmp / 'data'}", "-o", f"image_height={AUX_IMG}",
+                     "-o", f"image_width={AUX_IMG}", "-o", f"synthetic_frames={AUX_FILE_FRAMES}",
+                     "-o", f"NUM_EPOCHS={AUX_FILE_EPOCHS}", "-o", f"BATCH_SIZE={AUX_BATCH}"]
+        vae_base = ["-o", f"data_dir={tmp / 'vae_data'}", "-o", f"synthetic_frames={AUX_VAE_FRAMES}",
+                    "-o", f"NUM_EPOCHS={AUX_FILE_EPOCHS}"]
+        for label, argv, pick in (
+                ("bc_aux", ("bc_aux", *file_base), "camera"),
+                ("bc_raw_segment", ("bc_raw_segment", *file_base), None),
+                ("bc_augment", ("bc", *file_base, "-o", "augment=true",
+                                "-o", "bc_cameras=['camera']"), "camera"),
+                ("vae_pooled", ("vae_pooled", *vae_base), None),
+                ("vae_leave_one_out", ("vae_leave_one_out", *vae_base), None)):
+            t0 = time.perf_counter()
+            out = cli_run(*argv, "-o", f"log_dir={tmp / 'logs' / label}")
+            wall = time.perf_counter() - t0
+            r = out[pick] if pick else out
+            hist = r["history"]
+            check(all(np.isfinite(v) for row in hist for v in row.values()),
+                  f"{label}: non-finite history {hist}")
+            check(hist[-1]["train_loss"] < hist[0]["train_loss"],
+                  f"{label}: the train loss did not fall: {[x['train_loss'] for x in hist]}")
+            res["file_runs"][label] = {
+                "train_loss": [x["train_loss"] for x in hist], "test": r["test"],
+                "run_seconds": wall}
+            log(f"{label}: run {wall:.1f} s, train loss "
+                f"{[round(x['train_loss'], 4) for x in hist]}")
+        file_launches = read_counts()
+        check(sum(file_launches.values()) == 0, f"the file-backed runs launched {file_launches}")
+
+    # each file-backed model's bf16 train step alone at the runs' shapes and batch
+    # (a run's own fit throughput also counts validation, checkpoints and host syncs)
+    gen = torch.Generator().manual_seed(6)
+    frames = lambda hw, c: torch.rand(AUX_BATCH, hw, hw, c, generator=gen)
+    actions = lambda: torch.randint(0, 9, (AUX_BATCH,), generator=gen)
+    bf16 = torch.bfloat16
+    for label, model, loss_fn, group, batch in (
+            ("bc_aux", AuxNet(image_hw=AUX_IMG, dtype=bf16), losses.aux_loss_fn(), "imitation",
+             ((frames(AUX_IMG, 4), torch.rand(AUX_BATCH, 3, generator=gen)),
+              torch.randint(0, 2, (AUX_BATCH, 2), generator=gen, dtype=torch.int32))),
+            ("bc_raw_segment", DualStreamCNN(dtype=bf16), losses.dual_stream_loss_fn,
+             "imitation", (frames(AUX_IMG, 4), frames(AUX_IMG, 4), actions())),
+            ("bc_augment", PolicyCNN(dtype=bf16), losses.bc_augmented_loss_fn(), "imitation",
+             (frames(AUX_IMG, 4), actions())),
+            ("vae", ConvVAE(dtype=bf16), losses.vae_loss_fn(0.75, 0.1), "vae",
+             frames(224, 1))):
+        res["file_runs"].setdefault(label, {})["train_step"] = time_train_step(
+            label, model, loss_fn, group, batch, dev)
+
+    # 3. one fp32 step on the card and on the CPU, each against float64
+    gen = torch.Generator().manual_seed(5)
+    n = AUX_CROSS_BATCH
+    cross = {}
+    cross["aux_seg"] = step_card_vs_cpu(
+        "aux_seg_card_vs_cpu", losses.aux_seg_loss_fn(0.2, 0.2, 1.0, 0.5),
+        ((torch.rand(n, HW, HW, 4, generator=gen), torch.rand(n, 3, generator=gen)),
+         torch.randint(0, 2, (n, 2), generator=gen, dtype=torch.int32),
+         torch.randint(0, 8, (n, HW, HW), generator=gen, dtype=torch.int32)),
+        dev, require_clip=False,
+        model_fn=lambda dtype: AuxNet(image_hw=HW, seg_classes=8, dtype=dtype))
+    cross["dual_stream"] = step_card_vs_cpu(
+        "dual_stream_card_vs_cpu", losses.dual_stream_loss_fn,
+        (torch.rand(n, AUX_IMG, AUX_IMG, 4, generator=gen), torch.rand(n, AUX_IMG, AUX_IMG, 4, generator=gen),
+         torch.randint(0, 9, (n,), generator=gen)),
+        dev, require_clip=False, model_fn=lambda dtype: DualStreamCNN(dtype=dtype))
+    eps = torch.randn(n, 32, generator=gen)
+    vae_loss = losses.vae_loss_fn(0.75, 0.1)
+    orig_draw = vae_mod.draw_noise
+    vae_mod.draw_noise = lambda g, shape, device, dtype: eps.to(device, dtype)
+    try:
+        cross["vae"] = step_card_vs_cpu(
+            "vae_card_vs_cpu", lambda m, b, g=None: vae_loss(m, b, torch.Generator()),
+            torch.rand(n, 224, 224, 1, generator=gen), dev, require_clip=False,
+            model_fn=lambda dtype: ConvVAE(dtype=dtype))
+    finally:
+        vae_mod.draw_noise = orig_draw
+    x = torch.rand(n, AUX_IMG, AUX_IMG, 4, generator=gen)
+    draws = augment.augment_draws(gen, x)
+    cross["bc_augment"] = step_card_vs_cpu(
+        "bc_augment_card_vs_cpu",
+        lambda m, b, g=None: losses.bc_loss_fn(m, augment.augment_with(draws, *b)),
+        (x, torch.randint(0, 9, (n,), generator=gen)), dev, require_clip=False)
+    res["card_vs_cpu"] = {k: {key: v[key] for key in (
+        "loss_rel_err_card", "loss_rel_err_cpu", "grad_max_rel_err_card",
+        "grad_max_rel_err_cpu", "params_off_card", "params_off_cpu")} for k, v in cross.items()}
+    res["seconds"] = time.perf_counter() - t_phase
+    res["max_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(json.dumps({"aux_vae": res}))
+    torch.cuda.empty_cache()
+    return launches
 
 
 def marginal(rollout_fn, carry, short: int, long: int, repeats: int):

@@ -58,15 +58,18 @@ def test_compose_matches_jax(overrides):
 
 
 def test_presets_are_the_ported_experiments():
-    assert PRESETS == ["bc", "bc_cil", "bc_continuous", "bc_streaming", "closed_loop_eval",
+    assert PRESETS == ["bc", "bc_augmented", "bc_aux", "bc_aux_seg", "bc_cil",
+                       "bc_continuous", "bc_raw_segment", "bc_streaming", "closed_loop_eval",
                        "collect", "dagger", "dagger_online", "route_eval", "scenario_eval",
-                       "split_folders", "test_eval"]
+                       "split_folders", "test_eval", "vae_leave_one_out", "vae_pooled"]
     names = {p_compose("config", overrides=[f"experiment={p}"])["experiment_name"]
              for p in PRESETS}
-    assert names == set(ex.EXPERIMENTS) == {"bc", "bc_cil", "bc_continuous", "bc_streaming",
+    assert names == set(ex.EXPERIMENTS) == {"bc", "bc_aux", "bc_cil", "bc_continuous",
+                                            "bc_raw_segment", "bc_streaming",
                                             "closed_loop_eval", "collect_data", "dagger",
                                             "dagger_online", "route_eval", "scenario_eval",
-                                            "split_folders", "test_eval"}
+                                            "split_folders", "test_eval", "vae_leave_one_out",
+                                            "vae_pooled"}
 
 
 def test_multilane_town_preset_matches_jax():
@@ -164,7 +167,7 @@ def test_bc_then_closed_loop_eval(collected, capsys):
 
 
 @pytest.mark.parametrize("experiment,overrides", [
-    ("bc", ["augment=true"]), ("bc", ["mesh.enabled=true"]), ("bc", ["mesh.axes.data=4"]),
+    ("bc", ["mesh.axes.model=2"]), ("bc", ["mesh.enabled=true"]), ("bc", ["mesh.axes.data=4"]),
     ("closed_loop_eval", ["artifact=some_dir"]), ("closed_loop_eval", ["safety_shield=true"]),
     ("closed_loop_eval", ["policy_arch=vit"]), ("closed_loop_eval", ["s2d_stem=true"]),
     ("route_eval", ["artifact=some_dir"]),

@@ -127,9 +127,17 @@ def test_iterators_match(logs, factory):
 
 
 def test_aux_iterator_waits_for_its_item(logs):
-    _, pcfg = _cfgs(logs["port"])
-    with pytest.raises(NotImplementedError):
-        p_pipe.sequential_aux_train_val_test_iterator(pcfg)
+    """The aux iterator, which waited for its queue item until the aux
+    family was ported, now gives the JAX package's ``((x, sensor), (traffic,
+    action))`` batches on every split, bit for bit."""
+    jcfg, pcfg = _cfgs(logs["port"], "shuffle_train=True", "seed=5")
+    j = j_pipe.sequential_aux_train_val_test_iterator(jcfg)
+    p = p_pipe.sequential_aux_train_val_test_iterator(pcfg, device="cpu")
+    for k in ("train_dataloader", "val_dataloader", "test_dataloader"):
+        assert len(j[k]) == len(p[k]) > 0, k
+        for ((jx, js), jy), ((px, ps), py) in zip(j[k], p[k]):
+            for a, b in ((px, jx), (ps, js), (py, jy)):
+                np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=k)
 
 
 def _threshold_state(n=400, seed=0):

@@ -147,7 +147,7 @@ def test_device_dataset_refuses(tmp_path):
     """Unported batch kinds raise; a log that is not on disk raises; the
     default device is the card."""
     p_store, _ = _stores()
-    for kw in ({"aux": True}, {"sharding": object()}, {"extra_frames": [p_store.frames]}):
+    for kw in ({"sharding": object()}, {"extra_frames": [p_store.frames]}):
         with pytest.raises(NotImplementedError):
             p_pipe.DeviceDataset(p_store, 8, device="cpu", **kw)
     with pytest.raises(FileNotFoundError):
