@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """End-to-end driving quality of the PyTorch port: expert vs untrained vs BC
-vs DAgger.
+vs DAgger vs PPO.
 
 The rungs of the JAX package's ``benchmarks/driving_quality.py`` that the
 port can run: the expert's closed-loop driving score, an untrained
 ``PolicyCNN``'s, a ``PolicyCNN`` trained by behaviour cloning on data the
-expert collected on the card, and that policy refined by DAgger. Per seed,
-the whole pipeline runs anew:
+expert collected on the card, that policy behind the safety shield, refined
+by DAgger, and fine-tuned by PPO. Per seed, the whole pipeline runs anew:
 
 1. expert: ``evaluate_policy`` with the autopilot driving;
 2. untrained: a bf16 ``PolicyCNN`` drawn as flax draws it
@@ -21,18 +21,29 @@ the whole pipeline runs anew:
    on ``FrameStore.concat`` of every store so far (shuffle seed 1000 +
    17·seed + round), and is evaluated on one fleet (key 103) for every
    round: the rungs ``dagger_r1``, ``dagger_r2``, ... and ``dagger`` (the
-   last); the report carries ``dagger_frames``.
+   last); the report carries ``dagger_frames``;
+5. with ``--shield``, ``bc_shield``: the BC policy behind the emergency
+   brake (``training.shield.ShieldConfig()``) on the BC rung's fleet, with
+   its interventions per km and active share;
+6. with ``--rl N``, ``rl``: an ``ActorCriticCNN`` warm-started from the
+   last imitation policy (BC or BC + DAgger), ``N`` PPO iterations of
+   ``--rl-envs`` × ``--rl-steps`` (``ppo_train``, ``PPOConfig()`` with
+   ``--rl-w-red`` as its red-light penalty when given; generator 1000·seed
+   + 3), then the deterministic actor on fleet 104; the report carries
+   ``rl_seconds``, the first and last three iterations and the median
+   env-steps/s of the iterations after the first.
 
 Defaults are the JAX harness's: eval 256 envs × 300 steps, collection 64 ×
 500, 8 epochs, batch 256, the bench town, 128², bf16 ``PolicyCNN``. Each
 rung and seed draws from its own ``torch.Generator`` (eval fleets
-1000·seed + 100, 101, 102, 103; init 1000·seed + 1; collection 1000·seed +
-2, DAgger round r's 1000·seed + 10 + r),
+1000·seed + 100, 101, 102, 103, 104; init 1000·seed + 1; collection
+1000·seed + 2, DAgger round r's 1000·seed + 10 + r),
 so the streams differ from the JAX package's: compare ranges across seeds,
 not values.
 
     python3 benchmarks_torch/driving_quality.py --out REPORT.json
-        [--seeds 3] [--dagger 2] [--noise] [--device cuda]
+        [--seeds 3] [--dagger 2] [--noise] [--shield] [--rl 12]
+        [--rl-envs 256] [--rl-steps 128] [--rl-w-red W] [--device cuda]
 
 The report is written to ``--out`` after every rung (never under
 ``reports/``, which holds the JAX package's records); the last line of
@@ -91,6 +102,14 @@ def main(argv=None) -> dict:
                     help="DAgger rounds on top of BC (0 to skip)")
     ap.add_argument("--noise", action="store_true",
                     help="steering noise on the BC expert collection (labels stay clean)")
+    ap.add_argument("--shield", action="store_true",
+                    help="add the bc_shield rung: the BC policy behind the safety shield")
+    ap.add_argument("--rl", type=int, default=0,
+                    help="PPO iterations on top of the imitation policy (0 to skip)")
+    ap.add_argument("--rl-envs", type=int, default=256)
+    ap.add_argument("--rl-steps", type=int, default=128, help="PPO rollout horizon")
+    ap.add_argument("--rl-w-red", type=float, default=None,
+                    help="PPOConfig.w_red (the red-light crossing penalty)")
     ap.add_argument("--seed", type=int, default=0, help="base seed")
     ap.add_argument("--seeds", type=int, default=1,
                     help="full pipeline repetitions (seed, seed + 1, ...)")
@@ -102,6 +121,7 @@ def main(argv=None) -> dict:
         raise SystemExit("--out must not be under reports/ (the JAX package's records)")
 
     sys.path.insert(0, str(ROOT))
+    import numpy as np
     import torch
 
     from carla_imitation_learning_tpu_torch.data.pipeline import DeviceDataset, FrameStore
@@ -112,8 +132,12 @@ def main(argv=None) -> dict:
     from carla_imitation_learning_tpu_torch.sim.world import SimParams
     from carla_imitation_learning_tpu_torch.training import closed_loop as cl
     from carla_imitation_learning_tpu_torch.training.losses import bc_loss_fn
+    from carla_imitation_learning_tpu_torch.training.rl import (
+        ActorCriticCNN, PPOConfig, ppo_train, warm_start_from_policy,
+    )
+    from carla_imitation_learning_tpu_torch.training.shield import ShieldConfig
     from carla_imitation_learning_tpu_torch.training.steps import (
-        AdamConfig, create_train_state, make_fused_epoch,
+        AdamConfig, create_train_state, flax_init_, make_fused_epoch,
     )
 
     dev = resolve_device(args.device)
@@ -156,10 +180,12 @@ def main(argv=None) -> dict:
         r: dict = {}
         result["runs"][str(seed)] = r
 
-        def ev(policy_fn, key: int) -> dict:
+        def ev(policy_fn, key: int, shield=None) -> dict:
             m = cl.evaluate_policy(params, town, rcfg, policy_fn, gen(1000 * seed + key),
-                                   n_envs=args.envs, n_steps=args.steps, device=dev)
-            return {k: m[k] for k in KEEP}
+                                   n_envs=args.envs, n_steps=args.steps, device=dev,
+                                   shield=shield)
+            extra = ("shield_interventions_per_km", "shield_active_frac") if shield else ()
+            return {k: m[k] for k in KEEP + extra}
 
         r["expert"] = ev(None, 100)
         print(f"[seed {seed}] expert: {r['expert']}", flush=True)
@@ -193,6 +219,10 @@ def main(argv=None) -> dict:
         r["bc"] = ev(policy_from(state.model), 102)
         print(f"[seed {seed}] bc: {r['bc']}", flush=True)
         save()
+        if args.shield:
+            r["bc_shield"] = ev(policy_from(state.model), 102, shield=ShieldConfig())
+            print(f"[seed {seed}] bc_shield: {r['bc_shield']}", flush=True)
+            save()
 
         stores = [store]
         for rnd in range(args.dagger):
@@ -217,6 +247,26 @@ def main(argv=None) -> dict:
             r["dagger_frames"] = sum(len(s) for s in stores)
             r["dagger"] = r[f"dagger_r{args.dagger}"]
             save()
+        if args.rl:
+            ac = flax_init_(ActorCriticCNN(dtype=torch.bfloat16), gen(1000 * seed + 3))
+            warm_start_from_policy(ac, state.model)
+            pcfg = PPOConfig() if args.rl_w_red is None else PPOConfig(w_red=args.rl_w_red)
+            ac_state = create_train_state(
+                ac, AdamConfig(schedule=lambda count: pcfg.learning_rate,
+                               clip=pcfg.max_grad_norm), device=dev)
+            tr = time.perf_counter()
+            _, hist = ppo_train(params, town, rcfg, ac_state, gen(1000 * seed + 3),
+                                n_envs=args.rl_envs, rollout_steps=args.rl_steps,
+                                iterations=args.rl, cfg=pcfg, device=dev)
+            r["rl_seconds"] = time.perf_counter() - tr
+            r["rl_history"] = hist[:3] + hist[-3:] if len(hist) > 6 else hist
+            r["rl_env_steps_per_sec"] = (float(np.median([h["env_steps_per_sec"]
+                                                          for h in hist[1:]]))
+                                         if len(hist) > 1 else None)
+            save()
+            r["rl"] = ev(lambda obs: ac(obs)[0].argmax(-1), 104)
+            print(f"[seed {seed}] rl: {r['rl']}", flush=True)
+            save()
 
     t0 = time.perf_counter()
     for seed in range(args.seed, args.seed + max(1, args.seeds)):
@@ -224,13 +274,15 @@ def main(argv=None) -> dict:
         run_seed(seed)
         result["runs"][str(seed)]["seed_seconds"] = time.perf_counter() - ts
         save()
-    tiers = ["expert", "untrained", "bc"] + [f"dagger_r{i + 1}" for i in range(args.dagger)]
-    tiers += ["dagger"] if args.dagger else []
+    tiers = ["expert", "untrained", "bc"] + (["bc_shield"] if args.shield else [])
+    tiers += [f"dagger_r{i + 1}" for i in range(args.dagger)]
+    tiers += (["dagger"] if args.dagger else []) + (["rl"] if args.rl else [])
     result["summary"] = summarize(result["runs"], tiers)
     result["wall_seconds"] = time.perf_counter() - t0
     save()
     line = {"metric": "closed_loop_driving_score_dagger" if args.dagger
             else "closed_loop_driving_score_bc", "seeds": args.seeds, "noise": args.noise,
+            "shield": args.shield, "rl_iterations": args.rl,
             "device": str(dev), "card": result.get("card"),
             **{t: result["summary"][t]["driving_score"]["mean"] for t in tiers},
             "spread": {t: [result["summary"][t]["driving_score"]["min"],

@@ -26,6 +26,7 @@ from carla_imitation_learning_tpu_torch.ops.raster_fast import PrimSetup
 from carla_imitation_learning_tpu_torch.render.camera import TriangleSetup
 from carla_imitation_learning_tpu_torch.sim.town import TownMap
 from carla_imitation_learning_tpu_torch.sim.world import WorldState
+from carla_imitation_learning_tpu_torch.training.rl import ActorCriticCNN
 from carla_imitation_learning_tpu_torch.training.steps import (
     AdamConfig, TrainState, create_train_state,
 )
@@ -82,6 +83,17 @@ def policy_state_dict(params) -> dict:
     Dense kernels (in, out) → Linear (out, in)."""
     return {**_trunk_state_dict(params["ConvTrunk_0"]),
             **_head_state_dict(params["MLPHead_0"], "head")}
+
+
+def actor_critic_state_dict(params) -> dict:
+    """Flax ``ActorCriticCNN`` params → ``training.rl.ActorCriticCNN``
+    state_dict: the actor as ``policy_state_dict`` (``ConvTrunk_0``,
+    ``MLPHead_0``), the critic (``MLPHead_1``) as ``critic.*``, and
+    ``log_std`` for the Gaussian actor."""
+    sd = {**policy_state_dict(params), **_head_state_dict(params["MLPHead_1"], "critic")}
+    if "log_std" in params:
+        sd["log_std"] = _tensor(np.asarray(params["log_std"], np.float32))
+    return sd
 
 
 def dual_stream_state_dict(params) -> dict:
@@ -145,23 +157,38 @@ def cil_state_dict(params) -> dict:
 
 
 def _family(params) -> str:
-    """Which model a flax params tree belongs to, from its names and shapes."""
+    """Which model a flax params tree belongs to, from its names and shapes:
+    an ``AuxNet`` also has an ``MLPHead_1``, so the actor-critic (a second
+    head and no decoder) is told apart after it."""
     if "enc_0" in params:
         return "vae"
     if "ReconDecoder_0" in params:
         return "aux"
     if "branch_w1" in params:
         return "cil"
+    if "MLPHead_1" in params:
+        return "actor_critic"
     if np.asarray(params["ConvTrunk_0"]["Conv_0"]["kernel"]).shape[3] == 32:
         return "dual_stream"
     return "policy"
 
 
+def _stem(params) -> tuple[int, bool]:
+    """(obs_size, s2d_stem) of a tree's trunk: a space-to-depth stem's first
+    kernel is (3, 3, 9·obs, out), a standard one (7, 7, obs, out); told
+    apart by the input channels, which a standard stem of 9·obs frames
+    would share only with a 3×3 kernel."""
+    k = np.asarray(params["ConvTrunk_0"]["Conv_0"]["kernel"]).shape
+    s2d = k[:2] == (3, 3) and k[2] % 9 == 0
+    return (k[2] // 9 if s2d else k[2]), s2d
+
+
 def params_state_dict(params) -> dict:
     """The state dict of whichever model the tree belongs to: ``ConvVAE``,
-    ``AuxNet``, ``BranchedCILPolicy``, ``DualStreamCNN`` or the
-    ``PolicyCNN`` shape."""
+    ``AuxNet``, ``BranchedCILPolicy``, ``ActorCriticCNN``, ``DualStreamCNN``
+    or the ``PolicyCNN`` shape."""
     return {"vae": vae_state_dict, "aux": aux_state_dict, "cil": cil_state_dict,
+            "actor_critic": actor_critic_state_dict,
             "dual_stream": dual_stream_state_dict,
             "policy": policy_state_dict}[_family(params)](params)
 
@@ -172,12 +199,15 @@ def model_for_params(params, dtype: torch.dtype = torch.bfloat16,
     tree: ``ConvVAE`` (by its ``enc_*`` layers; the input size from the
     first Dense layer's width, 2048 meaning the 224² chain), ``AuxNet``
     (a ``ReconDecoder``), ``BranchedCILPolicy`` (branch tensors),
+    ``ActorCriticCNN`` (a second head; Gaussian with a ``log_std``),
     ``DualStreamCNN`` (a 32-channel first conv), else
-    ``ContinuousPolicyCNN`` (``continuous``) or ``PolicyCNN``."""
+    ``ContinuousPolicyCNN`` (``continuous``) or ``PolicyCNN``; the
+    policies and the actor-critic with the space-to-depth stem when the
+    tree's first kernel is one (``_stem``)."""
     family = _family(params)
     if family == "vae":
         return _vae_for_params(params, dtype)
-    obs_size = np.asarray(params["ConvTrunk_0"]["Conv_0"]["kernel"]).shape[2]
+    obs_size, s2d = _stem(params)
     if family == "aux":
         n_ups = sum(k.startswith("ConvTranspose_") for k in params["ReconDecoder_0"])
         seg = params.get("ReconDecoder_1")
@@ -199,11 +229,14 @@ def model_for_params(params, dtype: torch.dtype = torch.bfloat16,
         n_actions = np.asarray(params["branch_w2"]).shape[2]
         return BranchedCILPolicy(obs_size=obs_size, n_actions=n_actions, n_commands=k,
                                  branch_hidden=hidden, dtype=dtype)
-    if continuous:
-        return ContinuousPolicyCNN(obs_size=obs_size, dtype=dtype)
+    if continuous and family == "policy":
+        return ContinuousPolicyCNN(obs_size=obs_size, dtype=dtype, s2d_stem=s2d)
     head = params["MLPHead_0"]
     n_actions = np.asarray(head[f"Dense_{len(head) - 1}"]["kernel"]).shape[1]
-    return PolicyCNN(obs_size=obs_size, n_actions=n_actions, dtype=dtype)
+    if family == "actor_critic":
+        return ActorCriticCNN(obs_size=obs_size, n_actions=n_actions, dtype=dtype,
+                              s2d_stem=s2d, continuous="log_std" in params)
+    return PolicyCNN(obs_size=obs_size, n_actions=n_actions, dtype=dtype, s2d_stem=s2d)
 
 
 def _vae_for_params(params, dtype: torch.dtype) -> ConvVAE:
@@ -331,8 +364,9 @@ def train_state_from_jax(state, tx: AdamConfig, dtype: torch.dtype = torch.float
                          device: str | torch.device = "cpu",
                          continuous: bool = False) -> TrainState:
     """JAX ``TrainState`` of a ``PolicyCNN``, ``ContinuousPolicyCNN``
-    (``continuous``), ``BranchedCILPolicy``, ``DualStreamCNN``, ``AuxNet``
-    or ``ConvVAE`` (optax Adam, optionally behind a clip) → port ``TrainState`` on ``device``: the params, Adam's ``mu``
+    (``continuous``), ``BranchedCILPolicy``, ``DualStreamCNN``, ``AuxNet``,
+    ``ActorCriticCNN`` or ``ConvVAE`` (optax Adam, optionally behind a
+    clip) → port ``TrainState`` on ``device``: the params, Adam's ``mu``
     and ``nu`` through the same conversion as the params, its ``count`` as
     each parameter's Adam step and as the schedule's step, and the EMA
     shadow. ``tx`` is the port's optimizer config for the same run, so a

@@ -35,10 +35,15 @@ the CLI dispatches by name.
   expert's arrival rate and, with a checkpoint, the policy's;
 - ``dagger`` and ``dagger_online``: the DAgger loops of
   ``training/dagger.py``, in each policy family, goal-directed with
-  ``n_goals``.
+  ``n_goals``; ``dagger_uncertain``, the uncertainty-gated ensemble loop;
+- ``rl_finetune``: PPO fine-tuning of a policy on the driving objective
+  (``training/rl.py``), warm-started from a ``bc`` or ``bc_continuous``
+  checkpoint.
 
 The closed-loop experiments read ``policy_family`` (``discrete``,
-``continuous`` or ``cil``) to build the policy and its control space.
+``continuous`` or ``cil``) to build the policy and its control space, and
+``s2d_stem`` for the space-to-depth first conv; ``closed_loop_eval`` reads
+``safety_shield`` (``training/shield.py``).
 
 Everything runs on ``cfg.device`` (default ``"cuda"``; ``-o device=cpu``
 runs the plain versions on the CPU). Options that wait for unported modules
@@ -76,17 +81,23 @@ from carla_imitation_learning_tpu_torch.sim.planner import goal_setup
 from carla_imitation_learning_tpu_torch.sim.town import make_town_from_cfg, mirror_town
 from carla_imitation_learning_tpu_torch.sim.world import SimParams
 from carla_imitation_learning_tpu_torch.training import closed_loop as cl
-from carla_imitation_learning_tpu_torch.training.dagger import run_dagger, run_dagger_online
+from carla_imitation_learning_tpu_torch.training.dagger import (
+    run_dagger, run_dagger_online, run_dagger_uncertain,
+)
 from carla_imitation_learning_tpu_torch.training.loop import Trainer
 from carla_imitation_learning_tpu_torch.training.losses import (
     aux_loss_fn, aux_seg_loss_fn, bc_augmented_loss_fn, bc_loss_fn, cil_loss_fn,
     continuous_bc_loss_fn, dual_stream_loss_fn, vae_loss_fn,
 )
+from carla_imitation_learning_tpu_torch.training.rl import (
+    ActorCriticCNN, PPOConfig, actor_policy_params_from, ppo_train, warm_start_from_policy,
+)
+from carla_imitation_learning_tpu_torch.training.shield import shield_from_cfg
 from carla_imitation_learning_tpu_torch.training.steps import (
-    create_train_state, eval_params, flax_init_, make_optimizer, make_train_step,
+    AdamConfig, create_train_state, eval_params, flax_init_, make_optimizer, make_train_step,
 )
 from carla_imitation_learning_tpu_torch.utils.checkpoint import (
-    BestKCheckpointManager, restore_params, restore_pytree,
+    BestKCheckpointManager, restore_params, restore_pytree, save_pytree,
 )
 from carla_imitation_learning_tpu_torch.utils.logging import MetricLogger
 
@@ -161,7 +172,7 @@ def _check_one_device(cfg) -> None:
     """The port runs on one device: a mesh that asks for more raises."""
     axes = cfg.get_dotted("mesh.axes", {}) or {}
     if _flag(cfg, "mesh.enabled") or any(int(v) > 1 for v in axes.values()):
-        raise _not_ported("a mesh over more than one device", 12)
+        raise _not_ported("a mesh over more than one device", 6)
 
 
 def _trainer_bits(cfg, name: str):
@@ -233,13 +244,11 @@ def _discrete_policy_model(cfg, obs_size: int) -> PolicyCNN:
     """The discrete-family policy: the reference ConvNet1 shape."""
     arch = str(cfg.get("policy_arch", "cnn"))
     if arch == "vit":
-        raise _not_ported("policy_arch=vit", 9)
+        raise _not_ported("policy_arch=vit", 3)
     if arch != "cnn":
         raise ValueError(f"unknown policy_arch {arch!r} (want 'cnn' or 'vit')")
-    if _flag(cfg, "s2d_stem"):
-        raise _not_ported("s2d_stem", 3)
     return PolicyCNN(obs_size=obs_size, n_actions=int(cfg.get("n_actions", 9)),
-                     dtype=_dtype(cfg))
+                     dtype=_dtype(cfg), s2d_stem=_flag(cfg, "s2d_stem"))
 
 
 @experiment("split_folders")
@@ -576,12 +585,11 @@ def _policy_bits(cfg, checkpoint: str | None, height: int, width: int):
     rollout's speed and navigation command."""
     family = str(cfg.get("policy_family", "discrete"))
     if cfg.get("surround_cameras"):
-        raise _not_ported("surround_cameras", 10)
+        raise _not_ported("surround_cameras", 4)
     fs = int(cfg.get("frame_skip", 4))
     if family == "continuous":
-        if _flag(cfg, "s2d_stem"):
-            raise _not_ported("s2d_stem", 3)
-        model = ContinuousPolicyCNN(obs_size=fs, dtype=_dtype(cfg))
+        model = ContinuousPolicyCNN(obs_size=fs, dtype=_dtype(cfg),
+                                    s2d_stem=_flag(cfg, "s2d_stem"))
     elif family == "cil":
         model = BranchedCILPolicy(obs_size=fs, n_actions=int(cfg.get("n_actions", 9)),
                                   n_commands=int(cfg.get("n_commands", 6)), dtype=_dtype(cfg))
@@ -608,18 +616,19 @@ def _policy_bits(cfg, checkpoint: str | None, height: int, width: int):
 def closed_loop_eval(cfg, checkpoint: str | None = None, artifact: str | None = None,
                      n_envs: int = 64, n_steps: int = 200, **kw):
     """Driving metrics of a checkpoint's policy and of the expert on the
-    same initial fleet."""
+    same initial fleet. ``safety_shield=true`` puts the emergency-brake
+    layer (``training/shield.py``) over the policy's rollout, not the
+    expert's, and the policy's metrics gain its interventions."""
     if artifact:
-        raise _not_ported("artifact=", 11)
-    if _flag(cfg, "safety_shield"):
-        raise _not_ported("safety_shield", 8)
+        raise _not_ported("artifact=", 5)
     _check_one_device(cfg)
     dev = _device(cfg)
     town, params, rcfg = _sim_bits(cfg)
     policy_fn, _ = _policy_bits(cfg, checkpoint, rcfg.height, rcfg.width)
     policy = cl.evaluate_policy(params, town, rcfg, policy_fn, _generator(cfg),
                                 n_envs=n_envs, n_steps=n_steps,
-                                control_space=_control_space(cfg), device=dev)
+                                control_space=_control_space(cfg), device=dev,
+                                shield=shield_from_cfg(cfg))
     expert = cl.evaluate_policy(params, town, rcfg, None, _generator(cfg),
                                 n_envs=n_envs, n_steps=n_steps, device=dev)
     return {"policy": policy, "expert": expert}
@@ -663,7 +672,7 @@ def scenario_eval(cfg, checkpoint: str | None = None, artifact: str | None = Non
     and weather condition of ``SCENARIOS``, beside the expert's from the
     same fleet start as its ceiling."""
     if artifact:
-        raise _not_ported("artifact=", 11)
+        raise _not_ported("artifact=", 5)
     _check_one_device(cfg)
     names = (list(SCENARIOS) if scenarios in ("all", "", None)
              else [n.strip() for n in str(scenarios).split(",")])
@@ -714,7 +723,7 @@ def bc_cil(cfg, n_envs: int = 32, n_steps: int = 300, n_goals: int = 0, **kw):
     sampling by branch. The result carries the command histogram."""
     _check_one_device(cfg)
     if cfg.get("surround_cameras"):
-        raise _not_ported("surround_cameras", 10)
+        raise _not_ported("surround_cameras", 4)
     town, params, rcfg, goal_ids = _goal_bits(cfg, n_goals, n_envs)
     fs = int(cfg.get("frame_skip", 4))
     dev, gen, noise = _device(cfg), _generator(cfg), _noise_bits(cfg)
@@ -755,7 +764,7 @@ def bc_continuous(cfg, n_envs: int = 32, n_steps: int = 300, eval_envs: int = 64
     split 80/10/10, then drive the closed loop with continuous control."""
     _check_one_device(cfg)
     if cfg.get("surround_cameras"):
-        raise _not_ported("surround_cameras", 10)
+        raise _not_ported("surround_cameras", 4)
     town, params, rcfg = _sim_bits(cfg)
     fs = int(cfg.get("frame_skip", 4))
     dev, gen = _device(cfg), _generator(cfg)
@@ -801,7 +810,7 @@ def route_eval(cfg, checkpoint: str | None = None, artifact: str | None = None,
     then follows the planner's commands), from the same fleet start. The
     town gets turn fans, the planner's graph."""
     if artifact:
-        raise _not_ported("artifact=", 11)
+        raise _not_ported("artifact=", 5)
     _check_one_device(cfg)
     dev = _device(cfg)
     town, params, rcfg, goal_ids = _goal_bits(cfg, n_goals, n_envs)
@@ -865,3 +874,99 @@ def dagger_online(cfg, rounds: int = 3, n_envs: int = 16, n_steps: int = 200,
                              beta=float(cfg.get("beta", 0.0)),
                              speed_weight=float(cfg.get("speed_weight", 0.1)),
                              **_dagger_kw(cfg))
+
+
+@experiment("dagger_uncertain")
+def dagger_uncertain(cfg, rounds: int = 3, n_envs: int = 16, n_steps: int = 200,
+                     epochs_per_round: int = 3, ensemble: int = 4, tau: float = 0.25, **kw):
+    """Uncertainty-gated DAgger (``training.dagger.run_dagger_uncertain``): a
+    K-member ensemble drives by majority vote, the expert labels, and only
+    the states the ensemble disagreed on (disagreement ≥ ``tau``) train."""
+    _check_one_device(cfg)
+    town, params, rcfg = _sim_bits(cfg)
+    return run_dagger_uncertain(params, town, rcfg, _generator(cfg), rounds=rounds,
+                                n_envs=n_envs, n_steps=n_steps,
+                                epochs_per_round=epochs_per_round, ensemble=ensemble,
+                                tau=tau, batch_size=int(cfg.get("BATCH_SIZE", 64)),
+                                tx=make_optimizer(cfg, 1), dtype=_dtype(cfg),
+                                device=_device(cfg))
+
+
+def _ppo_config(cfg) -> PPOConfig:
+    """``PPOConfig`` with the config's ``rl_*`` overrides."""
+    d = PPOConfig()
+    return PPOConfig(
+        w_progress=float(cfg.get("rl_w_progress", d.w_progress)),
+        w_collision=float(cfg.get("rl_w_collision", d.w_collision)),
+        w_red=float(cfg.get("rl_w_red", d.w_red)),
+        w_offroad=float(cfg.get("rl_w_offroad", d.w_offroad)),
+        gamma=float(cfg.get("rl_gamma", d.gamma)),
+        gae_lambda=float(cfg.get("rl_gae_lambda", d.gae_lambda)),
+        clip_eps=float(cfg.get("rl_clip_eps", d.clip_eps)),
+        entropy_coef=float(cfg.get("rl_entropy_coef", d.entropy_coef)),
+        update_epochs=int(cfg.get("rl_update_epochs", d.update_epochs)),
+        num_minibatches=int(cfg.get("rl_num_minibatches", d.num_minibatches)),
+        learning_rate=float(cfg.get("rl_lr", d.learning_rate)),
+        max_grad_norm=float(cfg.get("rl_max_grad_norm", d.max_grad_norm)))
+
+
+@experiment("rl_finetune")
+def rl_finetune(cfg, checkpoint: str | None = None, n_envs: int = 256,
+                rollout_steps: int = 128, iterations: int = 20, eval_envs: int = 64,
+                eval_steps: int = 300, **kw):
+    """PPO fine-tuning on the driving objective (``training/rl.py``),
+    warm-started from a BC checkpoint (``checkpoint=``, through
+    ``_policy_bits``' restore) or from scratch; ``policy_family=continuous``
+    is the Gaussian actor (from a ``bc_continuous`` checkpoint). Reports the
+    deterministic actor's driving metrics before and after (the same
+    ``eval_envs`` × ``eval_steps`` fleet), the per-iteration PPO metrics and
+    ``score_delta``, and writes the actor as a ``PolicyCNN``-shaped
+    checkpoint under ``<log_dir>/rl_finetune/actor_params``."""
+    _check_one_device(cfg)
+    if len(cfg.get("surround_cameras") or ()) > 1:
+        raise ValueError(
+            "rl_finetune runs single-view PPO rollouts — surround_cameras "
+            "checkpoints can't warm-start it; re-train the rig policy with "
+            "bc/dagger surfaces or drop surround_cameras")
+    town, params, rcfg = _sim_bits(cfg)
+    dev = _device(cfg)
+    frame_skip = int(cfg.get("frame_skip", 4))
+    family = _control_space(cfg)
+    continuous = family == "continuous"
+    model = ActorCriticCNN(obs_size=frame_skip, n_actions=int(cfg.get("n_actions", 9)),
+                           dtype=_dtype(cfg), s2d_stem=_flag(cfg, "s2d_stem"),
+                           continuous=continuous)
+    model = flax_init_(model, _generator(cfg)).to(dev)
+    if checkpoint:
+        _, bc = _policy_bits(cfg, checkpoint, rcfg.height, rcfg.width)
+        warm_start_from_policy(model, bc)
+    pcfg = _ppo_config(cfg)
+    state = create_train_state(model, AdamConfig(schedule=lambda count: pcfg.learning_rate,
+                                                 clip=pcfg.max_grad_norm), device=dev)
+
+    @torch.no_grad()
+    def deterministic(obs):
+        out, _ = model(obs)
+        return out[0] if continuous else out.argmax(-1)
+
+    def evaluate():
+        return cl.evaluate_policy(params, town, rcfg, deterministic,
+                                  torch.Generator().manual_seed(int(cfg.get("seed", 0)) + 101),
+                                  n_envs=eval_envs, n_steps=eval_steps, control_space=family,
+                                  device=dev)
+
+    def report(i, m):
+        print(f"  ppo iter {i}: reward/step {m['reward_per_step']:+.4f} "
+              f"progress {m['progress_m_per_step']:.3f} m kl {m['approx_kl']:.4f} "
+              f"entropy {m['entropy']:.3f}", file=sys.stderr)
+
+    before = evaluate()
+    _, history = ppo_train(params, town, rcfg, state, _generator(cfg), n_envs=n_envs,
+                           rollout_steps=rollout_steps, iterations=iterations, cfg=pcfg,
+                           frame_skip=frame_skip, on_iteration=report, device=dev)
+    after = evaluate()
+    out = Path(cfg["log_dir"]) / "rl_finetune" / "actor_params"
+    save_pytree(out, {"params": actor_policy_params_from(model)})
+    return {"before": before, "after": after, "history": history,
+            "actor_checkpoint": str(out),
+            "score_delta": float(after["driving_score"] - before["driving_score"])}

@@ -7,6 +7,11 @@ and a skipped pool when it is smaller than the window. Compute runs in
 The public call takes NHWC, the closed loop's frame-window layout; the
 trunk permutes to NCHW inside and back before flattening, so the first
 Dense layer sees the JAX package's feature order.
+
+``s2d_stem=True`` gives the first conv its space-to-depth form: the input
+is zero-padded so the k7/s3 window extends to 9×9, 3×3 blocks fold into
+channels (C → 9C), and the conv becomes k3/s1 VALID on the folded layout
+(``s2d_stem_kernel`` converts standard-stem weights exactly).
 """
 
 from __future__ import annotations
@@ -32,28 +37,86 @@ STRIDES = (3, 1, 1, 1)
 POOLS = (3, 2, 2, 2)
 
 
+def space_to_depth_stem_input(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) → (B, (H+2)//3, (W+2)//3, 9C) for H, W ≥ 7: zero-pad so
+    a stride-3 9×9 window tiles exactly, then fold 3×3 blocks into channels
+    in (row, column, channel) order. A k7/s3 VALID conv on ``x`` equals a
+    k3/s1 VALID conv on this layout with ``s2d_stem_kernel``'s weight."""
+    b, h, w, c = x.shape
+    out_h, out_w = (h - 7) // 3 + 1, (w - 7) // 3 + 1
+    hp, wp = 3 * (out_h - 1) + 9, 3 * (out_w - 1) + 9
+    x = F.pad(x, (0, 0, 0, wp - w, 0, hp - h))
+    x = x.reshape(b, hp // 3, 3, wp // 3, 3, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, hp // 3, wp // 3, 9 * c)
+
+
+def s2d_stem_kernel(w7: torch.Tensor) -> torch.Tensor:
+    """Exact weight transform for the space-to-depth stem: a (O, C, 7, 7)
+    conv weight → (O, 9C, 3, 3). The kernel is zero-padded to 9×9 (the
+    padded taps meet the input's zero padding) and its 3×3 tap blocks fold
+    into the input channels in ``space_to_depth_stem_input``'s order."""
+    o, c = w7.shape[:2]
+    k9 = F.pad(w7, (0, 2, 0, 2)).reshape(o, c, 3, 3, 3, 3)   # (o, c, a, p, b, q)
+    return k9.permute(0, 3, 5, 1, 2, 4).reshape(o, 9 * c, 3, 3)
+
+
+def s2d_stem_kernel_inverse(w3: torch.Tensor) -> torch.Tensor:
+    """(O, 9C, 3, 3) space-to-depth stem weight → the (O, C, 7, 7) standard
+    weight it folds (its taps beyond 7 × 7, which only meet zero padding,
+    dropped): the first conv of an s2d trunk on a map smaller than 7."""
+    o, c = w3.shape[0], w3.shape[1] // 9
+    k9 = w3.reshape(o, 3, 3, c, 3, 3).permute(0, 3, 4, 1, 5, 2).reshape(o, c, 9, 9)
+    return k9[:, :, :7, :7]
+
+
+def convert_params_to_s2d(state_dict: dict, prefix: str = "trunk.") -> dict:
+    """A standard-stem policy state dict → the ``s2d_stem`` variant's (the
+    first conv's weight folded, everything else shared): checkpoint
+    migration without retraining."""
+    out = dict(state_dict)
+    key = f"{prefix}convs.0.weight"
+    out[key] = s2d_stem_kernel(state_dict[key])
+    return out
+
+
 class ConvTrunk(nn.Module):
     """Conv→ReLU→MaxPool ×4 trunk: the reference ConvNet1's channels by
-    default; ``DualStreamCNN`` passes its wider (32, 64, 128, 256)."""
+    default; ``DualStreamCNN`` passes its wider (32, 64, 128, 256).
+    ``s2d_stem`` makes the first conv the space-to-depth stem (weight
+    (16, 9C, 3, 3) under the same state-dict name); on a map smaller than
+    the k7 kernel it runs the standard SAME conv with the weight unfolded,
+    as the JAX package falls back to the standard stem there."""
 
     def __init__(self, in_channels: int = 4, dtype: torch.dtype = torch.bfloat16,
-                 channels: Sequence[int] = CHANNELS):
+                 channels: Sequence[int] = CHANNELS, s2d_stem: bool = False):
         super().__init__()
         chans = (in_channels,) + tuple(channels)
+        self.s2d_stem = s2d_stem
         self.convs = nn.ModuleList(
             nn.Conv2d(chans[i], chans[i + 1], KERNELS[i], stride=STRIDES[i])
             for i in range(len(KERNELS)))
+        if self.s2d_stem:
+            self.convs[0] = nn.Conv2d(9 * in_channels, chans[1], 3)
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, H, W, C) → (B, features) in ``dtype``."""
-        x = x.to(self.dtype).permute(0, 3, 1, 2)
-        for conv, k, s, p in zip(self.convs, KERNELS, STRIDES, POOLS):
+        x = x.to(self.dtype)
+        fold = self.s2d_stem and min(x.shape[1], x.shape[2]) >= KERNELS[0]
+        if fold:
+            x = space_to_depth_stem_input(x)
+        x = x.permute(0, 3, 1, 2)
+        for li, (conv, k, s, p) in enumerate(zip(self.convs, KERNELS, STRIDES, POOLS)):
+            weight = conv.weight
+            if li == 0 and fold:
+                k, s = 3, 1
+            elif li == 0 and self.s2d_stem:
+                weight = s2d_stem_kernel_inverse(weight)
             h, w = x.shape[2], x.shape[3]
             if min(h, w) < k:
                 ph, pw = _same_pads(h, k, s), _same_pads(w, k, s)
                 x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-            x = F.relu(F.conv2d(x, conv.weight.to(self.dtype),
+            x = F.relu(F.conv2d(x, weight.to(self.dtype),
                                 conv.bias.to(self.dtype), stride=s))
             if min(x.shape[2], x.shape[3]) >= p:
                 x = F.max_pool2d(x, p, stride=p)
@@ -83,12 +146,13 @@ class MLPHead(nn.Module):
 class PolicyCNN(nn.Module):
     """9-way discrete driving policy on a 4-frame grayscale stack:
     (B, H, W, obs_size) → (B, n_actions) float32 logits. The trunk flattens
-    to 128 features for every input from 32² to 256² (its last map is 1×1)."""
+    to 128 features for every input from 32² to 256² (its last map is 1×1);
+    ``s2d_stem`` is the trunk's space-to-depth first conv."""
 
     def __init__(self, obs_size: int = 4, n_actions: int = 9,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, s2d_stem: bool = False):
         super().__init__()
-        self.trunk = ConvTrunk(in_channels=obs_size, dtype=dtype)
+        self.trunk = ConvTrunk(in_channels=obs_size, dtype=dtype, s2d_stem=s2d_stem)
         self.head = MLPHead(128, (64, 32, n_actions), dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -102,9 +166,10 @@ class ContinuousPolicyCNN(nn.Module):
     the closed loop's ``control_space="continuous"`` contract. The state
     dict has ``PolicyCNN``'s names (a 2-way head)."""
 
-    def __init__(self, obs_size: int = 4, dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, obs_size: int = 4, dtype: torch.dtype = torch.bfloat16,
+                 s2d_stem: bool = False):
         super().__init__()
-        self.trunk = ConvTrunk(in_channels=obs_size, dtype=dtype)
+        self.trunk = ConvTrunk(in_channels=obs_size, dtype=dtype, s2d_stem=s2d_stem)
         self.head = MLPHead(128, (64, 32, 2), dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

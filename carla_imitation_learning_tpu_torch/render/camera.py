@@ -33,7 +33,7 @@ def camera_from_ego(ego_pos, ego_yaw, height: float = 1.6,
                     forward_offset: float = 0.5) -> Camera:
     """Forward dashboard camera mounted at the ego (B, 2)/(B,), looking
     along its heading, horizon level. (The JAX package's side and rear rig
-    presets wait for ROADMAP Queue 1 item 10.)"""
+    presets wait for ROADMAP Queue 1 item 4.)"""
     c, s = torch.cos(ego_yaw), torch.sin(ego_yaw)
     zero = torch.zeros_like(c)
     forward = torch.stack([c, s, zero], -1)

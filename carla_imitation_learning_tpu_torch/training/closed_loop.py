@@ -14,7 +14,10 @@ asks for textures), the supervision stream of segmentation collection.
 ``collect_dataset`` packs a rollout into a ``FrameStore`` for training;
 with a ``NoiseConfig`` it perturbs the executed steering with triangular
 impulses while the labels stay the clean driver's, and with a policy it is
-the DAgger aggregation step (``dagger_iteration``).
+the DAgger aggregation step (``dagger_iteration``). A ``ShieldConfig``
+(``training.shield``) puts the emergency-brake layer on the executed
+control, and ``lidar_beams`` records a planar range scan
+(``render.lidar``) of every step.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from carla_imitation_learning_tpu_torch.data.frame_log import StateLog
 from carla_imitation_learning_tpu_torch.data.pipeline import FrameStore
 from carla_imitation_learning_tpu_torch.device import resolve_device
 from carla_imitation_learning_tpu_torch.ops.raster import rasterize_exact_luma
+from carla_imitation_learning_tpu_torch.render.lidar import make_lidar
 from carla_imitation_learning_tpu_torch.render.pipeline import (
     RenderConfig, make_renderer, make_scene_setup,
 )
@@ -42,6 +46,7 @@ from carla_imitation_learning_tpu_torch.sim.world import (
     navigation_command, pick_fresh_packed, reset_env, sensor_vector, step_env,
     traffic_light_state,
 )
+from carla_imitation_learning_tpu_torch.training.shield import ShieldConfig, make_shield
 
 SPAWN_POOL_SEED = 0x5EED
 SPAWN_POOL_SIZE = 1024
@@ -143,7 +148,8 @@ def make_rollout(params: SimParams, town: TownMap, rcfg: RenderConfig,
                  device: str | torch.device = "cuda",
                  record_semantic: bool = False, noise: NoiseConfig | None = None,
                  control_space: str = "discrete",
-                 policy_rng: torch.Generator | None = None):
+                 policy_rng: torch.Generator | None = None,
+                 shield: ShieldConfig | None = None, lidar_beams: int = 0):
     """Build (init_fn, rollout_fn) for a single-camera fleet.
 
     ``policy_fn(obs)`` maps the NHWC float window (B, H, W, frame_skip) in
@@ -164,6 +170,12 @@ def make_rollout(params: SimParams, town: TownMap, rcfg: RenderConfig,
     ``rollout_fn`` call, to the executed steer (clipped to [-1, 1]);
     ``traj["clean_steer"]`` then holds the steer before the noise, and the
     labels and ``traj["action"]`` stay clean.
+    ``shield`` (a ``training.shield.ShieldConfig``) cuts throttle and
+    applies full brake on the executed control, before the steer noise,
+    when the forward fan sees a collision coming; ``traj["shield"]`` (T, B)
+    bool logs each intervention, and the labels stay the policy's own.
+    ``lidar_beams`` > 0 adds ``traj["lidar"]`` (T, B, lidar_beams): the
+    360° range scan (60 m) of the state before each step.
     ``spawn_pool`` is a packed (size, D) pool (``sim.world.pack_spawn_pool``
     layout, so the JAX package's pool can be passed in); None builds the
     default one. The renderer is forced onto the fast grayscale kernel with
@@ -192,6 +204,8 @@ def make_rollout(params: SimParams, town: TownMap, rcfg: RenderConfig,
         sem_setup = make_scene_setup(params, town, sem_rcfg, device=dev)
     pool = (rollout_spawn_pool(params, town) if spawn_pool is None
             else spawn_pool).to(dev)
+    shield_apply = None if shield is None else make_shield(town, shield)
+    lidar_scan = make_lidar(town, n_beams=lidar_beams) if lidar_beams > 0 else None
 
     @torch.no_grad()
     def init_fn(generator: torch.Generator, n_envs: int):
@@ -237,6 +251,9 @@ def make_rollout(params: SimParams, town: TownMap, rcfg: RenderConfig,
             else:
                 action = res.to(torch.int64)
                 control = control_from_discrete(action)
+        shield_on = None
+        if shield_apply is not None:
+            control, shield_on = shield_apply(states, control)
         clean_steer = None
         if steer_noise is not None:
             clean_steer = control.steer
@@ -267,10 +284,14 @@ def make_rollout(params: SimParams, town: TownMap, rcfg: RenderConfig,
             _, sem, _ = rasterize_exact_luma(sem_setup(states), rcfg.height, rcfg.width,
                                              near=rcfg.near, far=rcfg.far)
             out["semantic"] = sem.to(torch.uint8)
+        if lidar_scan is not None:
+            out["lidar"] = lidar_scan(states)
         if policy_extra is not None:
             out["policy_extra"] = policy_extra
         if clean_steer is not None:
             out["clean_steer"] = clean_steer
+        if shield_on is not None:
+            out["shield"] = shield_on
         return (new_states, framebuf, info["done"]), out
 
     @torch.no_grad()
@@ -328,7 +349,7 @@ def collect_dataset(params: SimParams, town: TownMap, rcfg: RenderConfig,
     trajectory stays on the device until one host copy per field."""
     if tuple(cameras) != ("camera",):
         raise NotImplementedError(
-            "multi-camera collection is not ported yet (ROADMAP Queue 1 item 10)")
+            "multi-camera collection is not ported yet (ROADMAP Queue 1 item 4)")
     init_fn, rollout_fn = make_rollout(params, town, rcfg, policy_fn, frame_skip,
                                        device=device, record_semantic=record_semantic,
                                        noise=noise, control_space=control_space)
@@ -391,14 +412,17 @@ def evaluate_policy(params: SimParams, town: TownMap, rcfg: RenderConfig,
                     n_envs: int = 64, n_steps: int = 200, frame_skip: int = 4,
                     spawn_pool: torch.Tensor | None = None,
                     control_space: str = "discrete",
-                    device: str | torch.device = "cuda") -> dict:
+                    device: str | torch.device = "cuda",
+                    shield: ShieldConfig | None = None) -> dict:
     """Driving metrics for a policy (or the expert when ``policy_fn`` is
     None): raw per-step rates plus the CARLA-leaderboard-style composite —
     per env stream, route completion (odometer and along-route) times the
-    infraction penalty 0.60^collisions · 0.65^offroads · 0.70^red-runs."""
+    infraction penalty 0.60^collisions · 0.65^offroads · 0.70^red-runs.
+    With a ``shield`` the rollout runs under it and the metrics gain its
+    interventions per km and active share."""
     init_fn, rollout_fn = make_rollout(params, town, rcfg, policy_fn, frame_skip,
                                        spawn_pool=spawn_pool, device=device,
-                                       control_space=control_space)
+                                       control_space=control_space, shield=shield)
     _, traj = rollout_fn(init_fn(generator, n_envs), n_steps)
     return driving_metrics(params, traj)
 
@@ -498,7 +522,7 @@ def driving_metrics(params: SimParams, traj: dict) -> dict:
     steer_cmd = traj["steer"].astype(np.float64)
     dsteer = np.abs(np.diff(steer_cmd, axis=0))
     valid = ~done[:-1]
-    return {
+    out = {
         "mean_speed": float(speed.mean()),
         "steer_rate": float((dsteer * valid).sum() / max(valid.sum(), 1)),
         "collisions_per_1k_steps": float(coll.sum()) / steps * 1000,
@@ -519,3 +543,8 @@ def driving_metrics(params: SimParams, traj: dict) -> dict:
         "route_completion_arc": float(arc_completion.mean()),
         "driving_score_arc": float((arc_completion * penalty).mean()),
     }
+    if "shield" in traj:
+        interventions = float(traj["shield"].astype(bool).sum())
+        out["shield_interventions_per_km"] = per_km(interventions)
+        out["shield_active_frac"] = interventions / steps
+    return out

@@ -305,16 +305,19 @@ def run_dagger_uncertain(params: SimParams, town: TownMap, rcfg: RenderConfig,
                          generator: torch.Generator, rounds: int = 3, n_envs: int = 16,
                          n_steps: int = 200, epochs_per_round: int = 3, ensemble: int = 4,
                          tau: float = 0.25, batch_size: int = EXPERIMENT_CFG["BATCH_SIZE"],
+                         tx: AdamConfig | None = None, dtype: torch.dtype = torch.bfloat16,
                          device: str | torch.device = "cuda") -> dict:
     """The ``dagger_uncertain`` experiment: a K-member ensemble drives by
     majority vote and the expert labels. Round 0 is an expert collection
     that trains on every window; later rounds keep only the windows whose
     labelled frame the ensemble disagreed on (disagreement ≥ ``tau``), or
     the whole round when none did, through ``DeviceDataset(sample_mask=)``.
-    The members train together, one step each per shared batch."""
+    The members (``PolicyCNN`` computing in ``dtype``) train together, one
+    step each per shared batch, with ``tx`` (``experiment_optimizer()``
+    when None)."""
     dev = resolve_device(device)
-    members = [flax_init_(PolicyCNN(), generator) for _ in range(ensemble)]
-    ens = Ensemble(members, experiment_optimizer(), device=dev)
+    members = [flax_init_(PolicyCNN(dtype=dtype), generator) for _ in range(ensemble)]
+    ens = Ensemble(members, tx or experiment_optimizer(), device=dev)
     stores, masks, history = [], [], []
     for rnd in range(rounds):
         if rnd == 0:

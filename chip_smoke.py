@@ -101,6 +101,21 @@ Phases (any failure exits nonzero, with no result line):
    (each loss falls, no kernel launched); one fp32 step of the AuxNet seg,
    dual-stream, VAE (fixed noise) and augmented BC (fixed draws) losses on
    the card and on the CPU against float64;
+6h. PPO, the safety shield, the LIDAR and the s2d stem (``rl_safety_phase``),
+   counts reset just before ``run rl_finetune -o experiment=rl_finetune``
+   through the CLI, warm-started from 6d's ``bc`` checkpoint: the preset's
+   256 envs × 128 steps and 8 minibatches of 4096 windows, cut to 4 of its
+   20 iterations and evaluated at 128 envs × 100 of its 300 steps (every
+   PPO metric finite; kernel B launched exactly 1 + 4 × 128 + 2 × 101
+   times), per iteration rollout and update seconds; one PPO minibatch step
+   in fp32 on the card and on the CPU against float64, for both actors;
+   ``run closed_loop_eval -o safety_shield=true`` at 256 × 100 from the
+   same checkpoint (interventions > 0, the expert unshielded), the labels
+   unchanged by the shield, and its mask on the card equal to the CPU's on
+   8 envs × 16 steps; the 360-beam LIDAR channel at 1024 envs (marginal ms
+   per step with and without; card vs CPU within 1e-5 relative); the s2d
+   stem's forward against the standard stem at 1024 × 128² (fp32 within
+   1e-4, bf16 within 2 % of the logits' scale, both timed);
 7. the rich fleet (same town and envs, the rich128 preset: facade bands,
    markings, shadows, textures, T=1408) from three seeds: kernel A's
    textured variant (C=1 and C=3), kernel B on the rich lists (2 px and 0
@@ -202,6 +217,17 @@ AUX_IMG = 256                                 # the file-backed runs' frames (th
 AUX_FILE_FRAMES, AUX_FILE_EPOCHS = 640, 3     # the synthetic log of the file runs (a gate)
 AUX_VAE_FRAMES = 120                          # per log, six logs at 224²
 AUX_CROSS_BATCH = 8                           # the card-vs-CPU steps
+# The rl_safety phase: ``run rl_finetune -o experiment=rl_finetune`` (256 envs ×
+# 128 steps, 4 epochs × 8 minibatches) cut to 4 of its 20 iterations and to
+# 100 of its 300 evaluation steps
+RL_ENVS, RL_STEPS, RL_EPOCHS, RL_MINIBATCHES = 256, 128, 4, 8   # the preset's (a check)
+RL_ITERATIONS, RL_EVAL_ENVS, RL_EVAL_STEPS = 4, 128, 100
+RL_CROSS_ENVS, RL_CROSS_STEPS = 32, 8          # the card-vs-CPU PPO step: 256 windows
+SHIELD_ENVS, SHIELD_STEPS = 256, 100           # closed_loop_eval -o safety_shield=true
+SHIELD_CROSS_ENVS, SHIELD_CROSS_STEPS = 8, 16  # the shield's mask on the card vs the CPU
+LIDAR_BEAMS, LIDAR_SHORT, LIDAR_LONG, LIDAR_REPEATS = 360, 8, 24, 3
+LIDAR_CROSS_ENVS = 8
+S2D_BATCH, S2D_REPS = 1024, 20                 # the s2d stem's forward at 1024 × 128²
 LANES_PER_SM = 128       # lane-instructions an SM issues per clock (4 × 32)
 HBM_RATE = 3.35e12       # H100 SXM device memory, B/s
 WARP_TILE = 16           # kernels A and B cull per 16 × 16 pixel warp tile
@@ -667,10 +693,13 @@ def run(args) -> dict:
                                          keep=Path(keep))
         torch.cuda.empty_cache()
         paths["scenarios"] = scenarios_phase(dev, Path(keep) / "best")
-    torch.cuda.empty_cache()
-    paths["routes"] = routes_phase(dev, profile=args.profile is not None)
-    torch.cuda.empty_cache()
-    paths["aux_vae"] = aux_vae_phase(dev)
+        torch.cuda.empty_cache()
+        paths["routes"] = routes_phase(dev, profile=args.profile is not None)
+        torch.cuda.empty_cache()
+        paths["aux_vae"] = aux_vae_phase(dev)
+        torch.cuda.empty_cache()
+        paths["rl_safety"] = rl_safety_phase(dev, Path(keep) / "best",
+                                             profile=args.profile is not None)
     # the rich phases allocate gigabytes of temporaries; they run after the
     # main path has been timed
     rich, b_rich_err = rich_kernels(params, town, dev, rows, rate, facts)
@@ -3103,6 +3132,344 @@ def aux_vae_phase(dev) -> dict:
     log(json.dumps({"aux_vae": res}))
     torch.cuda.empty_cache()
     return launches
+
+
+def _face_agent(states, town, env: int, gap: float, speed: float):
+    """``states`` with env ``env``'s ego ``gap`` m west of its agent 0,
+    facing it (+x) at ``speed`` m/s: inside the shield's envelope."""
+    import torch
+
+    from carla_imitation_learning_tpu_torch.sim.agents import agent_positions
+
+    ap, _ = agent_positions(town, states.agents_route, states.agents_s)
+    pos, yaw, v = states.ego_pos.clone(), states.ego_yaw.clone(), states.ego_v.clone()
+    pos[env] = ap[env, 0] - torch.tensor([gap, 0.0], device=pos.device)
+    yaw[env], v[env] = 0.0, speed
+    return states.replace(ego_pos=pos, ego_yaw=yaw, ego_v=v)
+
+
+def ppo_step_inputs(params, town, dev, continuous: bool, gen):
+    """A PPO minibatch of RL_CROSS_ENVS × RL_CROSS_STEPS windows: the frames
+    and resets of an expert rollout on the card (windows rebuilt by
+    ``window_sources``), actions (the categorical's indices or raw Gaussian
+    draws), old log-probabilities and values, advantages and returns drawn
+    from ``gen`` — what ``ppo_loss_fn`` takes."""
+    import torch
+
+    from carla_imitation_learning_tpu_torch.render.pipeline import RenderConfig
+    from carla_imitation_learning_tpu_torch.training import rl
+    from carla_imitation_learning_tpu_torch.training.closed_loop import make_rollout
+
+    init_fn, rollout_fn = make_rollout(params, town, RenderConfig(height=HW, width=HW,
+                                                                   max_triangles=T),
+                                       None, device=dev)
+    carry = init_fn(torch.Generator().manual_seed(21), RL_CROSS_ENVS)
+    _, traj = rollout_fn(carry, RL_CROSS_STEPS)
+    n = RL_CROSS_ENVS * RL_CROSS_STEPS
+    obs = rl.gather_windows(traj["gray"], rl.window_sources(traj["done"]),
+                            torch.arange(n, device=dev)).cpu()
+    action = (torch.randn(n, 2, generator=gen) if continuous
+              else torch.randint(0, 9, (n,), generator=gen))
+    old_logp = -torch.rand(n, generator=gen) * 3.0
+    value = torch.randn(n, generator=gen)
+    adv = torch.randn(n, generator=gen)
+    return obs, action, old_logp, adv, value + adv, value
+
+
+def rl_safety_phase(dev, checkpoint: Path, profile: bool = False) -> dict:
+    """Phase 6h: PPO fine-tuning, the safety shield, the LIDAR and the s2d
+    stem on the card, counts reset just before part (a).
+
+    a. ``run rl_finetune -o experiment=rl_finetune`` through the CLI,
+       warm-started from ``checkpoint`` (6d's ``bc`` at 128²): the preset's
+       256 envs × 128 steps, 4 epochs × 8 minibatches of 4096 windows, cut
+       to RL_ITERATIONS of its 20 iterations and evaluated at RL_EVAL_ENVS
+       × RL_EVAL_STEPS (the preset's 128 envs, 100 of its 300 steps). Every
+       PPO metric finite; kernel B launched exactly 1 + iterations ×
+       rollout steps + 2 × (evaluation steps + 1) times (the fleet's first
+       frame, every rollout step, both evaluations and their first
+       frames). Per iteration: rollout s and update s (each ended by a
+       device sync), env-steps/s and ms per minibatch step; with
+       ``profile``, one update under torch.profiler (launches, idle share);
+    b. one PPO minibatch step in fp32 (TF32 off) on the card and on the CPU,
+       each against float64 (``step_card_vs_cpu``), for the categorical and
+       the Gaussian actor-critic;
+    c. ``run closed_loop_eval -o safety_shield=true`` at SHIELD_ENVS ×
+       SHIELD_STEPS from the same ``bc`` checkpoint: interventions > 0 on the
+       policy's rollout, none reported for the expert's; from one carry the
+       first step's labels are equal with the shield on and off; on
+       SHIELD_CROSS_ENVS envs over SHIELD_CROSS_STEPS steps of a
+       full-throttle policy (env 0 facing an agent 6 m away at 8 m/s) the
+       shield's mask is equal on the card and on the CPU;
+    d. ``make_rollout(lidar_beams=360)`` of the expert at N_ENVS envs:
+       marginal ms per step with and without the scan (between LIDAR_SHORT
+       and LIDAR_LONG steps, median of LIDAR_REPEATS pairs), and the scan of
+       LIDAR_CROSS_ENVS envs on the card against the CPU within 1e-5
+       relative;
+    e. ``PolicyCNN(s2d_stem=True)`` with ``convert_params_to_s2d`` weights
+       against the standard stem at S2D_BATCH × 128²: fp32 (TF32 off)
+       logits within 1e-4, bf16 within 2 % of the largest |logit|, and
+       both bf16 forwards timed with CUDA events.
+    Prints one ``rl_safety`` line; → the phase's launch counts."""
+    import math
+
+    import torch
+
+    from carla_imitation_learning_tpu_torch.models import PolicyCNN
+    from carla_imitation_learning_tpu_torch.models.cnn import convert_params_to_s2d
+    from carla_imitation_learning_tpu_torch.render.lidar import make_lidar
+    from carla_imitation_learning_tpu_torch.render.pipeline import RenderConfig
+    from carla_imitation_learning_tpu_torch.sim.world import reset_env
+    from carla_imitation_learning_tpu_torch.training import rl
+    from carla_imitation_learning_tpu_torch.training.closed_loop import (
+        make_rollout, rollout_spawn_pool,
+    )
+    from carla_imitation_learning_tpu_torch.training.shield import ShieldConfig
+    from carla_imitation_learning_tpu_torch.utils.checkpoint import restore_params
+
+    from carla_imitation_learning_tpu_torch.config import compose
+
+    t_phase = time.perf_counter()
+    res: dict = {"card": nvidia_smi()}
+    preset = compose("config", overrides=["experiment=rl_finetune"])
+    ppo = rl.PPOConfig()
+    check((preset["n_envs"], preset["rollout_steps"], preset["eval_envs"], ppo.update_epochs,
+           ppo.num_minibatches) == (RL_ENVS, RL_STEPS, RL_EVAL_ENVS, RL_EPOCHS, RL_MINIBATCHES),
+          "the rl_safety phase no longer runs the rl_finetune preset's width")
+    params, town = bench_fleet(dev)
+    rcfg = RenderConfig(height=HW, width=HW, max_triangles=T)
+    cpu = torch.device("cpu")
+
+    # a. PPO fine-tuning through the CLI
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rl_") as tmp:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = cli_run("-o", "experiment=rl_finetune", "--checkpoint", str(checkpoint),
+                      "-o", f"log_dir={tmp}", "-o", f"n_envs={RL_ENVS}",
+                      "-o", f"rollout_steps={RL_STEPS}", "-o", f"iterations={RL_ITERATIONS}",
+                      "-o", f"rl_update_epochs={RL_EPOCHS}",
+                      "-o", f"rl_num_minibatches={RL_MINIBATCHES}",
+                      "-o", f"eval_envs={RL_EVAL_ENVS}", "-o", f"eval_steps={RL_EVAL_STEPS}")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {"rl_finetune": read_counts()}
+        check(Path(out["actor_checkpoint"]).is_dir(), "rl_finetune wrote no actor checkpoint")
+    hist = out["history"]
+    check(len(hist) == RL_ITERATIONS and all(math.isfinite(v) for h in hist for v in h.values()),
+          f"rl_finetune: non-finite PPO metrics {hist}")
+    for who in ("before", "after"):
+        check(out[who]["env_steps"] == RL_EVAL_ENVS * RL_EVAL_STEPS
+              and math.isfinite(out[who]["driving_score"]), f"rl_finetune {who}: {out[who]}")
+    want_b = 1 + RL_ITERATIONS * RL_STEPS + 2 * (RL_EVAL_STEPS + 1)
+    got = launches["rl_finetune"]
+    check(got["B"] == want_b, f"rl_finetune: kernel B launched {got['B']} times, "
+          f"the code implies {want_b}")
+    check(got["A"] + got["A-tex"] + got["C"] + got["D"] == 0,
+          f"rl_finetune launched a kernel it does not run: {got}")
+    steps_per_update = RL_EPOCHS * RL_MINIBATCHES
+    iters = []
+    for h in hist:
+        row = {"iteration": h["iteration"], "rollout_s": h["rollout_seconds"],
+               "update_s": h["update_seconds"], "env_steps_per_s": h["env_steps_per_sec"],
+               "ms_per_minibatch_step": h["update_seconds"] / steps_per_update * 1e3,
+               "reward_per_step": h["reward_per_step"], "approx_kl": h["approx_kl"],
+               "entropy": h["entropy"], "clip_frac": h["clip_frac"]}
+        iters.append(row)
+        log(f"ppo iter {row['iteration']}: rollout {row['rollout_s']:.3f} s, update "
+            f"{row['update_s']:.3f} s ({row['ms_per_minibatch_step']:.2f} ms a minibatch step), "
+            f"{row['env_steps_per_s']:.0f} env-steps/s, reward/step {row['reward_per_step']:+.4f}")
+    res["rl_finetune"] = {
+        "n_envs": RL_ENVS, "rollout_steps": RL_STEPS, "iterations": RL_ITERATIONS,
+        "minibatch_windows": RL_ENVS * RL_STEPS // RL_MINIBATCHES,
+        "eval": [RL_EVAL_ENVS, RL_EVAL_STEPS], "run_seconds": run_s, "iterations_detail": iters,
+        "before": out["before"]["driving_score"], "after": out["after"]["driving_score"],
+        "score_delta": out["score_delta"], "launches": got, "launches_b_expected": want_b}
+    if profile:
+        res["rl_finetune"]["update_profile"] = profile_ppo_update(params, town, rcfg, dev)
+
+    # b. one PPO minibatch step, card and CPU against float64
+    gen = torch.Generator().manual_seed(8)
+    cross = {}
+    for family in ("discrete", "continuous"):
+        cont = family == "continuous"
+        batch = ppo_step_inputs(params, town, dev, cont, gen)
+        r = step_card_vs_cpu(f"ppo_{family}_card_vs_cpu", rl.ppo_loss_fn(rl.PPOConfig()),
+                             batch, dev, require_clip=False,
+                             model_fn=lambda dtype, c=cont: rl.ActorCriticCNN(dtype=dtype,
+                                                                             continuous=c))
+        cross[family] = {k: r[k] for k in (
+            "loss_rel_err_card", "loss_rel_err_cpu", "grad_max_rel_err_card",
+            "grad_max_rel_err_cpu", "params_off_card", "params_off_cpu", "grad_norm")}
+    res["ppo_card_vs_cpu"] = cross
+
+    # c. the shield
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    ev = cli_run("closed_loop_eval", "--checkpoint", str(checkpoint), "-o", "safety_shield=true",
+                 "-o", f"n_envs={SHIELD_ENVS}", "-o", f"n_steps={SHIELD_STEPS}")
+    torch.cuda.synchronize()
+    launches["closed_loop_eval_shield"] = read_counts()
+    pm, em = ev["policy"], ev["expert"]
+    check(pm["shield_active_frac"] > 0 and (pm["shield_interventions_per_km"] or 0) > 0,
+          f"shielded closed_loop_eval: no intervention ({pm['shield_active_frac']})")
+    check(not any(k.startswith("shield_") for k in em), "the expert's rollout was shielded")
+    check(launches["closed_loop_eval_shield"]["B"] == 2 * (SHIELD_STEPS + 1),
+          "shielded closed_loop_eval did not render every step with kernel B")
+    model = PolicyCNN().to(dev)
+    model.load_state_dict(restore_params(checkpoint, model.state_dict()))
+
+    @torch.no_grad()
+    def argmax_policy(obs):
+        return model(obs).argmax(-1)
+
+    first = []
+    carry0 = None
+    for sh in (ShieldConfig(), None):
+        init_fn, rollout_fn = make_rollout(params, town, rcfg, argmax_policy, device=dev,
+                                           shield=sh)
+        if carry0 is None:
+            carry0 = init_fn(torch.Generator().manual_seed(31), SHIELD_ENVS)
+            carry0 = (_face_agent(carry0[0], town, 0, 6.0, 8.0),) + carry0[1:]
+        _, traj = rollout_fn(carry0, 1)
+        first.append(traj)
+    check(bool(first[0]["shield"][0].any()), "the shield did not act on the first step")
+    check(torch.equal(first[0]["action"], first[1]["action"]),
+          "the shield changed the recorded labels")
+    on = first[0]["shield"][0]
+    check(bool((first[0]["brake"][0][on] == 1.0).all() and (first[0]["throttle"][0][on] == 0.0)
+               .all()) and torch.equal(first[0]["steer"], first[1]["steer"]),
+          "the shield's executed control is not full brake with the steer unchanged")
+    pool = rollout_spawn_pool(params, town.to(cpu))
+    masks = []
+
+    def full_throttle(obs):
+        return torch.full((obs.shape[0],), 7, dtype=torch.int64, device=obs.device)
+
+    for d in (dev, cpu):
+        init_fn, rollout_fn = make_rollout(params, town, rcfg, full_throttle, spawn_pool=pool,
+                                           device=d, shield=ShieldConfig())
+        states, framebuf, just_reset = init_fn(torch.Generator().manual_seed(32),
+                                               SHIELD_CROSS_ENVS)
+        carry = (_face_agent(states, town.to(d), 0, 6.0, 8.0), framebuf, just_reset)
+        _, traj = rollout_fn(carry, SHIELD_CROSS_STEPS)
+        masks.append((traj["shield"].cpu(), traj["speed"].cpu()))
+    check(torch.equal(masks[0][0], masks[1][0]), "the shield's mask differs on the card and CPU")
+    res["shield"] = {
+        "closed_loop_eval": {"n_envs": SHIELD_ENVS, "steps": SHIELD_STEPS,
+                             "policy_driving_score": pm["driving_score"],
+                             "expert_driving_score": em["driving_score"],
+                             "interventions_per_km": pm["shield_interventions_per_km"],
+                             "active_frac": pm["shield_active_frac"],
+                             "policy_collisions_per_km": pm["collisions_per_km"],
+                             "launches": launches["closed_loop_eval_shield"]},
+        "first_step_interventions": int(first[0]["shield"][0].sum()),
+        "card_vs_cpu": {"envs": SHIELD_CROSS_ENVS, "steps": SHIELD_CROSS_STEPS,
+                        "interventions": int(masks[0][0].sum()),
+                        "speed_max_abs_diff": float((masks[0][1] - masks[1][1]).abs().max())}}
+    del first, model
+
+    # d. the LIDAR channel
+    torch.cuda.synchronize()
+    reset_counts()
+    rates = {}
+    for beams in (0, LIDAR_BEAMS):
+        init_fn, rollout_fn = make_rollout(params, town, rcfg, None, device=dev,
+                                           lidar_beams=beams)
+        carry = init_fn(torch.Generator().manual_seed(41), N_ENVS)
+        carry, deltas = marginal(rollout_fn, carry, LIDAR_SHORT, LIDAR_LONG, LIDAR_REPEATS)
+        rates[beams] = sorted(deltas)[len(deltas) // 2] * 1e3
+        if beams:
+            _, traj = rollout_fn(carry, 1)
+            check(tuple(traj["lidar"].shape) == (1, N_ENVS, beams)
+                  and bool(torch.isfinite(traj["lidar"]).all()), "lidar channel")
+        del carry
+    launches["lidar"] = read_counts()
+    scans = []
+    for d in (dev, cpu):
+        states = reset_env(params, town.to(d), torch.Generator().manual_seed(42),
+                           LIDAR_CROSS_ENVS)
+        scans.append(make_lidar(town.to(d), n_beams=LIDAR_BEAMS)(states).cpu())
+    lidar_rel = float(((scans[0] - scans[1]).abs() / scans[1]).max())
+    check(lidar_rel <= 1e-5, f"lidar card vs CPU: {lidar_rel:.3e} relative")
+    res["lidar"] = {"n_envs": N_ENVS, "beams": LIDAR_BEAMS,
+                    "ms_per_step_without": rates[0], "ms_per_step_with": rates[LIDAR_BEAMS],
+                    "scan_ms_per_step": rates[LIDAR_BEAMS] - rates[0],
+                    "card_vs_cpu_max_rel": lidar_rel,
+                    "hits_below_range": float((scans[0] < 60.0).float().mean())}
+
+    # e. the space-to-depth stem
+    torch.manual_seed(0)
+    std32 = PolicyCNN(dtype=torch.float32).to(dev).eval()
+    s2d32 = PolicyCNN(dtype=torch.float32, s2d_stem=True).to(dev).eval()
+    s2d32.load_state_dict(convert_params_to_s2d(std32.state_dict()))
+    x = torch.randint(0, 256, (S2D_BATCH, HW, HW, 4), dtype=torch.uint8,
+                      generator=torch.Generator().manual_seed(9)).to(dev).float() / 255
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            f32_err = float((s2d32(x) - std32(x)).abs().max())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    std16, s2d16 = PolicyCNN().to(dev).eval(), PolicyCNN(s2d_stem=True).to(dev).eval()
+    std16.load_state_dict(std32.state_dict())
+    s2d16.load_state_dict(s2d32.state_dict())
+    with torch.no_grad():
+        ref = std16(x)
+        bf16_err = float((s2d16(x) - ref).abs().max())
+        scale = float(ref.abs().max())
+        ms = {"standard": cuda_ms(lambda: std16(x), reps=S2D_REPS),
+              "s2d": cuda_ms(lambda: s2d16(x), reps=S2D_REPS)}
+    check(f32_err <= 1e-4, f"s2d stem fp32 logits off the standard stem's by {f32_err:.3e}")
+    check(bf16_err <= 0.02 * scale, f"s2d stem bf16 logits off by {bf16_err:.3e} "
+          f"(largest |logit| {scale:.3e})")
+    res["s2d_stem"] = {"batch": S2D_BATCH, "hw": HW, "fp32_max_abs_err": f32_err,
+                       "bf16_max_abs_err": bf16_err, "bf16_logit_scale": scale,
+                       "forward_ms_bf16": ms}
+    log(f"s2d stem: bf16 forward {ms['s2d']:.3f} ms vs standard {ms['standard']:.3f} ms at "
+        f"{S2D_BATCH} × {HW}²; max|d| fp32 {f32_err:.2e}, bf16 {bf16_err:.2e}")
+    del x, std16, s2d16, std32, s2d32
+
+    total = {k: sum(c[k] for c in launches.values()) for k in counters()}
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t_phase
+    res["max_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(json.dumps({"rl_safety": res}))
+    torch.cuda.empty_cache()
+    return total
+
+
+def profile_ppo_update(params, town, rcfg, dev) -> dict:
+    """torch.profiler over one PPO update (RL_EPOCHS × RL_MINIBATCHES
+    steps) on a rollout of RL_ENVS × RL_STEPS of a fresh bf16 actor:
+    launches, device busy ms and idle share of the update's host-clock
+    window, by kernel group (``profile_train_step``)."""
+    import torch
+
+    from carla_imitation_learning_tpu_torch.training import rl
+    from carla_imitation_learning_tpu_torch.training.closed_loop import make_rollout
+    from carla_imitation_learning_tpu_torch.training.steps import (
+        AdamConfig, create_train_state,
+    )
+
+    cfg = rl.PPOConfig()
+    state = create_train_state(rl.ActorCriticCNN(), AdamConfig(
+        schedule=lambda c: cfg.learning_rate, clip=cfg.max_grad_norm),
+        generator=torch.Generator().manual_seed(0), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    init_fn, rollout_fn = make_rollout(params, town, rcfg, rl.make_actor(state.model), device=dev,
+                                       policy_rng=gen)
+    carry, traj = rollout_fn(init_fn(torch.Generator().manual_seed(0), RL_ENVS), RL_STEPS,
+                             policy_params=state.model)
+    update = rl.make_ppo_update(state, cfg)
+    last = rl.bootstrap_value(state.model, carry)
+    prof = profile_train_step(lambda st, order: update(traj, last, gen), state,
+                              range(RL_EPOCHS * RL_MINIBATCHES))
+    del traj
+    return {k: prof[k] for k in ("wall_ms_per_step", "device_busy_ms_per_step",
+                                 "device_idle_share", "device_launches_per_step", "groups")}
 
 
 def marginal(rollout_fn, carry, short: int, long: int, repeats: int):

@@ -6,7 +6,8 @@ package's ``from_raw_camera`` reads to the port's store, bit for bit, and a
 packed store equal to it; ``bc`` on that log and ``closed_loop_eval`` from
 the saved checkpoint; the policy families (``bc_cil`` then ``route_eval``
 of its checkpoint, ``bc_continuous``, goal-directed and continuous DAgger)
-at toy size; the options that wait for other modules raise."""
+at toy size; ``dagger_uncertain`` through the CLI with the JAX
+experiment's result keys; the options that wait for other modules raise."""
 
 import contextlib
 import fcntl
@@ -16,6 +17,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from carla_imitation_learning_tpu import compose as j_compose
 from carla_imitation_learning_tpu.data import pipeline as j_pipe
@@ -25,6 +27,7 @@ from carla_imitation_learning_tpu_torch import experiments as ex
 from carla_imitation_learning_tpu_torch.config import compose as p_compose
 from carla_imitation_learning_tpu_torch.data import frame_log as p_fl
 from carla_imitation_learning_tpu_torch.data import pipeline as p_pipe
+from carla_imitation_learning_tpu_torch.sim.world import SimParams
 
 CONFIG_DIR = Path(ex.__file__).resolve().parent / "configs"
 PRESETS = sorted(p.stem for p in (CONFIG_DIR / "experiment").glob("*.yaml"))
@@ -50,7 +53,10 @@ def jax_native_library():
     [], ["model=imitation"], ["model=imitation", "trainer=debug_trainer", "BATCH_SIZE=8",
                               "sim.n_envs=16", "render.fog_density=0.01", "new_key=[1, 2]",
                               "bc_cameras=['camera']", "mesh.axes.model=1"],
-] + [["model=imitation", f"experiment={p}"] for p in PRESETS],
+] + [["model=imitation", f"experiment={p}"] for p in PRESETS]
+  + [["model=cil", "experiment=bc_cil"], ["model=imitation", "render=rich128"],
+     ["model=imitation", "render=foggy128"], ["model=imitation", "sim=town_busy"],
+     ["model=imitation", "sim=town_curved"], ["model=imitation", "sim=town_turns"]],
     ids=lambda o: ",".join(o) or "defaults")
 def test_compose_matches_jax(overrides):
     assert p_compose("config", overrides=overrides).to_dict() == \
@@ -60,14 +66,17 @@ def test_compose_matches_jax(overrides):
 def test_presets_are_the_ported_experiments():
     assert PRESETS == ["bc", "bc_augmented", "bc_aux", "bc_aux_seg", "bc_cil",
                        "bc_continuous", "bc_raw_segment", "bc_streaming", "closed_loop_eval",
-                       "collect", "dagger", "dagger_online", "route_eval", "scenario_eval",
-                       "split_folders", "test_eval", "vae_leave_one_out", "vae_pooled"]
+                       "collect", "collect_noise", "dagger", "dagger_online",
+                       "dagger_uncertain", "debug", "rl_finetune", "route_eval",
+                       "scenario_eval", "split_folders", "test_eval", "vae_leave_one_out",
+                       "vae_pooled"]
     names = {p_compose("config", overrides=[f"experiment={p}"])["experiment_name"]
              for p in PRESETS}
     assert names == set(ex.EXPERIMENTS) == {"bc", "bc_aux", "bc_cil", "bc_continuous",
                                             "bc_raw_segment", "bc_streaming",
                                             "closed_loop_eval", "collect_data", "dagger",
-                                            "dagger_online", "route_eval", "scenario_eval",
+                                            "dagger_online", "dagger_uncertain",
+                                            "rl_finetune", "route_eval", "scenario_eval",
                                             "split_folders", "test_eval", "vae_leave_one_out",
                                             "vae_pooled"}
 
@@ -168,8 +177,7 @@ def test_bc_then_closed_loop_eval(collected, capsys):
 
 @pytest.mark.parametrize("experiment,overrides", [
     ("bc", ["mesh.axes.model=2"]), ("bc", ["mesh.enabled=true"]), ("bc", ["mesh.axes.data=4"]),
-    ("closed_loop_eval", ["artifact=some_dir"]), ("closed_loop_eval", ["safety_shield=true"]),
-    ("closed_loop_eval", ["policy_arch=vit"]), ("closed_loop_eval", ["s2d_stem=true"]),
+    ("closed_loop_eval", ["artifact=some_dir"]), ("closed_loop_eval", ["policy_arch=vit"]),
     ("route_eval", ["artifact=some_dir"]),
 ])
 def test_unported_options_raise(tmp_path, experiment, overrides):
@@ -184,10 +192,16 @@ def test_unported_options_raise(tmp_path, experiment, overrides):
     ("collect_data", ["n_goals=2", "n_envs=2", "n_steps=12"]),
     ("closed_loop_eval", ["policy_family=continuous", "n_envs=2", "n_steps=4"]),
     ("closed_loop_eval", ["policy_family=cil", "n_envs=2", "n_steps=4"]),
+    ("closed_loop_eval", ["safety_shield=true", "n_envs=2", "n_steps=4"]),
+    ("closed_loop_eval", ["s2d_stem=true", "policy_family=continuous", "n_envs=2",
+                          "n_steps=4"]),
+    ("bc", ["s2d_stem=true", "bc_cameras=['camera']", "image_height=64", "image_width=64",
+            "NUM_EPOCHS=1", "BATCH_SIZE=4", "synthetic_frames=80"]),
 ])
 def test_options_now_run(tmp_path, experiment, overrides):
-    """The options these experiments raised on before the policy families
-    were ported now run, at toy size on the CPU."""
+    """The options these experiments raised on before the policy families,
+    the shield and the space-to-depth stem were ported now run, at toy size
+    on the CPU."""
     cfg = p_compose("config", overrides=["model=imitation", "device=cpu",
                                          "compute_dtype=float32", f"data_dir={tmp_path}",
                                          f"log_dir={tmp_path}", *TINY, *overrides])
@@ -195,8 +209,13 @@ def test_options_now_run(tmp_path, experiment, overrides):
     if experiment == "collect_data":
         assert res["frames"] == 24 and sum(res["action_histogram"]) == 24
         assert cfg.get_dotted("sim.town.turn_fans") is True
+    elif experiment == "bc":
+        assert np.isfinite(res["camera"]["test"]["test_loss"])
+        assert tuple(res["camera"]["state"].model.trunk.convs[0].weight.shape) == (16, 36, 3, 3)
     else:
         assert res["policy"]["env_steps"] == 8 and 0.0 <= res["policy"]["driving_score"] <= 1.0
+        assert ("shield_active_frac" in res["policy"]) == ("safety_shield=true" in overrides)
+        assert "shield_active_frac" not in res["expert"]
 
 
 def test_policy_family_unknown(tmp_path):
@@ -268,3 +287,58 @@ def test_flag_reads_cli_spellings():
     cfg = p_compose("config", overrides=["a=false", "b=off", "c=True", "d=yes", "e=0"])
     assert [ex._flag(cfg, k) for k in "abcde"] == [False, False, True, True, False]
     assert ex._flag(cfg, "missing", True)
+
+
+def test_dagger_uncertain_through_cli(tmp_path, capsys, monkeypatch):
+    """``run dagger_uncertain`` at toy size, and the JAX experiment's rounds
+    with its collections, member states, training data and evaluations
+    replaced (``tests/test_torch_dagger_ensemble.py`` holds the loop
+    itself): the port's rounds carry JAX's keys beside the driving metrics
+    of ``evaluate_policy`` (whose keys ``tests/test_torch_evaluate.py``
+    holds to JAX's)."""
+    import flax
+    import jax.numpy as jnp
+
+    import carla_imitation_learning_tpu.experiments as j_experiments
+    import carla_imitation_learning_tpu.training.closed_loop as j_cl
+    from carla_imitation_learning_tpu_torch.training import closed_loop as p_cl
+
+    res = _run(capsys, "dagger_uncertain", *_family_base(tmp_path), "-o", "n_envs=2",
+               "-o", "n_steps=12", "-o", "rounds=2", "-o", "epochs_per_round=1",
+               "-o", "ensemble=2", "-o", "render.height=32", "-o", "render.width=32")
+    assert [r["round"] for r in res["rounds"]] == [0, 1]
+    assert all(r["ensemble"] == 2 and r["dataset_frames"] == 24 * (r["round"] + 1)
+               for r in res["rounds"])
+
+    @flax.struct.dataclass
+    class MemberStates:
+        params: jnp.ndarray
+
+    class NoBatches:
+        def __init__(self, store, *a, **kw):
+            self.n_samples = len(store)
+
+        def __iter__(self):
+            return iter(())
+
+    monkeypatch.setattr(j_cl, "collect_dataset", lambda *a, **kw: (
+        j_pipe.FrameStore.synthetic(n=24, height=32, width=32, seed=1), None, None))
+    monkeypatch.setattr(j_cl, "dagger_iteration", lambda *a, **kw: (
+        j_pipe.FrameStore.synthetic(n=24, height=32, width=32, seed=2), None,
+        {"policy_extra": jnp.zeros((12, 2))}))
+    monkeypatch.setattr(j_cl, "evaluate_policy", lambda *a, **kw: {})
+    monkeypatch.setattr(j_pipe, "DeviceDataset", NoBatches)
+    monkeypatch.setattr(j_experiments, "create_train_state",
+                        lambda *a, **kw: MemberStates(params=jnp.zeros(())))
+    cfg = j_compose("config", overrides=["model=imitation", f"log_dir={tmp_path}",
+                                         "render.height=32", "render.width=32",
+                                         "compute_dtype=float32"])
+    want = j_experiments.dagger_uncertain(cfg, rounds=2, n_envs=2, n_steps=12, epochs_per_round=1,
+                              ensemble=2)
+    traj = {k: torch.zeros((2, 2)) for k in ("speed", "collision", "offroad", "red_light",
+                                            "done", "ran_red", "route_ds", "steer", "action",
+                                            "expert_action")}
+    eval_keys = set(p_cl.driving_metrics(SimParams(), traj))
+    assert set(res) == set(want) == {"rounds"}
+    for got, exp in zip(res["rounds"], want["rounds"]):
+        assert set(got) == set(exp) | eval_keys
