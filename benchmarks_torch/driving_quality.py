@@ -33,6 +33,14 @@ by DAgger, and fine-tuned by PPO. Per seed, the whole pipeline runs anew:
    ``rl_seconds``, the first and last three iterations and the median
    env-steps/s of the iterations after the first.
 
+``--arch vit`` trains and evaluates the ``bc_vit`` preset's ``ViTPolicy``
+(patch 16, dim 192, depth 4, heads 3, bf16) in place of the ``PolicyCNN``
+on every rung (it has no PPO warm start, so it refuses ``--rl``);
+``--balanced`` samples the BC and DAgger datasets by inverse action
+frequency (``DeviceDataset(balanced=True)``). The JAX package's records of
+these are ``reports/driving_quality_vit.json`` and
+``reports/driving_quality_balanced.json``.
+
 Defaults are the JAX harness's: eval 256 envs × 300 steps, collection 64 ×
 500, 8 epochs, batch 256, the bench town, 128², bf16 ``PolicyCNN``. Each
 rung and seed draws from its own ``torch.Generator`` (eval fleets
@@ -43,6 +51,7 @@ not values.
 
     python3 benchmarks_torch/driving_quality.py --out REPORT.json
         [--seeds 3] [--dagger 2] [--noise] [--shield] [--rl 12]
+        [--arch cnn|vit] [--balanced]
         [--rl-envs 256] [--rl-steps 128] [--rl-w-red W] [--device cuda]
 
 The report is written to ``--out`` after every rung (never under
@@ -104,6 +113,10 @@ def main(argv=None) -> dict:
                     help="steering noise on the BC expert collection (labels stay clean)")
     ap.add_argument("--shield", action="store_true",
                     help="add the bc_shield rung: the BC policy behind the safety shield")
+    ap.add_argument("--arch", choices=["cnn", "vit"], default="cnn",
+                    help="the trained rungs' network: PolicyCNN or the ViT")
+    ap.add_argument("--balanced", action="store_true",
+                    help="inverse-frequency action sampling of the training sets")
     ap.add_argument("--rl", type=int, default=0,
                     help="PPO iterations on top of the imitation policy (0 to skip)")
     ap.add_argument("--rl-envs", type=int, default=256)
@@ -119,6 +132,8 @@ def main(argv=None) -> dict:
     out = Path(args.out).resolve()
     if (ROOT / "reports") in out.parents:
         raise SystemExit("--out must not be under reports/ (the JAX package's records)")
+    if args.arch == "vit" and args.rl:
+        raise SystemExit("--arch vit has no PPO warm start (ActorCriticCNN's trunk): drop --rl")
 
     sys.path.insert(0, str(ROOT))
     import numpy as np
@@ -126,7 +141,7 @@ def main(argv=None) -> dict:
 
     from carla_imitation_learning_tpu_torch.data.pipeline import DeviceDataset, FrameStore
     from carla_imitation_learning_tpu_torch.device import resolve_device
-    from carla_imitation_learning_tpu_torch.models import PolicyCNN
+    from carla_imitation_learning_tpu_torch.models import PolicyCNN, ViTPolicy
     from carla_imitation_learning_tpu_torch.render.pipeline import RenderConfig
     from carla_imitation_learning_tpu_torch.sim.town import make_town
     from carla_imitation_learning_tpu_torch.sim.world import SimParams
@@ -191,7 +206,9 @@ def main(argv=None) -> dict:
         print(f"[seed {seed}] expert: {r['expert']}", flush=True)
         save()
 
-        state = create_train_state(PolicyCNN(dtype=torch.bfloat16),
+        net = (ViTPolicy(dtype=torch.bfloat16) if args.arch == "vit"
+               else PolicyCNN(dtype=torch.bfloat16))
+        state = create_train_state(net,
                                    AdamConfig(schedule=lambda count: 1e-3),
                                    generator=gen(1000 * seed + 1), device=dev)
         r["untrained"] = ev(policy_from(state.model), 101)
@@ -207,7 +224,8 @@ def main(argv=None) -> dict:
         r["collect_seconds"] = time.perf_counter() - tc
         r["dataset_frames"] = len(store)
 
-        ds = DeviceDataset(store, args.batch, shuffle=True, seed=seed, device=dev)
+        ds = DeviceDataset(store, args.batch, shuffle=True, seed=seed, device=dev,
+                           balanced=args.balanced)
         state, images, r["train_seconds"], metrics = train(state, ds, args.epochs)
         del ds
         r["train_steps"] = state.step
@@ -233,7 +251,7 @@ def main(argv=None) -> dict:
             del traj
             stores.append(dstore)
             ds = DeviceDataset(FrameStore.concat(stores), args.batch, shuffle=True,
-                               seed=1000 + 17 * seed + rnd, device=dev)
+                               seed=1000 + 17 * seed + rnd, device=dev, balanced=args.balanced)
             state, images, seconds, metrics = train(state, ds, max(2, args.epochs // 2))
             del ds
             tier = f"dagger_r{rnd + 1}"
@@ -282,7 +300,8 @@ def main(argv=None) -> dict:
     save()
     line = {"metric": "closed_loop_driving_score_dagger" if args.dagger
             else "closed_loop_driving_score_bc", "seeds": args.seeds, "noise": args.noise,
-            "shield": args.shield, "rl_iterations": args.rl,
+            "shield": args.shield, "rl_iterations": args.rl, "arch": args.arch,
+            "balanced": args.balanced,
             "device": str(dev), "card": result.get("card"),
             **{t: result["summary"][t]["driving_score"]["mean"] for t in tiers},
             "spread": {t: [result["summary"][t]["driving_score"]["min"],

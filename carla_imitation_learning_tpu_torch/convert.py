@@ -21,11 +21,17 @@ from carla_imitation_learning_tpu_torch.models.cil import BranchedCILPolicy
 from carla_imitation_learning_tpu_torch.models.cnn import (
     ContinuousPolicyCNN, DualStreamCNN, PolicyCNN,
 )
+from carla_imitation_learning_tpu_torch.models.rnn_policy import RecurrentPolicy
 from carla_imitation_learning_tpu_torch.models.vae import ConvVAE
+from carla_imitation_learning_tpu_torch.models.vit import ViTPolicy
+from carla_imitation_learning_tpu_torch.models.world_model import LatentWorldModel
 from carla_imitation_learning_tpu_torch.ops.raster_fast import PrimSetup
 from carla_imitation_learning_tpu_torch.render.camera import TriangleSetup
 from carla_imitation_learning_tpu_torch.sim.town import TownMap
 from carla_imitation_learning_tpu_torch.sim.world import WorldState
+from carla_imitation_learning_tpu_torch.training.imagination import (
+    ContinuousLatentPolicy, HeadEnsemble, LatentPolicy, RewardHead,
+)
 from carla_imitation_learning_tpu_torch.training.rl import ActorCriticCNN
 from carla_imitation_learning_tpu_torch.training.steps import (
     AdamConfig, TrainState, create_train_state,
@@ -156,10 +162,118 @@ def cil_state_dict(params) -> dict:
     return sd
 
 
+def _np(a) -> np.ndarray:
+    return np.asarray(a, np.float32)
+
+
+def _cell_state_dict(cell, prefix: str) -> dict:
+    """Flax ``OptimizedLSTMCell`` or ``GRUCell`` params → ``models.rnn``'s
+    (in, out) kernels with the gates side by side."""
+    cat = np.concatenate
+    if "hi" in cell:
+        gates = ("i", "f", "g", "o")
+        return {f"{prefix}.w_i": _tensor(cat([_np(cell[f"i{g}"]["kernel"]) for g in gates], -1)),
+                f"{prefix}.w_h": _tensor(cat([_np(cell[f"h{g}"]["kernel"]) for g in gates], -1)),
+                f"{prefix}.b_h": _tensor(cat([_np(cell[f"h{g}"]["bias"]) for g in gates], -1))}
+    gates = ("r", "z", "n")
+    return {f"{prefix}.w_i": _tensor(cat([_np(cell[f"i{g}"]["kernel"]) for g in gates], -1)),
+            f"{prefix}.b_i": _tensor(cat([_np(cell[f"i{g}"]["bias"]) for g in gates], -1)),
+            f"{prefix}.w_h": _tensor(cat([_np(cell[f"h{g}"]["kernel"]) for g in gates], -1)),
+            f"{prefix}.b_hn": _tensor(_np(cell["hn"]["bias"]))}
+
+
+def rnn_policy_state_dict(params) -> dict:
+    """Flax ``RecurrentPolicy`` params (``trunk``, ``cell``, ``head``) →
+    ``models.rnn_policy.RecurrentPolicy`` state_dict."""
+    return {**_trunk_state_dict(params["trunk"]), **_cell_state_dict(params["cell"], "cell"),
+            **_head_state_dict(params["head"], "head")}
+
+
+def frame_encoder_state_dict(enc, prefix: str = "") -> dict:
+    """Flax ``FrameEncoder`` params → ``models.world_model.FrameEncoder``'s."""
+    sd = {}
+    for i in range(4):
+        _put(sd, f"{prefix}convs.{i}", _conv(enc[f"Conv_{i}"]))
+    _put(sd, f"{prefix}dense", _dense(enc["Dense_0"]))
+    return sd
+
+
+def frame_decoder_state_dict(dec, prefix: str = "") -> dict:
+    """Flax ``FrameDecoder`` params → ``models.world_model.FrameDecoder``'s
+    (transposed-conv kernels flipped)."""
+    sd = {}
+    for i in range(4):
+        _put(sd, f"{prefix}deconvs.{i}", _conv_transpose(dec[f"ConvTranspose_{i}"]))
+    _put(sd, f"{prefix}seed", _dense(dec["Dense_0"]))
+    return sd
+
+
+def world_model_state_dict(params) -> dict:
+    """Flax ``LatentWorldModel`` params → ``models.world_model`` state_dict:
+    the encoder, the decoder, the LSTM or GRU cell and ``to_z``."""
+    sd = {**frame_encoder_state_dict(params["encoder"], "encoder."),
+          **frame_decoder_state_dict(params["decoder"], "decoder."),
+          **_cell_state_dict(params["rnn_layer"]["cell"], "cell")}
+    _put(sd, "to_z", _dense(params["to_z"]))
+    return sd
+
+
+def vit_state_dict(params) -> dict:
+    """Flax ``ViTPolicy`` params → ``models.vit.ViTPolicy`` state_dict: the
+    attention kernels (dim, heads, head_dim) and (heads, head_dim, dim)
+    flattened over (heads, head_dim), LayerNorm ``scale`` as ``weight``."""
+    sd = {"pos_emb": _tensor(_np(params["pos_emb"]))}
+    _put(sd, "patch_embed", _conv(params["Conv_0"]))
+    _put(sd, "head", _dense(params["Dense_0"]))
+
+    def norm(name, ln):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = _tensor(_np(ln["scale"])), _tensor(_np(ln["bias"]))
+
+    norm("norm", params["LayerNorm_0"])
+    for i in range(sum(k.startswith("TransformerBlock_") for k in params)):
+        blk, pre = params[f"TransformerBlock_{i}"], f"blocks.{i}"
+        norm(f"{pre}.ln1", blk["LayerNorm_0"])
+        norm(f"{pre}.ln2", blk["LayerNorm_1"])
+        _put(sd, f"{pre}.fc1", _dense(blk["Dense_0"]))
+        _put(sd, f"{pre}.fc2", _dense(blk["Dense_1"]))
+        att = blk["MultiHeadDotProductAttention_0"]
+        for name in ("query", "key", "value"):
+            k = _np(att[name]["kernel"])
+            sd[f"{pre}.{name}.weight"] = _tensor(k.reshape(k.shape[0], -1).T)
+            sd[f"{pre}.{name}.bias"] = _tensor(_np(att[name]["bias"]).reshape(-1))
+        k = _np(att["out"]["kernel"])
+        sd[f"{pre}.out.weight"] = _tensor(k.reshape(-1, k.shape[-1]).T)
+        sd[f"{pre}.out.bias"] = _tensor(_np(att["out"]["bias"]))
+    return sd
+
+
+def latent_mlp_state_dict(params) -> dict:
+    """Flax ``RewardHead``, ``LatentPolicy`` or ``ContinuousLatentPolicy``
+    params (``Dense_0``, ``Dense_1``) → ``fc1``/``fc2``; a stacked reward
+    head (a leading ensemble axis, ``jax.vmap`` of its init) →
+    ``HeadEnsemble``'s ``weight1``/``bias1``/``weight2``/``bias2``."""
+    if np.ndim(params["Dense_0"]["kernel"]) == 2:
+        sd = {}
+        _put(sd, "fc1", _dense(params["Dense_0"]))
+        _put(sd, "fc2", _dense(params["Dense_1"]))
+        return sd
+    return {f"{w}{i}": _tensor(np.swapaxes(_np(params[f"Dense_{i - 1}"][k]), -1, -2)
+                                if k == "kernel" else _np(params[f"Dense_{i - 1}"][k]))
+            for i in (1, 2) for w, k in (("weight", "kernel"), ("bias", "bias"))}
+
+
 def _family(params) -> str:
     """Which model a flax params tree belongs to, from its names and shapes:
     an ``AuxNet`` also has an ``MLPHead_1``, so the actor-critic (a second
     head and no decoder) is told apart after it."""
+    if "rnn_layer" in params:
+        return "world_model"
+    if "cell" in params:
+        return "rnn_policy"
+    if "pos_emb" in params:
+        return "vit"
+    if set(params) == {"Dense_0", "Dense_1"}:
+        return "latent_mlp"
     if "enc_0" in params:
         return "vae"
     if "ReconDecoder_0" in params:
@@ -185,9 +299,13 @@ def _stem(params) -> tuple[int, bool]:
 
 def params_state_dict(params) -> dict:
     """The state dict of whichever model the tree belongs to: ``ConvVAE``,
-    ``AuxNet``, ``BranchedCILPolicy``, ``ActorCriticCNN``, ``DualStreamCNN``
-    or the ``PolicyCNN`` shape."""
+    ``AuxNet``, ``BranchedCILPolicy``, ``ActorCriticCNN``, ``DualStreamCNN``,
+    ``LatentWorldModel``, ``RecurrentPolicy``, ``ViTPolicy``, a latent MLP
+    (reward head, stacked or not, or latent policy) or the ``PolicyCNN``
+    shape."""
     return {"vae": vae_state_dict, "aux": aux_state_dict, "cil": cil_state_dict,
+            "world_model": world_model_state_dict, "rnn_policy": rnn_policy_state_dict,
+            "vit": vit_state_dict, "latent_mlp": latent_mlp_state_dict,
             "actor_critic": actor_critic_state_dict,
             "dual_stream": dual_stream_state_dict,
             "policy": policy_state_dict}[_family(params)](params)
@@ -203,10 +321,14 @@ def model_for_params(params, dtype: torch.dtype = torch.bfloat16,
     ``DualStreamCNN`` (a 32-channel first conv), else
     ``ContinuousPolicyCNN`` (``continuous``) or ``PolicyCNN``; the
     policies and the actor-critic with the space-to-depth stem when the
-    tree's first kernel is one (``_stem``)."""
+    tree's first kernel is one (``_stem``); ``LatentWorldModel``,
+    ``RecurrentPolicy``, ``ViTPolicy`` and the imagination's reward heads
+    and latent policies as ``_sequence_family_for_params`` reads them."""
     family = _family(params)
     if family == "vae":
         return _vae_for_params(params, dtype)
+    if family in ("world_model", "rnn_policy", "vit", "latent_mlp"):
+        return _sequence_family_for_params(family, params, dtype, continuous)
     obs_size, s2d = _stem(params)
     if family == "aux":
         n_ups = sum(k.startswith("ConvTranspose_") for k in params["ReconDecoder_0"])
@@ -237,6 +359,51 @@ def model_for_params(params, dtype: torch.dtype = torch.bfloat16,
         return ActorCriticCNN(obs_size=obs_size, n_actions=n_actions, dtype=dtype,
                               s2d_stem=s2d, continuous="log_std" in params)
     return PolicyCNN(obs_size=obs_size, n_actions=n_actions, dtype=dtype, s2d_stem=s2d)
+
+
+def _sequence_family_for_params(family: str, params, dtype: torch.dtype, continuous: bool):
+    """``model_for_params`` of the world-model, recurrent, ViT and latent
+    trees. A world model's frames are taken square (its Dense widths give
+    (H/16)·(W/16) only) and its actions continuous when ``continuous`` or
+    the cell's input is 2 wider than the latent; a latent MLP with one
+    output is a ``RewardHead`` (stacked: a ``HeadEnsemble``), with two and
+    ``continuous`` a ``ContinuousLatentPolicy``, else a ``LatentPolicy``."""
+    if family == "world_model":
+        cell, z_size = params["rnn_layer"]["cell"], np.shape(params["to_z"]["kernel"])[1]
+        lstm = "hi" in cell
+        hidden = np.shape(cell["hi" if lstm else "hn"]["kernel"])[0]
+        width = np.shape(cell["ii" if lstm else "ir"]["kernel"])[0] - z_size
+        enc = params["encoder"]
+        side = 16 * int(round((np.shape(enc["Dense_0"]["kernel"])[0] / 128) ** 0.5))
+        space = "continuous" if continuous or width == 2 else "discrete"
+        return LatentWorldModel(z_size=z_size, rnn="lstm" if lstm else "gru",
+                                n_actions=width if space == "discrete" else 9,
+                                height=side, width=side,
+                                channels=np.shape(enc["Conv_0"]["kernel"])[2],
+                                hidden_size=hidden, dtype=dtype, action_space=space)
+    if family == "rnn_policy":
+        head = params["head"]
+        return RecurrentPolicy(obs_size=np.shape(params["trunk"]["Conv_0"]["kernel"])[2],
+                               hidden=np.shape(params["cell"]["hn"]["kernel"])[0],
+                               n_actions=np.shape(head[f"Dense_{len(head) - 1}"]["kernel"])[1],
+                               dtype=dtype)
+    if family == "vit":
+        k = np.shape(params["Conv_0"]["kernel"])
+        blk = params["TransformerBlock_0"]
+        return ViTPolicy(obs_size=k[2], n_actions=np.shape(params["Dense_0"]["kernel"])[1],
+                         patch=k[0], dim=k[3],
+                         depth=sum(n.startswith("TransformerBlock_") for n in params),
+                         heads=np.shape(blk["MultiHeadDotProductAttention_0"]["query"]["kernel"])[1],
+                         mlp_ratio=np.shape(blk["Dense_0"]["kernel"])[1] // k[3],
+                         pos_grid=np.shape(params["pos_emb"])[0], dtype=dtype)
+    k1, k2 = np.shape(params["Dense_0"]["kernel"]), np.shape(params["Dense_1"]["kernel"])
+    if len(k1) == 3:
+        return HeadEnsemble([RewardHead(k1[1], k1[2]) for _ in range(k1[0])])
+    if k2[1] == 1:
+        return RewardHead(k1[0], k1[1])
+    if k2[1] == 2 and continuous:
+        return ContinuousLatentPolicy(k1[0], k1[1])
+    return LatentPolicy(k1[0], k2[1], k1[1])
 
 
 def _vae_for_params(params, dtype: torch.dtype) -> ConvVAE:
@@ -365,7 +532,8 @@ def train_state_from_jax(state, tx: AdamConfig, dtype: torch.dtype = torch.float
                          continuous: bool = False) -> TrainState:
     """JAX ``TrainState`` of a ``PolicyCNN``, ``ContinuousPolicyCNN``
     (``continuous``), ``BranchedCILPolicy``, ``DualStreamCNN``, ``AuxNet``,
-    ``ActorCriticCNN`` or ``ConvVAE`` (optax Adam, optionally behind a
+    ``ActorCriticCNN``, ``ConvVAE``, ``LatentWorldModel``,
+    ``RecurrentPolicy`` or ``ViTPolicy`` (optax Adam, optionally behind a
     clip) → port ``TrainState`` on ``device``: the params, Adam's ``mu``
     and ``nu`` through the same conversion as the params, its ``count`` as
     each parameter's Adam step and as the schedule's step, and the EMA

@@ -21,7 +21,9 @@ Stores load from the frame-log files (``FrameStore.from_processed_dir``,
 ``from_raw_camera``), and the iterator factories build the train / val /
 test datasets of the sequential (plain, aux and dual-stream), pooled and
 large layouts. ``AuxSegDataset`` adds per-pixel class labels to aux
-batches and ``PairedStreamDataset`` a second camera's windows.
+batches and ``PairedStreamDataset`` a second camera's windows;
+``SequenceDataset`` yields episode-safe frame sequences for the world
+model and the recurrent policy.
 ``device_prefetch`` copies host batches to the card ahead of the consumer.
 """
 
@@ -392,6 +394,68 @@ class DeviceDataset:
 
     def __iter__(self) -> Iterator:
         order = self.epoch_indices()
+        for b in range(len(self)):
+            yield self.make_batch(order[b * self.batch_size:(b + 1) * self.batch_size])
+
+
+class SequenceDataset:
+    """(frames_seq (B, T, H, W, 1) float32 in [0, 1], actions_seq (B, T))
+    batches for the world model and the recurrent policy. A sequence never
+    spans an episode boundary: its start is dropped when the sequence would
+    cross a multiple of ``episode_len`` (env-major collected streams) or a
+    frame that ``store.starts`` marks. ``continuous_actions=True`` yields the
+    expert's (steer, accel) rows (``store.controls``) as (B, T, 2) float32
+    actions, else int64 action ids. The order of an epoch comes from
+    ``np.random.default_rng(seed)`` with the JAX package's calls, so both
+    draw the same sequences; frames and actions live on ``device``."""
+
+    def __init__(self, store: FrameStore, batch_size: int, seq_len: int = 8,
+                 episode_len: int | None = None, shuffle: bool = True, seed: int = 0,
+                 continuous_actions: bool = False, device: str | torch.device = "cuda"):
+        if continuous_actions and store.controls is None:
+            raise ValueError(
+                "continuous_actions=True needs store.controls (collected stores carry "
+                "them; reference-layout stores do not)")
+        self.device = resolve_device(device)
+        self.store = store
+        self.batch_size = batch_size
+        self.seq_len = seq_len
+        self.shuffle = shuffle
+        self._rng = np.random.default_rng(seed)
+        n = len(store)
+        starts = np.arange(n - seq_len)
+        if episode_len:
+            starts = starts[(starts % episode_len) <= episode_len - seq_len]
+        if store.starts is not None and seq_len > 1:
+            # sequence i covers frames [i, i + seq_len): dropped if a frame in
+            # (i, i + seq_len) begins a new episode
+            ok = valid_window_starts(n, store.starts, seq_len - 1, n_starts=n - seq_len)
+            starts = starts[np.isin(starts, ok)]
+        if len(starts) == 0:
+            raise ValueError(f"no length-{seq_len} sequences in store of {n}")
+        self.starts = starts
+        acts = (store.controls.astype(np.float32) if continuous_actions
+                else store.actions.astype(np.int64))
+        self.frames = torch.from_numpy(np.ascontiguousarray(store.frames)).to(self.device)
+        self.actions = torch.from_numpy(np.ascontiguousarray(acts)).to(self.device)
+        self._steps = torch.arange(seq_len, device=self.device)
+        # a device divisor: CUDA divides by a host scalar as a multiply by
+        # its reciprocal, which is not the JAX package's true division
+        self._scale = torch.tensor(255.0, device=self.device)
+
+    def __len__(self) -> int:
+        return max(1, len(self.starts) // self.batch_size)
+
+    def make_batch(self, idx: np.ndarray):
+        idx = torch.as_tensor(np.asarray(idx, np.int64)).to(self.device)
+        gather = idx[:, None] + self._steps[None, :]                  # (B, T)
+        frames = self.frames[gather].to(torch.float32) / self._scale
+        return frames[..., None], self.actions[gather]
+
+    def __iter__(self) -> Iterator:
+        order = self.starts.copy()
+        if self.shuffle:
+            self._rng.shuffle(order)
         for b in range(len(self)):
             yield self.make_batch(order[b * self.batch_size:(b + 1) * self.batch_size])
 

@@ -38,11 +38,21 @@ the CLI dispatches by name.
   ``n_goals``; ``dagger_uncertain``, the uncertainty-gated ensemble loop;
 - ``rl_finetune``: PPO fine-tuning of a policy on the driving objective
   (``training/rl.py``), warm-started from a ``bc`` or ``bc_continuous``
-  checkpoint.
+  checkpoint;
+- ``bc_rnn``: the recurrent (GRU) policy trained on episode-safe
+  sequences, then driven with its hidden state in the rollout's carry;
+- ``world_model``: the latent world model (encoder → LSTM or GRU →
+  decoder, MSE or MS-SSIM image terms) on an expert collection;
+  ``world_model_imagine`` scores its open-loop imagination against the
+  real future per horizon step and writes a film strip;
+- ``dream_policy``: a latent policy trained in the world model's
+  imagination (``training/imagination.py``), then driven in the real sim
+  beside its latent-BC start and the expert.
 
 The closed-loop experiments read ``policy_family`` (``discrete``,
 ``continuous`` or ``cil``) to build the policy and its control space, and
-``s2d_stem`` for the space-to-depth first conv; ``closed_loop_eval`` reads
+``s2d_stem`` for the space-to-depth first conv, and ``policy_arch`` (``cnn``
+or ``vit``) for the discrete family's network; ``closed_loop_eval`` reads
 ``safety_shield`` (``training/shield.py``).
 
 Everything runs on ``cfg.device`` (default ``"cuda"``; ``-o device=cpu``
@@ -71,8 +81,10 @@ from carla_imitation_learning_tpu_torch.data import stats as stats_lib
 from carla_imitation_learning_tpu_torch.data import vae_data
 from carla_imitation_learning_tpu_torch.device import resolve_device
 from carla_imitation_learning_tpu_torch.models import (
-    AuxNet, BranchedCILPolicy, ContinuousPolicyCNN, ConvVAE, DualStreamCNN, PolicyCNN,
+    AuxNet, BranchedCILPolicy, ContinuousPolicyCNN, ConvVAE, DualStreamCNN, LatentWorldModel,
+    PolicyCNN, RecurrentPolicy, ViTPolicy,
 )
+from carla_imitation_learning_tpu_torch.ops.ssim import ssim
 from carla_imitation_learning_tpu_torch.native import (
     DeviceShardStreamer, NativeFrameStore, PrefetchReader, save_framestore,
 )
@@ -81,16 +93,19 @@ from carla_imitation_learning_tpu_torch.sim.planner import goal_setup
 from carla_imitation_learning_tpu_torch.sim.town import make_town_from_cfg, mirror_town
 from carla_imitation_learning_tpu_torch.sim.world import SimParams
 from carla_imitation_learning_tpu_torch.training import closed_loop as cl
+from carla_imitation_learning_tpu_torch.training import imagination as imag
 from carla_imitation_learning_tpu_torch.training.dagger import (
     run_dagger, run_dagger_online, run_dagger_uncertain,
 )
 from carla_imitation_learning_tpu_torch.training.loop import Trainer
 from carla_imitation_learning_tpu_torch.training.losses import (
     aux_loss_fn, aux_seg_loss_fn, bc_augmented_loss_fn, bc_loss_fn, cil_loss_fn,
-    continuous_bc_loss_fn, dual_stream_loss_fn, vae_loss_fn,
+    continuous_bc_loss_fn, dual_stream_loss_fn, rnn_bc_loss_fn, vae_loss_fn,
+    world_model_loss_fn,
 )
 from carla_imitation_learning_tpu_torch.training.rl import (
-    ActorCriticCNN, PPOConfig, actor_policy_params_from, ppo_train, warm_start_from_policy,
+    ActorCriticCNN, PPOConfig, actor_policy_params_from, ppo_train, reward_from_traj,
+    warm_start_from_policy,
 )
 from carla_imitation_learning_tpu_torch.training.shield import shield_from_cfg
 from carla_imitation_learning_tpu_torch.training.steps import (
@@ -213,7 +228,8 @@ def _fit(cfg, name, model, loss_fn, loaders):
     try:
         result = trainer.fit(state, loss_fn, loaders, step_gen, max_epochs=int(
             cfg.get("NUM_EPOCHS", cfg.get_dotted("trainer.max_epochs", 1))))
-        test_metrics = trainer.test(result.state, loss_fn, loaders)
+        test_metrics = (trainer.test(result.state, loss_fn, loaders)
+                        if loaders.get("test_dataloader") else {})
     finally:
         trainer.logger.close()
     return {
@@ -240,11 +256,18 @@ def _maybe_synthesize(cfg, camera: str = "camera") -> None:
                     ratio=(0.8, 0.1, 0.1), shuffle=False)
 
 
-def _discrete_policy_model(cfg, obs_size: int) -> PolicyCNN:
-    """The discrete-family policy: the reference ConvNet1 shape."""
+def _discrete_policy_model(cfg, obs_size: int):
+    """The discrete-family policy of ``policy_arch``: ``cnn``, the reference
+    ConvNet1 shape (``s2d_stem`` for its space-to-depth stem), or ``vit``,
+    ``ViTPolicy`` sized by ``vit_patch``/``vit_dim``/``vit_depth``/
+    ``vit_heads``. Training and evaluation both build it here, so a checkpoint
+    restores into the network it was trained as."""
     arch = str(cfg.get("policy_arch", "cnn"))
     if arch == "vit":
-        raise _not_ported("policy_arch=vit", 3)
+        return ViTPolicy(obs_size=obs_size, n_actions=int(cfg.get("n_actions", 9)),
+                         patch=int(cfg.get("vit_patch", 16)), dim=int(cfg.get("vit_dim", 192)),
+                         depth=int(cfg.get("vit_depth", 4)), heads=int(cfg.get("vit_heads", 3)),
+                         dtype=_dtype(cfg))
     if arch != "cnn":
         raise ValueError(f"unknown policy_arch {arch!r} (want 'cnn' or 'vit')")
     return PolicyCNN(obs_size=obs_size, n_actions=int(cfg.get("n_actions", 9)),
@@ -970,3 +993,214 @@ def rl_finetune(cfg, checkpoint: str | None = None, n_envs: int = 256,
     return {"before": before, "after": after, "history": history,
             "actor_checkpoint": str(out),
             "score_delta": float(after["driving_score"] - before["driving_score"])}
+
+
+def _sequence_loader(cfg, store, batch: int, seq_len: int, episode_len: int | None,
+                     shuffle: bool, seed: int = 0, continuous: bool = False):
+    return pipe.SequenceDataset(store, batch, seq_len=seq_len, episode_len=episode_len,
+                                shuffle=shuffle, seed=seed, continuous_actions=continuous,
+                                device=_device(cfg))
+
+
+@experiment("bc_rnn")
+def bc_rnn(cfg, n_envs: int = 32, n_steps: int = 300, seq_len: int = 8,
+           eval_envs: int = 64, eval_steps: int = 200, **kw):
+    """Recurrent BC: a ConvTrunk → GRU policy (``RecurrentPolicy``, hidden
+    ``rnn_hidden``) trained by backpropagation through time on
+    episode-safe sequences of an expert collection split 80/10/10, then
+    driven in the closed loop with its hidden state in the rollout's
+    policy carry (zeroed on every auto-reset), seeing the newest frame of
+    the window. → the fit's result with ``closed_loop`` metrics."""
+    _check_one_device(cfg)
+    dev = _device(cfg)
+    town, params, rcfg = _sim_bits(cfg)
+    store, _, _ = cl.collect_dataset(params, town, rcfg, _generator(cfg), n_envs, n_steps,
+                                     noise=_noise_bits(cfg), device=dev)
+    batch = int(cfg.get("BATCH_SIZE", 64))
+    loaders = {f"{k}_dataloader": _sequence_loader(
+        cfg, v, batch, seq_len, n_steps if k == "train" else None, shuffle=(k == "train"))
+        for k, v in _split3(store).items()}
+    model = RecurrentPolicy(obs_size=1, hidden=int(cfg.get("rnn_hidden", 128)),
+                            n_actions=int(cfg.get("n_actions", 9)), dtype=_dtype(cfg))
+    result = _fit(cfg, "bc_rnn", model, rnn_bc_loss_fn, loaders)
+    net = result.pop("state").model
+
+    @torch.no_grad()
+    def policy_fn(obs, h):
+        h, logits = net.step(h, obs[..., -1:])
+        return logits.argmax(-1), h
+
+    result["closed_loop"] = cl.evaluate_policy(
+        params, town, rcfg, policy_fn, torch.Generator().manual_seed(int(cfg.get("seed", 0)) + 7),
+        n_envs=eval_envs, n_steps=eval_steps, device=dev,
+        policy_carry_init=lambda b: net.initial_state(b, dev))
+    return result
+
+
+def _world_model_loaders(cfg, store, n_envs: int, n_steps: int, seq_len: int,
+                         continuous: bool = False) -> dict:
+    """The last env's stream for validation (env-major collections), so
+    the split and the episode boundaries agree; sequences never cross an
+    env's ``n_steps`` boundary."""
+    n = len(store)
+    split = (n_envs - 1) * n_steps if n_envs > 1 else int(0.9 * n)
+    batch, seed = int(cfg.get("wm_batch", 16)), int(cfg.get("seed", 0))
+    return {"train_dataloader": _sequence_loader(cfg, store.slice(0, split), batch, seq_len,
+                                                 n_steps, True, seed, continuous),
+            "val_dataloader": _sequence_loader(cfg, store.slice(split, n), batch, seq_len,
+                                               n_steps, False, seed, continuous)}
+
+
+@experiment("world_model")
+def world_model(cfg, n_envs: int = 16, n_steps: int = 128, seq_len: int = 8,
+                z_size: int = 64, rnn: str = "lstm", image_loss: str = "mse", **kw):
+    """The latent world model (encoder → ``wm_rnn`` LSTM or GRU → decoder)
+    on an expert collection; ``wm_z_size``, ``wm_image_loss`` (``mse`` or
+    ``ms_ssim``), ``wm_seq_len`` and ``wm_batch`` override. The result
+    carries the resolved architecture as ``wm_config``."""
+    _check_one_device(cfg)
+    z_size = int(cfg.get("wm_z_size", z_size))
+    rnn = str(cfg.get("wm_rnn", rnn))
+    image_loss = str(cfg.get("wm_image_loss", image_loss))
+    seq_len = int(cfg.get("wm_seq_len", seq_len))
+    town, params, rcfg = _sim_bits(cfg)
+    store, _, _ = cl.collect_dataset(params, town, rcfg, _generator(cfg), n_envs, n_steps,
+                                     device=_device(cfg))
+    model = LatentWorldModel(z_size=int(kw.get("wm_z_size", z_size)), rnn=rnn,
+                             n_actions=int(cfg.get("n_actions", 9)), height=rcfg.height,
+                             width=rcfg.width, dtype=_dtype(cfg))
+    result = _fit(cfg, f"world_model_{rnn}_{z_size}_{image_loss}", model,
+                  world_model_loss_fn(image_loss=image_loss),
+                  _world_model_loaders(cfg, store, n_envs, n_steps, seq_len))
+    result["wm_config"] = {"z_size": model.z_size, "rnn": model.rnn,
+                           "n_actions": model.n_actions, "height": model.height,
+                           "width": model.width, "image_loss": image_loss, "seq_len": seq_len}
+    return result
+
+
+@experiment("world_model_imagine")
+def world_model_imagine(cfg, horizon: int = 8, n_envs: int = 16, n_steps: int = 128,
+                        eval_envs: int = 8, **kw):
+    """Train ``world_model``, then encode one real frame of each of
+    ``eval_envs`` fresh expert streams, imagine ``horizon`` steps open-loop
+    under the logged actions, and score the decoded frames against the real
+    future per step (MSE and SSIM); writes ``imagination_strip.png`` (env
+    0, real above imagined) to ``log_dir``."""
+    from PIL import Image
+
+    r = world_model(cfg, n_envs=n_envs, n_steps=n_steps, **kw)
+    model = r.pop("state").model
+    dev = _device(cfg)
+    town, params, rcfg = _sim_bits(cfg)
+    store, _, _ = cl.collect_dataset(
+        params, town, rcfg, torch.Generator().manual_seed(int(cfg.get("seed", 0)) + 999),
+        n_envs=eval_envs, n_steps=horizon + 1, device=dev)
+    frames = (store.frames.reshape(eval_envs, horizon + 1, rcfg.height, rcfg.width, 1)
+              .astype(np.float32) / 255.0)
+    actions = store.actions.reshape(eval_envs, horizon + 1)
+    with torch.no_grad():
+        _, imagined = model.imagine_frames(
+            torch.from_numpy(frames[:, 0]).to(dev),
+            torch.from_numpy(actions[:, :horizon].astype(np.int64)).to(dev))
+        real = torch.from_numpy(frames[:, 1:horizon + 1]).to(dev)
+        mse_h = ((imagined - real) ** 2).mean(dim=(0, 2, 3, 4)).cpu()
+        ssim_h = [float(ssim(imagined[:, t], real[:, t])[0]) for t in range(horizon)]
+    strip = np.concatenate([
+        np.concatenate(list(real[0, ..., 0].cpu().numpy()), axis=1),
+        np.concatenate(list(imagined[0, ..., 0].cpu().numpy()), axis=1)], axis=0)
+    path = Path(cfg["log_dir"]) / "imagination_strip.png"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    Image.fromarray(np.clip(strip * 255, 0, 255).astype(np.uint8)).save(path)
+    return {"horizon": int(horizon), "mse_per_step": [float(v) for v in mse_h],
+            "ssim_per_step": ssim_h, "train_val_loss": r["best_metric"],
+            "strip_path": str(path)}
+
+
+@experiment("dream_policy")
+def dream_policy(cfg, n_envs: int = 16, n_steps: int = 200, seq_len: int = 8,
+                 horizon: int = 15, imag_updates: int = 300, imag_batch: int = 128,
+                 reward_steps: int = 300, eval_envs: int = 32, eval_steps: int = 150, **kw):
+    """A policy trained in the world model's imagination: collect, fit the
+    world model (``wm_rnn`` GRU by default), fit ``reward_ensemble`` reward
+    heads on the recorded driving reward (``training.rl.reward_from_traj``),
+    train a latent-BC policy on the expert's actions (the warm start,
+    ``imag_warm_start``, and the anchor, ``imag_bc_anchor``), train the
+    latent policy in imagination (``imag_*`` knobs), then drive it, the
+    latent-BC policy and the expert in the real sim from one fleet start.
+    ``policy_family=continuous`` conditions the whole chain on the expert's
+    (steer, accel) and drives with continuous control."""
+    _check_one_device(cfg)
+    dev, seed = _device(cfg), int(cfg.get("seed", 0))
+    town, params, rcfg = _sim_bits(cfg)
+    store, _, traj = cl.collect_dataset(params, town, rcfg, _generator(cfg), n_envs, n_steps,
+                                        device=dev)
+    # per-frame reward, env-major like the store's frames
+    rewards = reward_from_traj(traj, PPOConfig()).transpose(0, 1).reshape(-1)
+    del traj
+    family = _control_space(cfg)
+    continuous = family == "continuous"
+    model = LatentWorldModel(z_size=int(cfg.get("wm_z_size", 64)),
+                             rnn=str(cfg.get("wm_rnn", "gru")),
+                             n_actions=int(cfg.get("n_actions", 9)), action_space=family,
+                             height=rcfg.height, width=rcfg.width, dtype=_dtype(cfg))
+    wm_fit = _fit(cfg, "dream_policy_wm", model, world_model_loss_fn(),
+                  _world_model_loaders(cfg, store, n_envs, n_steps, seq_len, continuous))
+    wm = wm_fit["state"].model
+    frames = torch.from_numpy(store.frames).to(dev).to(torch.float32)[..., None] * (1.0 / 255.0)
+    zs = imag.encode_frames(wm, frames)
+    del frames
+    draws = torch.Generator(device=dev).manual_seed(seed)
+    inits = torch.Generator().manual_seed(seed + 1)
+    ensemble = int(cfg.get("reward_ensemble", 5))
+    head, rh_hist = imag.train_reward_head(zs, rewards, draws, inits, steps=reward_steps,
+                                           ensemble=ensemble)
+    anchor_coef = float(cfg.get("imag_bc_anchor", 0.3))
+    warm_start = _flag(cfg, "imag_warm_start", True)
+    bc_policy, bc_hist = None, None
+    if anchor_coef > 0.0 or warm_start:
+        if continuous:
+            bc_policy = imag.ContinuousLatentPolicy(model.z_size)
+            targets = torch.from_numpy(store.controls.astype(np.float32)).to(dev)
+        else:
+            bc_policy = imag.LatentPolicy(model.z_size, n_actions=model.n_actions)
+            targets = torch.from_numpy(store.actions.astype(np.int64)).to(dev)
+        bc_policy, bc_hist = imag.train_latent_bc(
+            bc_policy, zs, targets, draws, inits, steps=int(cfg.get("latent_bc_steps", 400)),
+            continuous=continuous)
+        bc_policy.requires_grad_(False)
+    policy, hist = imag.imagination_train(
+        wm, head, zs, draws, inits, updates=imag_updates, batch=imag_batch,
+        horizon=int(cfg.get("imag_horizon", horizon)),
+        gamma=float(cfg.get("imag_gamma", 0.98)), lr=float(cfg.get("imag_lr", 3e-4)),
+        entropy_coef=float(cfg.get("imag_entropy", 3e-3)),
+        explore_std=float(cfg.get("imag_explore_std", 0.1)),
+        disagree_coef=float(cfg.get("imag_disagree", 1.0)),
+        anchor=bc_policy if anchor_coef > 0.0 else None, anchor_coef=anchor_coef,
+        init=bc_policy if warm_start else None,
+        uncertainty_stop=float(cfg.get("imag_uncertainty_stop", 0.0)))
+
+    def evaluate(policy_fn, space: str = "discrete") -> dict:
+        return cl.evaluate_policy(params, town, rcfg, policy_fn,
+                                  torch.Generator().manual_seed(seed + 5), n_envs=eval_envs,
+                                  n_steps=eval_steps, control_space=space, device=dev)
+
+    out = {
+        "wm_val_loss": wm_fit["history"][-1].get("val_loss"),
+        "reward_head_mse": rh_hist,
+        "imagination": hist,
+        "imagined_return_first": hist[0]["imagined_return"],
+        "imagined_return_last": hist[-1]["imagined_return"],
+        "eval": evaluate(imag.latent_policy_fn(wm, policy), family),
+        "expert": evaluate(None),
+        "mitigations": {
+            "reward_ensemble": ensemble,
+            "imag_disagree": float(cfg.get("imag_disagree", 1.0)),
+            "imag_bc_anchor": anchor_coef,
+            "imag_warm_start": warm_start,
+            "imag_uncertainty_stop": float(cfg.get("imag_uncertainty_stop", 0.0)),
+        },
+    }
+    if bc_hist is not None:
+        out["latent_bc_loss"] = bc_hist
+        out["latent_bc_eval"] = evaluate(imag.latent_policy_fn(wm, bc_policy), family)
+    return out

@@ -107,17 +107,15 @@ class ConvVAE(nn.Module):
             h = F.relu(F.conv2d(h, conv.weight.to(dt), conv.bias.to(dt), stride=s))
         return h.permute(0, 2, 3, 1).reshape(h.shape[0], -1).to(self._param_float)
 
-    def bottleneck(self, h: torch.Tensor, generator: torch.Generator | None = None,
-                   noise: torch.Tensor | None = None):
+    def bottleneck(self, h: torch.Tensor, generator: torch.Generator | None = None):
         """(B, hidden) → (z, mu, log_var), all in float32: z = mu without a
-        draw, else mu + exp(log_var / 2) · ε with ε the ``noise`` tensor
-        given, or a standard normal from ``generator``."""
+        generator, else mu + exp(log_var / 2) · ε with ε a standard normal
+        from ``generator`` (through ``draw_noise``)."""
         mu = F.linear(h, self.to_mu.weight, self.to_mu.bias)
         log_var = F.linear(h, self.to_log_var.weight, self.to_log_var.bias)
-        if noise is None and generator is not None:
-            noise = draw_noise(generator, tuple(mu.shape), mu.device, mu.dtype)
-        if noise is None:
+        if generator is None:
             return mu, mu, log_var
+        noise = draw_noise(generator, tuple(mu.shape), mu.device, mu.dtype)
         return mu + torch.exp(0.5 * log_var) * noise.to(mu.dtype), mu, log_var
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
@@ -136,10 +134,9 @@ class ConvVAE(nn.Module):
             h = F.relu(h) if i < last else torch.sigmoid(h.to(self._param_float))
         return h.permute(0, 2, 3, 1)
 
-    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None,
-                noise: torch.Tensor | None = None):
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None):
         """x (B, H, W, C) in [0, 1] → (recon, mu, log_var)."""
-        z, mu, log_var = self.bottleneck(self.encode(x), generator, noise)
+        z, mu, log_var = self.bottleneck(self.encode(x), generator)
         return self.decode(z), mu, log_var
 
     def representation(self, x: torch.Tensor) -> torch.Tensor:

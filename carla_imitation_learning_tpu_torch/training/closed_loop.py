@@ -149,7 +149,8 @@ def make_rollout(params: SimParams, town: TownMap, rcfg: RenderConfig,
                  record_semantic: bool = False, noise: NoiseConfig | None = None,
                  control_space: str = "discrete",
                  policy_rng: torch.Generator | None = None,
-                 shield: ShieldConfig | None = None, lidar_beams: int = 0):
+                 shield: ShieldConfig | None = None, lidar_beams: int = 0,
+                 policy_carry_init: Callable | None = None):
     """Build (init_fn, rollout_fn) for a single-camera fleet.
 
     ``policy_fn(obs)`` maps the NHWC float window (B, H, W, frame_skip) in
@@ -161,6 +162,12 @@ def make_rollout(params: SimParams, town: TownMap, rcfg: RenderConfig,
     (B, 3)}`` of the state before the step (and ``"rng"``, the
     ``policy_rng`` generator, when one is given); one of three parameters
     also gets ``rollout_fn``'s ``policy_params``.
+    ``policy_carry_init`` (``n_envs -> tensor or tuple of tensors``) makes
+    the policy recurrent: it is called ``policy_fn(obs, h) -> (actions,
+    h')`` with its state riding the carry, and ``h`` is set back to
+    ``policy_carry_init``'s value for every env whose ``just_reset`` is set
+    (a fresh episode never starts from a crashed car's memory); a recurrent
+    policy gets no extras and emits discrete actions.
     ``control_space="continuous"`` takes the policy's output as (B, 2)
     float controls, clipped to [-1, 1]: steer, and a signed acceleration
     executed as throttle max(a, 0) and brake max(−a, 0);
@@ -185,13 +192,20 @@ def make_rollout(params: SimParams, town: TownMap, rcfg: RenderConfig,
     the exact luma path (``replace(rcfg, fast=False, rgb=False)``).
 
     ``init_fn(generator, n_envs) -> carry`` with carry = (states, framebuf
-    (B, H, W, fs) uint8, just_reset (B,) bool); ``rollout_fn(carry, n_steps,
+    (B, H, W, fs) uint8, just_reset (B,) bool[, policy state]);
+    ``rollout_fn(carry, n_steps,
     policy_params=None) -> (carry, traj)`` where traj stacks per-step (T, B,
     ...) tensors."""
     if control_space not in ("discrete", "continuous"):
         raise ValueError(f"unknown control_space {control_space!r}")
     continuous = control_space == "continuous"
-    n_policy_args = 0 if policy_fn is None else len(inspect.signature(policy_fn).parameters)
+    recurrent = policy_carry_init is not None
+    if continuous and recurrent:
+        raise NotImplementedError(
+            "continuous control_space with a recurrent policy is not wired up: "
+            "recurrent policies emit discrete actions")
+    n_policy_args = (0 if policy_fn is None or recurrent
+                     else len(inspect.signature(policy_fn).parameters))
     dev = resolve_device(device)
     town = town.to(dev)
     rcfg = dataclasses.replace(rcfg, rgb=False, fast=True)
@@ -211,7 +225,10 @@ def make_rollout(params: SimParams, town: TownMap, rcfg: RenderConfig,
     def init_fn(generator: torch.Generator, n_envs: int):
         states = reset_env(params, town, generator, n_envs)
         framebuf = _quantize(render(states)["gray"])[..., None].repeat(1, 1, 1, frame_skip)
-        return states, framebuf, torch.zeros(n_envs, dtype=torch.bool, device=dev)
+        base = (states, framebuf, torch.zeros(n_envs, dtype=torch.bool, device=dev))
+        if recurrent:
+            return base + (_tree(lambda h: h.to(dev), policy_carry_init(n_envs)),)
+        return base
 
     def run_policy(obs, states, sensors, command, policy_params):
         if n_policy_args < 2:
@@ -224,7 +241,11 @@ def make_rollout(params: SimParams, town: TownMap, rcfg: RenderConfig,
         return policy_fn(obs, extras)
 
     def one_step(carry, steer_noise, policy_params):
-        states, framebuf, just_reset = carry
+        states, framebuf, just_reset = carry[:3]
+        if recurrent:
+            pcarry = _tree(lambda h, h0: torch.where(
+                just_reset.view((-1,) + (1,) * (h.dim() - 1)), h0.to(dev), h),
+                carry[3], policy_carry_init(just_reset.shape[0]))
         gray_u8 = _quantize(render(states)["gray"])
         framebuf = update_framebuf(framebuf, gray_u8, just_reset)
         obs = framebuf.to(torch.float32) * (1.0 / 255.0)
@@ -238,6 +259,10 @@ def make_rollout(params: SimParams, town: TownMap, rcfg: RenderConfig,
         policy_extra = None
         if policy_fn is None:
             control, action = expert, expert_action
+        elif recurrent:
+            action, pcarry = policy_fn(obs, pcarry)
+            action = action.to(torch.int64)
+            control = control_from_discrete(action)
         else:
             res = run_policy(obs, states, sensors, command, policy_params)
             if isinstance(res, tuple):
@@ -292,7 +317,8 @@ def make_rollout(params: SimParams, town: TownMap, rcfg: RenderConfig,
             out["clean_steer"] = clean_steer
         if shield_on is not None:
             out["shield"] = shield_on
-        return (new_states, framebuf, info["done"]), out
+        new_carry = (new_states, framebuf, info["done"])
+        return (new_carry + (pcarry,) if recurrent else new_carry), out
 
     @torch.no_grad()
     def rollout_fn(carry, n_steps: int, policy_params=None):
@@ -309,6 +335,14 @@ def make_rollout(params: SimParams, town: TownMap, rcfg: RenderConfig,
         return carry, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
     return init_fn, rollout_fn
+
+
+def _tree(fn, *trees):
+    """``fn`` over the tensors of one policy state, or of parallel tuples
+    of them (an LSTM's (c, h))."""
+    if isinstance(trees[0], tuple):
+        return tuple(_tree(fn, *leaves) for leaves in zip(*trees))
+    return fn(*trees)
 
 
 def assign_goals(carry, goal_ids):
@@ -413,16 +447,19 @@ def evaluate_policy(params: SimParams, town: TownMap, rcfg: RenderConfig,
                     spawn_pool: torch.Tensor | None = None,
                     control_space: str = "discrete",
                     device: str | torch.device = "cuda",
-                    shield: ShieldConfig | None = None) -> dict:
+                    shield: ShieldConfig | None = None,
+                    policy_carry_init: Callable | None = None) -> dict:
     """Driving metrics for a policy (or the expert when ``policy_fn`` is
     None): raw per-step rates plus the CARLA-leaderboard-style composite —
     per env stream, route completion (odometer and along-route) times the
     infraction penalty 0.60^collisions · 0.65^offroads · 0.70^red-runs.
     With a ``shield`` the rollout runs under it and the metrics gain its
-    interventions per km and active share."""
+    interventions per km and active share. ``policy_carry_init`` runs a
+    recurrent policy (``make_rollout``)."""
     init_fn, rollout_fn = make_rollout(params, town, rcfg, policy_fn, frame_skip,
                                        spawn_pool=spawn_pool, device=device,
-                                       control_space=control_space, shield=shield)
+                                       control_space=control_space, shield=shield,
+                                       policy_carry_init=policy_carry_init)
     _, traj = rollout_fn(init_fn(generator, n_envs), n_steps)
     return driving_metrics(params, traj)
 

@@ -7,8 +7,9 @@ BC: mean softmax cross-entropy on the 9-way logits, in float32 at least
 weighted MSE on (steer, accel); CIL: cross-entropy of the active branch
 plus a weighted MSE of the speed head; dual-stream BC; the VAE's
 alpha · MSE + beta · KL; the aux multi-task loss (recon, traffic, action,
-and per-pixel seg CE with its mIoU). The metric names are the JAX
-package's.
+and per-pixel seg CE with its mIoU); the world model's image and latent
+terms (MSE or MS-SSIM); sequence BC of the recurrent policy. The metric
+names are the JAX package's.
 """
 
 from __future__ import annotations
@@ -186,3 +187,42 @@ def aux_seg_loss_fn(recon_weight: float = 0.0, traffic_weight: float = 0.0,
                       "accuracy": accuracy(action_logits.detach(), y[:, 1])}
 
     return loss_fn
+
+
+def world_model_loss_fn(recon_weight: float = 1.0, latent_weight: float = 1.0,
+                        pred_image_weight: float = 1.0, image_loss: str = "mse"):
+    """``LatentWorldModel`` on a batch ``(frames (B, T, H, W, C), actions)``
+    (``SequenceDataset``): reconstruction, latent prediction against the
+    detached next latents, and predicted-image terms; the image terms are
+    MSE or, with ``image_loss="ms_ssim"``, 1 − MS-SSIM over the B · T
+    frames."""
+    from carla_imitation_learning_tpu_torch.ops.ssim import ms_ssim_loss
+
+    def image_term(a, b):
+        if image_loss == "ms_ssim":
+            return ms_ssim_loss(a.flatten(0, 1), b.flatten(0, 1))
+        wide = torch.promote_types(a.dtype, torch.float32)
+        return ((a.to(wide) - b.to(wide)) ** 2).mean()
+
+    def loss_fn(model, batch, generator: torch.Generator | None = None):
+        frames, actions = batch
+        recon, z, z_pred, frames_pred = model(frames, actions)
+        recon_loss = image_term(recon, frames)
+        latent_loss = ((z_pred - z[:, 1:].detach()) ** 2).mean()
+        pred_image_loss = image_term(frames_pred, frames[:, 1:])
+        loss = (recon_weight * recon_loss + latent_weight * latent_loss
+                + pred_image_weight * pred_image_loss)
+        return loss, {"loss": loss.detach(), "recon_loss": recon_loss.detach(),
+                      "latent_pred_loss": latent_loss.detach(),
+                      "image_pred_loss": pred_image_loss.detach()}
+
+    return loss_fn
+
+
+def rnn_bc_loss_fn(model, batch, generator: torch.Generator | None = None):
+    """Sequence BC for ``RecurrentPolicy`` on ``(frames_seq (B, T, H, W, C),
+    actions_seq (B, T))``: mean CE over every step of every sequence."""
+    frames_seq, actions_seq = batch
+    logits, _ = model(frames_seq)
+    loss = cross_entropy(logits.flatten(0, 1), actions_seq.reshape(-1))
+    return loss, {"loss": loss.detach(), "accuracy": accuracy(logits.detach(), actions_seq)}

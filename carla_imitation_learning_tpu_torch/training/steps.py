@@ -168,7 +168,9 @@ def flax_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     ``generator`` (a CPU generator; the draws are copied to the model's
     device). A module may also list raw parameters that flax draws alike:
     ``flax_kernels`` (fan-in over all but the last axis, as flax's
-    variance scaling counts a stacked kernel) and ``flax_biases`` (zeros)."""
+    variance scaling counts a stacked kernel), ``flax_biases`` (zeros),
+    ``flax_normal`` ({name: std}) and ``flax_orthogonal`` (a recurrent
+    cell's hidden kernels)."""
 
     def draw_(w: torch.Tensor, fan_in: int) -> None:
         std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
@@ -194,6 +196,20 @@ def flax_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
         for name in getattr(module, "flax_biases", ()):
             with torch.no_grad():
                 getattr(module, name).zero_()
+        for name, std in getattr(module, "flax_normal", {}).items():
+            w = getattr(module, name)
+            with torch.no_grad():
+                w.copy_(torch.randn(w.shape, generator=generator, dtype=w.dtype) * std)
+        for name in getattr(module, "flax_orthogonal", ()):
+            # (n, g · n) recurrent gate kernels side by side: each (n, n)
+            # block orthogonal, as flax's recurrent cells draw each gate's
+            w = getattr(module, name)
+            n = w.shape[0]
+            with torch.no_grad():
+                for j in range(0, w.shape[1], n):
+                    block = torch.empty(n, n, dtype=w.dtype)
+                    torch.nn.init.orthogonal_(block, generator=generator)
+                    w[:, j:j + n].copy_(block)
     return model
 
 

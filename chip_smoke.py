@@ -116,6 +116,18 @@ Phases (any failure exits nonzero, with no result line):
    per step with and without; card vs CPU within 1e-5 relative); the s2d
    stem's forward against the standard stem at 1024 × 128² (fp32 within
    1e-4, bf16 within 2 % of the logits' scale, both timed);
+6i. the sequence, world-model and ViT families (``seq_wm_phase``), counts
+   reset just before each run: ``run bc_rnn``, ``world_model`` (MSE and
+   MS-SSIM), ``world_model_imagine``, ``dream_policy`` (discrete and
+   continuous) and ``bc -o experiment=bc_vit`` with ``closed_loop_eval``
+   of its checkpoint at 128² through the CLI at the presets' widths
+   (epochs, batches per epoch, rollout depths and updates cut; kernel B
+   launched exactly once per rollout step plus each rollout's first frame,
+   no other kernel); one fp32 step of ``RecurrentPolicy`` and of the LSTM
+   and GRU world models, one imagination update and the ViT's forward on
+   the card and on the CPU against float64, ``RecurrentPolicy.step``
+   against its sequence; each model's bf16 step alone, ms per imagination
+   update, and the recurrent rollout's marginal env-steps/s at 1024 envs;
 7. the rich fleet (same town and envs, the rich128 preset: facade bands,
    markings, shadows, textures, T=1408) from three seeds: kernel A's
    textured variant (C=1 and C=3), kernel B on the rich lists (2 px and 0
@@ -228,6 +240,20 @@ SHIELD_CROSS_ENVS, SHIELD_CROSS_STEPS = 8, 16  # the shield's mask on the card v
 LIDAR_BEAMS, LIDAR_SHORT, LIDAR_LONG, LIDAR_REPEATS = 360, 8, 24, 3
 LIDAR_CROSS_ENVS = 8
 S2D_BATCH, S2D_REPS = 1024, 20                 # the s2d stem's forward at 1024 × 128²
+# The seq_wm phase: the presets bc_rnn, world_model, world_model_imagine,
+# dream_policy and bc_vit at their widths (envs, sizes, batches); epochs,
+# batches per epoch, rollout depths and updates cut
+SEQ_EPOCHS, SEQ_BATCHES = 2, 40                # every fit (presets: 50 epochs; dream_policy 10)
+SEQ_VIT_EPOCHS = 3                             # bc_vit's fit on its 120-frame synthetic log
+SEQ_RNN_STEPS, SEQ_RNN_EVAL_STEPS = 150, 100   # bc_rnn's collection and eval (preset 300, 200)
+SEQ_VIT_EVAL_ENVS, SEQ_VIT_EVAL_STEPS = 64, 50   # closed_loop_eval of the ViT (preset 64 × 200)
+SEQ_DREAM_STEPS, SEQ_DREAM_UPDATES, SEQ_DREAM_EVAL_STEPS = 100, 50, 75   # (preset 200, 300, 150)
+SEQ_CONT_STEPS, SEQ_CONT_UPDATES, SEQ_CONT_EVAL_STEPS = 100, 50, 50   # continuous dream_policy
+SEQ_ROLL_SHORT, SEQ_ROLL_LONG, SEQ_ROLL_REPEATS = 16, 32, 3   # the recurrent rollout's rate
+SEQ_IMAG_WARM, SEQ_IMAG_TIMED, SEQ_IMAG_REPEATS = 2, 10, 3    # ms per imagination update
+# each model's train step alone: warm-up, repeats of timed steps, profiled steps
+SEQ_TIMED_WARM, SEQ_TIMED_STEPS, SEQ_TIMED_REPEATS, SEQ_PROFILED_STEPS = 3, 20, 3, 5
+SEQ_CROSS_BATCH = 2                            # card-vs-CPU steps: sequences of 8 at 128²
 LANES_PER_SM = 128       # lane-instructions an SM issues per clock (4 × 32)
 HBM_RATE = 3.35e12       # H100 SXM device memory, B/s
 WARP_TILE = 16           # kernels A and B cull per 16 × 16 pixel warp tile
@@ -700,6 +726,9 @@ def run(args) -> dict:
         torch.cuda.empty_cache()
         paths["rl_safety"] = rl_safety_phase(dev, Path(keep) / "best",
                                              profile=args.profile is not None)
+        torch.cuda.empty_cache()
+    paths["seq_wm"] = seq_wm_phase(dev)
+    torch.cuda.empty_cache()
     # the rich phases allocate gigabytes of temporaries; they run after the
     # main path has been timed
     rich, b_rich_err = rich_kernels(params, town, dev, rows, rate, facts)
@@ -1306,7 +1335,7 @@ def _move(obj, d, dtype):
 
 
 def step_card_vs_cpu(name: str, loss_fn, batch, dev, require_clip: bool = True,
-                     model_fn=None) -> dict:
+                     model_fn=None, cpu_refs: tuple = ("cpu",), model_floor: bool = False) -> dict:
     """One fp32 train step of ``loss_fn`` from the same weights and batch on
     the card and on the CPU, TF32 off, with the global-norm clip (when
     ``require_clip``, checked to trigger), each held against the same step
@@ -1320,8 +1349,16 @@ def step_card_vs_cpu(name: str, loss_fn, batch, dev, require_clip: bool = True,
     plus 1 in 10,000 (Adam's first step moves each weight by about lr ·
     sign(g), so a near-zero gradient may flip its step). Float tensors of
     ``batch`` (nested tuples allowed) take each run's dtype. The model is
-    ``model_fn(dtype)`` (default a ``PolicyCNN``). Prints the ``name``
-    line; → the errors."""
+    ``model_fn(dtype)`` (default a ``PolicyCNN``). ``cpu_refs`` names the
+    CPU runs whose gradient error bounds the card's (the largest of them):
+    by default the CPU as torch runs it (oneDNN convolutions where the
+    build has them); ``("cpu", "cpu_no_mkldnn")`` also admits the CPU's
+    native convolutions, whose reduction order differs. ``model_floor``
+    takes the 1e-6 floor of the largest gradient of the whole model rather
+    than of each tensor: for a model whose tensors' gradients span five
+    orders of magnitude, a sum that cancels to a small gradient carries
+    the rounding of its large terms. Prints the ``name`` line; → the
+    errors."""
     import torch
 
     from carla_imitation_learning_tpu_torch.models import PolicyCNN
@@ -1386,10 +1423,13 @@ def step_card_vs_cpu(name: str, loss_fn, batch, dev, require_clip: bool = True,
     for side in ("card", "cpu"):
         check(res[f"loss_rel_err_{side}"] <= 1e-5,
               f"{name}: {side} loss {runs[side][0]} vs float64 {loss64}")
+    model_scale = max(t["grad_scale"] for t in res["tensors"].values())
     for k, t in res["tensors"].items():
-        check(t["grad_err_card"] <= 4 * t["grad_err_cpu"] + 1e-6 * t["grad_scale"],
+        cpu_err = max(t[f"grad_err_{side}"] for side in cpu_refs)
+        floor = 1e-6 * (model_scale if model_floor else t["grad_scale"])
+        check(t["grad_err_card"] <= 4 * cpu_err + floor,
               f"{name}: {k} gradient {t['grad_err_card']:.3e} from float64, "
-              f"CPU {t['grad_err_cpu']:.3e} (scale {t['grad_scale']:.3e})")
+              f"CPU {cpu_err:.3e} (scale {t['grad_scale']:.3e})")
     check(res["params_off_card"] <= 4 * res["params_off_cpu"] + res["params"] // 10000,
           f"{name}: {res['params_off_card']} parameters off float64's step by "
           f"> 1 % of lr (CPU {res['params_off_cpu']})")
@@ -2850,10 +2890,15 @@ def profile_train_step(epoch, state, order) -> dict:
                        for k, v in sorted(groups.items(), key=lambda kv: -kv[1][0])}}
 
 
-def time_train_step(label: str, model, loss_fn, group: str, batch, dev) -> dict:
+def time_train_step(label: str, model, loss_fn, group: str, batch, dev,
+                    rows: int = AUX_BATCH, images: int | None = None,
+                    counts: tuple = (AUX_TIMED_WARM, AUX_TIMED_STEPS, AUX_TIMED_REPEATS,
+                                     AUX_PROFILED_STEPS)) -> dict:
     """One model's train step alone, as ``run`` builds it (the optimizer of
     the ``model=<group>`` preset, flax init, the step's device generator),
-    on ``batch`` (AUX_BATCH rows) moved to ``dev``: AUX_TIMED_WARM warm-up steps, then
+    on ``batch`` (``rows`` rows, ``images`` frames, default one a row) moved
+    to ``dev``: ``counts`` = (warm-up steps, steps a run, runs, profiled
+    steps), by default AUX_TIMED_WARM warm-up steps, then
     AUX_TIMED_REPEATS runs of AUX_TIMED_STEPS steps, each timed by CUDA
     events around it (ms per step) and by the host clock up to the last
     step's return before the sync (the host's ms to issue a step), then
@@ -2873,32 +2918,33 @@ def time_train_step(label: str, model, loss_fn, group: str, batch, dev) -> dict:
     def to_dev(b):
         return tuple(to_dev(x) for x in b) if isinstance(b, tuple) else b.to(dev)
 
+    warm, steps, repeats, profiled = counts
     batch = to_dev(batch)
     state = create_train_state(model, make_optimizer(compose("config", overrides=[f"model={group}"])),
                                generator=torch.Generator().manual_seed(0), device=dev)
     step = make_train_step(loss_fn)
     gen = torch.Generator(device=dev).manual_seed(0)
-    for _ in range(AUX_TIMED_WARM):
+    for _ in range(warm):
         step(state, batch, gen)
     device_ms, host_ms = [], []
-    for _ in range(AUX_TIMED_REPEATS):
+    for _ in range(repeats):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         start.record()
-        for _ in range(AUX_TIMED_STEPS):
+        for _ in range(steps):
             _, metrics = step(state, batch, gen)
         end.record()
-        host_ms.append((time.perf_counter() - t0) * 1e3 / AUX_TIMED_STEPS)
+        host_ms.append((time.perf_counter() - t0) * 1e3 / steps)
         torch.cuda.synchronize()
-        device_ms.append(start.elapsed_time(end) / AUX_TIMED_STEPS)
+        device_ms.append(start.elapsed_time(end) / steps)
     check(bool(torch.isfinite(metrics["loss"])), f"{label} timed steps: loss not finite")
     prof = profile_train_step(lambda st, order: [step(st, batch, gen) for _ in order], state,
-                              range(AUX_PROFILED_STEPS))
+                              range(profiled))
     ms = sorted(device_ms)[len(device_ms) // 2]
-    out = {"batch": AUX_BATCH, "dtype": "bfloat16", "steps": AUX_TIMED_STEPS, "ms_per_step": ms,
+    out = {"batch": rows, "dtype": "bfloat16", "steps": steps, "ms_per_step": ms,
            "ms_runs": device_ms, "host_issue_ms_runs": host_ms,
-           "images_per_s": AUX_BATCH / ms * 1e3,
+           "images_per_s": (images or rows) / ms * 1e3,
            "idle_share": 1.0 - prof["device_busy_ms_per_step"] / ms,
            "profile": {k: prof[k] for k in ("wall_ms_per_step", "device_busy_ms_per_step",
                                             "device_idle_share", "device_launches_per_step",
@@ -3470,6 +3516,401 @@ def profile_ppo_update(params, town, rcfg, dev) -> dict:
     del traj
     return {k: prof[k] for k in ("wall_ms_per_step", "device_busy_ms_per_step",
                                  "device_idle_share", "device_launches_per_step", "groups")}
+
+
+def seq_wm_phase(dev) -> dict:
+    """Phase 6i: the sequence, world-model and ViT families (``seq_wm``),
+    through the CLI at the presets' widths, counts reset just before each
+    run and kernel B's launches checked against the rollouts each run makes
+    (a rollout of n steps launches B n + 1 times: its first frame and every
+    step); no other kernel runs.
+
+    a. ``run bc_rnn`` (32 envs × SEQ_RNN_STEPS of the preset's 300 steps,
+       sequences of 8, batch 64, hidden 128, closed loop 64 ×
+       SEQ_RNN_EVAL_STEPS of its 200 with the hidden state in the rollout's
+       carry); ``run world_model`` (16 × 128, LSTM, z 64, MSE) and once
+       more with ``wm_image_loss=ms_ssim``; ``run world_model_imagine`` (its
+       fit, then 8 envs × 9 steps imagined 8 steps ahead); ``run
+       dream_policy`` (16 envs × SEQ_DREAM_STEPS of its 200 steps, GRU, 5
+       reward heads, 300 reward steps, 400 latent-BC steps,
+       SEQ_DREAM_UPDATES of its 300 imagination updates at batch 128 and
+       horizon 15, three evaluations at 32 × SEQ_DREAM_EVAL_STEPS of its
+       150) and its continuous family at a
+       smaller depth (SEQ_CONT_STEPS steps, SEQ_CONT_UPDATES updates,
+       evaluations of SEQ_CONT_EVAL_STEPS steps); ``run bc -o
+       experiment=bc_vit`` (patch 16, dim 192, depth 4, heads 3, on the
+       120-frame 256² synthetic log) and ``closed_loop_eval`` of its
+       checkpoint at 128², where the 16² position grid is resized to 8² with
+       antialiasing. Every fit runs SEQ_EPOCHS epochs of at most
+       SEQ_BATCHES batches (the ViT SEQ_VIT_EPOCHS); each metric is finite, ``bc_rnn``'s train loss and
+       the world models' reconstruction loss fall; scores lie in [0, 1];
+    b. one fp32 step (TF32 off) on the card and on the CPU, each against
+       float64 (``step_card_vs_cpu``): ``RecurrentPolicy`` on sequences and
+       ``LatentWorldModel`` with the LSTM and the GRU; ``RecurrentPolicy.step``
+       looped against the sequence on the card; one imagination update
+       (``imagination_card_vs_cpu``); the ViT's forward at 128²
+       (``vit_card_vs_cpu``);
+    c. each model's bf16 train step alone at its preset's batch
+       (``time_train_step`` with the SEQ_TIMED_* counts), ms per
+       imagination update at the
+       dream_policy preset's shape, and the recurrent rollout's marginal
+       env-steps/s at N_ENVS envs.
+    Prints one ``seq_wm`` line; → the launch counts of part (a) and of the
+    recurrent rollout."""
+    import math
+
+    import torch
+
+    from carla_imitation_learning_tpu_torch.config import compose
+    from carla_imitation_learning_tpu_torch.models import (
+        LatentWorldModel, RecurrentPolicy, ViTPolicy,
+    )
+    from carla_imitation_learning_tpu_torch.render.pipeline import RenderConfig
+    from carla_imitation_learning_tpu_torch.training import imagination as imag
+    from carla_imitation_learning_tpu_torch.training import losses
+    from carla_imitation_learning_tpu_torch.training.closed_loop import make_rollout
+    from carla_imitation_learning_tpu_torch.training.steps import flax_init_
+
+    t_phase = time.perf_counter()
+    res: dict = {"card": nvidia_smi(), "runs": {}}
+    launches: dict = {}
+    pre = {n: compose("config", overrides=[f"experiment={n}"])
+           for n in ("bc_rnn", "world_model", "world_model_imagine", "dream_policy")}
+
+    def counted(label: str, want_b: int, *argv) -> dict:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = cli_run(*argv)
+        torch.cuda.synchronize()
+        got = launches[label] = read_counts()
+        check(got["B"] == want_b,
+              f"{label}: kernel B launched {got['B']} times, the code implies {want_b}")
+        check(got["A"] + got["A-tex"] + got["C"] + got["D"] == 0,
+              f"{label} launched a kernel it does not run: {got}")
+        res["runs"][label] = {"seconds": time.perf_counter() - t0, "launches_b": got["B"]}
+        return out
+
+    def falls(label: str, history: list, key: str = "train_loss") -> None:
+        first, last = history[0][key], history[-1][key]
+        check(all(math.isfinite(v) for row in history for v in row.values()) and last < first,
+              f"{label}: {key} {first} → {last} (not finite or not falling)")
+        res["runs"][label][key] = [first, last]
+
+    def score(label: str, m: dict, envs: int, steps: int) -> float:
+        check(m["env_steps"] == envs * steps and 0.0 <= m["driving_score"] <= 1.0,
+              f"{label}: {m['env_steps']} env-steps, score {m['driving_score']}")
+        return m["driving_score"]
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_seq_") as tmp:
+        base = ("-o", f"log_dir={tmp}/logs", "-o", f"data_dir={tmp}/data",
+                "-o", f"NUM_EPOCHS={SEQ_EPOCHS}",
+                "-o", f"trainer.limit_train_batches={SEQ_BATCHES}")
+        # a. the five presets through the CLI
+        out = counted("bc_rnn", SEQ_RNN_STEPS + 1 + SEQ_RNN_EVAL_STEPS + 1,
+                      "-o", "experiment=bc_rnn", *base, "-o", f"n_steps={SEQ_RNN_STEPS}",
+                      "-o", f"eval_steps={SEQ_RNN_EVAL_STEPS}")
+        falls("bc_rnn", out["history"])
+        res["runs"]["bc_rnn"]["closed_loop"] = score("bc_rnn", out["closed_loop"],
+                                                     pre["bc_rnn"]["eval_envs"],
+                                                     SEQ_RNN_EVAL_STEPS)
+        res["runs"]["bc_rnn"]["test_accuracy"] = out["test"]["test_accuracy"]
+        p = pre["world_model"]
+        for label, extra in (("world_model", ()),
+                             ("world_model_ms_ssim", ("-o", "wm_image_loss=ms_ssim"))):
+            out = counted(label, p["n_steps"] + 1, "-o", "experiment=world_model", *base, *extra)
+            # the latent term grows while the encoder's latents spread out of
+            # tanh's flat start; the reconstruction is what must improve
+            falls(label, out["history"], "train_recon_loss")
+            check(out["wm_config"]["height"] == HW and out["wm_config"]["z_size"] == 64,
+                  f"{label}: {out['wm_config']}")
+            res["runs"][label]["val_loss"] = out["history"][-1]["val_loss"]
+        p = pre["world_model_imagine"]
+        out = counted("world_model_imagine", p["n_steps"] + 1 + p["horizon"] + 2,
+                      "-o", "experiment=world_model_imagine", *base)
+        check(len(out["mse_per_step"]) == p["horizon"]
+              and all(math.isfinite(v) for v in out["mse_per_step"])
+              and all(-1.0 <= v <= 1.0 for v in out["ssim_per_step"])
+              and Path(out["strip_path"]).is_file(), f"world_model_imagine: {out}")
+        res["runs"]["world_model_imagine"].update(
+            {k: out[k] for k in ("mse_per_step", "ssim_per_step", "train_val_loss")})
+        p = pre["dream_policy"]
+        for label, n_steps, eval_steps, extra in (
+                ("dream_policy", SEQ_DREAM_STEPS, SEQ_DREAM_EVAL_STEPS,
+                 ("-o", f"n_steps={SEQ_DREAM_STEPS}", "-o", f"imag_updates={SEQ_DREAM_UPDATES}",
+                  "-o", f"eval_steps={SEQ_DREAM_EVAL_STEPS}")),
+                ("dream_policy_continuous", SEQ_CONT_STEPS, SEQ_CONT_EVAL_STEPS,
+                 ("-o", "policy_family=continuous", "-o", f"n_steps={SEQ_CONT_STEPS}",
+                  "-o", f"imag_updates={SEQ_CONT_UPDATES}",
+                  "-o", f"eval_steps={SEQ_CONT_EVAL_STEPS}"))):
+            out = counted(label, n_steps + 1 + 3 * (eval_steps + 1),
+                          "-o", "experiment=dream_policy", *base, *extra)
+            hist = out["imagination"]
+            check(all(math.isfinite(v) for h in hist for v in h.values())
+                  and all(math.isfinite(v) for v in out["reward_head_mse"] + out["latent_bc_loss"]),
+                  f"{label}: non-finite training metrics")
+            res["runs"][label].update({
+                who: score(f"{label} {who}", out[who], p["eval_envs"], eval_steps)
+                for who in ("eval", "latent_bc_eval", "expert")})
+            res["runs"][label].update({
+                "imagined_return": [out["imagined_return_first"], out["imagined_return_last"]],
+                "reward_head_mse": [out["reward_head_mse"][0], out["reward_head_mse"][-1]],
+                "latent_bc_loss": [out["latent_bc_loss"][0], out["latent_bc_loss"][-1]],
+                "wm_val_loss": out["wm_val_loss"]})
+        out = counted("bc_vit", 0, "-o", "experiment=bc_vit", *base,
+                      "-o", f"NUM_EPOCHS={SEQ_VIT_EPOCHS}")["camera"]
+        check(math.isfinite(out["test"]["test_loss"]), f"bc_vit: test loss {out['test']}")
+        res["runs"]["bc_vit"]["test_loss"] = out["test"]["test_loss"]
+        ev = counted("closed_loop_eval_vit", 2 * (SEQ_VIT_EVAL_STEPS + 1), "closed_loop_eval",
+                     "--checkpoint", out["best_path"], "-o", "policy_arch=vit",
+                     "-o", f"n_envs={SEQ_VIT_EVAL_ENVS}", "-o", f"n_steps={SEQ_VIT_EVAL_STEPS}")
+        res["runs"]["closed_loop_eval_vit"].update({
+            who: score(f"ViT {who}", ev[who], SEQ_VIT_EVAL_ENVS, SEQ_VIT_EVAL_STEPS)
+            for who in ("policy", "expert")})
+    log(json.dumps({"seq_wm_runs": res["runs"]}))
+
+    # b. card against CPU, each against float64
+    gen = torch.Generator().manual_seed(10)
+    seq = (torch.rand(SEQ_CROSS_BATCH, 8, HW, HW, 1, generator=gen),
+           torch.randint(0, 9, (SEQ_CROSS_BATCH, 8), generator=gen))
+    # the decoders' gradients are sums that cancel to 1e-7-1e-4 against the
+    # model's largest, 1e-2: fp32 reduction order moves them by up to 2e-2
+    # of their value, on the card as on the CPU (whose two convolution
+    # paths differ by as much), so both CPU paths bound the card and the
+    # floor is the model's gradient scale
+    refs = ("cpu", "cpu_no_mkldnn")
+    cross = {"rnn": step_card_vs_cpu("rnn_card_vs_cpu", losses.rnn_bc_loss_fn, seq, dev,
+                                     require_clip=False, cpu_refs=refs,
+                                     model_fn=lambda dt: RecurrentPolicy(dtype=dt))}
+    for rnn in ("lstm", "gru"):
+        cross[f"world_model_{rnn}"] = step_card_vs_cpu(
+            f"world_model_{rnn}_card_vs_cpu", losses.world_model_loss_fn(), seq, dev,
+            require_clip=False, cpu_refs=refs, model_floor=True,
+            model_fn=lambda dt, r=rnn: LatentWorldModel(rnn=r, height=HW, width=HW, dtype=dt))
+    cross = {k: {f: v[f] for f in ("loss_rel_err_card", "loss_rel_err_cpu",
+                                   "grad_max_rel_err_card", "grad_max_rel_err_cpu",
+                                   "params_off_card", "params_off_cpu")}
+             for k, v in cross.items()}
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        net = flax_init_(RecurrentPolicy(dtype=torch.float32), gen).to(dev)
+        frames = seq[0].to(dev)
+        with torch.no_grad():
+            want, h_seq = net(frames)
+            h, got = net.initial_state(SEQ_CROSS_BATCH, dev), []
+            for t in range(frames.shape[1]):
+                h, logits = net.step(h, frames[:, t])
+                got.append(logits)
+        step_err = float((torch.stack(got, 1) - want).abs().max())
+        check(step_err <= 1e-5 * max(1.0, float(want.abs().max()))
+              and float((h - h_seq).abs().max()) <= 1e-5,
+              f"RecurrentPolicy.step off the sequence by {step_err:.3e} on the card")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    cross["rnn_step_vs_sequence_max_abs_err"] = step_err
+    cross["imagination"] = imagination_card_vs_cpu(dev)
+    cross["vit"] = vit_card_vs_cpu(dev)
+    res["card_vs_cpu"] = cross
+    del net, frames
+
+    # c. timings
+    params, town = bench_fleet(dev)
+    rcfg = RenderConfig(height=HW, width=HW, max_triangles=T)
+    rnn_batch = (torch.rand(64, 8, HW, HW, 1, generator=gen),
+                 torch.randint(0, 9, (64, 8), generator=gen))
+    wm_batch = (rnn_batch[0][:16], rnn_batch[1][:16])
+    vit_batch = (torch.rand(64, 256, 256, 4, generator=gen),
+                 torch.randint(0, 9, (64,), generator=gen))
+    counts = (SEQ_TIMED_WARM, SEQ_TIMED_STEPS, SEQ_TIMED_REPEATS, SEQ_PROFILED_STEPS)
+    res["train_step"] = {
+        "RecurrentPolicy": time_train_step("RecurrentPolicy", RecurrentPolicy(),
+                                           losses.rnn_bc_loss_fn, "imitation", rnn_batch, dev,
+                                           rows=64, images=64 * 8, counts=counts),
+        "LatentWorldModel": time_train_step("LatentWorldModel (LSTM)", LatentWorldModel(
+            height=HW, width=HW), losses.world_model_loss_fn(), "vae", wm_batch, dev,
+            rows=16, images=16 * 8, counts=counts),
+        "ViTPolicy": time_train_step("ViTPolicy", ViTPolicy(), losses.bc_loss_fn, "imitation",
+                                     vit_batch, dev, rows=64, counts=counts)}
+    del rnn_batch, wm_batch, vit_batch
+    res["imagination_update"] = time_imagination_update(dev)
+
+    model = flax_init_(RecurrentPolicy(), gen).to(dev)
+
+    @torch.no_grad()
+    def policy_fn(obs, h):
+        h, logits = model.step(h, obs[..., -1:])
+        return logits.argmax(-1), h
+
+    torch.cuda.synchronize()
+    reset_counts()
+    init_fn, rollout_fn = make_rollout(params, town, rcfg, policy_fn, device=dev,
+                                       policy_carry_init=lambda b: model.initial_state(b, dev))
+    carry, _ = rollout_fn(init_fn(torch.Generator().manual_seed(2), N_ENVS), SEQ_ROLL_SHORT)
+    carry, deltas = marginal(rollout_fn, carry, SEQ_ROLL_SHORT, SEQ_ROLL_LONG, SEQ_ROLL_REPEATS)
+    got = launches["recurrent_rollout"] = read_counts()
+    want_b = 1 + SEQ_ROLL_SHORT + SEQ_ROLL_REPEATS * (SEQ_ROLL_SHORT + SEQ_ROLL_LONG)
+    check(got["B"] == want_b, f"recurrent rollout: kernel B launched {got['B']} times, "
+          f"the code implies {want_b}")
+    check(bool(torch.isfinite(carry[3]).all()) and carry[3].dtype == torch.float32,
+          "recurrent rollout: hidden state not finite float32")
+    res["recurrent_rollout"] = {"n_envs": N_ENVS, "hw": HW, **rate_summary(deltas)}
+    log(f"recurrent rollout: {res['recurrent_rollout']['env_steps_per_s']:.0f} env-steps/s "
+        f"at {N_ENVS} envs")
+    del carry, model
+
+    total = {k: sum(c[k] for c in launches.values()) for k in counters()}
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t_phase
+    res["max_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(json.dumps({"seq_wm": res}))
+    return total
+
+
+def imagination_card_vs_cpu(dev) -> dict:
+    """One imagination update at the dream_policy preset's shape (a GRU
+    world model, z 64, at 128²; 5 reward heads with the disagreement
+    penalty; the anchor; horizon 15; 128 start rows) in fp32 (TF32 off) on
+    the card and on the CPU, each against float64, from the same weights,
+    start latents and Gumbel draws (fed through ``draw_gumbel``): every
+    metric within rtol 1e-5 of float64 (atol 1e-6), and after the Adam step
+    no more of the policy's parameters off float64's by over 1 % of the
+    rate on the card than 4× the CPU's count plus 1 in 10,000."""
+    import copy
+
+    import torch
+
+    from carla_imitation_learning_tpu_torch.models import LatentWorldModel
+    from carla_imitation_learning_tpu_torch.training import imagination as imag
+    from carla_imitation_learning_tpu_torch.training.steps import (
+        ADAM_BETAS, ADAM_EPS, flax_init_,
+    )
+
+    cpu, lr, rows, horizon = torch.device("cpu"), 3e-4, 128, 15
+    gen = torch.Generator().manual_seed(11)
+    wm = flax_init_(LatentWorldModel(rnn="gru", height=HW, width=HW, dtype=torch.float32), gen)
+    heads = imag.HeadEnsemble([flax_init_(imag.RewardHead(64), gen) for _ in range(5)])
+    policy, anchor = (flax_init_(imag.LatentPolicy(64), gen) for _ in range(2))
+    z0 = torch.rand(rows, 64, generator=gen) * 2 - 1
+    draws = imag.draw_gumbel(gen, (horizon, rows, 9), cpu)
+    orig = imag.draw_gumbel
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    runs = {}
+    try:
+        for side, d, dt in (("card", dev, torch.float32), ("cpu", cpu, torch.float32),
+                            ("f64", cpu, torch.float64)):
+            w, h, p, a = (copy.deepcopy(m).to(d, dt) for m in (wm, heads, policy, anchor))
+            it = iter(draws.to(d, dt))
+            imag.draw_gumbel = lambda g, shape, device, it=it: next(it)
+            opt = torch.optim.Adam(p.parameters(), lr=lr, betas=ADAM_BETAS, eps=ADAM_EPS)
+            update = imag.make_imagination_update(
+                w, h, p, opt, horizon=horizon, gamma=0.98, entropy_coef=3e-3,
+                disagree_coef=1.0, anchor=a, anchor_coef=0.3)
+            m = update(z0.to(d, dt), None)
+            runs[side] = ({k: float(v) for k, v in m.items()},
+                          {k: v.to(cpu, torch.float64) for k, v in p.state_dict().items()})
+    finally:
+        imag.draw_gumbel = orig
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    m64, p64 = runs["f64"]
+    out = {"metrics_f64": m64}
+    for side in ("card", "cpu"):
+        m, p = runs[side]
+        out[f"metric_max_rel_err_{side}"] = max(
+            abs(m[k] - m64[k]) / max(abs(m64[k]), 1e-30) for k in m64 if abs(m64[k]) > 1e-6)
+        for k in m64:
+            check(abs(m[k] - m64[k]) <= 1e-5 * abs(m64[k]) + 1e-6,
+                  f"imagination update {side}: {k} {m[k]} vs float64 {m64[k]}")
+        out[f"params_off_{side}"] = sum(int(((p[k] - p64[k]).abs() > 0.01 * lr).sum())
+                                        for k in p64)
+    n = sum(v.numel() for v in p64.values())
+    check(out["params_off_card"] <= 4 * out["params_off_cpu"] + n // 10000 + 1,
+          f"imagination update: {out['params_off_card']} parameters off float64's step "
+          f"(CPU {out['params_off_cpu']})")
+    log(json.dumps({"imagination_card_vs_cpu": out}))
+    return out
+
+
+def vit_card_vs_cpu(dev) -> dict:
+    """The ``bc_vit`` preset's ViT (patch 16, dim 192, depth 4, heads 3,
+    16² position grid) forward on 8 frames at 128², where the grid is
+    resized to 8² with antialiasing, in fp32 (TF32 off) on the card and on
+    the CPU, each against float64: the card's logits no further from
+    float64 than 4× the CPU's are, plus 1e-6 of the logits' scale."""
+    import torch
+
+    from carla_imitation_learning_tpu_torch.models import ViTPolicy
+    from carla_imitation_learning_tpu_torch.training.steps import flax_init_
+
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(12)
+    ref = flax_init_(ViTPolicy(dtype=torch.float32), gen)
+    x = torch.rand(8, HW, HW, 4, generator=gen)
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    logits = {}
+    try:
+        for side, d, dt in (("card", dev, torch.float32), ("cpu", cpu, torch.float32),
+                            ("f64", cpu, torch.float64)):
+            m = ViTPolicy(dtype=dt).to(dt)
+            m.load_state_dict(ref.state_dict())
+            with torch.no_grad():
+                logits[side] = m.to(d)(x.to(d, dt)).to(cpu, torch.float64)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    want = logits["f64"]
+    out = {"scale": float(want.abs().max()),
+           "err_card": float((logits["card"] - want).abs().max()),
+           "err_cpu": float((logits["cpu"] - want).abs().max())}
+    check(out["err_card"] <= 4 * out["err_cpu"] + 1e-6 * out["scale"],
+          f"ViT forward at {HW}²: card {out['err_card']:.3e} from float64, CPU "
+          f"{out['err_cpu']:.3e} (scale {out['scale']:.3e})")
+    log(json.dumps({"vit_card_vs_cpu": out}))
+    return out
+
+
+def time_imagination_update(dev) -> dict:
+    """ms per imagination update at the dream_policy preset's shape (bf16
+    GRU world model, z 64, 128²; 5 reward heads; the anchor; batch 128;
+    horizon 15): SEQ_IMAG_WARM warm-up updates, then SEQ_IMAG_REPEATS runs
+    of SEQ_IMAG_TIMED updates timed by CUDA events, the median; then
+    torch.profiler over SEQ_PROFILED_STEPS updates (busy ms, launches)."""
+    import torch
+
+    from carla_imitation_learning_tpu_torch.models import LatentWorldModel
+    from carla_imitation_learning_tpu_torch.training import imagination as imag
+    from carla_imitation_learning_tpu_torch.training.steps import (
+        ADAM_BETAS, ADAM_EPS, flax_init_,
+    )
+
+    gen = torch.Generator().manual_seed(13)
+    wm = flax_init_(LatentWorldModel(rnn="gru", height=HW, width=HW), gen).to(dev)
+    heads = imag.HeadEnsemble([flax_init_(imag.RewardHead(64), gen) for _ in range(5)]).to(dev)
+    policy, anchor = (flax_init_(imag.LatentPolicy(64), gen).to(dev) for _ in range(2))
+    opt = torch.optim.Adam(policy.parameters(), lr=3e-4, betas=ADAM_BETAS, eps=ADAM_EPS)
+    update = imag.make_imagination_update(wm, heads, policy, opt, horizon=15, gamma=0.98,
+                                          entropy_coef=3e-3, disagree_coef=1.0, anchor=anchor,
+                                          anchor_coef=0.3)
+    z0 = (torch.rand(128, 64, generator=gen) * 2 - 1).to(dev)
+    draws = torch.Generator(device=dev).manual_seed(0)
+    for _ in range(SEQ_IMAG_WARM):
+        update(z0, draws)
+    runs = []
+    for _ in range(SEQ_IMAG_REPEATS):
+        runs.append(cuda_ms(lambda: update(z0, draws), reps=SEQ_IMAG_TIMED, warmup=0))
+    m = update(z0, draws)
+    check(all(bool(torch.isfinite(v)) for v in m.values()), "imagination update: not finite")
+    ms = sorted(runs)[len(runs) // 2]
+    prof = profile_train_step(lambda st, order: [update(z0, draws) for _ in order], None,
+                              range(SEQ_PROFILED_STEPS))
+    log(f"imagination update: {ms:.3f} ms (runs {[round(r, 3) for r in runs]}), busy "
+        f"{prof['device_busy_ms_per_step']:.3f} ms, {prof['device_launches_per_step']:.0f} "
+        f"launches")
+    return {"batch": 128, "horizon": 15, "heads": 5, "ms_per_update": ms, "ms_runs": runs,
+            "idle_share": 1.0 - prof["device_busy_ms_per_step"] / ms,
+            "profile": {k: prof[k] for k in ("device_busy_ms_per_step", "device_launches_per_step",
+                                             "groups")}}
 
 
 def marginal(rollout_fn, carry, short: int, long: int, repeats: int):

@@ -65,19 +65,22 @@ def test_compose_matches_jax(overrides):
 
 def test_presets_are_the_ported_experiments():
     assert PRESETS == ["bc", "bc_augmented", "bc_aux", "bc_aux_seg", "bc_cil",
-                       "bc_continuous", "bc_raw_segment", "bc_streaming", "closed_loop_eval",
-                       "collect", "collect_noise", "dagger", "dagger_online",
-                       "dagger_uncertain", "debug", "rl_finetune", "route_eval",
-                       "scenario_eval", "split_folders", "test_eval", "vae_leave_one_out",
-                       "vae_pooled"]
+                       "bc_continuous", "bc_raw_segment", "bc_rnn", "bc_streaming", "bc_vit",
+                       "closed_loop_eval", "collect", "collect_noise", "dagger",
+                       "dagger_online", "dagger_uncertain", "debug", "dream_policy",
+                       "rl_finetune", "route_eval", "scenario_eval", "split_folders",
+                       "test_eval", "vae_leave_one_out", "vae_pooled", "world_model",
+                       "world_model_imagine"]
     names = {p_compose("config", overrides=[f"experiment={p}"])["experiment_name"]
              for p in PRESETS}
     assert names == set(ex.EXPERIMENTS) == {"bc", "bc_aux", "bc_cil", "bc_continuous",
-                                            "bc_raw_segment", "bc_streaming",
+                                            "bc_raw_segment", "bc_rnn", "bc_streaming",
                                             "closed_loop_eval", "collect_data", "dagger",
                                             "dagger_online", "dagger_uncertain",
-                                            "rl_finetune", "route_eval", "scenario_eval",
-                                            "split_folders", "test_eval", "vae_leave_one_out",
+                                            "dream_policy", "rl_finetune", "route_eval",
+                                            "scenario_eval", "split_folders", "test_eval",
+                                            "vae_leave_one_out", "world_model",
+                                            "world_model_imagine",
                                             "vae_pooled"}
 
 
@@ -177,8 +180,7 @@ def test_bc_then_closed_loop_eval(collected, capsys):
 
 @pytest.mark.parametrize("experiment,overrides", [
     ("bc", ["mesh.axes.model=2"]), ("bc", ["mesh.enabled=true"]), ("bc", ["mesh.axes.data=4"]),
-    ("closed_loop_eval", ["artifact=some_dir"]), ("closed_loop_eval", ["policy_arch=vit"]),
-    ("route_eval", ["artifact=some_dir"]),
+    ("closed_loop_eval", ["artifact=some_dir"]), ("route_eval", ["artifact=some_dir"]),
 ])
 def test_unported_options_raise(tmp_path, experiment, overrides):
     cfg = p_compose("config", overrides=["model=imitation", "device=cpu",
@@ -197,11 +199,13 @@ def test_unported_options_raise(tmp_path, experiment, overrides):
                           "n_steps=4"]),
     ("bc", ["s2d_stem=true", "bc_cameras=['camera']", "image_height=64", "image_width=64",
             "NUM_EPOCHS=1", "BATCH_SIZE=4", "synthetic_frames=80"]),
+    ("closed_loop_eval", ["policy_arch=vit", "vit_dim=32", "vit_depth=1", "vit_heads=2",
+                          "n_envs=2", "n_steps=4"]),
 ])
 def test_options_now_run(tmp_path, experiment, overrides):
     """The options these experiments raised on before the policy families,
-    the shield and the space-to-depth stem were ported now run, at toy size
-    on the CPU."""
+    the shield, the space-to-depth stem and the ViT were ported now run, at
+    toy size on the CPU."""
     cfg = p_compose("config", overrides=["model=imitation", "device=cpu",
                                          "compute_dtype=float32", f"data_dir={tmp_path}",
                                          f"log_dir={tmp_path}", *TINY, *overrides])

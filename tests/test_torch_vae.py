@@ -3,7 +3,8 @@ weights drawn with numpy and carried across with ``convert``:
 
 - the forward on the 224² VALID chain at batch 2 and on the 64² SAME
   pyramid: recon, mu and log_var allclose (rtol 1e-5 / atol 1e-6) with
-  the JAX draw of the noise fed in; ``representation`` and ``encode``;
+  the JAX draw of the noise fed through the port's ``draw_noise`` hook;
+  ``representation`` and ``encode``;
 - ``vae_loss_fn`` with the step's noise drawn by JAX (the port's
   ``draw_noise`` patched to it): loss and metrics at rtol 1e-5, gradients
   rtol 1e-4 / atol 1e-6; evaluation (no generator) uses z = mu;
@@ -42,16 +43,17 @@ def _pair(hw: int, seed: int = 0):
 
 
 @pytest.mark.parametrize("hw", [224, 64])
-def test_forward_matches(hw):
+def test_forward_matches(monkeypatch, hw):
     jmodel, params, model = _pair(hw)
     assert isinstance(model, ConvVAE) and model.reference_chain == (hw == 224)
     assert model.hidden_size == jmodel.hidden_size == 2048
     x = np.random.default_rng(1).random((2, hw, hw, 1), np.float32)
     key = jax.random.PRNGKey(5)
     want = jmodel.apply({"params": params}, jnp.asarray(x), key)
-    eps = np.asarray(jax.random.normal(key, (2, 32), jnp.float32))
+    eps = torch.from_numpy(np.array(jax.random.normal(key, (2, 32), jnp.float32)))
+    monkeypatch.setattr(p_vae, "draw_noise", lambda gen, shape, device, dtype: eps)
     with torch.no_grad():
-        got = model(torch.from_numpy(x), noise=torch.from_numpy(eps))
+        got = model(torch.from_numpy(x), torch.Generator())
         rep = model.representation(torch.from_numpy(x))
     for name, g, w in zip(("recon", "mu", "log_var"), got, want):
         assert g.dtype == torch.float32 and tuple(g.shape) == w.shape, name
