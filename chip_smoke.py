@@ -223,8 +223,8 @@ ROUTE_PROFILE_WARM, ROUTE_PROFILE_STEPS = 4, 8    # --profile: the CIL route rol
 AUX_ENVS, AUX_STEPS = 256, 200                # the record_semantic collection
 AUX_EVAL_ENVS, AUX_EVAL_STEPS = 256, 100
 AUX_BATCH, AUX_EPOCHS = 64, 2
-# each model's train step alone: warm-up, repeats of timed steps, profiled steps
-AUX_TIMED_WARM, AUX_TIMED_STEPS, AUX_TIMED_REPEATS, AUX_PROFILED_STEPS = 5, 50, 5, 10
+# each model's train step alone: warm-up steps, steps a run, runs, profiled steps
+AUX_TIMED = (5, 50, 5, 10)
 AUX_IMG = 256                                 # the file-backed runs' frames (the reference's)
 AUX_FILE_FRAMES, AUX_FILE_EPOCHS = 640, 3     # the synthetic log of the file runs (a gate)
 AUX_VAE_FRAMES = 120                          # per log, six logs at 224²
@@ -244,15 +244,17 @@ S2D_BATCH, S2D_REPS = 1024, 20                 # the s2d stem's forward at 1024 
 # dream_policy and bc_vit at their widths (envs, sizes, batches); epochs,
 # batches per epoch, rollout depths and updates cut
 SEQ_EPOCHS, SEQ_BATCHES = 2, 40                # every fit (presets: 50 epochs; dream_policy 10)
-SEQ_VIT_EPOCHS = 3                             # bc_vit's fit on its 120-frame synthetic log
 SEQ_RNN_STEPS, SEQ_RNN_EVAL_STEPS = 150, 100   # bc_rnn's collection and eval (preset 300, 200)
-SEQ_VIT_EVAL_ENVS, SEQ_VIT_EVAL_STEPS = 64, 50   # closed_loop_eval of the ViT (preset 64 × 200)
+# bc_vit: an expert log of SEQ_VIT_ENVS × SEQ_VIT_STEPS at 128² on disk, a fit
+# of SEQ_VIT_EPOCHS epochs of at most SEQ_BATCHES batches of SEQ_VIT_BATCH,
+# evaluations of the trained and the untrained ViT at the preset's 64 × 200
+SEQ_VIT_ENVS, SEQ_VIT_STEPS, SEQ_VIT_EVAL_STEPS = 64, 100, 200
+SEQ_VIT_EPOCHS, SEQ_VIT_BATCH = 6, 128
 SEQ_DREAM_STEPS, SEQ_DREAM_UPDATES, SEQ_DREAM_EVAL_STEPS = 100, 50, 75   # (preset 200, 300, 150)
 SEQ_CONT_STEPS, SEQ_CONT_UPDATES, SEQ_CONT_EVAL_STEPS = 100, 50, 50   # continuous dream_policy
 SEQ_ROLL_SHORT, SEQ_ROLL_LONG, SEQ_ROLL_REPEATS = 16, 32, 3   # the recurrent rollout's rate
-SEQ_IMAG_WARM, SEQ_IMAG_TIMED, SEQ_IMAG_REPEATS = 2, 10, 3    # ms per imagination update
-# each model's train step alone: warm-up, repeats of timed steps, profiled steps
-SEQ_TIMED_WARM, SEQ_TIMED_STEPS, SEQ_TIMED_REPEATS, SEQ_PROFILED_STEPS = 3, 20, 3, 5
+# each train step and the imagination update alone, as AUX_TIMED
+SEQ_TIMED = (3, 20, 3, 5)
 SEQ_CROSS_BATCH = 2                            # card-vs-CPU steps: sequences of 8 at 128²
 LANES_PER_SM = 128       # lane-instructions an SM issues per clock (4 × 32)
 HBM_RATE = 3.35e12       # H100 SXM device memory, B/s
@@ -1335,29 +1337,28 @@ def _move(obj, d, dtype):
 
 
 def step_card_vs_cpu(name: str, loss_fn, batch, dev, require_clip: bool = True,
-                     model_fn=None, cpu_refs: tuple = ("cpu",), model_floor: bool = False) -> dict:
+                     model_fn=None, cpu_refs: tuple = ("cpu",), floor: float = 1e-6) -> dict:
     """One fp32 train step of ``loss_fn`` from the same weights and batch on
     the card and on the CPU, TF32 off, with the global-norm clip (when
     ``require_clip``, checked to trigger), each held against the same step
     in float64 on the CPU. The loss within rtol 1e-5
     of float64; per tensor, the card's gradient no further from float64
-    than 4× the CPU's fp32 gradient is, plus 1e-6 of the tensor's scale (a
-    convolution's weight gradient sums hundreds of thousands of products
-    that cancel, so fp32 rounding in either reduction order is visible at
-    1e-3 of the scale); after the step, no more parameters off float64's
-    by over 1 % of the learning rate on the card than 4× the CPU's count
-    plus 1 in 10,000 (Adam's first step moves each weight by about lr ·
-    sign(g), so a near-zero gradient may flip its step). Float tensors of
+    than 4× the CPU's fp32 gradient is, plus ``floor`` (default 1e-6) of
+    the tensor's scale (a convolution's weight gradient sums hundreds of
+    thousands of products that cancel, so fp32 rounding in either
+    reduction order is visible at 1e-3 of the scale); after the step, no
+    more parameters off float64's by over 1 % of the learning rate on the
+    card than 4× the CPU's count plus 1 in 10,000 (Adam's first step moves
+    each weight by about lr · sign(g), so a near-zero gradient may flip its
+    step). Float tensors of
     ``batch`` (nested tuples allowed) take each run's dtype. The model is
     ``model_fn(dtype)`` (default a ``PolicyCNN``). ``cpu_refs`` names the
     CPU runs whose gradient error bounds the card's (the largest of them):
     by default the CPU as torch runs it (oneDNN convolutions where the
     build has them); ``("cpu", "cpu_no_mkldnn")`` also admits the CPU's
-    native convolutions, whose reduction order differs. ``model_floor``
-    takes the 1e-6 floor of the largest gradient of the whole model rather
-    than of each tensor: for a model whose tensors' gradients span five
-    orders of magnitude, a sum that cancels to a small gradient carries
-    the rounding of its large terms. Prints the ``name`` line; → the
+    native convolutions, whose reduction order differs. The line lists,
+    under ``floor_set``, each tensor whose card error exceeds 4× the CPU's,
+    so passes only by the floor. Prints the ``name`` line; → the
     errors."""
     import torch
 
@@ -1416,6 +1417,10 @@ def step_card_vs_cpu(name: str, loss_fn, batch, dev, require_clip: bool = True,
         res[f"grad_max_rel_err_{side}"] = max(t[f"grad_err_{side}"] / max(t["grad_scale"], 1e-30)
                                               for t in res["tensors"].values())
     res["clip_triggered"] = res["grad_norm"] > BC_CLIP
+    for t in res["tensors"].values():
+        t["grad_err_cpu_max"] = max(t[f"grad_err_{side}"] for side in cpu_refs)
+    res["floor_set"] = {k: t for k, t in res["tensors"].items()
+                        if t["grad_err_card"] > 4 * t["grad_err_cpu_max"]}
     log(json.dumps({name: res}))
     if require_clip:
         check(res["clip_triggered"],
@@ -1423,13 +1428,10 @@ def step_card_vs_cpu(name: str, loss_fn, batch, dev, require_clip: bool = True,
     for side in ("card", "cpu"):
         check(res[f"loss_rel_err_{side}"] <= 1e-5,
               f"{name}: {side} loss {runs[side][0]} vs float64 {loss64}")
-    model_scale = max(t["grad_scale"] for t in res["tensors"].values())
     for k, t in res["tensors"].items():
-        cpu_err = max(t[f"grad_err_{side}"] for side in cpu_refs)
-        floor = 1e-6 * (model_scale if model_floor else t["grad_scale"])
-        check(t["grad_err_card"] <= 4 * cpu_err + floor,
+        check(t["grad_err_card"] <= 4 * t["grad_err_cpu_max"] + floor * t["grad_scale"],
               f"{name}: {k} gradient {t['grad_err_card']:.3e} from float64, "
-              f"CPU {cpu_err:.3e} (scale {t['grad_scale']:.3e})")
+              f"CPU {t['grad_err_cpu_max']:.3e} (scale {t['grad_scale']:.3e})")
     check(res["params_off_card"] <= 4 * res["params_off_cpu"] + res["params"] // 10000,
           f"{name}: {res['params_off_card']} parameters off float64's step by "
           f"> 1 % of lr (CPU {res['params_off_cpu']})")
@@ -2891,23 +2893,20 @@ def profile_train_step(epoch, state, order) -> dict:
 
 
 def time_train_step(label: str, model, loss_fn, group: str, batch, dev,
-                    rows: int = AUX_BATCH, images: int | None = None,
-                    counts: tuple = (AUX_TIMED_WARM, AUX_TIMED_STEPS, AUX_TIMED_REPEATS,
-                                     AUX_PROFILED_STEPS)) -> dict:
+                    counts: tuple | None = None) -> dict:
     """One model's train step alone, as ``run`` builds it (the optimizer of
     the ``model=<group>`` preset, flax init, the step's device generator),
-    on ``batch`` (``rows`` rows, ``images`` frames, default one a row) moved
-    to ``dev``: ``counts`` = (warm-up steps, steps a run, runs, profiled
-    steps), by default AUX_TIMED_WARM warm-up steps, then
-    AUX_TIMED_REPEATS runs of AUX_TIMED_STEPS steps, each timed by CUDA
-    events around it (ms per step) and by the host clock up to the last
-    step's return before the sync (the host's ms to issue a step), then
-    torch.profiler over AUX_PROFILED_STEPS steps: the kernels' busy ms per
-    step, which the profiler's own host cost does not change, and
-    launches. ``idle_share`` is 1 − busy / the median's ms: where it is
-    large the card waits on the host's launches, and a spread of the runs
-    with the busy ms unchanged is the host's. → the median, every run and
-    the profile."""
+    on ``batch`` moved to ``dev`` (its rows are its first tensor's first
+    axis; a 5-D first tensor holds sequences, each of its frames an
+    image): ``counts`` = (warm-up steps, steps a run, runs, profiled steps),
+    default AUX_TIMED, the runs each timed by CUDA events around it (ms per
+    step) and by the host clock up to the last step's return before the
+    sync (the host's ms to issue a step), then torch.profiler over the
+    profiled steps: the kernels' busy ms per step, which the profiler's own
+    host cost does not change, and launches. ``idle_share`` is 1 − busy /
+    the median's ms: where it is large the card waits on the host's
+    launches, and a spread of the runs with the busy ms unchanged is the
+    host's. → the median, every run and the profile."""
     import torch
 
     from carla_imitation_learning_tpu_torch.config import compose
@@ -2918,7 +2917,12 @@ def time_train_step(label: str, model, loss_fn, group: str, batch, dev,
     def to_dev(b):
         return tuple(to_dev(x) for x in b) if isinstance(b, tuple) else b.to(dev)
 
-    warm, steps, repeats, profiled = counts
+    warm, steps, repeats, profiled = counts or AUX_TIMED
+    first = batch
+    while isinstance(first, tuple):
+        first = first[0]
+    rows = first.shape[0]
+    images = rows * first.shape[1] if first.dim() == 5 else rows
     batch = to_dev(batch)
     state = create_train_state(model, make_optimizer(compose("config", overrides=[f"model={group}"])),
                                generator=torch.Generator().manual_seed(0), device=dev)
@@ -2944,7 +2948,7 @@ def time_train_step(label: str, model, loss_fn, group: str, batch, dev,
     ms = sorted(device_ms)[len(device_ms) // 2]
     out = {"batch": rows, "dtype": "bfloat16", "steps": steps, "ms_per_step": ms,
            "ms_runs": device_ms, "host_issue_ms_runs": host_ms,
-           "images_per_s": (images or rows) / ms * 1e3,
+           "images_per_s": images / ms * 1e3,
            "idle_share": 1.0 - prof["device_busy_ms_per_step"] / ms,
            "profile": {k: prof[k] for k in ("wall_ms_per_step", "device_busy_ms_per_step",
                                             "device_idle_share", "device_launches_per_step",
@@ -3537,13 +3541,20 @@ def seq_wm_phase(dev) -> dict:
        horizon 15, three evaluations at 32 × SEQ_DREAM_EVAL_STEPS of its
        150) and its continuous family at a
        smaller depth (SEQ_CONT_STEPS steps, SEQ_CONT_UPDATES updates,
-       evaluations of SEQ_CONT_EVAL_STEPS steps); ``run bc -o
-       experiment=bc_vit`` (patch 16, dim 192, depth 4, heads 3, on the
-       120-frame 256² synthetic log) and ``closed_loop_eval`` of its
-       checkpoint at 128², where the 16² position grid is resized to 8² with
-       antialiasing. Every fit runs SEQ_EPOCHS epochs of at most
-       SEQ_BATCHES batches (the ViT SEQ_VIT_EPOCHS); each metric is finite, ``bc_rnn``'s train loss and
-       the world models' reconstruction loss fall; scores lie in [0, 1];
+       evaluations of SEQ_CONT_EVAL_STEPS steps); ``run collect_data`` of
+       an expert log at SEQ_VIT_ENVS × SEQ_VIT_STEPS, ``run split_folders``
+       and ``run bc -o experiment=bc_vit`` on it at 128² (patch 16, dim 192,
+       depth 4, heads 3; the 16² position grid resized to 8² with
+       antialiasing), then ``closed_loop_eval`` of its checkpoint and of the
+       untrained ViT. Every fit runs SEQ_EPOCHS epochs of at most
+       SEQ_BATCHES batches (the ViT SEQ_VIT_EPOCHS at batch SEQ_VIT_BATCH);
+       each metric is finite, the train loss of ``bc_rnn`` and of the ViT
+       and the world models' reconstruction loss fall, scores lie in
+       [0, 1] and the trained ViT agrees with the expert in its closed
+       loop more often than the untrained ViT does (in this town the
+       untrained ViT's near-constant action outscores the expert, 0.66
+       against 0.58 at 64 × 200 on an H100, so the score cannot tell them
+       apart);
     b. one fp32 step (TF32 off) on the card and on the CPU, each against
        float64 (``step_card_vs_cpu``): ``RecurrentPolicy`` on sequences and
        ``LatentWorldModel`` with the LSTM and the GRU; ``RecurrentPolicy.step``
@@ -3551,7 +3562,7 @@ def seq_wm_phase(dev) -> dict:
        (``imagination_card_vs_cpu``); the ViT's forward at 128²
        (``vit_card_vs_cpu``);
     c. each model's bf16 train step alone at its preset's batch
-       (``time_train_step`` with the SEQ_TIMED_* counts), ms per
+       (``time_train_step`` with the SEQ_TIMED counts), ms per
        imagination update at the
        dream_policy preset's shape, and the recurrent rollout's marginal
        env-steps/s at N_ENVS envs.
@@ -3566,7 +3577,6 @@ def seq_wm_phase(dev) -> dict:
         LatentWorldModel, RecurrentPolicy, ViTPolicy,
     )
     from carla_imitation_learning_tpu_torch.render.pipeline import RenderConfig
-    from carla_imitation_learning_tpu_torch.training import imagination as imag
     from carla_imitation_learning_tpu_torch.training import losses
     from carla_imitation_learning_tpu_torch.training.closed_loop import make_rollout
     from carla_imitation_learning_tpu_torch.training.steps import flax_init_
@@ -3657,16 +3667,32 @@ def seq_wm_phase(dev) -> dict:
                 "reward_head_mse": [out["reward_head_mse"][0], out["reward_head_mse"][-1]],
                 "latent_bc_loss": [out["latent_bc_loss"][0], out["latent_bc_loss"][-1]],
                 "wm_val_loss": out["wm_val_loss"]})
-        out = counted("bc_vit", 0, "-o", "experiment=bc_vit", *base,
-                      "-o", f"NUM_EPOCHS={SEQ_VIT_EPOCHS}")["camera"]
+        # the ViT learns from an expert log on disk, as a user's bc does
+        vit = (*base, "-o", "train_logs=['SimLog1']", "-o", f"image_height={HW}",
+               "-o", f"image_width={HW}")
+        counted("collect_vit", SEQ_VIT_STEPS + 1, "collect_data", *vit,
+                "-o", f"n_envs={SEQ_VIT_ENVS}", "-o", f"n_steps={SEQ_VIT_STEPS}")
+        cli_run("split_folders", *vit)
+        out = counted("bc_vit", 0, "-o", "experiment=bc_vit", *vit,
+                      "-o", f"NUM_EPOCHS={SEQ_VIT_EPOCHS}",
+                      "-o", f"BATCH_SIZE={SEQ_VIT_BATCH}")["camera"]
+        falls("bc_vit", out["history"])
         check(math.isfinite(out["test"]["test_loss"]), f"bc_vit: test loss {out['test']}")
-        res["runs"]["bc_vit"]["test_loss"] = out["test"]["test_loss"]
-        ev = counted("closed_loop_eval_vit", 2 * (SEQ_VIT_EVAL_STEPS + 1), "closed_loop_eval",
-                     "--checkpoint", out["best_path"], "-o", "policy_arch=vit",
-                     "-o", f"n_envs={SEQ_VIT_EVAL_ENVS}", "-o", f"n_steps={SEQ_VIT_EVAL_STEPS}")
-        res["runs"]["closed_loop_eval_vit"].update({
-            who: score(f"ViT {who}", ev[who], SEQ_VIT_EVAL_ENVS, SEQ_VIT_EVAL_STEPS)
-            for who in ("policy", "expert")})
+        res["runs"]["bc_vit"].update({k: out["test"][k] for k in ("test_loss", "test_accuracy")})
+        for label, ckpt in (("closed_loop_eval_vit", ("--checkpoint", out["best_path"])),
+                            ("closed_loop_eval_vit_untrained", ())):
+            ev = counted(label, 2 * (SEQ_VIT_EVAL_STEPS + 1), "closed_loop_eval", *ckpt,
+                         "-o", "policy_arch=vit", "-o", f"n_envs={SEQ_VIT_ENVS}",
+                         "-o", f"n_steps={SEQ_VIT_EVAL_STEPS}")
+            res["runs"][label].update({
+                who: score(f"{label} {who}", ev[who], SEQ_VIT_ENVS, SEQ_VIT_EVAL_STEPS)
+                for who in ("policy", "expert")})
+            res["runs"][label]["action_agreement"] = ev["policy"]["action_agreement"]
+        trained, untrained = (res["runs"][k]["action_agreement"] for k in
+                              ("closed_loop_eval_vit", "closed_loop_eval_vit_untrained"))
+        check(trained > untrained,
+              f"bc_vit: the trained ViT agrees with the expert on {trained} of its closed "
+              f"loop's steps, the untrained one on {untrained}")
     log(json.dumps({"seq_wm_runs": res["runs"]}))
 
     # b. card against CPU, each against float64
@@ -3676,8 +3702,10 @@ def seq_wm_phase(dev) -> dict:
     # the decoders' gradients are sums that cancel to 1e-7-1e-4 against the
     # model's largest, 1e-2: fp32 reduction order moves them by up to 2e-2
     # of their value, on the card as on the CPU (whose two convolution
-    # paths differ by as much), so both CPU paths bound the card and the
-    # floor is the model's gradient scale
+    # paths differ by as much), so both CPU paths bound the card. The last
+    # deconvolution's bias gradient sums 2 × 15 frames × 128² = 491,520
+    # terms, whose fp32 tree sums stray by √N · 2⁻²⁴ ≈ 4e-5 of their size:
+    # the world models' floor is 1e-4 of each tensor's own scale
     refs = ("cpu", "cpu_no_mkldnn")
     cross = {"rnn": step_card_vs_cpu("rnn_card_vs_cpu", losses.rnn_bc_loss_fn, seq, dev,
                                      require_clip=False, cpu_refs=refs,
@@ -3685,7 +3713,7 @@ def seq_wm_phase(dev) -> dict:
     for rnn in ("lstm", "gru"):
         cross[f"world_model_{rnn}"] = step_card_vs_cpu(
             f"world_model_{rnn}_card_vs_cpu", losses.world_model_loss_fn(), seq, dev,
-            require_clip=False, cpu_refs=refs, model_floor=True,
+            require_clip=False, cpu_refs=refs, floor=1e-4,
             model_fn=lambda dt, r=rnn: LatentWorldModel(rnn=r, height=HW, width=HW, dtype=dt))
     cross = {k: {f: v[f] for f in ("loss_rel_err_card", "loss_rel_err_cpu",
                                    "grad_max_rel_err_card", "grad_max_rel_err_cpu",
@@ -3722,16 +3750,14 @@ def seq_wm_phase(dev) -> dict:
     wm_batch = (rnn_batch[0][:16], rnn_batch[1][:16])
     vit_batch = (torch.rand(64, 256, 256, 4, generator=gen),
                  torch.randint(0, 9, (64,), generator=gen))
-    counts = (SEQ_TIMED_WARM, SEQ_TIMED_STEPS, SEQ_TIMED_REPEATS, SEQ_PROFILED_STEPS)
     res["train_step"] = {
         "RecurrentPolicy": time_train_step("RecurrentPolicy", RecurrentPolicy(),
                                            losses.rnn_bc_loss_fn, "imitation", rnn_batch, dev,
-                                           rows=64, images=64 * 8, counts=counts),
+                                           SEQ_TIMED),
         "LatentWorldModel": time_train_step("LatentWorldModel (LSTM)", LatentWorldModel(
-            height=HW, width=HW), losses.world_model_loss_fn(), "vae", wm_batch, dev,
-            rows=16, images=16 * 8, counts=counts),
+            height=HW, width=HW), losses.world_model_loss_fn(), "vae", wm_batch, dev, SEQ_TIMED),
         "ViTPolicy": time_train_step("ViTPolicy", ViTPolicy(), losses.bc_loss_fn, "imitation",
-                                     vit_batch, dev, rows=64, counts=counts)}
+                                     vit_batch, dev, SEQ_TIMED)}
     del rnn_batch, wm_batch, vit_batch
     res["imagination_update"] = time_imagination_update(dev)
 
@@ -3767,6 +3793,35 @@ def seq_wm_phase(dev) -> dict:
     return total
 
 
+def imagination_setup(gen, dtype=None):
+    """The dream_policy preset's imagination update, flax-initialised from
+    ``gen`` on the CPU: a GRU world model (z 64, at 128², in ``dtype``,
+    default the model's bf16), 5 reward heads with the disagreement
+    penalty, the latent policy and its anchor (KL 0.3), horizon 15, γ
+    0.98, entropy 3e-3, Adam at 3e-4 with optax's constants; → (the
+    modules, ``make(wm, heads, policy, anchor)`` → the update)."""
+    import torch
+
+    from carla_imitation_learning_tpu_torch.models import LatentWorldModel
+    from carla_imitation_learning_tpu_torch.training import imagination as imag
+    from carla_imitation_learning_tpu_torch.training.steps import (
+        ADAM_BETAS, ADAM_EPS, flax_init_,
+    )
+
+    kw = {} if dtype is None else {"dtype": dtype}
+    wm = flax_init_(LatentWorldModel(rnn="gru", height=HW, width=HW, **kw), gen)
+    heads = imag.HeadEnsemble([flax_init_(imag.RewardHead(64), gen) for _ in range(5)])
+    policy, anchor = (flax_init_(imag.LatentPolicy(64), gen) for _ in range(2))
+
+    def make(wm, heads, policy, anchor):
+        opt = torch.optim.Adam(policy.parameters(), lr=3e-4, betas=ADAM_BETAS, eps=ADAM_EPS)
+        return imag.make_imagination_update(wm, heads, policy, opt, horizon=15, gamma=0.98,
+                                            entropy_coef=3e-3, disagree_coef=1.0,
+                                            anchor=anchor, anchor_coef=0.3)
+
+    return (wm, heads, policy, anchor), make
+
+
 def imagination_card_vs_cpu(dev) -> dict:
     """One imagination update at the dream_policy preset's shape (a GRU
     world model, z 64, at 128²; 5 reward heads with the disagreement
@@ -3780,17 +3835,11 @@ def imagination_card_vs_cpu(dev) -> dict:
 
     import torch
 
-    from carla_imitation_learning_tpu_torch.models import LatentWorldModel
     from carla_imitation_learning_tpu_torch.training import imagination as imag
-    from carla_imitation_learning_tpu_torch.training.steps import (
-        ADAM_BETAS, ADAM_EPS, flax_init_,
-    )
 
     cpu, lr, rows, horizon = torch.device("cpu"), 3e-4, 128, 15
     gen = torch.Generator().manual_seed(11)
-    wm = flax_init_(LatentWorldModel(rnn="gru", height=HW, width=HW, dtype=torch.float32), gen)
-    heads = imag.HeadEnsemble([flax_init_(imag.RewardHead(64), gen) for _ in range(5)])
-    policy, anchor = (flax_init_(imag.LatentPolicy(64), gen) for _ in range(2))
+    modules, make = imagination_setup(gen, torch.float32)
     z0 = torch.rand(rows, 64, generator=gen) * 2 - 1
     draws = imag.draw_gumbel(gen, (horizon, rows, 9), cpu)
     orig = imag.draw_gumbel
@@ -3800,14 +3849,10 @@ def imagination_card_vs_cpu(dev) -> dict:
     try:
         for side, d, dt in (("card", dev, torch.float32), ("cpu", cpu, torch.float32),
                             ("f64", cpu, torch.float64)):
-            w, h, p, a = (copy.deepcopy(m).to(d, dt) for m in (wm, heads, policy, anchor))
+            w, h, p, a = (copy.deepcopy(m).to(d, dt) for m in modules)
             it = iter(draws.to(d, dt))
             imag.draw_gumbel = lambda g, shape, device, it=it: next(it)
-            opt = torch.optim.Adam(p.parameters(), lr=lr, betas=ADAM_BETAS, eps=ADAM_EPS)
-            update = imag.make_imagination_update(
-                w, h, p, opt, horizon=horizon, gamma=0.98, entropy_coef=3e-3,
-                disagree_coef=1.0, anchor=a, anchor_coef=0.3)
-            m = update(z0.to(d, dt), None)
+            m = make(w, h, p, a)(z0.to(d, dt), None)
             runs[side] = ({k: float(v) for k, v in m.items()},
                           {k: v.to(cpu, torch.float64) for k, v in p.state_dict().items()})
     finally:
@@ -3873,37 +3918,28 @@ def vit_card_vs_cpu(dev) -> dict:
 def time_imagination_update(dev) -> dict:
     """ms per imagination update at the dream_policy preset's shape (bf16
     GRU world model, z 64, 128²; 5 reward heads; the anchor; batch 128;
-    horizon 15): SEQ_IMAG_WARM warm-up updates, then SEQ_IMAG_REPEATS runs
-    of SEQ_IMAG_TIMED updates timed by CUDA events, the median; then
-    torch.profiler over SEQ_PROFILED_STEPS updates (busy ms, launches)."""
+    horizon 15): with SEQ_TIMED's (warm-up, updates a run, runs, profiled),
+    the warm-up updates, then the runs of updates timed by CUDA events, the
+    median; then torch.profiler over the profiled updates (busy ms,
+    launches)."""
     import torch
 
-    from carla_imitation_learning_tpu_torch.models import LatentWorldModel
-    from carla_imitation_learning_tpu_torch.training import imagination as imag
-    from carla_imitation_learning_tpu_torch.training.steps import (
-        ADAM_BETAS, ADAM_EPS, flax_init_,
-    )
-
     gen = torch.Generator().manual_seed(13)
-    wm = flax_init_(LatentWorldModel(rnn="gru", height=HW, width=HW), gen).to(dev)
-    heads = imag.HeadEnsemble([flax_init_(imag.RewardHead(64), gen) for _ in range(5)]).to(dev)
-    policy, anchor = (flax_init_(imag.LatentPolicy(64), gen).to(dev) for _ in range(2))
-    opt = torch.optim.Adam(policy.parameters(), lr=3e-4, betas=ADAM_BETAS, eps=ADAM_EPS)
-    update = imag.make_imagination_update(wm, heads, policy, opt, horizon=15, gamma=0.98,
-                                          entropy_coef=3e-3, disagree_coef=1.0, anchor=anchor,
-                                          anchor_coef=0.3)
+    modules, make = imagination_setup(gen)
+    update = make(*(m.to(dev) for m in modules))
     z0 = (torch.rand(128, 64, generator=gen) * 2 - 1).to(dev)
     draws = torch.Generator(device=dev).manual_seed(0)
-    for _ in range(SEQ_IMAG_WARM):
+    warm, timed, repeats, profiled = SEQ_TIMED
+    for _ in range(warm):
         update(z0, draws)
     runs = []
-    for _ in range(SEQ_IMAG_REPEATS):
-        runs.append(cuda_ms(lambda: update(z0, draws), reps=SEQ_IMAG_TIMED, warmup=0))
+    for _ in range(repeats):
+        runs.append(cuda_ms(lambda: update(z0, draws), reps=timed, warmup=0))
     m = update(z0, draws)
     check(all(bool(torch.isfinite(v)) for v in m.values()), "imagination update: not finite")
     ms = sorted(runs)[len(runs) // 2]
     prof = profile_train_step(lambda st, order: [update(z0, draws) for _ in order], None,
-                              range(SEQ_PROFILED_STEPS))
+                              range(profiled))
     log(f"imagination update: {ms:.3f} ms (runs {[round(r, 3) for r in runs]}), busy "
         f"{prof['device_busy_ms_per_step']:.3f} ms, {prof['device_launches_per_step']:.0f} "
         f"launches")

@@ -9,8 +9,9 @@ package, fp32 on the CPU, weights drawn with numpy and carried across with
   discrete and continuous actions, rtol 1e-5 / atol 1e-6;
 - ``imagine`` and ``imagine_frames`` over a 5-step plan;
 - ``world_model_loss_fn`` under MSE and MS-SSIM: loss and metrics rtol
-  1e-5, gradients rtol 1e-4 / atol 1e-6 (under MS-SSIM against the
-  same loss in float64, as the test says why);
+  1e-5, gradients rtol 1e-4 / atol 1e-6 (under MS-SSIM against JAX's
+  gradients in float64, as the test says why, and the port's float64
+  gradients against those at rtol 1e-6);
 - ``convert.model_for_params`` reads each tree's architecture back."""
 
 import jax
@@ -130,16 +131,50 @@ def test_imagine_matches(rnn, space):
     assert float(zs.abs().max()) <= 1.0
 
 
+class _Float64Numpy:
+    """``jax.numpy`` with ``float32`` read as ``float64``. The JAX package's
+    world model and SSIM name ``jnp.float32`` for their fp32 islands (the
+    encoder's Dense, the sigmoid, the one-hot, SSIM's casts); swapped in for
+    their module's ``jnp`` under x64, the same code runs in float64."""
+
+    float32 = jnp.float64
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+
+def _jax_float64_grads(params, frames, actions, image_loss, monkeypatch):
+    """JAX's ``world_model_loss_fn`` gradients with every step in float64:
+    x64 on, the params and frames cast up, a float64 ``LatentWorldModel``,
+    and ``_Float64Numpy`` for the world model's and SSIM's ``jnp``."""
+    from carla_imitation_learning_tpu.models import world_model as j_wm
+
+    f64 = _Float64Numpy()
+    with jax.enable_x64(True), monkeypatch.context() as mp:
+        mp.setattr(j_wm, "jnp", f64)
+        mp.setattr(j_ssim, "jnp", f64)
+        jm = JWM(z_size=Z, rnn="lstm", height=HW, width=HW, hidden_size=HID,
+                 dtype=jnp.float64)
+        p64 = jax.tree_util.tree_map(lambda a: jnp.asarray(np.asarray(a, np.float64)), params)
+        loss_j = j_losses.world_model_loss_fn(image_loss=image_loss)
+        (_, m64), grads = jax.jit(jax.value_and_grad(
+            lambda p: loss_j(p, jm.apply, (jnp.asarray(frames, jnp.float64),
+                                           jnp.asarray(actions))), has_aux=True))(p64)
+        assert all(g.dtype == jnp.float64 for g in jax.tree_util.tree_leaves(grads))
+        return {k: float(v) for k, v in m64.items()}, jax.tree_util.tree_map(np.asarray, grads)
+
+
 @pytest.mark.parametrize("image_loss", ["mse", "ms_ssim"])
-def test_world_model_loss_and_gradients_match(image_loss):
+def test_world_model_loss_and_gradients_match(image_loss, monkeypatch):
     """Loss and metrics against JAX's; gradients against JAX's under MSE.
-    Under MS-SSIM the gradients are held against the same loss in float64:
-    on the untrained decoder's near-flat reconstructions (std 0.003 about
-    0.48) SSIM's variances blur(x²) − blur(x)² cancel to ~3e-5 of their
-    terms, and JAX's fp32 blur rounds high on average (+3.4e-8 on
-    blur(x²), the port's −2e-10), so JAX's mean SSIM per level is 7e-5
-    off float64 (the port's 2e-6) and its last bias gradient 1.8e-3
-    (ROADMAP Queue 3)."""
+    Under MS-SSIM the gradients are held against JAX's in float64: on the
+    untrained decoder's near-flat reconstructions (std 0.003 about 0.48)
+    SSIM's variances blur(x²) − blur(x)² cancel to ~3e-5 of their terms,
+    and JAX's fp32 blur rounds high on average (+3.4e-8 on blur(x²), the
+    port's −2e-10), so JAX's fp32 mean SSIM per level is 7e-5 off float64
+    (the port's 2e-6) and its last bias gradient 1.8e-3 (ROADMAP Queue 3).
+    The port's own float64 gradients agree with JAX's float64 to rtol
+    1e-6 (``convert`` carries them across in fp32)."""
     jm, params, model = _pair("lstm", "discrete", seed=4)
     frames, actions = _inputs("discrete", seed=9)
     loss_j = j_losses.world_model_loss_fn(image_loss=image_loss)
@@ -154,10 +189,17 @@ def test_world_model_loss_and_gradients_match(image_loss):
         np.testing.assert_allclose(float(metrics[k]), float(j_m[k]), rtol=1e-5, err_msg=k)
     want = convert.world_model_state_dict(j_grads)
     if image_loss == "ms_ssim":
+        m64, g64 = _jax_float64_grads(params, frames, actions, image_loss, monkeypatch)
+        want = convert.world_model_state_dict(g64)
         ref = convert.model_for_params(params, torch.float64).to(torch.float64)
         ref.load_state_dict(convert.params_state_dict(params))
-        loss_fn(ref, (_t(frames).to(torch.float64), _t(actions)))[0].backward()
-        want = {k: p.grad.to(torch.float32) for k, p in ref.named_parameters()}
+        loss64, metrics64 = loss_fn(ref, (_t(frames).to(torch.float64), _t(actions)))
+        loss64.backward()
+        for k in m64:
+            np.testing.assert_allclose(float(metrics64[k]), m64[k], rtol=1e-12, err_msg=k)
+        for name, p in ref.named_parameters():
+            np.testing.assert_allclose(p.grad.to(torch.float32).numpy(), want[name].numpy(),
+                                       rtol=1e-6, atol=1e-12, err_msg=f"float64 {name}")
     for name, p in model.named_parameters():
         np.testing.assert_allclose(p.grad.numpy(), want[name].numpy(), rtol=1e-4, atol=1e-6,
                                    err_msg=name)
