@@ -199,9 +199,17 @@ def gather_windows(frames: torch.Tensor, idx: torch.Tensor, frame_skip: int,
     in the JAX package, with the constant rounded to ``dtype`` first as
     JAX's weak-typed constant is, so the batches agree bit for bit. The
     result is a permuted view of the gathered (B, frame_skip, H, W) block,
-    the layout the policy's trunk reads."""
+    the layout the policy's trunk reads.
+
+    Frames with a trailing camera axis (N, H, W, K) give (B, H, W,
+    frame_skip·K) with channel t·K + c, time-major and camera-minor: the
+    surround rollout's window (``training.closed_loop.update_framebuf``)."""
     windows = frames[idx[:, None] + torch.arange(frame_skip, device=idx.device)[None, :]]
-    x = windows.permute(0, 2, 3, 1)
+    if windows.dim() == 5:                                  # (B, fs, H, W, K)
+        b, _, h, w, k = windows.shape
+        x = windows.permute(0, 2, 3, 1, 4).reshape(b, h, w, frame_skip * k)
+    else:
+        x = windows.permute(0, 2, 3, 1)
     if frames.dtype == torch.uint8:
         return x.to(dtype) * torch.tensor(1.0 / 255.0, dtype=dtype)
     return x.to(dtype)
@@ -236,8 +244,11 @@ class DeviceDataset:
     ``sample_mask`` keeps only windows whose labeled frame it marks;
     ``balanced`` draws each epoch's ``n_samples`` windows with replacement,
     weighted by the inverse frequency of ``balance_key`` ("action",
-    "command" or "action_command"). Frames, labels and the valid-start map
-    live on ``device`` (default the card)."""
+    "command" or "action_command"). ``extra_frames`` (surround view) are
+    more camera streams frame-aligned with the store, each of its frames'
+    shape: they stack as a trailing camera axis behind the store's, and x
+    becomes (B, H, W, frame_skip·K), time-major and camera-minor. Frames,
+    labels and the valid-start map live on ``device`` (default the card)."""
 
     def __init__(
         self,
@@ -259,10 +270,9 @@ class DeviceDataset:
         extra_frames: "list[np.ndarray] | None" = None,
         device: str | torch.device = "cuda",
     ):
-        unported = {"sharding": sharding is not None, "extra_frames": bool(extra_frames)}
-        if any(unported.values()):
+        if sharding is not None:
             raise NotImplementedError(
-                f"batch kinds not ported yet: {[k for k, v in unported.items() if v]}")
+                "sharding is not ported yet (ROADMAP Queue 1, item 6)")
         cont = None
         if continuous_labels is not None:
             if aux or cil:
@@ -307,7 +317,15 @@ class DeviceDataset:
         # sample index → window start: identity when every start is valid
         self._valid_starts = (None if len(valid) == n_starts
                               else self._put(valid.astype(np.int64)))
-        self.frames = self._put(store.frames)
+        if extra_frames:
+            for i, ef in enumerate(extra_frames):
+                if ef.shape != store.frames.shape:
+                    raise ValueError(
+                        f"extra_frames[{i}] has shape {ef.shape}; must match "
+                        f"the base store's {store.frames.shape}")
+            self.frames = self._put(np.stack([store.frames, *extra_frames], axis=-1))
+        else:
+            self.frames = self._put(store.frames)
         self.actions = self._put(store.actions.astype(np.int64))
         self.continuous = None if cont is None else self._put(cont)
         if aux:

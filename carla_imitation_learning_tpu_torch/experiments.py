@@ -47,13 +47,24 @@ the CLI dispatches by name.
   real future per horizon step and writes a film strip;
 - ``dream_policy``: a latent policy trained in the world model's
   imagination (``training/imagination.py``), then driven in the real sim
-  beside its latent-BC start and the expert.
+  beside its latent-BC start and the expert;
+- ``collect_multicamera``: one expert trajectory rendered from a whole
+  camera rig (kernel A), written per camera as PNG frames and a packed
+  store, with ``state.csv``;
+- ``bc_surround``: BC of a policy that sees several rig views stacked
+  camera-minor, collected by ``collect_multicamera`` and driven with the
+  same rig;
+- ``replay``: an episode record (initial state and executed controls) of
+  the expert or a checkpoint's policy, replayed bit for bit, its most
+  eventful env re-rendered in RGB with its class plane into a GIF.
 
 The closed-loop experiments read ``policy_family`` (``discrete``,
 ``continuous`` or ``cil``) to build the policy and its control space, and
 ``s2d_stem`` for the space-to-depth first conv, and ``policy_arch`` (``cnn``
 or ``vit``) for the discrete family's network; ``closed_loop_eval`` reads
-``safety_shield`` (``training/shield.py``).
+``safety_shield`` (``training/shield.py``). ``surround_cameras`` (rig
+preset names, the driving view first) gives every policy experiment a
+surround rig: the policy's channels are frame_skip × the number of views.
 
 Everything runs on ``cfg.device`` (default ``"cuda"``; ``-o device=cpu``
 runs the plain versions on the CPU). Options that wait for unported modules
@@ -88,12 +99,16 @@ from carla_imitation_learning_tpu_torch.ops.ssim import ssim
 from carla_imitation_learning_tpu_torch.native import (
     DeviceShardStreamer, NativeFrameStore, PrefetchReader, save_framestore,
 )
+from carla_imitation_learning_tpu_torch.render.camera import CAMERA_PRESETS
 from carla_imitation_learning_tpu_torch.render.pipeline import RenderConfig
 from carla_imitation_learning_tpu_torch.sim.planner import goal_setup
-from carla_imitation_learning_tpu_torch.sim.town import make_town_from_cfg, mirror_town
+from carla_imitation_learning_tpu_torch.sim.town import (
+    make_town_from_cfg, mirror_town, town_kwargs_from_cfg,
+)
 from carla_imitation_learning_tpu_torch.sim.world import SimParams
 from carla_imitation_learning_tpu_torch.training import closed_loop as cl
 from carla_imitation_learning_tpu_torch.training import imagination as imag
+from carla_imitation_learning_tpu_torch.training import replay as rp
 from carla_imitation_learning_tpu_torch.training.dagger import (
     run_dagger, run_dagger_online, run_dagger_uncertain,
 )
@@ -349,16 +364,13 @@ def _bc_aux_seg(cfg, n_envs: int, n_steps: int, eval_envs: int, eval_steps: int)
                                         record_semantic=True, device=dev)
     sem = cl.semantic_stream(traj)
     del traj
-    n = len(store)
-    bounds = {"train": (0, int(0.8 * n)), "val": (int(0.8 * n), int(0.9 * n)),
-              "test": (int(0.9 * n), n)}
     batch = int(cfg.get("BATCH_SIZE", 64))
     dropout = float(cfg.get("aux_speed_dropout", 0.3))
     loaders = {f"{k}_dataloader": pipe.AuxSegDataset(pipe.DeviceDataset(
         store.slice(a, b), batch, frame_skip=fs, shuffle=(k == "train"), aux=True,
         drop_last=(k == "train"), device=dev), sem[a:b],
         speed_dropout=dropout if k == "train" else 0.0)
-        for k, (a, b) in bounds.items()}
+        for k, (a, b) in _bounds(len(store)).items()}
     model = AuxNet(obs_size=fs, image_hw=rcfg.height, seg_classes=int(cfg.get("seg_classes", 8)),
                    dtype=_dtype(cfg))
     loss = aux_seg_loss_fn(float(cfg.get("aux_recon_weight", 0.0)),
@@ -598,6 +610,22 @@ def bc_streaming(cfg, n_envs: int = 32, n_steps: int = 200, epochs: int = 2,
     return out
 
 
+def _surround_cams(cfg) -> tuple:
+    """The observation rig: ``surround_cameras`` (rig preset names, the
+    first the driving view) or the forward camera alone. The names must be
+    ``CAMERA_PRESETS``: the renderer takes the forward pose for any other
+    name, so a misspelt rig would train on K copies of the forward view."""
+    cams = cfg.get("surround_cameras", None)
+    if not cams:
+        return ("camera",)
+    cams = tuple(str(c) for c in cams)
+    unknown = [c for c in cams if c not in CAMERA_PRESETS]
+    if unknown:
+        raise ValueError(f"unknown camera preset(s) {unknown} in surround_cameras; "
+                         f"valid presets: {sorted(CAMERA_PRESETS)}")
+    return cams
+
+
 def _policy_bits(cfg, checkpoint: str | None, height: int, width: int):
     """The policy of ``policy_family`` (flax's initializer from ``seed``,
     then the checkpoint's weights, EMA preferred) → (policy_fn, model):
@@ -605,19 +633,18 @@ def _policy_bits(cfg, checkpoint: str | None, height: int, width: int):
     ``ContinuousPolicyCNN`` and its (steer, accel) controls (run it with
     ``_control_space(cfg)``); ``cil``, ``BranchedCILPolicy`` with
     ``n_commands`` branches and its ``as_policy_fn``, which reads the
-    rollout's speed and navigation command."""
+    rollout's speed and navigation command. Every family sees
+    frame_skip × the rig's views channels (``_surround_cams``)."""
     family = str(cfg.get("policy_family", "discrete"))
-    if cfg.get("surround_cameras"):
-        raise _not_ported("surround_cameras", 4)
-    fs = int(cfg.get("frame_skip", 4))
+    obs_size = int(cfg.get("frame_skip", 4)) * len(_surround_cams(cfg))
     if family == "continuous":
-        model = ContinuousPolicyCNN(obs_size=fs, dtype=_dtype(cfg),
+        model = ContinuousPolicyCNN(obs_size=obs_size, dtype=_dtype(cfg),
                                     s2d_stem=_flag(cfg, "s2d_stem"))
     elif family == "cil":
-        model = BranchedCILPolicy(obs_size=fs, n_actions=int(cfg.get("n_actions", 9)),
+        model = BranchedCILPolicy(obs_size=obs_size, n_actions=int(cfg.get("n_actions", 9)),
                                   n_commands=int(cfg.get("n_commands", 6)), dtype=_dtype(cfg))
     elif family == "discrete":
-        model = _discrete_policy_model(cfg, fs)
+        model = _discrete_policy_model(cfg, obs_size)
     else:
         raise ValueError(f"unknown policy_family {family!r} "
                          "(want 'discrete', 'continuous' or 'cil')")
@@ -641,7 +668,8 @@ def closed_loop_eval(cfg, checkpoint: str | None = None, artifact: str | None = 
     """Driving metrics of a checkpoint's policy and of the expert on the
     same initial fleet. ``safety_shield=true`` puts the emergency-brake
     layer (``training/shield.py``) over the policy's rollout, not the
-    expert's, and the policy's metrics gain its interventions."""
+    expert's, and the policy's metrics gain its interventions. The policy
+    drives with the ``surround_cameras`` rig, the expert needs none."""
     if artifact:
         raise _not_ported("artifact=", 5)
     _check_one_device(cfg)
@@ -651,7 +679,7 @@ def closed_loop_eval(cfg, checkpoint: str | None = None, artifact: str | None = 
     policy = cl.evaluate_policy(params, town, rcfg, policy_fn, _generator(cfg),
                                 n_envs=n_envs, n_steps=n_steps,
                                 control_space=_control_space(cfg), device=dev,
-                                shield=shield_from_cfg(cfg))
+                                shield=shield_from_cfg(cfg), cameras=_surround_cams(cfg))
     expert = cl.evaluate_policy(params, town, rcfg, None, _generator(cfg),
                                 n_envs=n_envs, n_steps=n_steps, device=dev)
     return {"policy": policy, "expert": expert}
@@ -705,12 +733,13 @@ def scenario_eval(cfg, checkpoint: str | None = None, artifact: str | None = Non
     dev = _device(cfg)
     policy_fn, _ = _policy_bits(cfg, checkpoint, int(cfg.get_dotted("render.height", 128)),
                                 int(cfg.get_dotted("render.width", 128)))
+    cams = _surround_cams(cfg)
     out, summary = {}, {}
     for name in names:
         town, params, rcfg = _sim_bits(scenario_config(cfg, name))
         pm = cl.evaluate_policy(params, town, rcfg, policy_fn, _generator(cfg),
                                 n_envs=n_envs, n_steps=n_steps,
-                                control_space=_control_space(cfg), device=dev)
+                                control_space=_control_space(cfg), device=dev, cameras=cams)
         em = cl.evaluate_policy(params, town, rcfg, None, _generator(cfg),
                                 n_envs=n_envs, n_steps=n_steps, device=dev)
         out[name] = {"policy": pm, "expert": em}
@@ -723,12 +752,16 @@ def scenario_eval(cfg, checkpoint: str | None = None, artifact: str | None = Non
                 [summary[n]["policy_arc"] for n in names]))}
 
 
+def _bounds(n: int) -> dict:
+    """Sequential 80/10/10 split of n frames → {"train", "val", "test"}:
+    (start, stop)."""
+    return {"train": (0, int(0.8 * n)), "val": (int(0.8 * n), int(0.9 * n)),
+            "test": (int(0.9 * n), n)}
+
+
 def _split3(store):
     """Sequential 80/10/10 split of a store → {"train", "val", "test"}."""
-    n = len(store)
-    bounds = {"train": (0, int(0.8 * n)), "val": (int(0.8 * n), int(0.9 * n)),
-              "test": (int(0.9 * n), n)}
-    return {k: store.slice(a, b) for k, (a, b) in bounds.items()}
+    return {k: store.slice(a, b) for k, (a, b) in _bounds(len(store)).items()}
 
 
 @experiment("bc_cil")
@@ -743,32 +776,43 @@ def bc_cil(cfg, n_envs: int = 32, n_steps: int = 300, n_goals: int = 0, **kw):
     right, since ``make_town``'s loops all run counterclockwise); each half
     is split 80/10/10 on its own, so both land in every split.
     ``balance_key`` (``command`` or ``action_command``) balances epoch
-    sampling by branch. The result carries the command histogram."""
+    sampling by branch. With ``surround_cameras`` the side views ride as
+    extra camera-minor channels, split with their half. The result carries
+    the command histogram."""
     _check_one_device(cfg)
-    if cfg.get("surround_cameras"):
-        raise _not_ported("surround_cameras", 4)
+    cams = _surround_cams(cfg)
     town, params, rcfg, goal_ids = _goal_bits(cfg, n_goals, n_envs)
     fs = int(cfg.get("frame_skip", 4))
     dev, gen, noise = _device(cfg), _generator(cfg), _noise_bits(cfg)
     worlds = [town, mirror_town(town)] if _flag(cfg, "mirror_collection") else [town]
     steps = n_steps // len(worlds)
-    halves = [cl.collect_dataset(params, w, rcfg, gen, n_envs, steps, noise=noise,
-                                 goal_ids=goal_ids, device=dev)[0] for w in worlds]
-    parts = [_split3(h) for h in halves]
-    splits = {k: pipe.FrameStore.concat([p[k] for p in parts])
+    parts, commands = [], []
+    for world in worlds:
+        store, _, traj = cl.collect_dataset(params, world, rcfg, gen, n_envs, steps,
+                                            noise=noise, goal_ids=goal_ids, cameras=cams,
+                                            device=dev)
+        extra = cl.extra_view_streams(traj) if len(cams) > 1 else []
+        del traj
+        commands.append(store.commands)
+        parts.append({k: (store.slice(a, b), [e[a:b] for e in extra])
+                      for k, (a, b) in _bounds(len(store)).items()})
+    splits = {k: (pipe.FrameStore.concat([p[k][0] for p in parts]),
+                  [np.concatenate([p[k][1][i] for p in parts]) for i in range(len(cams) - 1)])
               for k in ("train", "val", "test")}
     batch = int(cfg.get("BATCH_SIZE", 64))
     balanced = _flag(cfg, "balanced_sampling")
     loaders = {f"{k}_dataloader": pipe.DeviceDataset(
         st, batch, frame_skip=fs, shuffle=(k == "train"), cil=True,
         drop_last=(k == "train"), balanced=balanced and k == "train",
-        balance_key=str(cfg.get("balance_key", "action")), device=dev)
-        for k, st in splits.items()}
+        balance_key=str(cfg.get("balance_key", "action")), extra_frames=extra or None,
+        device=dev)
+        for k, (st, extra) in splits.items()}
     n_commands = int(cfg.get("n_commands", 6))
-    model = BranchedCILPolicy(obs_size=fs, n_commands=n_commands, dtype=_dtype(cfg))
+    model = BranchedCILPolicy(obs_size=fs * len(cams), n_commands=n_commands,
+                              dtype=_dtype(cfg))
     result = _fit(cfg, "bc_cil", model, cil_loss_fn(float(cfg.get("speed_weight", 0.1))),
                   loaders)
-    commands = np.concatenate([h.commands for h in halves])
+    commands = np.concatenate(commands)
     hist = np.bincount(commands, minlength=n_commands)
     result["command_histogram"] = hist.tolist()
     empty = [c for c in range(n_commands) if hist[c] == 0]
@@ -784,27 +828,28 @@ def bc_continuous(cfg, n_envs: int = 32, n_steps: int = 300, eval_envs: int = 64
                   eval_steps: int = 200, **kw):
     """Continuous-control BC: regress the expert's (steer, accel = throttle
     − brake) from the state log (the clean steer under collection noise),
-    split 80/10/10, then drive the closed loop with continuous control."""
+    split 80/10/10, then drive the closed loop with continuous control
+    (with the ``surround_cameras`` rig, its side views as extra channels)."""
     _check_one_device(cfg)
-    if cfg.get("surround_cameras"):
-        raise _not_ported("surround_cameras", 4)
+    cams = _surround_cams(cfg)
     town, params, rcfg = _sim_bits(cfg)
     fs = int(cfg.get("frame_skip", 4))
     dev, gen = _device(cfg), _generator(cfg)
-    store, state_log, _ = cl.collect_dataset(params, town, rcfg, gen, n_envs, n_steps,
-                                             frame_skip=fs, noise=_noise_bits(cfg), device=dev)
+    store, state_log, traj = cl.collect_dataset(params, town, rcfg, gen, n_envs, n_steps,
+                                                frame_skip=fs, noise=_noise_bits(cfg),
+                                                cameras=cams, device=dev)
+    extra = cl.extra_view_streams(traj) if len(cams) > 1 else []
+    del traj
     labels = np.stack([np.asarray(state_log.steer, np.float32),
                        np.asarray(state_log.throttle, np.float32)
                        - np.asarray(state_log.brake, np.float32)], axis=1)
-    n = len(store)
-    bounds = {"train": (0, int(0.8 * n)), "val": (int(0.8 * n), int(0.9 * n)),
-              "test": (int(0.9 * n), n)}
     batch = int(cfg.get("BATCH_SIZE", 64))
     loaders = {f"{k}_dataloader": pipe.DeviceDataset(
         store.slice(a, b), batch, frame_skip=fs, shuffle=(k == "train"),
-        drop_last=(k == "train"), continuous_labels=labels[a:b], device=dev)
-        for k, (a, b) in bounds.items()}
-    model = ContinuousPolicyCNN(obs_size=fs, dtype=_dtype(cfg))
+        drop_last=(k == "train"), continuous_labels=labels[a:b],
+        extra_frames=[e[a:b] for e in extra] or None, device=dev)
+        for k, (a, b) in _bounds(len(store)).items()}
+    model = ContinuousPolicyCNN(obs_size=fs * len(cams), dtype=_dtype(cfg))
     loss = continuous_bc_loss_fn(float(cfg.get("steer_weight", 1.0)),
                                  float(cfg.get("accel_weight", 0.5)))
     result = _fit(cfg, "bc_continuous", model, loss, loaders)
@@ -816,7 +861,7 @@ def bc_continuous(cfg, n_envs: int = 32, n_steps: int = 300, eval_envs: int = 64
 
     result["eval"] = cl.evaluate_policy(params, town, rcfg, policy_fn, gen, n_envs=eval_envs,
                                         n_steps=eval_steps, control_space="continuous",
-                                        device=dev)
+                                        device=dev, cameras=cams)
     result["label_stats"] = {"steer_std": float(labels[:, 0].std()),
                              "accel_mean": float(labels[:, 1].mean())}
     return result
@@ -845,7 +890,8 @@ def route_eval(cfg, checkpoint: str | None = None, artifact: str | None = None,
         out["policy"] = cl.evaluate_routes(params, town, rcfg, policy_fn, _generator(cfg),
                                            n_envs=n_envs, n_steps=n_steps,
                                            control_space=_control_space(cfg),
-                                           goal_ids=goal_ids, device=dev)
+                                           goal_ids=goal_ids, device=dev,
+                                           cameras=_surround_cams(cfg))
     return out
 
 
@@ -1203,4 +1249,151 @@ def dream_policy(cfg, n_envs: int = 16, n_steps: int = 200, seq_len: int = 8,
     if bc_hist is not None:
         out["latent_bc_loss"] = bc_hist
         out["latent_bc_eval"] = evaluate(imag.latent_policy_fn(wm, bc_policy), family)
+    return out
+
+
+@experiment("bc_surround")
+def bc_surround(cfg, n_envs: int = 8, n_steps: int = 200, eval_envs: int = 64,
+                eval_steps: int = 200, **kw):
+    """Surround-view BC: the policy sees every view of a camera rig, not the
+    forward view alone. One expert trajectory renders from each view
+    (``collect_multicamera``, kernel A); the streams stack as a trailing
+    camera axis (``DeviceDataset(extra_frames=...)``), so a window is
+    frame_skip·K channels, time-major and camera-minor, the rollout's own
+    layout; the trained policy then drives the closed loop with the same
+    rig (``make_rollout(cameras=...)``, kernel B once a view each step).
+    ``surround_cameras`` picks the rig (default forward, FL and FR);
+    ``policy_arch=vit`` works here too."""
+    _check_one_device(cfg)
+    cams = _surround_cams(cfg)
+    if len(cams) < 2:
+        cams = ("camera", "FL", "FR")
+    town, params, rcfg = _sim_bits(cfg)
+    dev, gen = _device(cfg), _generator(cfg)
+    frames, state_log, starts = cl.collect_multicamera(params, town, rcfg, gen, cameras=cams,
+                                                       n_envs=n_envs, n_steps=n_steps,
+                                                       device=dev)
+    fs = int(cfg.get("frame_skip", 4))
+    base = pipe.FrameStore.from_arrays(frames[cams[0]], state_log, starts=starts)
+    batch = int(cfg.get("BATCH_SIZE", 64))
+    loaders = {f"{k}_dataloader": pipe.DeviceDataset(
+        base.slice(a, b), batch, frame_skip=fs, shuffle=(k == "train"),
+        drop_last=(k == "train"), extra_frames=[frames[c][a:b] for c in cams[1:]],
+        device=dev)
+        for k, (a, b) in _bounds(len(base)).items()}
+    del frames
+    model = _discrete_policy_model(cfg, fs * len(cams))
+    result = _fit(cfg, "bc_surround", model, bc_loss_fn, loaders)
+    trained = result["state"].model
+
+    @torch.no_grad()
+    def policy_fn(obs):
+        return trained(obs).argmax(-1)
+
+    result["eval"] = cl.evaluate_policy(params, town, rcfg, policy_fn, gen, n_envs=eval_envs,
+                                        n_steps=eval_steps, frame_skip=fs, device=dev,
+                                        cameras=cams)
+    result["cameras"] = list(cams)
+    return result
+
+
+@experiment("collect_multicamera")
+def collect_multicamera_data(cfg, n_envs: int = 8, n_steps: int = 128,
+                             write_png: bool = True, **kw):
+    """A multi-camera raw log in the reference's VAE data contract: one
+    expert trajectory seen from the forward camera and FL/FR/SL/SR/RR
+    (``cameras=`` another rig), each camera written as PNG frames
+    (``write_png=False`` skips them) and as a packed store
+    ``<cam>.tpuilfs`` with the episode starts, beside ``state.csv``. The
+    result's ``seconds`` time the collection, the PNG and the packed
+    writes apart."""
+    cameras = tuple(kw.get("cameras", ("camera", "FL", "FR", "SL", "SR", "RR")))
+    town, params, rcfg = _sim_bits(cfg)
+    t0 = time.perf_counter()
+    frames, state_log, starts = cl.collect_multicamera(
+        params, town, rcfg, _generator(cfg), cameras=cameras, n_envs=n_envs,
+        n_steps=n_steps, device=_device(cfg))
+    seconds = {"collect": time.perf_counter() - t0, "png_write": 0.0, "packed_write": 0.0}
+    data_dir = Path(cfg["data_dir"])
+    root = data_dir / "raw" / kw.get("log_name", "SimLog1")
+    packed = {}
+    for cam, arr in frames.items():
+        t0 = time.perf_counter()
+        if write_png:
+            fl.save_frames(root / cam, arr)
+        t1 = time.perf_counter()
+        store = pipe.FrameStore.from_arrays(arr, state_log, starts=starts)
+        packed[cam] = str(save_framestore(root / f"{cam}.tpuilfs", store))
+        seconds["png_write"] += t1 - t0
+        seconds["packed_write"] += time.perf_counter() - t1
+    fl.save_state_csv(root / "state.csv", state_log)
+    fl.save_state_csv(data_dir / "raw" / "state.csv", state_log)
+    return {"cameras": list(frames), "frames_per_camera": len(state_log), "log": str(root),
+            "framestores": packed, "seconds": seconds}
+
+
+@experiment("replay")
+def replay(cfg, record: str | None = None, checkpoint: str | None = None, n_envs: int = 16,
+           n_steps: int = 120, env_index: int = -1, out_height: int = 128,
+           out_width: int = 128, make_gif: bool = True, **kw):
+    """Record and replay an episode (CARLA's recorder): a record is the
+    fleet's initial state and executed controls, a few KB, and the replay
+    steps the simulator bit for bit (``training/replay.py``).
+
+    Without ``record=`` the expert, or ``checkpoint=``'s policy, drives
+    ``n_envs`` × ``n_steps`` and the record goes to ``log_dir/episode.npz``.
+    Either way the whole fleet's dynamics replay, ``env_index`` (−1: the
+    most eventful env, most collisions, then most distance) replays alone
+    and must match (``replay_speed_max_abs_diff``), and, with ``make_gif``,
+    it is re-rendered at ``out_height`` × ``out_width`` in RGB beside its
+    class plane (the exact branch, kernel A) into a GIF."""
+    from PIL import Image
+
+    dev = _device(cfg)
+    log_dir = Path(cfg["log_dir"])
+    log_dir.mkdir(parents=True, exist_ok=True)
+    if record:
+        rec, rec_path = rp.load_record(record), str(record)
+    else:
+        town, params, rcfg = _sim_bits(cfg)
+        policy_fn, space = None, "discrete"
+        if checkpoint:
+            policy_fn, _ = _policy_bits(cfg, checkpoint, rcfg.height, rcfg.width)
+            space = _control_space(cfg)
+        init_fn, rollout_fn = cl.make_rollout(params, town, rcfg, policy_fn,
+                                              frame_skip=int(cfg.get("frame_skip", 4)),
+                                              control_space=space, device=dev)
+        carry = init_fn(_generator(cfg), n_envs)
+        _, traj = rollout_fn(carry, n_steps)
+        rec = rp.record_from_rollout(
+            carry[0], traj, params=params,
+            town_kwargs=town_kwargs_from_cfg(cfg, seed=int(cfg.get("data_seed", 0))),
+            rcfg=rcfg, meta={"driver": "checkpoint" if checkpoint else "expert",
+                             "seed": int(cfg.get("seed", 0))})
+        del traj
+        rec_path = rp.save_record(log_dir / "episode.npz", rec)
+
+    dyn = rp.replay_record(rec, render=False, device=dev)
+    collisions = dyn["collision"].sum(0).cpu().numpy()
+    speed = dyn["speed"].cpu().numpy()
+    km = speed.sum(axis=0)
+    idx = env_index if env_index >= 0 else int(np.lexsort((-km, -collisions))[0])
+    alone = rp.replay_record(rp.select_envs(rec, idx), render=False, device=dev)
+    exact = float(np.abs(alone["speed"][:, 0].cpu().numpy() - speed[:, idx]).max())
+    out = {"record": rec_path, "n_envs": rec.n_envs, "n_steps": rec.n_steps,
+           "env_index": idx, "env_collisions": int(collisions[idx]),
+           "replay_speed_max_abs_diff": exact,
+           "record_bytes": Path(rec_path).stat().st_size}
+    if make_gif:
+        frames = rp.replay_record(
+            rp.select_envs(rec, idx), device=dev,
+            render_override={"height": out_height, "width": out_width, "rgb": True,
+                             "semantic": True, "backend": "jax", "fast": False})
+        rgb, sem = ((frames[k][:, 0].clamp(0, 1) * 255).to(torch.uint8).cpu().numpy()
+                    for k in ("rgb", "semantic_rgb"))
+        imgs = [Image.fromarray(np.concatenate([a, b], axis=1)) for a, b in zip(rgb, sem)]
+        gif = log_dir / f"replay_env{idx}.gif"
+        imgs[0].save(gif, save_all=True, append_images=imgs[1:],
+                     duration=int(1000 * float(rec.sim.get("dt", 0.05))), loop=0)
+        out["gif"] = str(gif)
     return out

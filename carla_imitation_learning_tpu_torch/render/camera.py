@@ -16,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from carla_imitation_learning_tpu_torch.render.geometry import SEM_BUILDING
@@ -29,17 +30,45 @@ class Camera:
     down: torch.Tensor     # (B, 3) unit (image y grows downward)
 
 
+# The rig presets of the JAX package, named after the reference's cameras
+# (forward ``camera`` and ``semantic``, the narrow ``camera_sFOV``, and the
+# VAE logs' FL/FR/SL/SR/RR): (yaw offset from the heading in degrees, field
+# of view in degrees or None for the render config's).
+CAMERA_PRESETS = {
+    "camera": (0.0, None),        # forward dashboard
+    "semantic": (0.0, None),      # same pose; semantic output channel
+    "camera_sFOV": (0.0, 60.0),   # narrow field of view
+    "FL": (45.0, None),           # front-left
+    "FR": (-45.0, None),          # front-right
+    "SL": (90.0, None),           # side-left
+    "SR": (-90.0, None),          # side-right
+    "RR": (180.0, None),          # rear
+}
+
+
+def rig_yaw(ego_yaw: torch.Tensor, yaw_offset_deg: float) -> torch.Tensor:
+    """The heading a rig camera looks along: ``ego_yaw`` plus the offset in
+    radians as the JAX package's ``jnp.deg2rad`` rounds it, the float32
+    offset times float32(π/180) rounded to float32 (``math.radians`` rounds
+    the product in float64 first and can land an ulp away)."""
+    return ego_yaw + float(np.float32(yaw_offset_deg) * np.float32(np.pi / 180.0))
+
+
 def camera_from_ego(ego_pos, ego_yaw, height: float = 1.6,
-                    forward_offset: float = 0.5) -> Camera:
-    """Forward dashboard camera mounted at the ego (B, 2)/(B,), looking
-    along its heading, horizon level. (The JAX package's side and rear rig
-    presets wait for ROADMAP Queue 1 item 4.)"""
-    c, s = torch.cos(ego_yaw), torch.sin(ego_yaw)
+                    forward_offset: float = 0.5, yaw_offset_deg: float = 0.0) -> Camera:
+    """Rig camera mounted at the ego (B, 2)/(B,), on its body
+    ``forward_offset`` ahead along its heading, looking along the heading
+    turned by ``yaw_offset_deg``, horizon level."""
+    ch, sh = torch.cos(ego_yaw), torch.sin(ego_yaw)
+    c, s = ch, sh
+    if yaw_offset_deg != 0.0:
+        yaw = rig_yaw(ego_yaw, yaw_offset_deg)
+        c, s = torch.cos(yaw), torch.sin(yaw)
     zero = torch.zeros_like(c)
     forward = torch.stack([c, s, zero], -1)
     right = torch.stack([s, -c, zero], -1)
     down = torch.tensor([0.0, 0.0, -1.0], device=c.device).expand_as(forward)
-    mount = ego_pos + forward_offset * torch.stack([c, s], -1)
+    mount = ego_pos + forward_offset * torch.stack([ch, sh], -1)
     pos = torch.cat([mount, torch.full_like(mount[:, :1], height)], -1)
     return Camera(pos=pos, forward=forward, right=right, down=down)
 

@@ -21,7 +21,9 @@ from carla_imitation_learning_tpu_torch.ops.raster import (
 )
 from carla_imitation_learning_tpu_torch.ops.raster_fast import rasterize_luma_fast
 from carla_imitation_learning_tpu_torch.render import geometry as geo
-from carla_imitation_learning_tpu_torch.render.camera import camera_from_ego, project_triangles
+from carla_imitation_learning_tpu_torch.render.camera import (
+    CAMERA_PRESETS, camera_from_ego, project_triangles,
+)
 from carla_imitation_learning_tpu_torch.render.plain_raster import semantic_to_rgb, sky_image
 from carla_imitation_learning_tpu_torch.render.weather import apply_fog, apply_rain
 from carla_imitation_learning_tpu_torch.sim import agents as agent_lib
@@ -78,12 +80,17 @@ class RenderConfig:
 
 
 def make_scene_setup(params: SimParams, town: TownMap, rcfg: RenderConfig,
-                     device: str | torch.device = "cuda"):
+                     device: str | torch.device = "cuda", camera: str = "camera"):
     """→ scene_setup(state) → TriangleSetup of a fleet state seen from the
-    forward camera: the scene assembly and projection every render branch
-    starts from. The setup carries the surface-UV rows when the exact
-    branches texture, and the quad rows when the fast branch fuses quads."""
+    rig preset ``camera`` (``render.camera.CAMERA_PRESETS``: its yaw offset,
+    and its field of view in place of ``rcfg.fov_deg`` where it has one; a
+    name that is no preset takes the forward pose, as in the JAX package):
+    the scene assembly and projection every render branch starts from. The
+    setup carries the surface-UV rows when the exact branches texture, and
+    the quad rows when the fast branch fuses quads."""
     dev = resolve_device(device)
+    yaw_off, fov_override = CAMERA_PRESETS.get(camera, (0.0, None))
+    fov = fov_override or rcfg.fov_deg
     town = town.to(dev)
     static = geo.build_static_scene(town, facade_bands=rcfg.facade_bands,
                                     markings=rcfg.markings).to(dev)
@@ -102,27 +109,28 @@ def make_scene_setup(params: SimParams, town: TownMap, rcfg: RenderConfig,
         tris, colors, classes = geo.assemble_scene(
             static, town.lights_pos, phases, agents_pos, agents_yaw,
             rcfg.max_triangles, peds_pos=peds_pos, shadows=rcfg.shadows)
-        cam = camera_from_ego(state.ego_pos, state.ego_yaw)
+        cam = camera_from_ego(state.ego_pos, state.ego_yaw, yaw_offset_deg=yaw_off)
         # closed boxes with outward-wound faces are backface-cullable;
         # ground, roads, poles and light heads stay double-sided
         cullable = ((classes == geo.SEM_BUILDING) | (classes == geo.SEM_VEHICLE)
                     | (classes == geo.SEM_PEDESTRIAN))
         return project_triangles(tris, colors, classes, cam, rcfg.width,
-                                 rcfg.height, rcfg.fov_deg, rcfg.near,
+                                 rcfg.height, fov, rcfg.near,
                                  cullable=cullable, textures=textures, quads=quads)
 
     return scene_setup
 
 
 def make_renderer(params: SimParams, town: TownMap, rcfg: RenderConfig,
-                  device: str | torch.device = "cuda"):
-    """→ render(state) for a fleet state on ``device``: the fast branch
+                  device: str | torch.device = "cuda", camera: str = "camera"):
+    """→ render(state) for a fleet state on ``device``, seen from the rig
+    preset ``camera`` (``make_scene_setup``): the fast branch
     returns {'gray'}; the exact branches add 'semantic', 'depth',
     'semantic_rgb' (and 'rgb' for ``rgb=True``). Every branch applies fog,
     then rain (from each env's key and step), then the sun's exposure
     scale, to its frame; the class ids stay as rendered."""
     dev = resolve_device(device)
-    scene_setup = make_scene_setup(params, town, rcfg, dev)
+    scene_setup = make_scene_setup(params, town, rcfg, dev, camera)
 
     def weather(img, state: WorldState):
         if rcfg.rain > 0.0:

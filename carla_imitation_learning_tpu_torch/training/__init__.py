@@ -1,7 +1,7 @@
 """Closed loop and collection (``closed_loop``), the losses, train steps and
 the ``Trainer`` (``losses``, ``steps``, ``loop``), and the modules beside
-them: DAgger, PPO, the shield and imagination training
-(``imagination``)."""
+them: DAgger, PPO, the shield, imagination training (``imagination``) and
+the episode recorder (``replay``)."""
 
 from carla_imitation_learning_tpu_torch.training.losses import (  # noqa: F401
     accuracy, aux_loss_fn, bc_loss_fn, cil_loss_fn, continuous_bc_loss_fn, cross_entropy,

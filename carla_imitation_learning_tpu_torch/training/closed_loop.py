@@ -11,13 +11,16 @@ tables (``assign_goals`` gives each env its goal). With
 ``record_semantic`` the rollout also records the driving view's per-pixel
 class ids, rendered on the exact path (kernel A, textured when the config
 asks for textures), the supervision stream of segmentation collection.
-``collect_dataset`` packs a rollout into a ``FrameStore`` for training;
+``cameras`` turns on surround view: every rig view renders each step and
+the frame window stacks them camera-minor. ``collect_dataset`` packs a
+rollout into a ``FrameStore`` for training;
 with a ``NoiseConfig`` it perturbs the executed steering with triangular
 impulses while the labels stay the clean driver's, and with a policy it is
 the DAgger aggregation step (``dagger_iteration``). A ``ShieldConfig``
 (``training.shield``) puts the emergency-brake layer on the executed
 control, and ``lidar_beams`` records a planar range scan
-(``render.lidar``) of every step.
+(``render.lidar``) of every step. ``collect_multicamera`` renders one
+expert trajectory from a whole camera rig on the exact path (kernel A).
 """
 
 from __future__ import annotations
@@ -56,12 +59,19 @@ def update_framebuf(framebuf: torch.Tensor, gray: torch.Tensor,
                     just_reset: torch.Tensor) -> torch.Tensor:
     """Slide the per-env frame window (B, H, W, fs); envs that auto-reset on
     the previous step get their window refilled with the fresh view, so an
-    observation never blends two episodes. gray (B, H, W), just_reset (B,)."""
-    gray = gray[..., None]
-    frame_skip = framebuf.shape[-1]
-    return torch.where(just_reset[:, None, None, None],
-                       gray.expand(-1, -1, -1, frame_skip),
-                       torch.cat([framebuf[..., 1:], gray], -1))
+    observation never blends two episodes. gray (B, H, W), just_reset (B,).
+
+    Surround view: gray (B, H, W, K) holds the step's K rig views and the
+    window is (B, H, W, fs·K), channel t·K + c (time-major, camera-minor,
+    the layout ``data.pipeline.gather_windows`` gives stacked stores): the
+    oldest K channels drop out and the new K come in."""
+    if gray.dim() == 3:
+        gray = gray[..., None]
+    b, h, w, k = gray.shape
+    fresh = gray[..., None, :]                                  # (B, H, W, 1, K)
+    window = framebuf.view(b, h, w, -1, k)
+    return torch.where(just_reset.view(b, 1, 1, 1, 1), fresh,
+                       torch.cat([window[..., 1:, :], fresh], -2)).view(b, h, w, -1)
 
 
 def control_from_discrete(action: torch.Tensor) -> VehicleControl:
@@ -150,8 +160,9 @@ def make_rollout(params: SimParams, town: TownMap, rcfg: RenderConfig,
                  control_space: str = "discrete",
                  policy_rng: torch.Generator | None = None,
                  shield: ShieldConfig | None = None, lidar_beams: int = 0,
-                 policy_carry_init: Callable | None = None):
-    """Build (init_fn, rollout_fn) for a single-camera fleet.
+                 policy_carry_init: Callable | None = None,
+                 cameras: tuple = ("camera",)):
+    """Build (init_fn, rollout_fn) for a fleet.
 
     ``policy_fn(obs)`` maps the NHWC float window (B, H, W, frame_skip) in
     [0, 1] to (B,) integer actions, or to ``(actions, extra)`` with a (B,)
@@ -190,9 +201,16 @@ def make_rollout(params: SimParams, town: TownMap, rcfg: RenderConfig,
     adds ``traj["semantic"]`` (T, B, H, W) uint8: the class ids of the
     driving view, from a second scene setup of the same state rendered on
     the exact luma path (``replace(rcfg, fast=False, rgb=False)``).
+    ``cameras`` is the observation rig (``render.camera.CAMERA_PRESETS``
+    names), its first entry the driving view that ``traj["gray"]`` and the
+    semantic stream record. More than one camera is surround view: every
+    view renders each step (kernel B once a view), the window holds
+    frame_skip·K channels, time-major and camera-minor
+    (``update_framebuf``), and ``traj["views"]`` (T, B, H, W, K) uint8 logs
+    all of them. One camera runs the single-view program.
 
     ``init_fn(generator, n_envs) -> carry`` with carry = (states, framebuf
-    (B, H, W, fs) uint8, just_reset (B,) bool[, policy state]);
+    (B, H, W, fs·K) uint8, just_reset (B,) bool[, policy state]);
     ``rollout_fn(carry, n_steps,
     policy_params=None) -> (carry, traj)`` where traj stacks per-step (T, B,
     ...) tensors."""
@@ -211,20 +229,27 @@ def make_rollout(params: SimParams, town: TownMap, rcfg: RenderConfig,
     rcfg = dataclasses.replace(rcfg, rgb=False, fast=True)
     if rcfg.lod_px < 0.0:
         rcfg = dataclasses.replace(rcfg, lod_px=2.0)
-    render = make_renderer(params, town, rcfg, device=dev)
+    cameras = tuple(cameras) or ("camera",)
+    renders = [make_renderer(params, town, rcfg, device=dev, camera=c) for c in cameras]
     sem_setup = None
     if record_semantic:
         sem_rcfg = dataclasses.replace(rcfg, fast=False, rgb=False)
-        sem_setup = make_scene_setup(params, town, sem_rcfg, device=dev)
+        sem_setup = make_scene_setup(params, town, sem_rcfg, device=dev, camera=cameras[0])
     pool = (rollout_spawn_pool(params, town) if spawn_pool is None
             else spawn_pool).to(dev)
     shield_apply = None if shield is None else make_shield(town, shield)
     lidar_scan = make_lidar(town, n_beams=lidar_beams) if lidar_beams > 0 else None
 
+    def views_of(states) -> torch.Tensor:
+        """(B, H, W, K) uint8: every rig view of the state."""
+        if len(renders) == 1:
+            return _quantize(renders[0](states)["gray"])[..., None]
+        return torch.stack([_quantize(r(states)["gray"]) for r in renders], -1)
+
     @torch.no_grad()
     def init_fn(generator: torch.Generator, n_envs: int):
         states = reset_env(params, town, generator, n_envs)
-        framebuf = _quantize(render(states)["gray"])[..., None].repeat(1, 1, 1, frame_skip)
+        framebuf = views_of(states).repeat(1, 1, 1, frame_skip)
         base = (states, framebuf, torch.zeros(n_envs, dtype=torch.bool, device=dev))
         if recurrent:
             return base + (_tree(lambda h: h.to(dev), policy_carry_init(n_envs)),)
@@ -246,8 +271,9 @@ def make_rollout(params: SimParams, town: TownMap, rcfg: RenderConfig,
             pcarry = _tree(lambda h, h0: torch.where(
                 just_reset.view((-1,) + (1,) * (h.dim() - 1)), h0.to(dev), h),
                 carry[3], policy_carry_init(just_reset.shape[0]))
-        gray_u8 = _quantize(render(states)["gray"])
-        framebuf = update_framebuf(framebuf, gray_u8, just_reset)
+        views = views_of(states)
+        gray_u8 = views[..., 0]
+        framebuf = update_framebuf(framebuf, views, just_reset)
         obs = framebuf.to(torch.float32) * (1.0 / 255.0)
 
         sensors = sensor_vector(params, states)
@@ -305,6 +331,8 @@ def make_rollout(params: SimParams, town: TownMap, rcfg: RenderConfig,
             "steer": control.steer, "throttle": control.throttle,
             "brake": control.brake,
         }
+        if len(renders) > 1:
+            out["views"] = views
         if sem_setup is not None:
             _, sem, _ = rasterize_exact_luma(sem_setup(states), rcfg.height, rcfg.width,
                                              near=rcfg.near, far=rcfg.far)
@@ -354,12 +382,25 @@ def assign_goals(carry, goal_ids):
     return (states.replace(goal=goal),) + tuple(carry[1:])
 
 
+def _env_major(x: torch.Tensor) -> np.ndarray:
+    """(T, B, ...) → env-major (B·T, ...) on the host."""
+    return x.transpose(0, 1).reshape((-1,) + tuple(x.shape[2:])).cpu().numpy()
+
+
 def semantic_stream(traj: dict) -> np.ndarray:
     """Env-major (B·T, H, W) uint8 class ids of the driving view from a
     ``record_semantic`` rollout, frame-aligned with the env-major frame
     stream a collection writes."""
-    sem = traj["semantic"]                                  # (T, B, H, W)
-    return sem.transpose(0, 1).reshape((-1,) + tuple(sem.shape[2:])).cpu().numpy()
+    return _env_major(traj["semantic"])                     # (T, B, H, W)
+
+
+def extra_view_streams(traj: dict) -> list[np.ndarray]:
+    """Env-major (B·T, H, W) uint8 streams of rig views 1..K−1 of a
+    surround rollout (``traj["views"]``): the ``extra_frames`` that
+    ``DeviceDataset`` stacks camera-minor beside the store's driving view,
+    the rollout window's own layout."""
+    views = traj["views"]                                    # (T, B, H, W, K)
+    return [_env_major(views[..., k]) for k in range(1, views.shape[-1])]
 
 
 def collect_dataset(params: SimParams, town: TownMap, rcfg: RenderConfig,
@@ -379,39 +420,25 @@ def collect_dataset(params: SimParams, town: TownMap, rcfg: RenderConfig,
     column and the labels stay clean. ``goal_ids`` (B,) makes
     the collection goal-directed on a town with nav tables, so the command
     channel records the planner's turns; ``control_space="continuous"``
-    lets a continuous policy drive (labels stay the expert's). The
+    lets a continuous policy drive (labels stay the expert's). ``cameras``
+    is the rig (``make_rollout``); its first view fills the store, and with
+    more than one ``extra_view_streams(traj)`` gives the others. The
     trajectory stays on the device until one host copy per field."""
-    if tuple(cameras) != ("camera",):
-        raise NotImplementedError(
-            "multi-camera collection is not ported yet (ROADMAP Queue 1 item 4)")
     init_fn, rollout_fn = make_rollout(params, town, rcfg, policy_fn, frame_skip,
                                        device=device, record_semantic=record_semantic,
-                                       noise=noise, control_space=control_space)
+                                       noise=noise, control_space=control_space,
+                                       cameras=cameras)
     carry = init_fn(generator, n_envs)
     if goal_ids is not None:
         carry = assign_goals(carry, goal_ids)
     _, traj = rollout_fn(carry, n_steps)
 
-    def flat(x: torch.Tensor) -> np.ndarray:
-        """(T, B, ...) → env-major (B·T, ...) on the host."""
-        return x.transpose(0, 1).reshape((-1,) + tuple(x.shape[2:])).cpu().numpy()
-
+    flat = _env_major
     sensor = flat(traj["sensor"])
-    steer = flat(traj.get("clean_steer", traj["steer"]))
     traffic = flat(traj["traffic"])
-    state = StateLog(
-        steer=steer.astype(np.float64),
-        throttle=flat(traj["throttle"]).astype(np.float64),
-        brake=flat(traj["brake"]).astype(np.float64),
-        trafficlight=traffic.astype(np.float64),
-        current_steer=sensor[:, 0].astype(np.float64),
-        speed_long=sensor[:, 1].astype(np.float64),
-        speed=sensor[:, 2].astype(np.float64),
-    )
-    done_flat = flat(traj["done"]).astype(bool)
-    starts = np.zeros(n_envs * n_steps, bool)
-    starts[::n_steps] = True
-    starts[1:] |= done_flat[:-1]
+    state = _state_log(flat(traj.get("clean_steer", traj["steer"])), flat(traj["throttle"]),
+                       flat(traj["brake"]), traffic, sensor)
+    starts = _episode_starts(flat(traj["done"]), n_envs, n_steps)
     store = FrameStore(
         frames=flat(traj["gray"]),
         actions=flat(traj["expert_action"]).astype(np.int32),
@@ -423,6 +450,67 @@ def collect_dataset(params: SimParams, town: TownMap, rcfg: RenderConfig,
                            flat(traj["expert_accel"]).astype(np.float32)], axis=1),
     )
     return store, state, traj
+
+
+def _episode_starts(done_flat: np.ndarray, n_envs: int, n_steps: int) -> np.ndarray:
+    """The store's episode-start bitmap of an env-major collection: each
+    env stream's first frame and the frame after every auto-reset."""
+    starts = np.zeros(n_envs * n_steps, bool)
+    starts[::n_steps] = True
+    starts[1:] |= np.asarray(done_flat, bool)[:-1]
+    return starts
+
+
+def _state_log(steer, throttle, brake, traffic, sensor) -> StateLog:
+    """The ``state.csv`` columns of a collection, from its env-major host
+    arrays."""
+    return StateLog(
+        steer=steer.astype(np.float64),
+        throttle=throttle.astype(np.float64),
+        brake=brake.astype(np.float64),
+        trafficlight=traffic.astype(np.float64),
+        current_steer=sensor[:, 0].astype(np.float64),
+        speed_long=sensor[:, 1].astype(np.float64),
+        speed=sensor[:, 2].astype(np.float64),
+    )
+
+
+@torch.no_grad()
+def collect_multicamera(params: SimParams, town: TownMap, rcfg: RenderConfig,
+                        generator: torch.Generator,
+                        cameras: tuple = ("camera", "FL", "FR", "SL", "SR", "RR"),
+                        n_envs: int = 8, n_steps: int = 128,
+                        device: str | torch.device = "cuda"):
+    """One expert trajectory seen from a whole camera rig → (frames
+    {camera: env-major (B·T, H, W) uint8}, StateLog, starts (B·T,) bool):
+    the multi-camera raw log of the reference's VAE data (FL/FR/RR/SL/SR).
+
+    Every view renders with ``rcfg`` as given (no fast path is forced, so
+    the RGB configs take the exact branch, kernel A, with gray = luma). The
+    expert drives; auto-resets draw from the rollouts' spawn pool
+    (``rollout_spawn_pool``). ``starts`` marks each
+    env stream's first frame and the frame after every auto-reset."""
+    dev = resolve_device(device)
+    town = town.to(dev)
+    renders = {c: make_renderer(params, town, rcfg, device=dev, camera=c) for c in cameras}
+    pool = rollout_spawn_pool(params, town).to(dev)
+    states = reset_env(params, town, generator, n_envs)
+    steps = []
+    for _ in range(n_steps):
+        out = {"views": {c: _quantize(r(states)["gray"]) for c, r in renders.items()}}
+        expert = autopilot_control(params, town, states)
+        out.update(sensor=sensor_vector(params, states),
+                   traffic=traffic_light_state(params, town, states),
+                   steer=expert.steer, throttle=expert.throttle, brake=expert.brake)
+        fresh = pick_fresh_packed(pool, params, states)
+        states, info = step_env(params, town, states, expert, fresh)
+        out["done"] = info["done"]
+        steps.append(out)
+    traj = {k: torch.stack([o[k] for o in steps]) for k in steps[0] if k != "views"}
+    frames = {c: _env_major(torch.stack([o["views"][c] for o in steps])) for c in cameras}
+    state_log = _state_log(*(_env_major(traj[k]) for k in
+                             ("steer", "throttle", "brake", "traffic", "sensor")))
+    return frames, state_log, _episode_starts(_env_major(traj["done"]), n_envs, n_steps)
 
 
 def dagger_iteration(params: SimParams, town: TownMap, rcfg: RenderConfig,
@@ -448,18 +536,20 @@ def evaluate_policy(params: SimParams, town: TownMap, rcfg: RenderConfig,
                     control_space: str = "discrete",
                     device: str | torch.device = "cuda",
                     shield: ShieldConfig | None = None,
-                    policy_carry_init: Callable | None = None) -> dict:
+                    policy_carry_init: Callable | None = None,
+                    cameras: tuple = ("camera",)) -> dict:
     """Driving metrics for a policy (or the expert when ``policy_fn`` is
     None): raw per-step rates plus the CARLA-leaderboard-style composite —
     per env stream, route completion (odometer and along-route) times the
     infraction penalty 0.60^collisions · 0.65^offroads · 0.70^red-runs.
     With a ``shield`` the rollout runs under it and the metrics gain its
     interventions per km and active share. ``policy_carry_init`` runs a
-    recurrent policy (``make_rollout``)."""
+    recurrent policy, and ``cameras`` a surround rig (``make_rollout``)."""
     init_fn, rollout_fn = make_rollout(params, town, rcfg, policy_fn, frame_skip,
                                        spawn_pool=spawn_pool, device=device,
                                        control_space=control_space, shield=shield,
-                                       policy_carry_init=policy_carry_init)
+                                       policy_carry_init=policy_carry_init,
+                                       cameras=cameras)
     _, traj = rollout_fn(init_fn(generator, n_envs), n_steps)
     return driving_metrics(params, traj)
 
@@ -469,17 +559,19 @@ def evaluate_routes(params: SimParams, town: TownMap, rcfg: RenderConfig,
                     n_envs: int = 64, n_steps: int = 600, frame_skip: int = 4,
                     control_space: str = "discrete", goal_ids=None,
                     spawn_pool: torch.Tensor | None = None,
-                    device: str | torch.device = "cuda") -> dict:
+                    device: str | torch.device = "cuda",
+                    cameras: tuple = ("camera",)) -> dict:
     """Goal-directed (A→B) driving metrics on a town with nav tables: each
     env drives to its goal (``goal_ids`` (B,), by default round-robin over
     ``town.nav_goals``), arrivals end the episode and the env tries again
-    from a fresh spawn. → ``route_metrics`` of the rollout."""
+    from a fresh spawn; ``cameras`` is the policy's rig. → ``route_metrics``
+    of the rollout."""
     if town.nav_goals is None:
         raise ValueError("evaluate_routes needs a town with nav tables "
                          "(sim.planner.plan_to_goals)")
     init_fn, rollout_fn = make_rollout(params, town, rcfg, policy_fn, frame_skip,
                                        spawn_pool=spawn_pool, device=device,
-                                       control_space=control_space)
+                                       control_space=control_space, cameras=cameras)
     carry = init_fn(generator, n_envs)
     n_goals = int(town.nav_goals.shape[0])
     if goal_ids is None:

@@ -183,11 +183,13 @@ def test_bc_step_on_collected_store(expert_collection):
 
 
 def test_collect_refuses():
+    """A bad control space raises, and so does the card without one; a
+    surround rig (multi-camera collection) now runs."""
     town = convert.town_from_jax(TOWN)
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError):
-        p_cl.collect_dataset(P_PARAMS, town, P_RCFG, gen, device="cpu",
-                             cameras=("camera", "FL"))
+    store, _, traj = p_cl.collect_dataset(P_PARAMS, town, P_RCFG, gen, n_envs=1, n_steps=2,
+                                          device="cpu", cameras=("camera", "FL"))
+    assert tuple(traj["views"].shape) == (2, 1, H, W, 2) and len(store) == 2
     with pytest.raises(ValueError, match="control_space"):
         p_cl.collect_dataset(P_PARAMS, town, P_RCFG, gen, device="cpu", control_space="joystick")
     if not torch.cuda.is_available():

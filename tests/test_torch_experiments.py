@@ -65,23 +65,24 @@ def test_compose_matches_jax(overrides):
 
 def test_presets_are_the_ported_experiments():
     assert PRESETS == ["bc", "bc_augmented", "bc_aux", "bc_aux_seg", "bc_cil",
-                       "bc_continuous", "bc_raw_segment", "bc_rnn", "bc_streaming", "bc_vit",
-                       "closed_loop_eval", "collect", "collect_noise", "dagger",
-                       "dagger_online", "dagger_uncertain", "debug", "dream_policy",
-                       "rl_finetune", "route_eval", "scenario_eval", "split_folders",
-                       "test_eval", "vae_leave_one_out", "vae_pooled", "world_model",
+                       "bc_continuous", "bc_raw_segment", "bc_rnn", "bc_streaming",
+                       "bc_surround", "bc_vit", "closed_loop_eval", "collect",
+                       "collect_multicamera", "collect_noise", "dagger", "dagger_online",
+                       "dagger_uncertain", "debug", "dream_policy", "replay", "rl_finetune",
+                       "route_eval", "scenario_eval", "split_folders", "test_eval",
+                       "vae_leave_one_out", "vae_pooled", "world_model",
                        "world_model_imagine"]
     names = {p_compose("config", overrides=[f"experiment={p}"])["experiment_name"]
              for p in PRESETS}
     assert names == set(ex.EXPERIMENTS) == {"bc", "bc_aux", "bc_cil", "bc_continuous",
                                             "bc_raw_segment", "bc_rnn", "bc_streaming",
-                                            "closed_loop_eval", "collect_data", "dagger",
+                                            "bc_surround", "closed_loop_eval",
+                                            "collect_data", "collect_multicamera", "dagger",
                                             "dagger_online", "dagger_uncertain",
-                                            "dream_policy", "rl_finetune", "route_eval",
-                                            "scenario_eval", "split_folders", "test_eval",
-                                            "vae_leave_one_out", "world_model",
-                                            "world_model_imagine",
-                                            "vae_pooled"}
+                                            "dream_policy", "replay", "rl_finetune",
+                                            "route_eval", "scenario_eval", "split_folders",
+                                            "test_eval", "vae_leave_one_out", "world_model",
+                                            "world_model_imagine", "vae_pooled"}
 
 
 def test_multilane_town_preset_matches_jax():
@@ -201,11 +202,16 @@ def test_unported_options_raise(tmp_path, experiment, overrides):
             "NUM_EPOCHS=1", "BATCH_SIZE=4", "synthetic_frames=80"]),
     ("closed_loop_eval", ["policy_arch=vit", "vit_dim=32", "vit_depth=1", "vit_heads=2",
                           "n_envs=2", "n_steps=4"]),
+    ("closed_loop_eval", ["surround_cameras=['camera', 'FL']", "n_envs=2", "n_steps=4"]),
+    ("bc_cil", ["surround_cameras=['camera', 'FR']", "mirror_collection=true", "n_envs=2",
+                "n_steps=48", "NUM_EPOCHS=1", "BATCH_SIZE=4"]),
+    ("bc_continuous", ["surround_cameras=['camera', 'RR']", "n_envs=2", "n_steps=24",
+                       "eval_envs=2", "eval_steps=4", "NUM_EPOCHS=1", "BATCH_SIZE=4"]),
 ])
 def test_options_now_run(tmp_path, experiment, overrides):
     """The options these experiments raised on before the policy families,
-    the shield, the space-to-depth stem and the ViT were ported now run, at
-    toy size on the CPU."""
+    the shield, the space-to-depth stem, the ViT and the surround rigs were
+    ported now run, at toy size on the CPU."""
     cfg = p_compose("config", overrides=["model=imitation", "device=cpu",
                                          "compute_dtype=float32", f"data_dir={tmp_path}",
                                          f"log_dir={tmp_path}", *TINY, *overrides])
@@ -216,6 +222,12 @@ def test_options_now_run(tmp_path, experiment, overrides):
     elif experiment == "bc":
         assert np.isfinite(res["camera"]["test"]["test_loss"])
         assert tuple(res["camera"]["state"].model.trunk.convs[0].weight.shape) == (16, 36, 3, 3)
+    elif experiment in ("bc_cil", "bc_continuous"):
+        # two views of four frames: eight input channels
+        assert res["state"].model.trunk.convs[0].weight.shape[1] == 8
+        assert np.isfinite(res["test"]["test_loss"])
+        if experiment == "bc_continuous":
+            assert res["eval"]["env_steps"] == 8
     else:
         assert res["policy"]["env_steps"] == 8 and 0.0 <= res["policy"]["driving_score"] <= 1.0
         assert ("shield_active_frac" in res["policy"]) == ("safety_shield=true" in overrides)

@@ -144,12 +144,14 @@ def test_device_dataset_matches(case):
 
 
 def test_device_dataset_refuses(tmp_path):
-    """Unported batch kinds raise; a log that is not on disk raises; the
-    default device is the card."""
+    """Sharding (not ported) raises; extra camera streams of another shape
+    raise; a log that is not on disk raises; the default device is the
+    card."""
     p_store, _ = _stores()
-    for kw in ({"sharding": object()}, {"extra_frames": [p_store.frames]}):
-        with pytest.raises(NotImplementedError):
-            p_pipe.DeviceDataset(p_store, 8, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        p_pipe.DeviceDataset(p_store, 8, device="cpu", sharding=object())
+    with pytest.raises(ValueError, match="extra_frames"):
+        p_pipe.DeviceDataset(p_store, 8, device="cpu", extra_frames=[p_store.frames[1:]])
     with pytest.raises(FileNotFoundError):
         p_pipe.FrameStore.from_processed_dir(
             {"train_logs": ["Log1"], "data_dir": str(tmp_path)}, "train")
