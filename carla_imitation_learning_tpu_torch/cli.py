@@ -1,7 +1,8 @@
 """Command line: ``python -m carla_imitation_learning_tpu_torch.cli run
-<experiment> [-o K=V ...]`` and ``... list`` (the JAX package's ``tpuil``
-``run`` and ``list``). Runs on the card; ``-o device=cpu`` asks for the
-CPU."""
+<experiment> [-o K=V ...]``, ``... list``, ``... serve <artifact>`` and
+``... import_torch <ckpt> --out <dir>`` (the JAX package's ``tpuil`` commands
+of those names). Runs on the card; ``-o device=cpu`` (``--device cpu`` for
+``serve``) asks for the CPU."""
 
 from __future__ import annotations
 
@@ -36,7 +37,45 @@ def main(argv=None) -> int:
     run_p.add_argument("--checkpoint", default=None, help="checkpoint to restore")
     run_p.add_argument("--json", action="store_true", help="print the result on one line")
     sub.add_parser("list", help="list experiments")
+    imp_p = sub.add_parser(
+        "import_torch",
+        help="convert a reference PyTorch/Lightning policy checkpoint "
+             "(ConvNet1/ConvNetRawSegment .ckpt) into this package's checkpoint")
+    imp_p.add_argument("ckpt", help="path to the torch .ckpt/.pt file")
+    imp_p.add_argument("--out", required=True, help="output checkpoint dir (for --checkpoint)")
+    serve_p = sub.add_parser("serve", help="serve an exported policy artifact over HTTP")
+    serve_p.add_argument("artifact", help="artifact dir (see export_policy)")
+    serve_p.add_argument("--host", default="127.0.0.1")
+    serve_p.add_argument("--port", type=int, default=8471)
+    serve_p.add_argument("--max-batch", type=int, default=64)
+    serve_p.add_argument("--window-ms", type=float, default=2.0,
+                         help="micro-batch coalescing window")
+    serve_p.add_argument("--device", default="cuda", help="device the artifact runs on")
+    serve_p.add_argument("--verbose", action="store_true", help="log every request")
     args = parser.parse_args(argv)
+
+    if args.command == "import_torch":
+        from carla_imitation_learning_tpu_torch.utils.torch_import import import_and_save
+
+        out = import_and_save(args.ckpt, args.out)
+        print(f"imported {args.ckpt} -> {out} (use with --checkpoint {out})", file=sys.stderr)
+        return 0
+
+    if args.command == "serve":
+        from carla_imitation_learning_tpu_torch.serving import PolicyServer
+
+        server = PolicyServer(args.artifact, host=args.host, port=args.port,
+                              max_batch=args.max_batch, window_ms=args.window_ms,
+                              quiet=not args.verbose, device=args.device)
+        try:
+            server.warmup()  # every bucket, before the first request
+        except RuntimeError:
+            pass  # no static input shape in the meta: the first requests warm up
+        server.start()
+        print(f"serving {args.artifact} at {server.url} "
+              f"(buckets {list(server.engine.buckets)})", file=sys.stderr, flush=True)
+        server.serve_forever()
+        return 0
 
     from carla_imitation_learning_tpu_torch.config import compose
     from carla_imitation_learning_tpu_torch.experiments import EXPERIMENTS

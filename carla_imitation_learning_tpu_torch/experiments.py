@@ -57,6 +57,11 @@ the CLI dispatches by name.
 - ``replay``: an episode record (initial state and executed controls) of
   the expert or a checkpoint's policy, replayed bit for bit, its most
   eventful env re-rendered in RGB with its class plane into a GIF.
+- ``export_policy``: a (checkpoint-restored) policy exported with
+  ``torch.export`` (``serving/``), float or int8, checked against the live
+  model and served once through the bucketed engine; ``closed_loop_eval``,
+  ``scenario_eval`` and ``route_eval`` take such an artifact
+  (``artifact=``) in place of a checkpoint.
 
 The closed-loop experiments read ``policy_family`` (``discrete``,
 ``continuous`` or ``cil``) to build the policy and its control space, and
@@ -101,6 +106,10 @@ from carla_imitation_learning_tpu_torch.native import (
 )
 from carla_imitation_learning_tpu_torch.render.camera import CAMERA_PRESETS
 from carla_imitation_learning_tpu_torch.render.pipeline import RenderConfig
+from carla_imitation_learning_tpu_torch.serving import (
+    InferenceEngine, export_cil_policy, export_policy, load_policy, policy_fn_from_servable,
+    quantize_params,
+)
 from carla_imitation_learning_tpu_torch.sim.planner import goal_setup
 from carla_imitation_learning_tpu_torch.sim.town import (
     make_town_from_cfg, mirror_town, town_kwargs_from_cfg,
@@ -662,23 +671,39 @@ def _policy_bits(cfg, checkpoint: str | None, height: int, width: int):
     return policy_fn, model
 
 
+def _eval_policy_fn(cfg, checkpoint: str | None, artifact: str | None,
+                    height: int, width: int):
+    """(policy_fn, control space) for the eval experiments: an exported
+    artifact (``serving/export.py``, loaded on ``cfg.device``) when
+    ``artifact`` is given, else ``_policy_bits``' (checkpoint-restored)
+    live model. An artifact decides its own control space through
+    ``meta.family``: ``policy_family`` in the config only shapes the live
+    model."""
+    if artifact:
+        servable = load_policy(artifact, _device(cfg))
+        space = "continuous" if servable.meta.get("family") == "continuous" else "discrete"
+        return policy_fn_from_servable(servable), space
+    policy_fn, _ = _policy_bits(cfg, checkpoint, height, width)
+    return policy_fn, _control_space(cfg)
+
+
 @experiment("closed_loop_eval")
 def closed_loop_eval(cfg, checkpoint: str | None = None, artifact: str | None = None,
                      n_envs: int = 64, n_steps: int = 200, **kw):
-    """Driving metrics of a checkpoint's policy and of the expert on the
-    same initial fleet. ``safety_shield=true`` puts the emergency-brake
-    layer (``training/shield.py``) over the policy's rollout, not the
-    expert's, and the policy's metrics gain its interventions. The policy
-    drives with the ``surround_cameras`` rig, the expert needs none."""
-    if artifact:
-        raise _not_ported("artifact=", 5)
+    """Driving metrics of a checkpoint's policy, or with ``artifact=`` of an
+    exported artifact's (float or int8: the program that ships is the one
+    that drives), and of the expert on the same initial fleet.
+    ``safety_shield=true`` puts the emergency-brake layer
+    (``training/shield.py``) over the policy's rollout, not the expert's,
+    and the policy's metrics gain its interventions. The policy drives with
+    the ``surround_cameras`` rig, the expert needs none."""
     _check_one_device(cfg)
     dev = _device(cfg)
     town, params, rcfg = _sim_bits(cfg)
-    policy_fn, _ = _policy_bits(cfg, checkpoint, rcfg.height, rcfg.width)
+    policy_fn, space = _eval_policy_fn(cfg, checkpoint, artifact, rcfg.height, rcfg.width)
     policy = cl.evaluate_policy(params, town, rcfg, policy_fn, _generator(cfg),
                                 n_envs=n_envs, n_steps=n_steps,
-                                control_space=_control_space(cfg), device=dev,
+                                control_space=space, device=dev,
                                 shield=shield_from_cfg(cfg), cameras=_surround_cams(cfg))
     expert = cl.evaluate_policy(params, town, rcfg, None, _generator(cfg),
                                 n_envs=n_envs, n_steps=n_steps, device=dev)
@@ -721,9 +746,8 @@ def scenario_eval(cfg, checkpoint: str | None = None, artifact: str | None = Non
                   n_envs: int = 64, n_steps: int = 200, scenarios: str = "all", **kw):
     """Scenario suite: one policy's driving metrics under each named world
     and weather condition of ``SCENARIOS``, beside the expert's from the
-    same fleet start as its ceiling."""
-    if artifact:
-        raise _not_ported("artifact=", 5)
+    same fleet start as its ceiling. ``artifact=`` scores an exported
+    artifact (see ``closed_loop_eval``)."""
     _check_one_device(cfg)
     names = (list(SCENARIOS) if scenarios in ("all", "", None)
              else [n.strip() for n in str(scenarios).split(",")])
@@ -731,15 +755,16 @@ def scenario_eval(cfg, checkpoint: str | None = None, artifact: str | None = Non
     if unknown:
         raise ValueError(f"unknown scenarios {unknown}; have {list(SCENARIOS)}")
     dev = _device(cfg)
-    policy_fn, _ = _policy_bits(cfg, checkpoint, int(cfg.get_dotted("render.height", 128)),
-                                int(cfg.get_dotted("render.width", 128)))
+    policy_fn, space = _eval_policy_fn(cfg, checkpoint, artifact,
+                                       int(cfg.get_dotted("render.height", 128)),
+                                       int(cfg.get_dotted("render.width", 128)))
     cams = _surround_cams(cfg)
     out, summary = {}, {}
     for name in names:
         town, params, rcfg = _sim_bits(scenario_config(cfg, name))
         pm = cl.evaluate_policy(params, town, rcfg, policy_fn, _generator(cfg),
                                 n_envs=n_envs, n_steps=n_steps,
-                                control_space=_control_space(cfg), device=dev, cameras=cams)
+                                control_space=space, device=dev, cameras=cams)
         em = cl.evaluate_policy(params, town, rcfg, None, _generator(cfg),
                                 n_envs=n_envs, n_steps=n_steps, device=dev)
         out[name] = {"policy": pm, "expert": em}
@@ -875,21 +900,21 @@ def route_eval(cfg, checkpoint: str | None = None, artifact: str | None = None,
     (``sim.planner``), each env driving to its goal → arrival rate, steps to
     arrival and infractions per km of the expert and, with a checkpoint, of
     the policy (``policy_family=cil`` for a ``bc_cil`` checkpoint, which
-    then follows the planner's commands), from the same fleet start. The
-    town gets turn fans, the planner's graph."""
-    if artifact:
-        raise _not_ported("artifact=", 5)
+    then follows the planner's commands; ``artifact=`` for an exported
+    artifact, a CIL one taking the commands through its second and third
+    inputs), from the same fleet start. The town gets turn fans, the
+    planner's graph."""
     _check_one_device(cfg)
     dev = _device(cfg)
     town, params, rcfg, goal_ids = _goal_bits(cfg, n_goals, n_envs)
     expert = cl.evaluate_routes(params, town, rcfg, None, _generator(cfg), n_envs=n_envs,
                                 n_steps=n_steps, goal_ids=goal_ids, device=dev)
     out = {"goals": town.nav_goals.cpu().numpy().tolist(), "expert": expert}
-    if checkpoint:
-        policy_fn, _ = _policy_bits(cfg, checkpoint, rcfg.height, rcfg.width)
+    if checkpoint or artifact:
+        policy_fn, space = _eval_policy_fn(cfg, checkpoint, artifact, rcfg.height, rcfg.width)
         out["policy"] = cl.evaluate_routes(params, town, rcfg, policy_fn, _generator(cfg),
                                            n_envs=n_envs, n_steps=n_steps,
-                                           control_space=_control_space(cfg),
+                                           control_space=space,
                                            goal_ids=goal_ids, device=dev,
                                            cameras=_surround_cams(cfg))
     return out
@@ -1397,3 +1422,67 @@ def replay(cfg, record: str | None = None, checkpoint: str | None = None, n_envs
                      duration=int(1000 * float(rec.sim.get("dt", 0.05))), loop=0)
         out["gif"] = str(gif)
     return out
+
+
+@experiment("export_policy")
+def export_policy_exp(cfg, checkpoint: str | None = None, artifact_dir: str | None = None,
+                      height: int = 256, width: int = 256, verify_batches: tuple = (1, 7),
+                      **kw):
+    """Export a (checkpoint-restored) policy of ``policy_family`` and
+    ``policy_arch`` as a ``torch.export`` artifact (``serving/export.py``;
+    ``quantize=int8`` for the int8 program; surround checkpoints at their
+    rig's width), then hold the loaded artifact against the live model of
+    the same kind (the int8 copy for int8) at ``verify_batches``, warm the
+    bucketed engine (``serve_max_batch``) and run one request. The artifact
+    goes to ``artifact_dir`` (default ``<log_dir>/policy_artifact``)."""
+    _check_one_device(cfg)
+    dev = _device(cfg)
+    _, model = _policy_bits(cfg, checkpoint, height, width)
+    model.eval()
+    obs_size = int(cfg.get("frame_skip", 4)) * len(_surround_cams(cfg))
+    family = "cil" if str(cfg.get("policy_family", "discrete")) == "cil" else _control_space(cfg)
+    out = Path(artifact_dir or (Path(cfg["log_dir"]) / "policy_artifact"))
+    quantize = str(cfg.get("quantize")) if cfg.get("quantize") else None
+    t0 = time.perf_counter()
+    (export_cil_policy if family == "cil" else export_policy)(
+        model, out, height=height, width=width, obs_size=obs_size, quantize=quantize,
+        device=dev, extra_meta={"n_actions": int(cfg.get("n_actions", 9)), "family": family,
+                                "checkpoint": checkpoint or ""})
+    export_s = time.perf_counter() - t0
+    servable = load_policy(out, dev)
+    live = quantize_params(model) if quantize else model
+
+    def logits(m, obs, extras):
+        out = m(obs, *extras)
+        return (out[0] if family == "cil" else out).float()
+
+    rng = np.random.default_rng(0)
+    n_cmd = int(cfg.get("n_commands", 6))
+    err, float_err = 0.0, 0.0
+    with torch.no_grad():
+        for b in verify_batches:
+            x = torch.from_numpy(rng.integers(0, 256, (int(b), height, width, obs_size),
+                                              dtype=np.uint8)).to(dev)
+            extras = ()
+            if family == "cil":
+                extras = (torch.from_numpy(rng.uniform(0, 12, (int(b),)).astype(np.float32)).to(dev),
+                          torch.from_numpy(rng.integers(0, n_cmd, (int(b),), dtype=np.int32)).to(dev))
+            got = servable.call(x, *extras).float()
+            obs = x.to(torch.float32) * (1.0 / 255.0)
+            err = max(err, float((got - logits(live, obs, extras)).abs().max()))
+            if quantize:
+                float_err = max(float_err,
+                                float((got - logits(model, obs, extras)).abs().max()))
+    eng = InferenceEngine(servable, max_batch=int(cfg.get("serve_max_batch", 64)), device=dev)
+    eng.warmup(height, width, obs_size,
+               extra_specs=[((), np.float32), ((), np.int32)] if family == "cil" else [])
+    smoke = rng.integers(0, 256, (3, height, width, obs_size), dtype=np.uint8)
+    smoke_extras = (np.zeros(3, np.float32), np.zeros(3, np.int32)) if family == "cil" else ()
+    # discrete and CIL artifacts serve actions; continuous ones their controls
+    (eng.infer_logits if family == "continuous" else eng.infer)(smoke, *smoke_extras)
+    result = {"artifact": str(out), "blob_bytes": int((out / "policy.pt2").stat().st_size),
+              "platforms": list(servable.platforms), "roundtrip_max_abs_err": err,
+              "export_seconds": export_s, "engine": eng.stats()}
+    if quantize:
+        result["vs_float_max_abs_err"] = float_err
+    return result

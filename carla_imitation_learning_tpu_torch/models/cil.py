@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from carla_imitation_learning_tpu_torch.models.cnn import ConvTrunk
+from carla_imitation_learning_tpu_torch.models.cnn import ConvTrunk, linear
 
 
 class BranchedCILPolicy(nn.Module):
@@ -50,14 +50,14 @@ class BranchedCILPolicy(nn.Module):
     def forward(self, frames: torch.Tensor, speed: torch.Tensor, command: torch.Tensor):
         dt = self.dtype
         feat = self.trunk(frames)                                        # (B, 128)
-        v = F.relu(F.linear(speed[:, None].to(dt), self.speed_fc.weight.to(dt),
-                            self.speed_fc.bias.to(dt)))
+        v = F.relu(linear(self.speed_fc, speed[:, None].to(dt), dt))
         fused = torch.cat([feat, v], dim=-1)
-        fused = F.relu(F.linear(fused, self.fuse_fc.weight.to(dt), self.fuse_fc.bias.to(dt)))
+        fused = F.relu(linear(self.fuse_fc, fused, dt))
         # the compute-dtype product plus the float32 bias promotes to float32,
         # and the second product takes the float32 activations with the
         # kernel rounded to the compute dtype, as jnp.einsum promotes them
-        h = F.relu(torch.einsum("bf,kfh->bkh", fused, self.branch_w1.to(dt)) + self.branch_b1)
+        h = F.relu(torch.einsum("bf,kfh->bkh", fused.to(dt), self.branch_w1.to(dt))
+                   + self.branch_b1)
         w2 = self.branch_w2.to(dt).to(h.dtype)
         logits_all = torch.einsum("bkh,kha->bka", h, w2) + self.branch_b2   # (B, K, A)
         K = self.n_commands
@@ -65,8 +65,7 @@ class BranchedCILPolicy(nn.Module):
         cmd = torch.where(cmd < 0, cmd + K, cmd)
         onehot = (cmd[:, None] == torch.arange(K, device=cmd.device)).to(logits_all.dtype)
         logits = torch.einsum("bka,bk->ba", logits_all, onehot)
-        w = self.speed_head.weight
-        pred_speed = F.linear(feat.to(w.dtype), w, self.speed_head.bias)[:, 0]
+        pred_speed = linear(self.speed_head, feat)[:, 0]
         return logits, pred_speed
 
     def as_policy_fn(self):

@@ -23,6 +23,28 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def conv2d(conv: nn.Module, x: torch.Tensor, stride: int, dtype: torch.dtype,
+           s2d_inverse: bool = False) -> torch.Tensor:
+    """``conv`` (an ``nn.Conv2d`` without padding) on NCHW ``x`` in ``dtype``,
+    its weight first unfolded by ``s2d_stem_kernel_inverse`` when
+    ``s2d_inverse``. Any other module is an int8 layer of
+    ``serving/quant.py``, called on ``x`` as it comes: it returns float32."""
+    if not isinstance(conv, nn.Conv2d):
+        return conv(x, stride, s2d_inverse)
+    weight = s2d_stem_kernel_inverse(conv.weight) if s2d_inverse else conv.weight
+    return F.conv2d(x, weight.to(dtype), conv.bias.to(dtype), stride=stride)
+
+
+def linear(layer: nn.Module, x: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``layer`` (an ``nn.Linear``) on ``x`` with input, weight and bias cast to
+    ``dtype`` (None: the weight's own). Any other module is an int8 layer of
+    ``serving/quant.py``, called on ``x`` uncast: it returns float32."""
+    if not isinstance(layer, nn.Linear):
+        return layer(x)
+    dt = layer.weight.dtype if dtype is None else dtype
+    return F.linear(x.to(dt), layer.weight.to(dt), layer.bias.to(dt))
+
+
 def _same_pads(size: int, k: int, s: int) -> tuple[int, int]:
     """Low/high padding of XLA's SAME rule for one spatial dim."""
     out = -(-size // s)
@@ -107,17 +129,14 @@ class ConvTrunk(nn.Module):
             x = space_to_depth_stem_input(x)
         x = x.permute(0, 3, 1, 2)
         for li, (conv, k, s, p) in enumerate(zip(self.convs, KERNELS, STRIDES, POOLS)):
-            weight = conv.weight
             if li == 0 and fold:
                 k, s = 3, 1
-            elif li == 0 and self.s2d_stem:
-                weight = s2d_stem_kernel_inverse(weight)
             h, w = x.shape[2], x.shape[3]
             if min(h, w) < k:
                 ph, pw = _same_pads(h, k, s), _same_pads(w, k, s)
                 x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-            x = F.relu(F.conv2d(x, weight.to(self.dtype),
-                                conv.bias.to(self.dtype), stride=s))
+            unfold = li == 0 and self.s2d_stem and not fold
+            x = F.relu(conv2d(conv, x, s, self.dtype, s2d_inverse=unfold))
             if min(x.shape[2], x.shape[3]) >= p:
                 x = F.max_pool2d(x, p, stride=p)
         return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
@@ -137,10 +156,8 @@ class MLPHead(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for layer in self.layers[:-1]:
-            x = F.relu(F.linear(x.to(self.dtype), layer.weight.to(self.dtype),
-                                layer.bias.to(self.dtype)))
-        last = self.layers[-1]
-        return F.linear(x.to(last.weight.dtype), last.weight, last.bias)
+            x = F.relu(linear(layer, x, self.dtype))
+        return linear(self.layers[-1], x)
 
 
 class PolicyCNN(nn.Module):

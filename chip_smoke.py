@@ -141,6 +141,18 @@ Phases (any failure exits nonzero, with no result line):
    count exact; the surround rollout's marginal env-steps/s at 1024 envs
    with 3 views, the surround train step alone, and dynamics-only replay
    at 1024 envs;
+6k. the serving tier (``serving_phase``), on 6d's checkpoint, counts reset
+   just before it: ``run export_policy`` through the CLI at 128² (bf16,
+   int8, fp32) and at the preset's 256², each artifact within 1e-4 of its
+   live model; the fp32 and int8 artifacts on the CPU against the card
+   (fp32 within 1e-4 with TF32 off, int8 bit for bit) and every GEMM of the
+   int8 program int8 × int8 → int32; ``run closed_loop_eval -o artifact=``
+   at 256 × 50 equal to ``--checkpoint``'s (B exactly 3 × 2 × 51 with the
+   int8 artifact's run); the latency ladder (1 to 1024 at 128²) of the
+   bf16 and int8 artifacts and the live model, the engine at request size
+   100, HTTP with 8 clients × 40 batch-1 requests at windows of 0 and 2 ms
+   (every answer the engine's action); a reference ConvNet1 checkpoint
+   through ``import_torch`` and export at 256², within 1e-5 of the module;
 7. the rich fleet (same town and envs, the rich128 preset: facade bands,
    markings, shadows, textures, T=1408) from three seeds: kernel A's
    textured variant (C=1 and C=3), kernel B on the rich lists (2 px and 0
@@ -277,6 +289,12 @@ RIG_CAMERAS = ("camera", "FL", "FR")           # bc_surround's rig
 RIG_CHECK_CAMERAS = ("FL", "SR", "RR")         # A and B vs plain from these views
 RIG_EPOCHS, RIG_BATCHES = 2, 40
 RIG_ROLL_SHORT, RIG_ROLL_LONG, RIG_ROLL_REPEATS = 16, 96, 3   # surround rollout, replay
+# The serving phase: export_policy through the CLI (128² and the preset's
+# 256²), closed_loop_eval of an artifact, the latency ladder, the engine and HTTP
+SERVE_EVAL_ENVS, SERVE_EVAL_STEPS = 256, 50
+SERVE_LADDER, SERVE_REPS = (1, 4, 16, 64, 256, 1024), 10
+SERVE_ENGINE_REQUEST = 100                     # pads to the 128 bucket
+SERVE_CLIENTS, SERVE_REQUESTS, SERVE_WINDOWS = 8, 40, (0.0, 2.0)
 LANES_PER_SM = 128       # lane-instructions an SM issues per clock (4 × 32)
 HBM_RATE = 3.35e12       # H100 SXM device memory, B/s
 WARP_TILE = 16           # kernels A and B cull per 16 × 16 pixel warp tile
@@ -749,6 +767,8 @@ def run(args) -> dict:
         torch.cuda.empty_cache()
         paths["rl_safety"] = rl_safety_phase(dev, Path(keep) / "best",
                                              profile=args.profile is not None)
+        torch.cuda.empty_cache()
+        paths["serving"] = serving_phase(dev, Path(keep) / "best")
         torch.cuda.empty_cache()
     paths["seq_wm"] = seq_wm_phase(dev)
     torch.cuda.empty_cache()
@@ -4012,6 +4032,316 @@ def rigs_replay_phase(dev) -> dict:
     res["max_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     log(json.dumps({"rigs_replay": res}))
     return total
+
+
+def convnet1(obs_size: int = 4, n_actions: int = 9):
+    """The reference system's ConvNet1 (nets.py:17-33) as plain torch
+    modules: ``cnn_base`` and ``fc`` Sequentials, NCHW in."""
+    from torch import nn
+
+    net = nn.Module()
+    net.cnn_base = nn.Sequential(
+        nn.Conv2d(obs_size, 16, 7, stride=3), nn.ReLU(), nn.MaxPool2d(3),
+        nn.Conv2d(16, 32, 5), nn.ReLU(), nn.MaxPool2d(2),
+        nn.Conv2d(32, 64, 4), nn.ReLU(), nn.MaxPool2d(2),
+        nn.Conv2d(64, 128, 3), nn.ReLU(), nn.MaxPool2d(2))
+    net.fc = nn.Sequential(nn.Linear(128, 64), nn.ReLU(), nn.Linear(64, 32), nn.ReLU(),
+                           nn.Linear(32, n_actions))
+    return net
+
+
+def latency_rows(fn, dev, hw: int, batches, reps: int, seed: int = 0) -> dict:
+    """Per-call wall latency of ``fn(frames_u8 on dev) -> logits`` with the
+    result fetched to the host (what a serving client sees), at each batch
+    size: distinct uint8 inputs per repetition (a base draw plus the
+    repetition's index, mod 256), copied from the host each call, one
+    warm-up call first. → {batch: {latency_ms_p50, latency_ms_p95,
+    images_per_sec}}."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    rows = {}
+    for b in batches:
+        base = rng.integers(0, 256, (b, hw, hw, 4), dtype=np.uint8)
+        xs = [base + np.uint8(i) for i in range(reps)]
+        with torch.inference_mode():
+            fn(torch.from_numpy(base).to(dev)).cpu()
+            lat = []
+            for x in xs:
+                t0 = time.perf_counter()
+                out = fn(torch.from_numpy(x).to(dev)).cpu()
+                lat.append(time.perf_counter() - t0)
+                check(tuple(out.shape) == (b, 9), f"latency ladder: logits {tuple(out.shape)}")
+        lat_ms = np.asarray(lat) * 1e3
+        rows[b] = {"latency_ms_p50": float(np.percentile(lat_ms, 50)),
+                   "latency_ms_p95": float(np.percentile(lat_ms, 95)),
+                   "images_per_sec": b / float(np.median(lat))}
+    return rows
+
+
+def http_case(servable, *, window_ms: float, clients: int, requests: int, hw: int,
+              max_batch: int, device=None, check_actions: bool = False) -> dict:
+    """``clients`` threads each posting ``requests`` batch-1 requests of one
+    frame of their own to ``/v1/infer`` of a ``PolicyServer`` on a free
+    localhost port (coalescing window ``window_ms``), every bucket warmed
+    first: requests/s, client latency percentiles, device calls and mean
+    coalesced rows. With ``check_actions`` every answer must equal the
+    engine's action for that frame."""
+    import concurrent.futures
+    import urllib.request
+
+    import numpy as np
+
+    from carla_imitation_learning_tpu_torch.serving import PolicyServer
+
+    frames = [np.random.default_rng(100 + i).integers(0, 256, (1, hw, hw, 4), dtype=np.uint8)
+              for i in range(clients)]
+
+    def post(url, x):
+        req = urllib.request.Request(
+            url + "/v1/infer", data=x.tobytes(), method="POST",
+            headers={"Content-Type": "application/octet-stream",
+                     "X-Shape": ",".join(str(s) for s in x.shape)})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return json.loads(r.read())["actions"]
+
+    with PolicyServer(servable, window_ms=window_ms, max_batch=max_batch,
+                      device=device) as srv:
+        srv.engine.warmup(hw, hw, 4)
+        lat_ms: list[float] = []
+        answers: list[list] = [[] for _ in range(clients)]
+
+        def client(i: int) -> None:
+            for _ in range(requests):
+                t0 = time.perf_counter()
+                answers[i].append(post(srv.url, frames[i]))
+                lat_ms.append((time.perf_counter() - t0) * 1e3)
+
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(max_workers=clients) as ex:
+            list(ex.map(client, range(clients)))
+        wall = time.perf_counter() - t0
+        b = srv._batcher
+        res = {"window_ms": window_ms, "requests_per_sec": clients * requests / wall,
+               "client_latency_ms_p50": float(np.percentile(lat_ms, 50)),
+               "client_latency_ms_p95": float(np.percentile(lat_ms, 95)),
+               "device_calls": b.batches_total,
+               "mean_coalesced_rows": b.rows_total / b.batches_total if b.batches_total else 0.0,
+               "engine": srv.engine.stats()}
+        if check_actions:
+            for i, x in enumerate(frames):
+                want = srv.engine.infer(x).tolist()
+                check(all(a == want for a in answers[i]),
+                      f"http window {window_ms} ms: an answer differs from the engine's action")
+    return res
+
+
+def int8_gemms(servable) -> list:
+    """The ``_int_mm`` nodes of a loaded int8 artifact's program, each as
+    (operand dtypes, result dtype); a GEMM on other types raises."""
+    import torch
+
+    out = []
+    for node in servable.program.graph.nodes:
+        if node.op == "call_function" and node.target is torch.ops.aten._int_mm.default:
+            dts = tuple(str(a.meta["val"].dtype) for a in node.args)
+            out.append((dts, str(node.meta["val"].dtype)))
+    check(bool(out), "the int8 artifact holds no int8 GEMM")
+    check(all(d == ("torch.int8", "torch.int8") and r == "torch.int32" for d, r in out),
+          f"an int8 artifact GEMM runs on other types: {out}")
+    return out
+
+
+def serving_phase(dev, checkpoint: Path) -> dict:
+    """Phase 6k: the serving tier (``serving``) on ``checkpoint`` (6d's
+    ``bc`` at 128²), counts reset just before it; kernel B renders the
+    closed loops (2 × (1 + SERVE_EVAL_STEPS) each), nothing else launches:
+
+    a. ``run export_policy --checkpoint`` through the CLI at 128² in bf16,
+       with ``-o quantize=int8``, in fp32, and at the preset's 256²: each
+       loaded artifact within 1e-4 of its live model (int8: the int8 copy),
+       its export seconds and blob bytes (int8 smaller than float);
+    b. the fp32 and int8 artifacts loaded on the CPU against the card on
+       the same frames: fp32 (TF32 off) within 1e-4, int8 bit for bit; every
+       GEMM of the int8 program int8 × int8 → int32 (``int8_gemms``), with
+       the kernel names the profiler sees for one int8 call;
+    c. ``run closed_loop_eval -o artifact=`` of the bf16 artifact at
+       SERVE_EVAL_ENVS × SERVE_EVAL_STEPS: the policy's and the expert's
+       metrics equal to ``--checkpoint``'s on the same fleet; the int8
+       artifact's driving score beside them;
+    d. the latency ladder (SERVE_LADDER at 128², SERVE_REPS distinct inputs
+       each) of the bf16 artifact, the int8 artifact and the live bf16
+       model; the engine on the bf16 artifact at request size
+       SERVE_ENGINE_REQUEST (ladder to 1024); HTTP with SERVE_CLIENTS ×
+       SERVE_REQUESTS batch-1 requests on the int8 artifact (batch
+       invariant, so every answer must equal the engine's action) at each
+       of SERVE_WINDOWS, more than one row a device call at 2 ms;
+    e. ``import_torch`` of a seeded reference ConvNet1 checkpoint, exported
+       at 256² in fp32: logits within 1e-5 (relative to their largest) of
+       the ConvNet1 module's own on the card, TF32 off.
+    Prints one ``serving`` line; → the phase's launch counts."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from carla_imitation_learning_tpu_torch import cli
+    from carla_imitation_learning_tpu_torch.models import PolicyCNN
+    from carla_imitation_learning_tpu_torch.serving import (
+        InferenceEngine, load_policy, quantize_params,
+    )
+    from carla_imitation_learning_tpu_torch.utils.checkpoint import restore_params
+
+    t_phase = time.perf_counter()
+    res: dict = {"card": nvidia_smi()}
+    cpu = torch.device("cpu")
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        tmp = Path(tmp)
+        torch.cuda.synchronize()
+        reset_counts()
+        ck = ("--checkpoint", str(checkpoint), "-o", f"log_dir={tmp}")
+        at128 = ("-o", f"height={HW}", "-o", f"width={HW}")
+        arts, exports = {}, {}
+        for name, extra in (("bf16", at128), ("int8", at128 + ("-o", "quantize=int8")),
+                            ("fp32", at128 + ("-o", "compute_dtype=float32")),
+                            ("bf16_256", ("-o", "experiment=export_policy"))):
+            out = cli_run("export_policy", *ck, *extra, "-o", f"artifact_dir={tmp / name}")
+            check(out["roundtrip_max_abs_err"] <= 1e-4,
+                  f"export {name}: round trip {out['roundtrip_max_abs_err']:.3e} > 1e-4")
+            check(out["engine"]["count"] == 1 and out["platforms"] == [dev.type],
+                  f"export {name}: engine {out['engine']}, platforms {out['platforms']}")
+            arts[name] = Path(out["artifact"])
+            exports[name] = {k: out[k] for k in ("blob_bytes", "export_seconds",
+                                                 "roundtrip_max_abs_err", "engine")}
+            if "vs_float_max_abs_err" in out:
+                exports[name]["vs_float_max_abs_err"] = out["vs_float_max_abs_err"]
+        check(exports["int8"]["blob_bytes"] < exports["bf16"]["blob_bytes"],
+              "the int8 artifact is not smaller than the float one")
+        res["exports"] = exports
+        log(json.dumps({"serving_exports": exports}))
+
+        # b. card vs CPU, and the int8 GEMMs
+        x = torch.from_numpy(np.random.default_rng(5).integers(
+            0, 256, (16, HW, HW, 4), dtype=np.uint8))
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        try:
+            cross = {}
+            for name in ("fp32", "int8"):
+                card = load_policy(arts[name], dev)
+                got = card.call(x.to(dev)).to(cpu)
+                want = load_policy(arts[name], cpu).call(x)
+                cross[name] = float((got - want).abs().max())
+            check(cross["fp32"] < 1e-4, f"fp32 artifact card vs CPU {cross['fp32']:.3e}")
+            check(cross["int8"] == 0.0, f"int8 artifact card vs CPU {cross['int8']:.3e}")
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        q_card = load_policy(arts["int8"], dev)
+        gemms = int8_gemms(q_card)
+        xb = x.to(dev)
+        q_card.call(xb)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            q_card.call(xb)
+            torch.cuda.synchronize()
+        names = sorted({e.key for e in prof.key_averages()
+                        if getattr(e, "device_time_total", 0) > 0 and "gemm" in e.key.lower()})
+        if dev.type == "cuda":
+            check(bool(names) and all(any(t in n.lower() for t in ("s8", "i8", "imma"))
+                                      for n in names),
+                  f"the int8 program's GEMM kernels are not int8 ones: {names}")
+        res["card_vs_cpu"] = cross
+        res["int8_gemms"] = {"count": len(gemms), "types": sorted(set(map(str, gemms))),
+                             "profiler_kernels": names}
+        log(json.dumps({"serving_card_vs_cpu": cross, "int8_gemms": res["int8_gemms"]}))
+
+        # c. the artifact drives the closed loop as the checkpoint does
+        ev = ("-o", f"n_envs={SERVE_EVAL_ENVS}", "-o", f"n_steps={SERVE_EVAL_STEPS}")
+        by_art = cli_run("closed_loop_eval", "-o", f"artifact={arts['bf16']}", *ev,
+                         "-o", f"log_dir={tmp}")
+        by_ckpt = cli_run("closed_loop_eval", *ck, *ev)
+        check(by_art["policy"] == by_ckpt["policy"],
+              "closed_loop_eval: the artifact's policy metrics differ from the checkpoint's")
+        check(by_art["expert"] == by_ckpt["expert"], "closed_loop_eval: the expert differs")
+        by_int8 = cli_run("closed_loop_eval", "-o", f"artifact={arts['int8']}", *ev,
+                          "-o", f"log_dir={tmp}")
+        res["closed_loop"] = {k: {"driving_score": r["policy"]["driving_score"],
+                                  "route_completion": r["policy"]["route_completion"],
+                                  "action_agreement": r["policy"]["action_agreement"]}
+                              for k, r in (("artifact_bf16", by_art), ("checkpoint", by_ckpt),
+                                           ("artifact_int8", by_int8))}
+        res["closed_loop"]["expert_driving_score"] = by_ckpt["expert"]["driving_score"]
+        torch.cuda.synchronize()
+        launches = read_counts()
+        want_b = 3 * 2 * (1 + SERVE_EVAL_STEPS)
+        check(launches["B"] == want_b and sum(launches.values()) == want_b,
+              f"serving launched {launches}, expected B {want_b} and nothing else")
+        log(json.dumps({"serving_closed_loop": res["closed_loop"], "launches": launches}))
+
+        # d. the latency ladder, the engine, HTTP
+        bf16, int8 = load_policy(arts["bf16"], dev), q_card
+        live = PolicyCNN().to(dev).eval()
+        live.load_state_dict(restore_params(checkpoint, live.state_dict()))
+
+        def live_fn(frames):
+            return live(frames.to(torch.float32) * (1.0 / 255.0))
+
+        ladder = {}
+        for name, fn in (("artifact_bf16", bf16.call), ("artifact_int8", int8.call),
+                         ("live_bf16", live_fn)):
+            ladder[name] = latency_rows(fn, dev, HW, SERVE_LADDER, SERVE_REPS)
+            log(f"{name}: " + ", ".join(
+                f"b={b} p50 {r['latency_ms_p50']:.3f} ms {r['images_per_sec']:.0f} img/s"
+                for b, r in ladder[name].items()))
+        res["ladder"] = ladder
+        eng = InferenceEngine(bf16, max_batch=SERVE_LADDER[-1])
+        eng.warmup(HW, HW)
+        rng = np.random.default_rng(6)
+        for _ in range(SERVE_REPS):
+            eng.infer(rng.integers(0, 256, (SERVE_ENGINE_REQUEST, HW, HW, 4), dtype=np.uint8))
+        res["engine_b100"] = eng.stats()
+        check(abs(res["engine_b100"]["pad_waste_frac"] - (1 - SERVE_ENGINE_REQUEST / 128)) < 1e-12,
+              f"engine pad waste {res['engine_b100']['pad_waste_frac']}")
+        http = {}
+        for w in SERVE_WINDOWS:
+            http[f"window_{w:g}ms"] = http_case(
+                int8, window_ms=w, clients=SERVE_CLIENTS, requests=SERVE_REQUESTS, hw=HW,
+                max_batch=64, device=dev, check_actions=True)
+        check(http["window_2ms"]["mean_coalesced_rows"] > 1.0,
+              f"no coalescing at 2 ms: {http['window_2ms']['mean_coalesced_rows']}")
+        res["http"] = http
+        log(json.dumps({"serving_engine_b100": res["engine_b100"], "serving_http": http}))
+
+        # e. a reference ConvNet1 checkpoint through import_torch and export
+        torch.manual_seed(0)
+        net = convnet1().to(dev).eval()
+        ref = tmp / "convnet1.ckpt"
+        torch.save({"state_dict": {f"net.{k}": v.cpu() for k, v in net.state_dict().items()}}, ref)
+        with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+            rc = cli.main(["import_torch", str(ref), "--out", str(tmp / "imported")])
+        check(rc == 0, f"import_torch exited {rc}")
+        out = cli_run("export_policy", "--checkpoint", str(tmp / "imported"),
+                      "-o", "experiment=export_policy", "-o", "compute_dtype=float32",
+                      "-o", f"log_dir={tmp}", "-o", f"artifact_dir={tmp / 'ref_art'}")
+        x256 = torch.from_numpy(np.random.default_rng(7).integers(
+            0, 256, (8, 256, 256, 4), dtype=np.uint8)).to(dev)
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        try:
+            with torch.no_grad():
+                want = net.fc(torch.flatten(net.cnn_base(
+                    x256.permute(0, 3, 1, 2).to(torch.float32) * (1.0 / 255.0)), 1))
+                got = load_policy(out["artifact"], dev).call(x256)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        rel = float((got - want).abs().max() / want.abs().max())
+        check(rel <= 1e-5, f"imported ConvNet1 artifact off by {rel:.3e} of its scale")
+        res["convnet1_import_rel_err"] = rel
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t_phase
+    res["max_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(json.dumps({"serving": res}))
+    return launches
 
 
 def imagination_setup(gen, dtype=None):

@@ -68,7 +68,8 @@ def test_presets_are_the_ported_experiments():
                        "bc_continuous", "bc_raw_segment", "bc_rnn", "bc_streaming",
                        "bc_surround", "bc_vit", "closed_loop_eval", "collect",
                        "collect_multicamera", "collect_noise", "dagger", "dagger_online",
-                       "dagger_uncertain", "debug", "dream_policy", "replay", "rl_finetune",
+                       "dagger_uncertain", "debug", "dream_policy", "export_policy", "replay",
+                       "rl_finetune",
                        "route_eval", "scenario_eval", "split_folders", "test_eval",
                        "vae_leave_one_out", "vae_pooled", "world_model",
                        "world_model_imagine"]
@@ -79,7 +80,8 @@ def test_presets_are_the_ported_experiments():
                                             "bc_surround", "closed_loop_eval",
                                             "collect_data", "collect_multicamera", "dagger",
                                             "dagger_online", "dagger_uncertain",
-                                            "dream_policy", "replay", "rl_finetune",
+                                            "dream_policy", "export_policy", "replay",
+                                            "rl_finetune",
                                             "route_eval", "scenario_eval", "split_folders",
                                             "test_eval", "vae_leave_one_out", "world_model",
                                             "world_model_imagine", "vae_pooled"}
@@ -181,7 +183,7 @@ def test_bc_then_closed_loop_eval(collected, capsys):
 
 @pytest.mark.parametrize("experiment,overrides", [
     ("bc", ["mesh.axes.model=2"]), ("bc", ["mesh.enabled=true"]), ("bc", ["mesh.axes.data=4"]),
-    ("closed_loop_eval", ["artifact=some_dir"]), ("route_eval", ["artifact=some_dir"]),
+    ("closed_loop_eval", ["mesh.enabled=true"]), ("route_eval", ["mesh.axes.data=4"]),
 ])
 def test_unported_options_raise(tmp_path, experiment, overrides):
     cfg = p_compose("config", overrides=["model=imitation", "device=cpu",

@@ -90,3 +90,14 @@ def test_path_check_catches_a_jax_path(tmp_path):
                    'CFG = ROOT / "carla_imitation_learning_tpu" / "configs"\n'
                    'REF = "carla_imitation_learning_tpu/ops/raster.py:120"\n')
     assert _path_constants(bad) == ["native", "carla_imitation_learning_tpu"]
+
+
+def test_serving_sources_are_checked():
+    """The serving tier, the reference importer and their benchmarks are
+    among the sources every check above walks."""
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    assert {f"carla_imitation_learning_tpu_torch/serving/{m}.py"
+            for m in ("__init__", "quant", "export", "engine", "server")} <= names
+    assert {"carla_imitation_learning_tpu_torch/utils/torch_import.py",
+            "benchmarks_torch/inference.py", "benchmarks_torch/serving_http.py",
+            "benchmarks_torch/serving_phase.py"} <= names

@@ -321,12 +321,12 @@ def test_surround_cams():
 
 def test_registry_lacks_only_the_later_items():
     assert set(j_ex.EXPERIMENTS) - set(p_ex.EXPERIMENTS) == {
-        "export_policy", "hpo", "hpo_vmap", "hpo_pbt", "world_model_sweep"}
-    assert set(p_ex.EXPERIMENTS) <= set(j_ex.EXPERIMENTS) and len(p_ex.EXPERIMENTS) == 25
+        "hpo", "hpo_vmap", "hpo_pbt", "world_model_sweep"}
+    assert set(p_ex.EXPERIMENTS) <= set(j_ex.EXPERIMENTS) and len(p_ex.EXPERIMENTS) == 26
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         assert cli.main(["list"]) == 0
-    assert len(out.getvalue().splitlines()) == 25
+    assert len(out.getvalue().splitlines()) == 26
 
 
 def _rig_log(n_envs=2, n_steps=40, seed=3):

@@ -181,5 +181,5 @@ def test_scenario_eval_unknown_scenario(tmp_path):
     cfg = p_compose("config", overrides=["model=imitation", "device=cpu", *TINY])
     with pytest.raises(ValueError, match="unknown scenarios"):
         p_ex.scenario_eval(cfg, scenarios="clear,warp_drive")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="no policy artifact"):
         p_ex.scenario_eval(cfg, artifact=str(tmp_path))
