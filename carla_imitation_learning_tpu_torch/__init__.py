@@ -18,7 +18,8 @@ whose draws are ``jax.random``'s, ``sim/prng.py``).
 Layout mirrors the JAX package: ``sim/``, ``render/``, ``ops/``, ``models/``,
 ``data/`` (actions, frame logs, pipeline, stats, ETL), ``native/`` (the
 packed and sharded frame stores, C++ built with g++), ``training/`` (closed
-loop, losses, steps, loop, DAgger), ``utils/`` (profiling, checkpoints,
+loop, losses, steps, loop, DAgger), ``parallel/`` (hyperparameter search:
+the trial runner, vmapped sweeps, Population Based Training), ``utils/`` (profiling, checkpoints,
 metric sinks), ``callbacks/``, ``config/`` with its ``configs/`` presets,
 ``experiments.py`` and ``cli.py``. The env axis that the JAX
 package ``vmap``s is a leading ``B`` dimension here. Entry points take an

@@ -16,6 +16,11 @@ the CLI dispatches by name.
   leave-one-log-out splits of one camera;
 - ``test_eval``: accuracy of a checkpoint on each split, with the
   predictions dump and the histogram plot;
+- ``hpo``: random search over the BC recipe's learning rate, epochs and
+  seed, trials run concurrently on a thread pool; ``hpo_vmap``: every
+  learning-rate trial trained in one ``torch.func.vmap``; ``hpo_pbt``:
+  Population Based Training of a vmapped population
+  (``parallel/hpo.py``);
 - ``collect_data``: expert collection on the card, written as a raw log
   (PNG frames and state.csv) and as a packed frame store;
 - ``bc_streaming``: BC over the packed store, ``tier=direct`` (the store's
@@ -45,6 +50,8 @@ the CLI dispatches by name.
   decoder, MSE or MS-SSIM image terms) on an expert collection;
   ``world_model_imagine`` scores its open-loop imagination against the
   real future per horizon step and writes a film strip;
+  ``world_model_sweep`` runs the latent size × RNN × image loss grid of
+  ``world_model`` trials, four at a time;
 - ``dream_policy``: a latent policy trained in the world model's
   imagination (``training/imagination.py``), then driven in the real sim
   beside its latent-BC start and the expert;
@@ -78,8 +85,10 @@ raise ``NotImplementedError``.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import inspect
+import json
 import sys
 import time
 import zlib
@@ -133,7 +142,8 @@ from carla_imitation_learning_tpu_torch.training.rl import (
 )
 from carla_imitation_learning_tpu_torch.training.shield import shield_from_cfg
 from carla_imitation_learning_tpu_torch.training.steps import (
-    AdamConfig, create_train_state, eval_params, flax_init_, make_optimizer, make_train_step,
+    AdamConfig, create_train_state, eval_params, flax_init_, make_eval_step, make_optimizer,
+    make_train_step,
 )
 from carla_imitation_learning_tpu_torch.utils.checkpoint import (
     BestKCheckpointManager, restore_params, restore_pytree, save_pytree,
@@ -478,6 +488,192 @@ def test_eval(cfg, checkpoint: str | None = None, **kw):
         n_classes=int(cfg.get("n_actions", 9)))
     return {"accuracy": acc, "predictions_file": str(out),
             "sample_output_plot": str(plot)}
+
+
+def _indexed(dev: torch.device) -> torch.device:
+    """``dev`` with its index: an index-less ``cuda`` becomes the caller's
+    current card, which worker threads (each starting on card 0) then
+    select explicitly (``_selected``)."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _selected(dev: torch.device):
+    """A context that makes ``dev`` the current card of the calling thread."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+
+
+def _seeded_policy(cfg, generator: torch.Generator, **kw) -> PolicyCNN:
+    """A ``PolicyCNN`` drawn from ``generator`` alone (flax's initializer):
+    built on the meta device, so its constructor draws nothing from torch's
+    global generator, which concurrent trials would share."""
+    with torch.device("meta"):
+        model = PolicyCNN(dtype=_dtype(cfg), **kw)
+    return flax_init_(model.to_empty(device="cpu"), generator)
+
+
+@experiment("hpo")
+def hpo(cfg, num_samples: int = 4, max_concurrent: int = 4, **kw):
+    """Random search over the BC recipe's ``lr`` (log-uniform 1e-4-1e-2),
+    ``epochs`` and ``seed``, ``max_concurrent`` trials at a time on a
+    thread pool (``parallel.hpo.tune_run``). Each trial forks the loaders
+    (its own shuffle order over the shared device arrays), draws its
+    ``PolicyCNN`` from its own generator (seed = the trial's seed), trains
+    with Adam and the global-norm clip 0.5 and scores its mean validation
+    accuracy. cuDNN runs its deterministic algorithms meanwhile, so a
+    trial's result does not depend on what runs beside it: the concurrent
+    sweep equals the serial one. Trials land in ``<log_dir>/hpo/trials.json``."""
+    from carla_imitation_learning_tpu_torch.parallel.hpo import tune_run
+
+    dev = _indexed(_device(cfg))
+    cfg_c = cfg.copy()
+    cfg_c["camera"] = "camera"
+    _maybe_synthesize(cfg_c, "camera")
+    loaders = pipe.sequential_train_val_test_iterator(cfg_c, device=dev)
+
+    def trainable(trial_cfg):
+        with _selected(dev):
+            trial_seed = int(trial_cfg.get("seed", 0))
+            train_ds = loaders["train_dataloader"].fork(1000 + trial_seed)
+            val_ds = loaders["val_dataloader"].fork(2000 + trial_seed)
+            model = _seeded_policy(cfg, torch.Generator().manual_seed(trial_seed))
+            tx = make_optimizer({"LEARNING_RATE": trial_cfg["lr"], "gradient_clip_val": 0.5}, 1)
+            state = create_train_state(model, tx, device=dev)
+            step = make_train_step(bc_loss_fn)
+            for _ in range(int(trial_cfg.get("epochs", 2))):
+                for batch in train_ds:
+                    state, _ = step(state, batch)
+            ev = make_eval_step(bc_loss_fn)
+            accs = [float(ev(state, b)["accuracy"]) for b in val_ds]
+            return {"mean_accuracy": float(np.mean(accs))}
+
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True):
+        best, trials = tune_run(
+            trainable, space={"lr": (1e-4, 1e-2), "epochs": [2], "seed": [0, 1, 2, 3]},
+            num_samples=num_samples, metric="mean_accuracy", mode="max",
+            max_concurrent=int(max_concurrent), results_dir=str(Path(cfg["log_dir"]) / "hpo"))
+    return {"best_config": best.config, "best_metrics": best.metrics,
+            "n_trials": len(trials), "n_failed": sum(t.failed for t in trials)}
+
+
+def _bc_vmap_trainable(cfg, epochs: int):
+    """(init_fn, train_fn) of per-trial BC training with the learning rate
+    as the vmapped hyperparameter, shared by ``hpo_vmap`` and ``hpo_pbt``.
+    The epoch is materialized once as stacked batches (the train split in
+    order, the partial batch dropped); ``train_fn(state, lr)`` runs
+    ``epochs`` passes over them, each batch one ``torch.func.grad`` step of
+    the cross-entropy and one ``adam_update`` at the trial's rate, then
+    scores the first 64 validation samples. ``init_fn(generator, lr)``
+    draws a ``PolicyCNN`` from ``generator`` → {"params", "opt"}."""
+    from torch.func import functional_call, grad
+
+    from carla_imitation_learning_tpu_torch.training.losses import accuracy, cross_entropy
+    from carla_imitation_learning_tpu_torch.training.steps import adam_init, adam_update
+
+    dev = _device(cfg)
+    cfg_c = cfg.copy()
+    cfg_c["camera"] = "camera"
+    _maybe_synthesize(cfg_c, "camera")
+    loaders = pipe.sequential_train_val_test_iterator(cfg_c, device=dev)
+    train_ds, val_ds = loaders["train_dataloader"], loaders["val_dataloader"]
+    order = np.arange(train_ds.n_samples)
+    b = train_ds.batch_size
+    batches = [train_ds.make_batch(order[i * b:(i + 1) * b])
+               for i in range(max(1, train_ds.n_samples // b))]
+    bx = torch.stack([x for x, _ in batches])                   # (nb, B, H, W, C)
+    by = torch.stack([y for _, y in batches])
+    vx, vy = val_ds.make_batch(np.arange(min(val_ds.n_samples, 64)))
+    shape = {"obs_size": int(cfg["obs_size"]), "n_actions": int(cfg["n_actions"])}
+    with torch.device("meta"):
+        base = PolicyCNN(dtype=_dtype(cfg), **shape)
+
+    def logits_of(params, x):
+        return functional_call(base, params, (x,))
+
+    def loss_of(params, x, y):
+        return cross_entropy(logits_of(params, x), y)
+
+    def init_fn(generator, lr):
+        model = _seeded_policy(cfg, generator, **shape).to(dev)
+        params = {k: v.detach() for k, v in model.named_parameters()}
+        return {"params": params, "opt": adam_init(params)}
+
+    def train_fn(state, lr):
+        params, opt = state["params"], state["opt"]
+        for _ in range(epochs):
+            for x, y in zip(bx, by):
+                params, opt = adam_update(params, grad(loss_of)(params, x, y), opt, lr)
+        val_logits = logits_of(params, vx)
+        return {"params": params, "opt": opt}, {
+            "mean_accuracy": accuracy(val_logits, vy), "val_loss": cross_entropy(val_logits, vy)}
+
+    return init_fn, train_fn
+
+
+@experiment("hpo_vmap")
+def hpo_vmap(cfg, lrs=(3e-4, 1e-3, 3e-3, 1e-2), epochs: int = 2, **kw):
+    """Vectorized HPO: every learning-rate trial of the BC recipe trains in
+    one ``torch.func.vmap`` over the trial axis (``parallel.hpo.vmap_sweep``),
+    so each operation launches once for all trials; the trials' initial
+    weights come from per-trial generators derived from ``seed``."""
+    from carla_imitation_learning_tpu_torch.parallel.hpo import vmap_sweep
+    from carla_imitation_learning_tpu_torch.sim import prng
+
+    init_fn, train_fn = _bc_vmap_trainable(cfg, epochs)
+    lr_arr = torch.tensor(lrs, dtype=torch.float32, device=_device(cfg))
+    _, metrics = vmap_sweep(init_fn, train_fn, lr_arr, prng.key(int(cfg.get("seed", 0))))
+    accs = metrics["mean_accuracy"].tolist()
+    best_i = int(np.argmax(accs))
+    return {"lrs": [float(v) for v in lrs], "accuracies": accs,
+            "val_losses": metrics["val_loss"].tolist(),
+            "best_lr": float(lrs[best_i]), "n_trials": len(lrs),
+            "note": "all trials trained in one torch.func.vmap (trial axis)"}
+
+
+def pbt_initial_lrs(seed: int, population: int, lo: float, hi: float,
+                    device: str | torch.device = "cpu") -> torch.Tensor:
+    """``hpo_pbt``'s starting rates: log-uniform in [lo, hi) from the
+    threefry key ``fold_in(key(seed), 1)``, the JAX package's draws."""
+    from carla_imitation_learning_tpu_torch.sim import prng
+
+    key = prng.fold_in(prng.key(seed, device), 1)
+    return torch.exp(prng.uniform_range(key, (population,), float(np.log(lo)),
+                                        float(np.log(hi))))
+
+
+@experiment("hpo_pbt")
+def hpo_pbt(cfg, population: int = 8, generations: int = 4, epochs_per_gen: int = 1,
+            lr_range=(1e-4, 3e-2), **kw):
+    """Population Based Training of the BC recipe (``parallel.hpo.pbt_run``):
+    the population trains vmapped, ``epochs_per_gen`` epochs a generation;
+    between generations the worst quarter copies the best quarter's weights
+    and perturbed rates on the card. Writes ``<log_dir>/pbt_history.json``
+    (scores and rates of every generation)."""
+    from carla_imitation_learning_tpu_torch.parallel.hpo import pbt_run
+    from carla_imitation_learning_tpu_torch.sim import prng
+
+    init_fn, train_fn = _bc_vmap_trainable(cfg, epochs_per_gen)
+    seed = int(cfg.get("seed", 0))
+    h0 = pbt_initial_lrs(seed, int(population), float(lr_range[0]), float(lr_range[1]),
+                         _device(cfg))
+    _, h, hist = pbt_run(init_fn, train_fn, h0, prng.key(seed), metric="mean_accuracy",
+                         mode="max", n_generations=int(generations))
+    last = hist[-1]
+    best_i = int(np.argmax(last["mean_accuracy"]))
+    lrs = h.cpu().numpy()
+    out = {"population": int(population), "generations": int(generations),
+           "best_lr": float(lrs[best_i]),
+           "best_accuracy": float(last["mean_accuracy"][best_i]),
+           "mean_accuracy_per_gen": [float(g["mean_accuracy"].mean()) for g in hist],
+           "final_lrs": [float(v) for v in lrs]}
+    path = Path(cfg["log_dir"]) / "pbt_history.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(
+        [{k: (v.tolist() if hasattr(v, "tolist") else v) for k, v in g.items()}
+         for g in hist], indent=1))
+    out["history_path"] = str(path)
+    return out
 
 
 def _sim_bits(cfg):
@@ -1147,6 +1343,40 @@ def world_model(cfg, n_envs: int = 16, n_steps: int = 128, seq_len: int = 8,
                            "n_actions": model.n_actions, "height": model.height,
                            "width": model.width, "image_loss": image_loss, "seq_len": seq_len}
     return result
+
+
+@experiment("world_model_sweep")
+def world_model_sweep(cfg, n_envs: int = 16, n_steps: int = 128, z_sizes=(64, 128, 512),
+                      rnns=("lstm", "gru"), losses=("mse", "ms_ssim"),
+                      max_concurrent: int = 4, **kw):
+    """The latent size × RNN × image loss grid of the reference's plan (12
+    trials), ``max_concurrent`` at a time: each trial is a whole
+    ``world_model`` run (its own collection, model, logger and checkpoint
+    directory ``world_model_{rnn}_{z}_{loss}``), scored by its last
+    validation loss; the config's ``wm_*`` keys override the grid's values
+    as they override ``world_model``'s arguments. A failing trial is
+    recorded and the grid goes on. Trials land in
+    ``<log_dir>/wm_sweep/trials.json``; ``table`` lists each finished
+    trial's config and metrics."""
+    from carla_imitation_learning_tpu_torch.parallel.hpo import grid_space, tune_run
+
+    dev = _indexed(_device(cfg))
+
+    def trainable(trial):
+        with _selected(dev):
+            r = world_model(cfg, n_envs=n_envs, n_steps=n_steps, z_size=trial["z"],
+                            rnn=trial["rnn"], image_loss=trial["loss"])
+        h = r["history"][-1]
+        return {"val_loss": h.get("val_loss", float("inf")),
+                "val_recon_loss": h.get("val_recon_loss", float("inf"))}
+
+    space = {"z": list(z_sizes), "rnn": list(rnns), "loss": list(losses)}
+    best, trials = tune_run(trainable, trial_configs=grid_space(space), metric="val_loss",
+                            mode="min", max_concurrent=int(max_concurrent),
+                            results_dir=str(Path(cfg["log_dir"]) / "wm_sweep"))
+    return {"best_config": best.config, "best_metrics": best.metrics,
+            "n_trials": len(trials), "n_failed": sum(t.failed for t in trials),
+            "table": [{**t.config, **t.metrics} for t in trials if not t.failed]}
 
 
 @experiment("world_model_imagine")

@@ -4,8 +4,10 @@ Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface, loaded through ``ctypes``. Builds happen at first use,
 into ``<package>/build/`` (git-ignored), one ``nvcc`` per source, all started
 together; a library is named by a hash of its source and flags, so an edited
-source is rebuilt and an unchanged one is reused. Nothing here runs when the
-module is imported.
+source is rebuilt and an unchanged one is reused. Building and loading hold
+one lock, so threads that reach a library's first use together (the trials
+of a concurrent sweep) compile it once and share one handle. Nothing here
+runs when the module is imported.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import ctypes
 import hashlib
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -29,6 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCES = ("raster_exact", "raster_fast", "raster_prim", "raster_vec")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+# held by build and load (re-entered by load's build), and by use_library
+_lock = threading.RLock()
 
 
 def _nvcc() -> str:
@@ -48,36 +53,38 @@ def library_path(name: str) -> Path:
 def build(names=SOURCES) -> dict[str, str]:
     """Compile every library in ``names`` that is not built yet, in parallel.
     → {name: ptxas report} for the libraries compiled now."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_name(out.stem + ".partial.so")
-        procs[name] = (subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, out)
-    reports, failed = {}, []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{name}:\n{log}")
-            continue
-        tmp.replace(out)
-        out.with_suffix(".log").write_text(log)
-        reports[name] = log
-    if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return reports
+    with _lock:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        for name in names:
+            out = library_path(name)
+            if out.exists():
+                continue
+            tmp = out.with_name(out.stem + ".partial.so")
+            procs[name] = (subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, out)
+        reports, failed = {}, []
+        for name, (proc, tmp, out) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{name}:\n{log}")
+                continue
+            tmp.replace(out)
+            out.with_suffix(".log").write_text(log)
+            reports[name] = log
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        return reports
 
 
 def load(name: str) -> ctypes.CDLL:
     """The ctypes handle of library ``name``, built on first use."""
-    if name not in _loaded:
-        build([name])
-        _loaded[name] = ctypes.CDLL(str(library_path(name)))
-    return _loaded[name]
+    with _lock:
+        if name not in _loaded:
+            build([name])
+            _loaded[name] = ctypes.CDLL(str(library_path(name)))
+        return _loaded[name]
 
 
 def build_variant(src: Path, flags=()) -> Path:
@@ -100,7 +107,8 @@ def build_variant(src: Path, flags=()) -> Path:
 def use_library(name: str, path: Path) -> None:
     """From now on, the wrappers of library ``name`` call the library at
     ``path`` (a ``build_variant`` of its source)."""
-    _loaded[name] = ctypes.CDLL(str(path))
+    with _lock:
+        _loaded[name] = ctypes.CDLL(str(path))
 
 
 def entry_point(name: str, symbol: str, argtypes: list):

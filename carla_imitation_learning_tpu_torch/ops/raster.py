@@ -17,6 +17,7 @@ perspective-correct surface point.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -33,10 +34,17 @@ PLAIN_BUDGET = 1 << 22  # elements per (B, R, chunk, rows, W) temporary
 
 
 class LaunchCount:
-    """Number of kernel launches a wrapper has made (reset by the caller)."""
+    """Number of kernel launches a wrapper has made (reset by the caller);
+    ``add`` counts one under a lock, so wrappers called from several
+    threads lose no launch."""
 
     def __init__(self) -> None:
         self.launches = 0
+        self._lock = threading.Lock()
+
+    def add(self) -> None:
+        with self._lock:
+            self.launches += 1
 
 
 EXACT_KERNEL = LaunchCount()      # flat variant
@@ -199,7 +207,7 @@ def raster_bands(tbl, idx, count, height: int, width: int, near: float,
              col.data_ptr(), depth.data_ptr(), B, T, R, K, height, width,
              tile_rows, n_channels, int(textured), near, far, cuda_lib.stream_ptr(dev))
     cuda_lib.raise_on_error(err, "raster_exact")
-    (EXACT_TEX_KERNEL if textured else EXACT_KERNEL).launches += 1
+    (EXACT_TEX_KERNEL if textured else EXACT_KERNEL).add()
     return sem, col, depth
 
 

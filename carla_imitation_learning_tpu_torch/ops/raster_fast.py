@@ -246,7 +246,7 @@ def fast_bands(tbl, idx, count, height: int, width: int, near: float,
              SKY_TOP_L, SKY_HOR_L, 1.0 / max(height - 1, 1), 1.0 / LUMA_MASK,
              fog_density, cuda_lib.stream_ptr(tbl.device))
     cuda_lib.raise_on_error(err, "raster_fast")
-    FAST_KERNEL.launches += 1
+    FAST_KERNEL.add()
     return out
 
 
@@ -432,7 +432,7 @@ def prim_bands(tbl, idx, count, height: int, width: int, near: float,
              prim_far_key(far), SKY_TOP_L, SKY_HOR_L, 1.0 / max(height - 1, 1),
              1.0 / LUMA_MASK, fog_density, cuda_lib.stream_ptr(tbl.device))
     cuda_lib.raise_on_error(err, "raster_prim")
-    PRIM_KERNEL.launches += 1
+    PRIM_KERNEL.add()
     return out
 
 
@@ -507,7 +507,7 @@ def vec_bands(btbl, count, height: int, width: int, near: float, far: float,
              SKY_TOP_L, SKY_HOR_L, 1.0 / max(height - 1, 1), 1.0 / LUMA_MASK,
              fog_density, cuda_lib.stream_ptr(btbl.device))
     cuda_lib.raise_on_error(err, "raster_vec")
-    VEC_KERNEL.launches += 1
+    VEC_KERNEL.add()
     return out
 
 

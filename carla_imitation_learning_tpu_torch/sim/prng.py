@@ -1,8 +1,9 @@
 """Counter-based threefry2x32 draws, bit for bit those of ``jax.random``
 under its default ``jax_threefry_partitionable=True``.
 
-The part the sim draws from: ``fold_in``, ``split``, ``randint(key, shape,
-0, span)`` and ``uniform(key, shape)`` on raw keys. A key is an int64
+The part the sim and the hyperparameter search draw from: ``key(seed)``,
+``fold_in``, ``split``, ``randint(key, shape, 0, span)``, ``uniform(key,
+shape)`` and ``uniform_range`` on raw keys. A key is an int64
 tensor of shape (..., 2) holding two uint32 words; every leading axis is a
 batch axis (one key per env), so a fleet draws in one call. torch has no
 shifts or multiplies on ``torch.uint32``, so the words live in int64 and
@@ -60,6 +61,12 @@ def _hash(key: torch.Tensor, shape: tuple) -> tuple[torch.Tensor, torch.Tensor]:
     return threefry2x32(key[(..., 0) + pad], key[(..., 1) + pad], hi, lo)
 
 
+def key(seed: int, device: str | torch.device = "cpu") -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)`` for 0 <= seed < 2⁶⁴: the words (seed >> 32,
+    seed & M)."""
+    return torch.tensor([(seed >> 32) & M32, seed & M32], dtype=torch.int64, device=device)
+
+
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in``: the hash of the counter pair (0, data), with
     ``data`` a Python int or an integer tensor of the key's batch shape."""
@@ -102,3 +109,14 @@ def uniform(key: torch.Tensor, shape: tuple = ()) -> torch.Tensor:
     bits = random_bits(key, shape)
     floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
     return torch.clamp(floats, min=0.0)
+
+
+def uniform_range(key: torch.Tensor, shape: tuple, minval: float, maxval: float) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, minval=minval, maxval=maxval)`` as
+    XLA:CPU compiles it: ``u · (max − min) + min`` in float32 contracted
+    into one fused multiply-add (the float32 product is exact in float64, so
+    only the sum rounds), then at least ``minval``."""
+    lo, hi = torch.tensor(minval, dtype=torch.float32), torch.tensor(maxval, dtype=torch.float32)
+    span = (hi - lo).double()
+    u = uniform(key, shape).double()
+    return torch.maximum((u * span + lo.double()).to(torch.float32), lo.to(key.device))

@@ -7,7 +7,10 @@ gradients, as optax computes it), then Adam (b1 0.9, b2 0.999, eps 1e-8)
 with a piecewise-constant learning rate on the optimizer's step count
 (×gamma once ``count >= milestone · steps_per_epoch``, count from 0).
 Adam itself, the convolutions and the matrix products are PyTorch's
-library calls. Nothing here reads a device value on the host: a step's
+library calls. ``adam_init`` / ``adam_update`` are the same Adam written
+functionally (optax's ``inject_hyperparams(adam)``): the learning rate is a
+tensor, so under ``torch.func.vmap`` every trial of a sweep steps with its
+own rate, which ``torch.optim.Adam``'s one scalar per group cannot. Nothing here reads a device value on the host: a step's
 metrics stay device tensors, and the fused epoch stacks them so that its
 caller syncs once per epoch.
 """
@@ -122,6 +125,31 @@ def clip_by_global_norm_(grads: list, max_norm: float) -> None:
     one = torch.ones((), device=norm.device)
     torch._foreach_div_(grads, torch.where(trigger, one, norm))
     torch._foreach_mul_(grads, torch.where(trigger, one, max_norm * one))
+
+
+def adam_init(params: dict) -> dict:
+    """The state of ``adam_update`` for a dict of parameter tensors: the
+    step count (int32) and zero first and second moments."""
+    count = torch.zeros((), dtype=torch.int32, device=next(iter(params.values())).device)
+    return {"count": count, "mu": {k: torch.zeros_like(v) for k, v in params.items()},
+            "nu": {k: torch.zeros_like(v) for k, v in params.items()}}
+
+
+def adam_update(params: dict, grads: dict, opt: dict, lr: torch.Tensor,
+                b1: float = ADAM_BETAS[0], b2: float = ADAM_BETAS[1],
+                eps: float = ADAM_EPS) -> tuple[dict, dict]:
+    """One Adam step without side effects, in optax's order: the moments
+    ``(1 − b) · g + b · m`` (of g² for the second), the count + 1, the bias
+    corrections ``m / (1 − b^count)``, the update ``m̂ / (√v̂ + eps)``
+    scaled by ``−lr`` and added to the parameters. ``lr`` is a tensor (0-d,
+    or one value per trial when vmapped). → (params, opt)."""
+    count = opt["count"] + 1
+    steps = count.to(torch.float32)
+    c1, c2 = 1 - b1 ** steps, 1 - b2 ** steps
+    mu = {k: (1 - b1) * grads[k] + b1 * opt["mu"][k] for k in params}
+    nu = {k: (1 - b2) * grads[k] ** 2 + b2 * opt["nu"][k] for k in params}
+    new = {k: params[k] + (mu[k] / c1) / (torch.sqrt(nu[k] / c2) + eps) * -lr for k in params}
+    return new, {"count": count, "mu": mu, "nu": nu}
 
 
 def eval_params(state: TrainState) -> nn.Module:

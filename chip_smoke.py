@@ -66,7 +66,8 @@ Phases (any failure exits nonzero, with no result line):
    the idle share of each streaming tier's train steps;
 6e. the scenario suite (``scenarios_phase``), counts reset just before
    it: ``run scenario_eval`` through the CLI on 6d's best checkpoint at
-   1024 envs × 100 steps, all eight scenarios (kernel B once per step of
+   1024 envs × SCENARIO_STEPS (50) steps, all
+   eight scenarios (kernel B once per step of
    each of the 16 rollouts plus their first frames), then kernel B bit for
    bit against its plain version on one frame of each scenario's fleet
    (T = 530, 650 on ``busy``; fog 0.04 on ``fog``), the ``storm`` and
@@ -117,8 +118,9 @@ Phases (any failure exits nonzero, with no result line):
    stem's forward against the standard stem at 1024 × 128² (fp32 within
    1e-4, bf16 within 2 % of the logits' scale, both timed);
 6i. the sequence, world-model and ViT families (``seq_wm_phase``), counts
-   reset just before each run: ``run bc_rnn``, ``world_model`` (MSE and
-   MS-SSIM), ``world_model_imagine``, ``dream_policy`` (discrete and
+   reset just before each run: ``run bc_rnn``, ``world_model_imagine``
+   (``world_model`` itself runs 12 times in 6l's sweep, MSE and MS-SSIM
+   among them), ``dream_policy`` (discrete and
    continuous) and ``bc -o experiment=bc_vit`` with ``closed_loop_eval``
    of its checkpoint at 128² through the CLI at the presets' widths
    (epochs, batches per epoch, rollout depths and updates cut; kernel B
@@ -132,8 +134,9 @@ Phases (any failure exits nonzero, with no result line):
    (``rigs_replay_phase``): kernels A (C = 3) and B bit for bit against
    their plain versions on the fleet seen from FL, SR and RR, and a 3-view
    rollout on 8 envs on the card against the CPU; then, counts reset just
-   before each run, ``run collect_multicamera`` (16 envs × 200 steps, 6
-   views on the exact path: A 1,200 times), ``run bc_surround`` (16 × 300
+   before each run, ``run collect_multicamera`` (16 envs × RIG_COLLECT_STEPS
+   (100) of its 200 steps, 6 views on the exact path: A 600 times), ``run
+   bc_surround`` (16 × 300
    with forward, FL and FR, A 900 times; 2 epochs of at most 40 batches;
    its closed loop at 64 × 200 with the rig, B 603 times) and ``run
    replay`` (16 × 120: B 121 times recording, A 120 re-rendering; the
@@ -153,6 +156,19 @@ Phases (any failure exits nonzero, with no result line):
    100, HTTP with 8 clients × 40 batch-1 requests at windows of 0 and 2 ms
    (every answer the engine's action); a reference ConvNet1 checkpoint
    through ``import_torch`` and export at 256², within 1e-5 of the module;
+6l. hyperparameter search (``hpo_phase``), counts reset just before each
+   run: ``run hpo`` at its preset (4 trials, 256², batch 64) serially and 4
+   at a time (trial configs equal, accuracies within rtol 1e-5), ``run
+   hpo_vmap`` (4 rates in one ``torch.func.vmap``; one trial in fp32 held
+   against itself trained alone on the card and on the CPU; the vmapped
+   sweep against its trials one after another in bf16: wall, launches,
+   idle share), ``run hpo_pbt`` (8 × 4 generations; every exploit/explore
+   bit for bit card vs CPU and equal to the run's next generation) and
+   ``run world_model_sweep`` (16 × 128 a trial, 4 at a time, cut to the
+   latent sizes HPO_WM_Z and HPO_WM_EPOCHS epochs of at most HPO_WM_BATCHES
+   batches: no trial fails, every reconstruction loss falls, kernel B
+   exactly 4 × 129);
+   every phase's seconds are printed (``phase_seconds``);
 7. the rich fleet (same town and envs, the rich128 preset: facade bands,
    markings, shadows, textures, T=1408) from three seeds: kernel A's
    textured variant (C=1 and C=3), kernel B on the rich lists (2 px and 0
@@ -223,8 +239,9 @@ FILE_COLLECT_ENVS, FILE_COLLECT_STEPS = 256, 48      # the file phase's PNG log
 FILE_EVAL_ENVS, FILE_EVAL_STEPS = 256, 50            # closed_loop_eval of its checkpoint
 FILE_STREAM_ENVS, FILE_STREAM_STEPS = 1024, 24       # bc_streaming's collection
 FILE_BATCH, FILE_EPOCHS, FILE_SHARD_FRAMES = 256, 2, 4096
-FILE_SYNTHETIC_FRAMES = 2048     # the README's first command: bc on an empty data_dir
-SCENARIO_ENVS, SCENARIO_STEPS = 1024, 100   # scenario_eval: every scenario, policy and expert
+FILE_SYNTHETIC_FRAMES = 1024     # the README's first command: bc on an empty data_dir
+SCENARIO_ENVS, SCENARIO_STEPS = 1024, 50    # scenario_eval: every scenario, policy and expert
+SCENARIO_CHANGE_STEPS = 100      # the direct turns / multilane run: the ego's turns need 80+
 # ``busy`` adds 12 walkers and 9 vehicles, but its delta raises the table
 # by the walkers' 120 triangles only, so on the bench town its 650-triangle
 # scene overflows the preset's 512 + 120 (the JAX package raises alike);
@@ -250,7 +267,7 @@ AUX_ENVS, AUX_STEPS = 256, 200                # the record_semantic collection
 AUX_EVAL_ENVS, AUX_EVAL_STEPS = 256, 100
 AUX_BATCH, AUX_EPOCHS = 64, 2
 # each model's train step alone: warm-up steps, steps a run, runs, profiled steps
-AUX_TIMED = (5, 50, 5, 10)
+AUX_TIMED = (3, 20, 3, 5)
 AUX_IMG = 256                                 # the file-backed runs' frames (the reference's)
 AUX_FILE_FRAMES, AUX_FILE_EPOCHS = 640, 3     # the synthetic log of the file runs (a gate)
 AUX_VAE_FRAMES = 120                          # per log, six logs at 224²
@@ -273,8 +290,9 @@ SEQ_EPOCHS, SEQ_BATCHES = 2, 40                # every fit (presets: 50 epochs; 
 SEQ_RNN_STEPS, SEQ_RNN_EVAL_STEPS = 150, 100   # bc_rnn's collection and eval (preset 300, 200)
 # bc_vit: an expert log of SEQ_VIT_ENVS × SEQ_VIT_STEPS at 128² on disk, a fit
 # of SEQ_VIT_EPOCHS epochs of at most SEQ_BATCHES batches of SEQ_VIT_BATCH,
-# evaluations of the trained and the untrained ViT at the preset's 64 × 200
-SEQ_VIT_ENVS, SEQ_VIT_STEPS, SEQ_VIT_EVAL_STEPS = 64, 100, 200
+# evaluations of the trained and the untrained ViT at 64 × SEQ_VIT_EVAL_STEPS
+# (the preset's 64 envs; 100 of its 200 steps)
+SEQ_VIT_ENVS, SEQ_VIT_STEPS, SEQ_VIT_EVAL_STEPS = 64, 100, 100
 SEQ_VIT_EPOCHS, SEQ_VIT_BATCH = 6, 128
 SEQ_DREAM_STEPS, SEQ_DREAM_UPDATES, SEQ_DREAM_EVAL_STEPS = 100, 50, 75   # (preset 200, 300, 150)
 SEQ_CONT_STEPS, SEQ_CONT_UPDATES, SEQ_CONT_EVAL_STEPS = 100, 50, 50   # continuous dream_policy
@@ -288,13 +306,27 @@ SEQ_CROSS_BATCH = 2                            # card-vs-CPU steps: sequences of
 RIG_CAMERAS = ("camera", "FL", "FR")           # bc_surround's rig
 RIG_CHECK_CAMERAS = ("FL", "SR", "RR")         # A and B vs plain from these views
 RIG_EPOCHS, RIG_BATCHES = 2, 40
-RIG_ROLL_SHORT, RIG_ROLL_LONG, RIG_ROLL_REPEATS = 16, 96, 3   # surround rollout, replay
+RIG_ROLL_SHORT, RIG_ROLL_LONG, RIG_ROLL_REPEATS = 16, 64, 3   # surround rollout, replay
+RIG_COLLECT_STEPS = 100          # collect_multicamera's depth (preset 16 × 200)
 # The serving phase: export_policy through the CLI (128² and the preset's
 # 256²), closed_loop_eval of an artifact, the latency ladder, the engine and HTTP
 SERVE_EVAL_ENVS, SERVE_EVAL_STEPS = 256, 50
 SERVE_LADDER, SERVE_REPS = (1, 4, 16, 64, 256, 1024), 10
 SERVE_ENGINE_REQUEST = 100                     # pads to the 128 bucket
 SERVE_CLIENTS, SERVE_REQUESTS, SERVE_WINDOWS = 8, 40, (0.0, 2.0)
+# The hpo phase: hpo (4 trials, 256², batch 64) serially and 4 at a time,
+# hpo_vmap (4 rates × 2 epochs), hpo_pbt (8 members × 4 generations) and
+# world_model_sweep (trials of 16 envs × 128 steps, 4 at a time) at their
+# presets through the CLI. The sweep is cut to fit the phase in about 90 s
+# on an H100, where 4 trials at a time run about 3 times slower than one at
+# a time (12 trials at 2 epochs of 20 batches took 139 s, 8 at 2 × 10 took
+# 112-115 s): each fit from the vae group's 50 epochs to HPO_WM_EPOCHS
+# epochs of at most HPO_WM_BATCHES batches, then the grid's latent sizes to
+# HPO_WM_Z (both RNNs and both image losses kept: 4 of the 12 trials)
+HPO_WM_EPOCHS, HPO_WM_BATCHES = 2, 10
+HPO_WM_Z = (64,)
+HPO_CROSS_TRIAL = 0      # the vmapped trial held against itself alone and the CPU
+HPO_TIMED_REPEATS = 3    # vmapped sweep vs its trials one after another: median of 3
 LANES_PER_SM = 128       # lane-instructions an SM issues per clock (4 × 32)
 HBM_RATE = 3.35e12       # H100 SXM device memory, B/s
 WARP_TILE = 16           # kernels A and B cull per 16 × 16 pixel warp tile
@@ -604,7 +636,7 @@ def run(args) -> dict:
         if any(k in line for k in ("CPU capability", "MKL", "oneDNN", "OpenMP", "LAPACK"))]}))
 
     rate = issue_rate()
-    t0 = time.perf_counter()
+    t_run = t0 = time.perf_counter()
     # the frame store's g++ build runs beside the kernels' nvcc builds
     host_lib = threading.Thread(target=framestore.build_library)
     host_lib.start()
@@ -750,37 +782,42 @@ def run(args) -> dict:
                "max_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     log(json.dumps({"rollout": rollout}))
     paths = {"main": launches}
-    bc_state = bc_training(params, town, rcfg, dev, profile=args.profile is not None)
-    paths["dagger"] = dagger_phase(params, town, rcfg, dev, bc_state,
-                                   profile=args.profile is not None)
+    phase_s = {"to_main_path": time.perf_counter() - t_run}
+    prof = args.profile is not None
+
+    def phase(name: str, fn, *a, **k):
+        """Run phase ``fn`` and keep its seconds; its launch counts → ``paths``."""
+        t0 = time.perf_counter()
+        paths[name] = fn(*a, **k)
+        torch.cuda.empty_cache()
+        phase_s[name] = time.perf_counter() - t0
+        log(f"phase {name}: {phase_s[name]:.1f} s")
+
+    t0 = time.perf_counter()
+    bc_state = bc_training(params, town, rcfg, dev, profile=prof)
+    phase_s["bc_training"] = time.perf_counter() - t0
+    phase("dagger", dagger_phase, params, town, rcfg, dev, bc_state, profile=prof)
     del bc_state
-    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as keep:
-        paths["file_io"] = file_io_phase(dev, profile=args.profile is not None,
-                                         keep=Path(keep))
-        torch.cuda.empty_cache()
-        paths["scenarios"] = scenarios_phase(dev, Path(keep) / "best")
-        torch.cuda.empty_cache()
-        paths["routes"] = routes_phase(dev, profile=args.profile is not None)
-        torch.cuda.empty_cache()
-        paths["aux_vae"] = aux_vae_phase(dev)
-        torch.cuda.empty_cache()
-        paths["rl_safety"] = rl_safety_phase(dev, Path(keep) / "best",
-                                             profile=args.profile is not None)
-        torch.cuda.empty_cache()
-        paths["serving"] = serving_phase(dev, Path(keep) / "best")
-        torch.cuda.empty_cache()
-    paths["seq_wm"] = seq_wm_phase(dev)
-    torch.cuda.empty_cache()
-    paths["rigs_replay"] = rigs_replay_phase(dev)
-    torch.cuda.empty_cache()
+        phase("file_io", file_io_phase, dev, profile=prof, keep=Path(keep))
+        phase("scenarios", scenarios_phase, dev, Path(keep) / "best")
+        phase("routes", routes_phase, dev, profile=prof)
+        phase("aux_vae", aux_vae_phase, dev)
+        phase("rl_safety", rl_safety_phase, dev, Path(keep) / "best", profile=prof)
+        phase("serving", serving_phase, dev, Path(keep) / "best")
+    phase("seq_wm", seq_wm_phase, dev)
+    phase("rigs_replay", rigs_replay_phase, dev)
+    phase("hpo", hpo_phase, dev)
     # the rich phases allocate gigabytes of temporaries; they run after the
     # main path has been timed
+    t0 = time.perf_counter()
     rich, b_rich_err = rich_kernels(params, town, dev, rows, rate, facts)
     kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], b_rich_err)
     kernels += rich
-    paths["rich_collection"] = rich_collection(params, town, dev)
-    paths["quad_vec_ab"] = quad_vec_ab(params, town, dev, kernels)
+    phase_s["rich_kernels"] = time.perf_counter() - t0
+    phase("rich_collection", rich_collection, params, town, dev)
+    phase("quad_vec_ab", quad_vec_ab, params, town, dev, kernels)
+    log(json.dumps({"phase_seconds": phase_s}))
     for k in kernels:
         path, counter = k.pop("path"), k.pop("counter")
         k["launches"] = paths[path][counter]
@@ -2035,7 +2072,7 @@ def scenarios_phase(dev, checkpoint: Path) -> dict:
     t2 = time.perf_counter()
 
     # 4. route changes on the multi-lane worlds
-    changes = {name: route_changes(*fleets[name][:2], dev, SCENARIO_ENVS, SCENARIO_STEPS)
+    changes = {name: route_changes(*fleets[name][:2], dev, SCENARIO_ENVS, SCENARIO_CHANGE_STEPS)
                for name in ("turns", "multilane")}
     for key, name in (("ego_transfers", "turns"), ("agent_transfers", "turns"),
                       ("ego_lane_changes", "multilane"), ("agent_lane_changes", "turns"),
@@ -3575,8 +3612,7 @@ def seq_wm_phase(dev) -> dict:
     a. ``run bc_rnn`` (32 envs × SEQ_RNN_STEPS of the preset's 300 steps,
        sequences of 8, batch 64, hidden 128, closed loop 64 ×
        SEQ_RNN_EVAL_STEPS of its 200 with the hidden state in the rollout's
-       carry); ``run world_model`` (16 × 128, LSTM, z 64, MSE) and once
-       more with ``wm_image_loss=ms_ssim``; ``run world_model_imagine`` (its
+       carry); ``run world_model_imagine`` (its
        fit, then 8 envs × 9 steps imagined 8 steps ahead); ``run
        dream_policy`` (16 envs × SEQ_DREAM_STEPS of its 200 steps, GRU, 5
        reward heads, 300 reward steps, 400 latent-BC steps,
@@ -3592,7 +3628,7 @@ def seq_wm_phase(dev) -> dict:
        untrained ViT. Every fit runs SEQ_EPOCHS epochs of at most
        SEQ_BATCHES batches (the ViT SEQ_VIT_EPOCHS at batch SEQ_VIT_BATCH);
        each metric is finite, the train loss of ``bc_rnn`` and of the ViT
-       and the world models' reconstruction loss fall, scores lie in
+       falls (the world models' reconstruction loss is held in 6l), scores lie in
        [0, 1] and the trained ViT agrees with the expert in its closed
        loop more often than the untrained ViT does (in this town the
        untrained ViT's near-constant action outscores the expert, 0.66
@@ -3628,7 +3664,7 @@ def seq_wm_phase(dev) -> dict:
     res: dict = {"card": nvidia_smi(), "runs": {}}
     launches: dict = {}
     pre = {n: compose("config", overrides=[f"experiment={n}"])
-           for n in ("bc_rnn", "world_model", "world_model_imagine", "dream_policy")}
+           for n in ("bc_rnn", "world_model_imagine", "dream_policy")}
 
     def counted(label: str, want_b: int, *argv) -> dict:
         torch.cuda.synchronize()
@@ -3668,16 +3704,6 @@ def seq_wm_phase(dev) -> dict:
                                                      pre["bc_rnn"]["eval_envs"],
                                                      SEQ_RNN_EVAL_STEPS)
         res["runs"]["bc_rnn"]["test_accuracy"] = out["test"]["test_accuracy"]
-        p = pre["world_model"]
-        for label, extra in (("world_model", ()),
-                             ("world_model_ms_ssim", ("-o", "wm_image_loss=ms_ssim"))):
-            out = counted(label, p["n_steps"] + 1, "-o", "experiment=world_model", *base, *extra)
-            # the latent term grows while the encoder's latents spread out of
-            # tanh's flat start; the reconstruction is what must improve
-            falls(label, out["history"], "train_recon_loss")
-            check(out["wm_config"]["height"] == HW and out["wm_config"]["z_size"] == 64,
-                  f"{label}: {out['wm_config']}")
-            res["runs"][label]["val_loss"] = out["history"][-1]["val_loss"]
         p = pre["world_model_imagine"]
         out = counted("world_model_imagine", p["n_steps"] + 1 + p["horizon"] + 2,
                       "-o", "experiment=world_model_imagine", *base)
@@ -3845,7 +3871,8 @@ def rigs_replay_phase(dev) -> dict:
     Then, counts reset just before each run and checked against what the
     code launches:
 
-    a. ``run collect_multicamera`` at its preset (16 envs × 200 steps, 6
+    a. ``run collect_multicamera`` at its preset's width (16 envs ×
+       RIG_COLLECT_STEPS of its 200 steps, 6
        views in RGB on the exact path: A once a view a step, no B): PNG
        frames and a packed store per camera, the collection, PNG and
        packed seconds apart;
@@ -3919,10 +3946,9 @@ def rigs_replay_phase(dev) -> dict:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_rigs_") as tmp:
         base = ("-o", f"log_dir={tmp}/logs", "-o", f"data_dir={tmp}/data")
         # a. the rig's raw log
-        p = pre["collect_multicamera"]
-        envs, steps = p["n_envs"], p["n_steps"]
+        envs, steps = pre["collect_multicamera"]["n_envs"], RIG_COLLECT_STEPS
         out = counted("collect_multicamera", {"A": 6 * steps}, "-o",
-                      "experiment=collect_multicamera", *base)
+                      "experiment=collect_multicamera", *base, "-o", f"n_steps={steps}")
         sec = out["seconds"]
         check(out["frames_per_camera"] == envs * steps and len(out["framestores"]) == 6
               and all(Path(f).is_file() for f in out["framestores"].values())
@@ -4032,6 +4058,319 @@ def rigs_replay_phase(dev) -> dict:
     res["max_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     log(json.dumps({"rigs_replay": res}))
     return total
+
+
+def hpo_phase(dev) -> dict:
+    """Phase 6l: the hyperparameter search (``hpo``) through the CLI at the
+    presets, counts reset just before each run:
+
+    a. ``run hpo`` (4 random-search trials of the BC recipe on a synthetic
+       256² log, batch 64, 2 epochs) serially and 4 at a time: the trial
+       configs equal and each trial's mean accuracy within rtol 1e-5;
+    b. ``run hpo_vmap`` (4 rates, 2 epochs, one ``torch.func.vmap``); then
+       its trainable in fp32 with both TF32 flags off: trial HPO_CROSS_TRIAL
+       of the vmapped sweep against the same trial trained alone on the
+       card and on the CPU (``trial_gap``), and in bf16 the vmapped sweep
+       against its four trials one after another (wall s, median of
+       HPO_TIMED_REPEATS; launches and idle share from a profiled run of
+       each);
+    c. ``run hpo_pbt`` (8 members, 4 generations): for every generation
+       but the last, ``exploit_explore`` on its recorded scores and rates
+       with the run's explore key, on the card and on the CPU: the members
+       copied and the perturbed rates bit for bit equal, and equal to the
+       run's next generation;
+    d. ``run world_model_sweep`` (16 envs × 128 steps a trial, 4 at a
+       time; latent sizes HPO_WM_Z × LSTM and GRU × MSE and MS-SSIM, fits
+       cut to HPO_WM_EPOCHS epochs of at most HPO_WM_BATCHES batches): no
+       trial fails, each trial's reconstruction loss falls and its model is
+       the trial's (z, RNN, loss); kernel B exactly 129 times a trial (its
+       collection: the first frame and 128 steps).
+    a-c launch no kernel. Prints one ``hpo`` line with the sweep's table
+    beside the JAX package's TPU table (``reports/wm_sweep_results.json``);
+    → the launch counts of each run."""
+    import math
+
+    import torch
+
+    from carla_imitation_learning_tpu_torch import experiments as ex
+    from carla_imitation_learning_tpu_torch.config import compose
+    from carla_imitation_learning_tpu_torch.parallel import hpo
+    from carla_imitation_learning_tpu_torch.sim import prng
+
+    t_phase = time.perf_counter()
+    res: dict = {"card": nvidia_smi(), "runs": {}}
+    launches: dict = {}
+
+    def counted(label: str, want_b: int, *argv) -> dict:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = cli_run(*argv)
+        torch.cuda.synchronize()
+        got = launches[label] = read_counts()
+        check(got["B"] == want_b and sum(got.values()) == want_b,
+              f"{label}: kernels launched {got}, the code implies B {want_b} and nothing else")
+        res["runs"][label] = {"seconds": time.perf_counter() - t0, "launches_b": got["B"]}
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_hpo_") as tmp:
+        data = ("-o", f"data_dir={tmp}/data")
+        # a. hpo, serially and concurrently
+        trials = {}
+        for label, conc in (("hpo_serial", 1), ("hpo_concurrent", 4)):
+            out = counted(label, 0, "-o", "experiment=hpo", *data, "-o", f"log_dir={tmp}/{label}",
+                          "-o", f"max_concurrent={conc}")
+            check(out["n_trials"] == 4 and out["n_failed"] == 0, f"{label}: {out}")
+            trials[label] = json.loads(Path(tmp, label, "hpo", "trials.json").read_text())
+        serial, conc = trials["hpo_serial"], trials["hpo_concurrent"]
+        check([t["config"] for t in serial] == [t["config"] for t in conc],
+              "hpo: the concurrent sweep's trial configs differ from the serial one's")
+        for a, b in zip(serial, conc):
+            x, y = a["metrics"]["mean_accuracy"], b["metrics"]["mean_accuracy"]
+            check(abs(x - y) <= 1e-5 * abs(y),
+                  f"hpo trial {a['trial_id']}: serial accuracy {x}, concurrent {y}")
+        res["hpo"] = {"trials": [{**t["config"], **t["metrics"]} for t in conc],
+                      "serial_s": res["runs"]["hpo_serial"]["seconds"],
+                      "concurrent_s": res["runs"]["hpo_concurrent"]["seconds"]}
+
+        # b. hpo_vmap, then its trainable: one trial vmapped, alone, on the CPU
+        out = counted("hpo_vmap", 0, "-o", "experiment=hpo_vmap", *data,
+                      "-o", f"log_dir={tmp}/vmap")
+        check(len(out["accuracies"]) == 4 and all(math.isfinite(v) for v in out["val_losses"]),
+              f"hpo_vmap: {out}")
+        res["hpo_vmap"] = {k: out[k] for k in ("lrs", "accuracies", "val_losses", "best_lr")}
+        res["hpo_vmap"].update(hpo_vmap_checks(dev, f"{tmp}/data"))
+
+        # c. hpo_pbt, and its selections on the card against the CPU
+        out = counted("hpo_pbt", 0, "-o", "experiment=hpo_pbt", *data, "-o", f"log_dir={tmp}/pbt")
+        hist = json.loads(Path(out["history_path"]).read_text())
+        pre = compose("config", overrides=["model=imitation", "experiment=hpo_pbt"])
+        population = int(pre["population"])
+        check(len(hist) == int(pre["generations"]) and out["population"] == population,
+              f"hpo_pbt: {len(hist)} generations of {out['population']}")
+        key = prng.key(int(pre.get("seed", 0)))
+        copied = []
+        for g in range(len(hist) - 1):
+            key, _, k_explore = prng.split(key, 3).unbind(0)
+            scores = torch.tensor(hist[g]["mean_accuracy"], dtype=torch.float32)
+            h = torch.tensor(hist[g]["hparams"], dtype=torch.float32)
+            picks = []
+            for d in (dev, torch.device("cpu")):
+                _, new_h, src = hpo.exploit_explore(
+                    {"member": torch.arange(population, device=d)}, h.to(d), scores.to(d),
+                    k_explore.to(d), max(1, int(population * 0.25)))
+                picks.append((src.cpu(), new_h.cpu(),
+                              prng.uniform(k_explore.to(d), (population,)).cpu()))
+            (src_card, h_card, u_card), (src_cpu, h_cpu, u_cpu) = picks
+            check(torch.equal(src_card, src_cpu) and torch.equal(h_card, h_cpu)
+                  and torch.equal(u_card, u_cpu),
+                  f"hpo_pbt generation {g}: exploit/explore differs card vs CPU")
+            check(torch.equal(h_card, torch.tensor(hist[g + 1]["hparams"], dtype=torch.float32)),
+                  f"hpo_pbt generation {g}: the recomputed rates differ from the run's")
+            copied.append(src_card.tolist())
+        res["hpo_pbt"] = {k: out[k] for k in ("mean_accuracy_per_gen", "final_lrs", "best_lr",
+                                              "best_accuracy")}
+        res["hpo_pbt"]["copied_from"] = copied
+
+        # d. world_model_sweep, every trial's fit recorded as it returns
+        wm = compose("config", overrides=["experiment=world_model_sweep"])
+        n_trials = 4 * len(HPO_WM_Z)
+        with Capture(ex, "world_model",
+                     lambda a, k, r: (k, r["history"], r["wm_config"])) as cap:
+            out = counted("world_model_sweep", n_trials * (int(wm["n_steps"]) + 1),
+                          *wm_sweep_args(f"{tmp}/data", f"{tmp}/wm"))
+        check(out["n_trials"] == n_trials and out["n_failed"] == 0
+              and len(cap.calls) == n_trials,
+              f"world_model_sweep: {out['n_trials']} trials, {out['n_failed']} failed")
+        for k, history, cfg in cap.calls:
+            label = f"world_model_sweep {k['rnn']} z {k['z_size']} {k['image_loss']}"
+            first, last = history[0]["train_recon_loss"], history[-1]["train_recon_loss"]
+            check(all(math.isfinite(v) for row in history for v in row.values()) and last < first,
+                  f"{label}: train_recon_loss {first} → {last} (not finite or not falling)")
+            check((cfg["z_size"], cfg["rnn"], cfg["image_loss"], cfg["height"])
+                  == (k["z_size"], k["rnn"], k["image_loss"], int(wm.get_dotted("render.height"))),
+                  f"{label}: {cfg}")
+        tpu = json.loads((ROOT / "reports" / "wm_sweep_results.json").read_text())
+        res["world_model_sweep"] = {
+            "table": out["table"], "best_config": out["best_config"],
+            "best_metrics": out["best_metrics"],
+            "tpu_table": [r for r in tpu["table"] if r["z"] in HPO_WM_Z],
+            "tpu_best_config": tpu["best_config"], "z_sizes": HPO_WM_Z,
+            "epochs": HPO_WM_EPOCHS, "batches_per_epoch": HPO_WM_BATCHES}
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t_phase
+    res["max_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(json.dumps({"hpo": res}))
+    return {k: sum(c[k] for c in launches.values()) for k in counters()}
+
+
+def trial_gap(stacked: dict, i: int, other: dict, lr: float) -> dict:
+    """Trial ``i`` of a stacked ``_bc_vmap_trainable`` state against the
+    state ``other`` of the same trial: Adam's moments' largest gap as a
+    share of each tensor's largest moment (``moments_rel``), the
+    parameters' largest gap beyond rtol 1e-4 in steps of size ``lr``
+    (``params_steps``) and the share of parameters more than 2e-2 of a step
+    apart (``params_far_share``)."""
+    moments, steps, far, n = 0.0, 0.0, 0, 0
+    for k, want in other["params"].items():
+        want = want.cpu()
+        gap = ((stacked["params"][k][i].cpu() - want).abs() - 1e-4 * want.abs()) / lr
+        steps = max(steps, float(gap.max()))
+        far += int((gap > 2e-2).sum())
+        n += want.numel()
+        for m in ("mu", "nu"):
+            x, y = stacked["opt"][m][k][i].cpu(), other["opt"][m][k].cpu()
+            moments = max(moments, float((x - y).abs().max() / y.abs().max().clamp_min(1e-30)))
+    return {"moments_rel": moments, "params_steps": steps, "params_far_share": far / n}
+
+
+def first_step_grads_f64(data_dir: str, params: dict) -> dict:
+    """The gradient of ``_bc_vmap_trainable``'s first step (the first batch
+    of the train split in order, the cross-entropy of a ``PolicyCNN`` at
+    ``params``) in float64 on the CPU."""
+    import numpy as np
+    import torch
+    from torch.func import functional_call, grad
+
+    from carla_imitation_learning_tpu_torch.config import compose
+    from carla_imitation_learning_tpu_torch.data import pipeline as pipe
+    from carla_imitation_learning_tpu_torch.models import PolicyCNN
+    from carla_imitation_learning_tpu_torch.training.losses import cross_entropy
+
+    cfg = compose("config", overrides=["model=imitation", "experiment=hpo_vmap",
+                                       f"data_dir={data_dir}", "camera=camera"])
+    ds = pipe.sequential_train_val_test_iterator(cfg, device="cpu")["train_dataloader"]
+    x, y = ds.make_batch(np.arange(min(ds.batch_size, ds.n_samples)))
+    with torch.device("meta"):
+        net = PolicyCNN(obs_size=int(cfg["obs_size"]), n_actions=int(cfg["n_actions"]),
+                        dtype=torch.float64)
+    p64 = {k: v.detach().cpu().double() for k, v in params.items()}
+    return grad(lambda p: cross_entropy(functional_call(net, p, (x.double(),)), y))(p64)
+
+
+def wm_sweep_args(data_dir: str, log_dir: str, max_concurrent: int | None = None) -> tuple:
+    """``cli_run`` arguments of the phase's cut ``world_model_sweep``."""
+    extra = ("-o", f"max_concurrent={max_concurrent}") if max_concurrent else ()
+    return ("-o", "experiment=world_model_sweep", "-o", f"data_dir={data_dir}",
+            "-o", f"log_dir={log_dir}", "-o", f"z_sizes={list(HPO_WM_Z)}",
+            "-o", f"NUM_EPOCHS={HPO_WM_EPOCHS}",
+            "-o", f"trainer.limit_train_batches={HPO_WM_BATCHES}", *extra)
+
+
+def hpo_vmap_checks(dev, data_dir: str) -> dict:
+    """``hpo_vmap``'s trainable on the synthetic log in ``data_dir``, in fp32
+    with TF32 off: trial HPO_CROSS_TRIAL of the vmapped sweep against the
+    same trial trained alone on the card and on the CPU (its convolutions
+    without oneDNN, whose fp32 gradients on the card's machine are 1e-3 of
+    scale off float64; the native ones 1e-6), from one initial state (each
+    trial's weights are drawn on the CPU), for one epoch (one step at the
+    preset's 120 frames) and for the preset's epochs. Adam moves a weight
+    by about lr · sign(g) early on, so a gradient within rounding of zero
+    steps either way, and the flipped weights then move every later
+    gradient. So the gradient is compared after one step, through Adam's
+    moments (0.1 · g and 0.001 · g²): the trial alone within 1e-4 of each
+    tensor's scale (the same convolutions, batched or not), the CPU within
+    1e-2 (a convolution's weight gradient sums some 10⁵ products that
+    cancel, so fp32 rounding in another reduction order shows at 1e-3 of
+    the scale; each side's error against the same gradient in float64 is
+    recorded), and at most 1 % of the parameters more than 2e-2 of a step
+    apart; at both depths the validation loss within rtol 1e-4 and no
+    parameter more than 2 steps apart a step taken (``trial_gap``). In
+    bf16, the vmapped sweep against its trials one after another, timed
+    and profiled."""
+    import inspect
+
+    import torch
+    from torch.func import vmap
+
+    from carla_imitation_learning_tpu_torch import experiments as ex
+    from carla_imitation_learning_tpu_torch.config import compose
+    from carla_imitation_learning_tpu_torch.parallel import hpo
+    from carla_imitation_learning_tpu_torch.sim import prng
+
+    sig = inspect.signature(ex.hpo_vmap).parameters
+    lrs, epochs = sig["lrs"].default, sig["epochs"].default
+    i = HPO_CROSS_TRIAL
+
+    def trainable(device: str, dtype: str, n_epochs: int = epochs):
+        cfg = compose("config", overrides=["model=imitation", "experiment=hpo_vmap",
+                                           f"data_dir={data_dir}", f"device={device}",
+                                           f"compute_dtype={dtype}"])
+        return ex._bc_vmap_trainable(cfg, n_epochs)
+
+    def trial(states, j):
+        return hpo.tree_map(lambda x: x[j], states)
+
+    lr_card, lr_cpu = torch.tensor(lrs, device=dev), torch.tensor(lrs)
+    out: dict = {"cross_trial_lr": lrs[i], "gaps": {}, "grad_rel_err_f64": {}}
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        for n_epochs in (1, epochs):
+            init_card, train_card = trainable(dev.type, "float32", n_epochs)
+            init_cpu, train_cpu = trainable("cpu", "float32", n_epochs)
+            states = hpo.init_trials(init_card, lr_card, prng.key(0))
+            vmapped, m_vmapped = vmap(train_card)(states, lr_card)
+            alone, m_alone = train_card(trial(states, i), lr_card[i])
+            with torch.backends.mkldnn.flags(enabled=False):
+                cpu, m_cpu = train_cpu(trial(hpo.init_trials(init_cpu, lr_cpu, prng.key(0)), i),
+                                       lr_cpu[i])
+            taken = int(vmapped["opt"]["count"][i])
+            want_loss = float(m_vmapped["val_loss"][i])
+            if n_epochs == 1:
+                g64 = first_step_grads_f64(data_dir, trial(states, i)["params"])
+                for label, mu in (("card", trial(vmapped, i)["opt"]["mu"]),
+                                  ("cpu", cpu["opt"]["mu"])):
+                    out["grad_rel_err_f64"][label] = max(
+                        float((mu[k].cpu().double() / 0.1 - g).abs().max() / g.abs().max())
+                        for k, g in g64.items())
+            for label, other, m in (("alone", alone, m_alone), ("cpu", cpu, m_cpu)):
+                gap = trial_gap(vmapped, i, other, lrs[i])
+                gap.update(steps=taken, val_loss=float(m["val_loss"]),
+                           val_loss_rel=abs(float(m["val_loss"]) - want_loss) / abs(want_loss))
+                out["gaps"][f"{label}_{n_epochs}_epochs"] = gap
+            del states, vmapped, alone, cpu
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    log(json.dumps({"hpo_vmap_fp32_gaps": out["gaps"],
+                    "grad_rel_err_f64": out["grad_rel_err_f64"]}))
+    for key, gap in out["gaps"].items():
+        check(gap["val_loss_rel"] <= 1e-4 and gap["params_steps"] <= 2 * gap["steps"],
+              f"hpo_vmap trial {i}: vmapped vs {key}: {gap}")
+        if key.endswith("_1_epochs"):
+            bound = 1e-4 if key.startswith("alone") else 1e-2
+            check(gap["steps"] == 1 and gap["moments_rel"] <= bound
+                  and gap["params_far_share"] <= 1e-2,
+                  f"hpo_vmap trial {i}: vmapped vs {key} after one step: {gap}")
+
+    # bf16, the preset's dtype: the vmapped sweep against its trials in turn
+    init_b, train_b = trainable(dev.type, "bfloat16")
+    states = hpo.init_trials(init_b, lr_card, prng.key(0))
+    runs = {"vmapped": lambda: vmap(train_b)(states, lr_card),
+            "serial": lambda: [train_b(trial(states, j), lr_card[j]) for j in range(len(lrs))]}
+    for label, fn in runs.items():
+        fn()
+        walls = []
+        for _ in range(HPO_TIMED_REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        wall = sorted(walls)[len(walls) // 2]
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        summary = device_summary(prof, wall, 1)
+        out[f"{label}_bf16"] = {"wall_s": wall, "wall_s_runs": walls,
+                                "device_busy_ms": summary["device_busy_ms"],
+                                "launches": summary["device_launches"],
+                                "idle_share": summary["device_idle_share"]}
+    log(f"hpo_vmap: vmapped {out['vmapped_bf16']['wall_s']:.3f} s "
+        f"({out['vmapped_bf16']['launches']} launches) against serial "
+        f"{out['serial_bf16']['wall_s']:.3f} s ({out['serial_bf16']['launches']} launches)")
+    return out
 
 
 def convnet1(obs_size: int = 4, n_actions: int = 9):

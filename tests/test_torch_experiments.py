@@ -68,11 +68,11 @@ def test_presets_are_the_ported_experiments():
                        "bc_continuous", "bc_raw_segment", "bc_rnn", "bc_streaming",
                        "bc_surround", "bc_vit", "closed_loop_eval", "collect",
                        "collect_multicamera", "collect_noise", "dagger", "dagger_online",
-                       "dagger_uncertain", "debug", "dream_policy", "export_policy", "replay",
-                       "rl_finetune",
+                       "dagger_uncertain", "debug", "dream_policy", "export_policy", "hpo",
+                       "hpo_pbt", "hpo_vmap", "replay", "rl_finetune",
                        "route_eval", "scenario_eval", "split_folders", "test_eval",
                        "vae_leave_one_out", "vae_pooled", "world_model",
-                       "world_model_imagine"]
+                       "world_model_imagine", "world_model_sweep"]
     names = {p_compose("config", overrides=[f"experiment={p}"])["experiment_name"]
              for p in PRESETS}
     assert names == set(ex.EXPERIMENTS) == {"bc", "bc_aux", "bc_cil", "bc_continuous",
@@ -80,11 +80,12 @@ def test_presets_are_the_ported_experiments():
                                             "bc_surround", "closed_loop_eval",
                                             "collect_data", "collect_multicamera", "dagger",
                                             "dagger_online", "dagger_uncertain",
-                                            "dream_policy", "export_policy", "replay",
-                                            "rl_finetune",
+                                            "dream_policy", "export_policy", "hpo",
+                                            "hpo_pbt", "hpo_vmap", "replay", "rl_finetune",
                                             "route_eval", "scenario_eval", "split_folders",
                                             "test_eval", "vae_leave_one_out", "world_model",
-                                            "world_model_imagine", "vae_pooled"}
+                                            "world_model_imagine", "world_model_sweep",
+                                            "vae_pooled"}
 
 
 def test_multilane_town_preset_matches_jax():

@@ -101,3 +101,13 @@ def test_serving_sources_are_checked():
     assert {"carla_imitation_learning_tpu_torch/utils/torch_import.py",
             "benchmarks_torch/inference.py", "benchmarks_torch/serving_http.py",
             "benchmarks_torch/serving_phase.py"} <= names
+
+
+def test_hpo_sources_are_checked():
+    """The hyperparameter search, its experiments and the A/B harness are
+    among the sources every check above walks."""
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    assert {"carla_imitation_learning_tpu_torch/parallel/__init__.py",
+            "carla_imitation_learning_tpu_torch/parallel/hpo.py",
+            "carla_imitation_learning_tpu_torch/experiments.py",
+            "benchmarks_torch/continuous_ab.py", "benchmarks_torch/hpo_phase.py"} <= names

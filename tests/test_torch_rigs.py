@@ -18,8 +18,8 @@
 - ``_surround_cams``; a whole ``bc_surround`` run through ``cli.py run``
   against the JAX experiment from one initial state (both collections
   replaced by one synthetic rig log), metrics at rtol 1e-4;
-- the registry: the port lacks exactly the JAX experiments of ROADMAP
-  Queue 1 items 5 and 6.
+- the registry: the port's experiments are the JAX package's 30, and
+  ``cli.py list`` prints one line for each.
 """
 
 import contextlib
@@ -319,14 +319,12 @@ def test_surround_cams():
             ex._surround_cams(compose("config", overrides=["surround_cameras=['camera', 'fl']"]))
 
 
-def test_registry_lacks_only_the_later_items():
-    assert set(j_ex.EXPERIMENTS) - set(p_ex.EXPERIMENTS) == {
-        "hpo", "hpo_vmap", "hpo_pbt", "world_model_sweep"}
-    assert set(p_ex.EXPERIMENTS) <= set(j_ex.EXPERIMENTS) and len(p_ex.EXPERIMENTS) == 26
+def test_registry_equals_jax():
+    assert set(p_ex.EXPERIMENTS) == set(j_ex.EXPERIMENTS) and len(p_ex.EXPERIMENTS) == 30
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         assert cli.main(["list"]) == 0
-    assert len(out.getvalue().splitlines()) == 26
+    assert len(out.getvalue().splitlines()) == 30
 
 
 def _rig_log(n_envs=2, n_steps=40, seed=3):
