@@ -2,7 +2,12 @@
 <experiment> [-o K=V ...]``, ``... list``, ``... serve <artifact>`` and
 ``... import_torch <ckpt> --out <dir>`` (the JAX package's ``tpuil`` commands
 of those names). Runs on the card; ``-o device=cpu`` (``--device cpu`` for
-``serve``) asks for the CPU."""
+``serve``) asks for the CPU.
+
+``run`` joins a multi-process run first (``parallel.mesh.multihost_initialize``
+reads torchrun's environment): ``torchrun --nproc-per-node N -m
+carla_imitation_learning_tpu_torch.cli run bc ...`` trains data-parallel
+over N cards, one rank a card, and rank 0 prints the result."""
 
 from __future__ import annotations
 
@@ -103,10 +108,24 @@ def main(argv=None) -> int:
             and not any(o.startswith("model=") for o in overrides):
         overrides.insert(0, "model=imitation")
     cfg = compose(args.config, overrides=overrides)
-    print(f"running experiment {name}", file=sys.stderr)
-    kw = {"checkpoint": args.checkpoint} if args.checkpoint else {}
-    result = _scrub(EXPERIMENTS[name](cfg, **kw))
-    print(json.dumps(result, default=str, indent=None if args.json else 1))
+    import torch.distributed as dist
+
+    from carla_imitation_learning_tpu_torch.parallel.mesh import (
+        global_rank, multihost_initialize,
+    )
+
+    joined = not dist.is_initialized()   # this call starts the group, so it ends it
+    multihost_initialize(device=str(cfg.get("device", "cuda")))
+    joined = joined and dist.is_initialized()
+    try:
+        print(f"running experiment {name}", file=sys.stderr)
+        kw = {"checkpoint": args.checkpoint} if args.checkpoint else {}
+        result = _scrub(EXPERIMENTS[name](cfg, **kw))
+        if global_rank() == 0:
+            print(json.dumps(result, default=str, indent=None if args.json else 1))
+    finally:
+        if joined:
+            dist.destroy_process_group()
     return 0
 
 

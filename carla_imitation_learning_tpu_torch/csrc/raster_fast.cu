@@ -15,6 +15,9 @@
 // sky gradient, and applies exponential fog when fog_density > 0.
 // Like the TPU kernel, the list is walked two entries at a time, so an odd
 // count also evaluates the next list entry (a non-hit or padding triangle).
+// Bands may share a coarser list: with `list_factor` f, render band r reads
+// list row r / f (the TPU kernel's `list_band_factor`); the pixels, the
+// warp-tile cull and the epilogue stay those of band r.
 //
 // What bounds it on this card: instruction issue in the pass loop (128
 // lane-instructions per clock per SM) and the latency of the list gathers.
@@ -116,7 +119,13 @@ struct Params {
   float near_z;
   int far_key;
   float sky_top, sky_hor, t_scale, luma_scale, fog_density;
+  int list_factor;    // render bands a list row serves
 };
+
+// The list row of band `r` of env `b`: lists cover list_factor bands each.
+__device__ __forceinline__ size_t list_row(const Params& p, int b, int r) {
+  return static_cast<size_t>(b) * (p.R / p.list_factor) + r / p.list_factor;
+}
 
 __device__ __forceinline__ Item decode(const Params& p, int item) {
   Item it;
@@ -128,7 +137,7 @@ __device__ __forceinline__ Item decode(const Params& p, int item) {
   it.b = rest / p.R;
   it.x0 = xs * kBlockX;
   it.y0 = ys * kBlockY;
-  const int cnt = p.count[it.b * p.R + it.r];
+  const int cnt = p.count[list_row(p, it.b, it.r)];
   it.n_pass = min((cnt + 1) / 2 * 2, p.K);
   return it;
 }
@@ -139,7 +148,7 @@ __device__ __forceinline__ void stage(const Params& p, const Item& it, int base,
                                       float* dst) {
   const int n = min(kChunk, it.n_pass - base);
   const float* env_tbl = p.tbl + static_cast<size_t>(it.b) * kPackWidth * p.T;
-  const int* list = p.idx + (static_cast<size_t>(it.b) * p.R + it.r) * p.K + base;
+  const int* list = p.idx + list_row(p, it.b, it.r) * p.K + base;
   for (int e = threadIdx.x; e < n; e += kThreads) {
     const float* src = env_tbl + __ldg(list + e);
     float* d = dst + e * kStride;
@@ -325,10 +334,11 @@ extern "C" int raster_fast_launch(
     const float* tbl, const int* idx, const int* count, float* out,
     int B, int T, int R, int K, int H, int W, int tile_rows,
     float near_z, int far_key, float sky_top, float sky_hor, float t_scale,
-    float luma_scale, float fog_density, void* stream) {
+    float luma_scale, float fog_density, int list_factor, void* stream) {
   Params p{tbl, idx, count, out, T, R, K, H, W, tile_rows,
            (W + kBlockX - 1) / kBlockX, (tile_rows + kBlockY - 1) / kBlockY, 0,
-           near_z, far_key, sky_top, sky_hor, t_scale, luma_scale, fog_density};
+           near_z, far_key, sky_top, sky_hor, t_scale, luma_scale, fog_density,
+           list_factor};
   p.n_items = p.n_xs * p.n_ys * R * B;
   if (p.n_items == 0) return 0;
   fast_band_kernel<<<grid_size(p.n_items), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);

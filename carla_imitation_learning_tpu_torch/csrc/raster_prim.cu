@@ -16,6 +16,9 @@
 // Like the TPU kernel, the list is walked two entries at a time, so positions
 // below n_pass = min(ceil2(count), K) are evaluated: an odd count also
 // evaluates the next list entry.
+// Bands may share a coarser list: with `list_factor` f, render band r reads
+// list row r / f (the TPU kernel's `list_band_factor`); the pixels, the
+// warp-tile cull and the epilogue stay those of band r.
 //
 // What bounds it on this card: instruction issue in the pass and the latency
 // of gathering a chunk of the coefficient-major (B, 16, P) table through the
@@ -136,7 +139,14 @@ struct Params {
   float inv_near;
   int far_key;
   float sky_top, sky_hor, t_scale, luma_scale, fog_density;
+  int list_factor;    // render bands a list row serves
 };
+
+// The list row of item row `br` (env * R + band): lists cover list_factor
+// bands each.
+__device__ __forceinline__ size_t list_row(const Params& p, int br) {
+  return static_cast<size_t>(br / p.R) * (p.R / p.list_factor) + (br % p.R) / p.list_factor;
+}
 
 struct Ring {
   float tbl[kStages][kChunk * kPackWidth];
@@ -180,9 +190,9 @@ __device__ void produce(const Params& p, Ring& ring, int lane) {
         return;
       }
       const int br = item / (p.n_xs * p.n_ys);   // env * R + band
-      n_pass = min((__ldg(p.count + br) + 1) / 2 * 2, p.K);
+      n_pass = min((__ldg(p.count + list_row(p, br)) + 1) / 2 * 2, p.K);
       env_tbl = p.tbl + static_cast<size_t>(br / p.R) * kPackWidth * p.P;
-      list = p.idx + static_cast<size_t>(br) * p.K;
+      list = p.idx + list_row(p, br) * p.K;
       base = 0;
       need_item = false;
     }
@@ -381,10 +391,11 @@ extern "C" int raster_prim_launch(
     const float* tbl, const int* idx, const int* count, float* out, int* queue,
     int B, int P, int R, int K, int H, int W, int tile_rows,
     float inv_near, int far_key, float sky_top, float sky_hor, float t_scale,
-    float luma_scale, float fog_density, void* stream) {
+    float luma_scale, float fog_density, int list_factor, void* stream) {
   Params p{tbl, idx, count, out, queue, P, R, K, H, W, tile_rows,
            (W + kBlockX - 1) / kBlockX, (tile_rows + kBlockY - 1) / kBlockY, 0,
-           inv_near, far_key, sky_top, sky_hor, t_scale, luma_scale, fog_density};
+           inv_near, far_key, sky_top, sky_hor, t_scale, luma_scale, fog_density,
+           list_factor};
   p.n_items = p.n_xs * p.n_ys * R * B;
   if (p.n_items == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

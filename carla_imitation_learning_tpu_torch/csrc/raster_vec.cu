@@ -5,7 +5,7 @@
 // (Pallas TPU kernel, reached through `rasterize_luma_fast` with vec=True).
 //
 // What it computes: kernel B's function (csrc/raster_fast.cu) read from the
-// band's own gathered table (B, R, K, 16) that `gather_band_tables` builds
+// band's own gathered table (B, R / f, K, 16) that `gather_band_tables` builds
 // once per frame: 13 coefficients and 3 pad floats per entry, in list order.
 // Per pixel, the running MIN of the packed key (bits(z) & ~0xFFF) | luma12
 // over list positions below n_pass = min(ceil8(count), K), with
@@ -14,6 +14,10 @@
 // to 7 entries past the count are evaluated and can light pixels; this kernel
 // walks the same positions. A min over ints does not depend on the order, so
 // the groups themselves need not survive: the walked set does.
+// Bands may share a coarser list: with `list_factor` f, render band r reads
+// the table and count of list row r / f (the TPU kernel's BlockSpec
+// `r // list_band_factor`); the pixels, the warp-tile cull and the epilogue
+// stay those of band r.
 //
 // What bounds it on this card: instruction issue in the pass (the same pass
 // as kernel B) and the latency of staging a chunk of the band table and of
@@ -140,7 +144,14 @@ struct Params {
   float near_z;
   int far_key;
   float sky_top, sky_hor, t_scale, luma_scale, fog_density;
+  int list_factor;    // render bands a list row serves
 };
+
+// The list row of item row `br` (env * R + band): lists cover list_factor
+// bands each.
+__device__ __forceinline__ size_t list_row(const Params& p, int br) {
+  return static_cast<size_t>(br / p.R) * (p.R / p.list_factor) + (br % p.R) / p.list_factor;
+}
 
 struct Ring {
   float tbl[kStages][kChunk * kRow];
@@ -180,8 +191,8 @@ __device__ void produce(const Params& p, Ring& ring) {
         return;
       }
       const int br = item / (p.n_xs * p.n_ys);   // env * R + band
-      n_pass = min((__ldg(p.count + br) + kVecP - 1) / kVecP * kVecP, p.K);
-      band = p.btbl + static_cast<size_t>(br) * p.K * kRow;
+      n_pass = min((__ldg(p.count + list_row(p, br)) + kVecP - 1) / kVecP * kVecP, p.K);
+      band = p.btbl + list_row(p, br) * p.K * kRow;
       base = 0;
       need_item = false;
     }
@@ -386,10 +397,11 @@ extern "C" int raster_vec_launch(
     const float* btbl, const int* count, float* out, int* queue, int B, int R, int K,
     int H, int W, int tile_rows, float near_z, int far_key, float sky_top,
     float sky_hor, float t_scale, float luma_scale, float fog_density,
-    void* stream) {
+    int list_factor, void* stream) {
   Params p{btbl, count, out, queue, R, K, H, W, tile_rows,
            (W + kBlockX - 1) / kBlockX, (tile_rows + kBlockY - 1) / kBlockY, 0,
-           near_z, far_key, sky_top, sky_hor, t_scale, luma_scale, fog_density};
+           near_z, far_key, sky_top, sky_hor, t_scale, luma_scale, fog_density,
+           list_factor};
   p.n_items = p.n_xs * p.n_ys * R * B;
   if (p.n_items == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

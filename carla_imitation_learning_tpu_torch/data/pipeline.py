@@ -232,6 +232,26 @@ def valid_window_starts(n_frames: int, starts: np.ndarray | None, span: int,
     return base[~crosses]
 
 
+def _check_sharding(sharding):
+    """``sharding``, which must be None or the port's
+    ``parallel.mesh.BatchSharding`` (anything else raises)."""
+    from carla_imitation_learning_tpu_torch.parallel.mesh import BatchSharding
+
+    if sharding is not None and not isinstance(sharding, BatchSharding):
+        raise TypeError(f"sharding must come from parallel.mesh.batch_sharding; got "
+                        f"{type(sharding).__name__}")
+    return sharding
+
+
+def _row_slice(sharding, n: int) -> slice:
+    """This rank's rows of a global batch of ``n`` (all of them without a
+    sharding, or when ``n`` does not divide the mesh: a partial eval batch
+    is not sharded)."""
+    if sharding is None or n % sharding.mesh.size(sharding.axis):
+        return slice(None)
+    return sharding.rows(n)
+
+
 class DeviceDataset:
     """Iterator over on-device ``(x, y)`` batches from a FrameStore:
     x (B, H, W, frame_skip) in ``dtype``, y (B,) int64 actions; with
@@ -248,7 +268,12 @@ class DeviceDataset:
     more camera streams frame-aligned with the store, each of its frames'
     shape: they stack as a trailing camera axis behind the store's, and x
     becomes (B, H, W, frame_skip·K), time-major and camera-minor. Frames,
-    labels and the valid-start map live on ``device`` (default the card)."""
+    labels and the valid-start map live on ``device`` (default the card).
+
+    ``sharding`` (``parallel.mesh.batch_sharding``): every rank holds the
+    whole store, draws the same order from ``seed`` and batches its rows of
+    each global batch of ``batch_size`` (a batch that does not divide the
+    mesh stays whole)."""
 
     def __init__(
         self,
@@ -270,9 +295,7 @@ class DeviceDataset:
         extra_frames: "list[np.ndarray] | None" = None,
         device: str | torch.device = "cuda",
     ):
-        if sharding is not None:
-            raise NotImplementedError(
-                "sharding is not ported yet (ROADMAP Queue 1, item 6)")
+        self.sharding = _check_sharding(sharding)
         cont = None
         if continuous_labels is not None:
             if aux or cil:
@@ -394,8 +417,18 @@ class DeviceDataset:
             return (x, self.sensors[at]), y
         return x, self.actions[at]
 
+    def row_slice(self, n: int) -> slice:
+        """This rank's rows of a global batch of ``n``."""
+        return _row_slice(self.sharding, n)
+
+    def local(self, idx: np.ndarray) -> np.ndarray:
+        """This rank's sample indices of a global batch ``idx``."""
+        idx = np.asarray(idx, np.int64)
+        return idx[self.row_slice(len(idx))]
+
     def make_batch(self, idx: np.ndarray):
-        return self.pure_batch(torch.as_tensor(np.asarray(idx, np.int64)).to(self.device))
+        """The batch of this rank's rows of the global batch ``idx``."""
+        return self.pure_batch(torch.as_tensor(self.local(idx)).to(self.device))
 
     def fork(self, seed: int) -> "DeviceDataset":
         """Shallow copy with a fresh order generator, sharing the device arrays."""
@@ -425,16 +458,20 @@ class SequenceDataset:
     expert's (steer, accel) rows (``store.controls``) as (B, T, 2) float32
     actions, else int64 action ids. The order of an epoch comes from
     ``np.random.default_rng(seed)`` with the JAX package's calls, so both
-    draw the same sequences; frames and actions live on ``device``."""
+    draw the same sequences; frames and actions live on ``device``. With a
+    ``sharding`` every rank holds the whole store and batches its rows of
+    each global batch."""
 
     def __init__(self, store: FrameStore, batch_size: int, seq_len: int = 8,
                  episode_len: int | None = None, shuffle: bool = True, seed: int = 0,
-                 continuous_actions: bool = False, device: str | torch.device = "cuda"):
+                 continuous_actions: bool = False, device: str | torch.device = "cuda",
+                 sharding=None):
         if continuous_actions and store.controls is None:
             raise ValueError(
                 "continuous_actions=True needs store.controls (collected stores carry "
                 "them; reference-layout stores do not)")
         self.device = resolve_device(device)
+        self.sharding = _check_sharding(sharding)
         self.store = store
         self.batch_size = batch_size
         self.seq_len = seq_len
@@ -465,7 +502,9 @@ class SequenceDataset:
         return max(1, len(self.starts) // self.batch_size)
 
     def make_batch(self, idx: np.ndarray):
-        idx = torch.as_tensor(np.asarray(idx, np.int64)).to(self.device)
+        """The sequences of this rank's rows of the global batch ``idx``."""
+        idx = np.asarray(idx, np.int64)
+        idx = torch.as_tensor(idx[_row_slice(self.sharding, len(idx))]).to(self.device)
         gather = idx[:, None] + self._steps[None, :]                  # (B, T)
         frames = self.frames[gather].to(torch.float32) / self._scale
         return frames[..., None], self.actions[gather]
@@ -554,8 +593,8 @@ class PairedStreamDataset:
         for b in range(len(self.base)):
             idx = order[b * bs:(b + 1) * bs]
             x, y = self.base.make_batch(idx)
-            xs = gather_windows(self.seg, self.base.start_indices(idx), self.base.frame_skip,
-                                self.base.dtype)
+            xs = gather_windows(self.seg, self.base.start_indices(self.base.local(idx)),
+                                self.base.frame_skip, self.base.dtype)
             yield x, xs, y
 
 
@@ -601,10 +640,10 @@ class AuxSegDataset:
         for b in range(len(self.base)):
             idx = order[b * bs:(b + 1) * bs]
             (frames, sensor), y = self.base.make_batch(idx)
-            if self.speed_dropout > 0.0:
-                mask = torch.from_numpy(self.speed_mask(sensor.shape[0]).astype(np.float32))
-                sensor = sensor * mask.to(sensor.device)
-            at = self.base.start_indices(idx) + self.base.frame_skip - 1
+            if self.speed_dropout > 0.0:   # drawn for the global batch
+                mask = self.speed_mask(len(idx))[self.base.row_slice(len(idx))]
+                sensor = sensor * torch.from_numpy(mask.astype(np.float32)).to(sensor.device)
+            at = self.base.start_indices(self.base.local(idx)) + self.base.frame_skip - 1
             yield (frames, sensor), y, self.seg[at].to(torch.int32)
 
 

@@ -9,7 +9,9 @@ at the configured ``image_size``), the packed ``raw/<log>/<camera>.tpuilfs``
 ``train_logs`` at random into test / val / train; ``leave_one_out_data``
 splits them into val / train and tests on ``test_logs``. The permutations
 are ``np.random.default_rng(data_seed)``'s, as in the JAX package.
-Batches are (B, H, W, 1) float32 in [0, 1] on ``device``.
+Batches are (B, H, W, 1) float32 in [0, 1] on ``device``; with a
+``sharding`` (``parallel.mesh.batch_sharding``) each rank holds the whole
+split and yields its rows of every global batch.
 """
 
 from __future__ import annotations
@@ -26,16 +28,20 @@ from carla_imitation_learning_tpu_torch.device import resolve_device
 
 class ImageDataset:
     """Unlabelled image batches over an (N, H, W) uint8 array, uploaded once
-    to ``device``."""
+    to ``device``. A sharded loader drops its partial batch, as the JAX
+    package's does."""
 
     def __init__(self, frames: np.ndarray, batch_size: int, shuffle: bool = False,
                  seed: int = 0, drop_last: bool = False,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", sharding=None):
+        from carla_imitation_learning_tpu_torch.data.pipeline import _check_sharding
+
         self.device = resolve_device(device)
+        self.sharding = _check_sharding(sharding)
         self.frames = torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
         self.batch_size = batch_size
         self.shuffle = shuffle
-        self.drop_last = drop_last
+        self.drop_last = drop_last or sharding is not None
         self._rng = np.random.default_rng(seed)
         self.n = len(frames)
 
@@ -49,8 +55,10 @@ class ImageDataset:
         if self.shuffle:
             self._rng.shuffle(order)
         for b in range(len(self)):
-            idx = torch.from_numpy(order[b * self.batch_size:(b + 1) * self.batch_size])
-            x = self.frames[idx.to(self.device)].to(torch.float32) / 255.0
+            idx = order[b * self.batch_size:(b + 1) * self.batch_size]
+            if self.sharding is not None:
+                idx = idx[self.sharding.rows(len(idx))]
+            x = self.frames[torch.from_numpy(idx).to(self.device)].to(torch.float32) / 255.0
             yield x[..., None]
 
 
@@ -113,16 +121,18 @@ def get_leave_out_data(cfg, camera: str) -> dict[str, np.ndarray]:
 
 
 def train_val_test_iterator(cfg, data_split_type: str = "pooled_data",
-                            device: str | torch.device = "cuda") -> dict:
+                            device: str | torch.device = "cuda", sharding=None) -> dict:
     """{'train_dataloader', 'val_dataloader', 'test_dataloader'} over the
-    first configured camera; train shuffles from ``seed``."""
+    first configured camera; train shuffles from ``seed`` and takes the
+    ``sharding``."""
     camera = cfg["camera"] if isinstance(cfg["camera"], str) else cfg["camera"][0]
     get_data = {"pooled_data": get_pooled_data, "leave_one_out_data": get_leave_out_data}
     data = get_data[data_split_type](cfg, camera)
     bs = int(cfg["BATCH_SIZE"])
     return {
         "train_dataloader": ImageDataset(data["train"], bs, shuffle=True,
-                                         seed=int(cfg.get("seed", 0)), device=device),
+                                         seed=int(cfg.get("seed", 0)), device=device,
+                                         sharding=sharding),
         "val_dataloader": ImageDataset(data["val"], bs, device=device),
         "test_dataloader": ImageDataset(data["test"], bs, device=device),
     }

@@ -110,6 +110,9 @@ from carla_imitation_learning_tpu_torch.models import (
     PolicyCNN, RecurrentPolicy, ViTPolicy,
 )
 from carla_imitation_learning_tpu_torch.ops.ssim import ssim
+from carla_imitation_learning_tpu_torch.parallel.mesh import (
+    batch_sharding, maybe_mesh, shard_train_state,
+)
 from carla_imitation_learning_tpu_torch.native import (
     DeviceShardStreamer, NativeFrameStore, PrefetchReader, save_framestore,
 )
@@ -213,41 +216,54 @@ def _flag(cfg, key: str, default: bool = False) -> bool:
     return bool(v)
 
 
-def _not_ported(option: str, item: int) -> NotImplementedError:
+def _not_ported(option: str, item) -> NotImplementedError:
     return NotImplementedError(f"{option} is not ported yet (ROADMAP Queue 1, item {item})")
 
 
-def _check_one_device(cfg) -> None:
-    """The port runs on one device: a mesh that asks for more raises."""
-    axes = cfg.get_dotted("mesh.axes", {}) or {}
-    if _flag(cfg, "mesh.enabled") or any(int(v) > 1 for v in axes.values()):
-        raise _not_ported("a mesh over more than one device", 6)
+def _mesh_bits(cfg, batch_size: int | None = None):
+    """(mesh, batch_sharding) for data-parallel experiments: the uniform
+    treatment the reference gives every block through ``gpus=``. (None,
+    None) on one rank; a mesh over more ranks than the world has raises."""
+    mesh = maybe_mesh(cfg, batch_size=batch_size or int(cfg.get("BATCH_SIZE", 64)))
+    return mesh, (batch_sharding(mesh) if mesh is not None else None)
 
 
-def _trainer_bits(cfg, name: str):
+def _refuse_mesh(cfg, option: str, batch_size: int) -> None:
+    """``option`` has no data-parallel form yet: raise when a mesh applies."""
+    if _mesh_bits(cfg, batch_size)[0] is not None:
+        raise _not_ported(f"{option} under a mesh", "6b")
+
+
+def _trainer_bits(cfg, name: str, mesh=None):
     """Trainer with the JSONL / CSV / TensorBoard logger, the best-k
-    manager under ``<log_dir>/<name>/ckpt`` and the per-class callbacks."""
+    manager under ``<log_dir>/<name>/ckpt`` and the per-class callbacks.
+    Under a mesh only rank 0 writes: the other ranks get no logger and no
+    callbacks, and a manager that keeps the same books without files."""
     log_dir = Path(cfg["log_dir"])
-    logger = MetricLogger(log_dir, name)
+    writer = mesh is None or mesh.is_writer
     ck = cfg.get_dotted("trainer.checkpoint", {})
     ckpt = BestKCheckpointManager(
         log_dir / name / "ckpt", monitor=ck.get("monitor", "val_loss"),
         mode=ck.get("mode", "min"), save_top_k=int(ck.get("save_top_k", 1)),
-        save_last=bool(ck.get("save_last", False)), filename=name)
-    n_actions = int(cfg.get("n_actions", 9))
-    callbacks = [SaveBestMetricScores(),
-                 SaveMetricsHeatmap(n_actions, out_dir=str(log_dir / name)),
-                 SaveConfusionMatrix(n_actions, out_dir=str(log_dir / name))]
+        save_last=bool(ck.get("save_last", False)), filename=name, write=writer)
+    logger, callbacks = None, []
+    if writer:
+        logger = MetricLogger(log_dir, name)
+        n_actions = int(cfg.get("n_actions", 9))
+        callbacks = [SaveBestMetricScores(),
+                     SaveMetricsHeatmap(n_actions, out_dir=str(log_dir / name)),
+                     SaveConfusionMatrix(n_actions, out_dir=str(log_dir / name))]
     trainer = Trainer(cfg, logger=logger, callbacks=callbacks,
                       checkpoint_manager=ckpt, name=name, device=_device(cfg))
     return trainer, ckpt
 
 
-def _fit(cfg, name, model, loss_fn, loaders):
+def _fit(cfg, name, model, loss_fn, loaders, mesh=None):
     """Initial state (flax's initializer from ``seed``, or
     ``resume_checkpoint``'s payload) → ``Trainer.fit`` → test metrics. The
     train steps draw (VAE noise, augmentation) from a generator on the
-    device seeded with ``seed``."""
+    device seeded with ``seed``. With a ``mesh`` the state is replicated
+    (``shard_train_state``) and the loaders carry the batch sharding."""
     spe = max(1, len(loaders["train_dataloader"]))
     dev = _device(cfg)
     state = create_train_state(model, make_optimizer(cfg, steps_per_epoch=spe),
@@ -257,7 +273,9 @@ def _fit(cfg, name, model, loss_fn, loaders):
     resume = cfg.get("resume_checkpoint")
     if resume:
         state.load_payload(restore_pytree(resume))
-    trainer, _ = _trainer_bits(cfg, name)
+    if mesh is not None:
+        state = shard_train_state(mesh, state)
+    trainer, _ = _trainer_bits(cfg, name, mesh)
     step_gen = torch.Generator(device=dev).manual_seed(int(cfg.get("seed", 0)))
     try:
         result = trainer.fit(state, loss_fn, loaders, step_gen, max_epochs=int(
@@ -265,7 +283,8 @@ def _fit(cfg, name, model, loss_fn, loaders):
         test_metrics = (trainer.test(result.state, loss_fn, loaders)
                         if loaders.get("test_dataloader") else {})
     finally:
-        trainer.logger.close()
+        if trainer.logger is not None:
+            trainer.logger.close()
     return {
         "history": result.history, "throughput": result.throughput,
         "best_metric": result.best_metric, "best_path": result.best_path,
@@ -323,16 +342,17 @@ def split_folders(cfg, **kw):
 def behavior_cloning(cfg, cameras=("camera", "semantic"), **kw):
     """Behaviour cloning of the ConvNet1 policy, one run per camera."""
     cameras = tuple(cfg.get("bc_cameras", cameras))
-    _check_one_device(cfg)
+    mesh, sharding = _mesh_bits(cfg)
     loss = bc_augmented_loss_fn() if _flag(cfg, "augment") else bc_loss_fn
     results = {}
     for camera in cameras:
         cfg_c = cfg.copy()
         cfg_c["camera"] = camera
-        _maybe_synthesize(cfg_c, camera)
-        loaders = pipe.sequential_train_val_test_iterator(cfg_c, device=_device(cfg))
+        _maybe_synthesize_once(cfg_c, mesh, _maybe_synthesize, camera)
+        loaders = pipe.sequential_train_val_test_iterator(cfg_c, sharding=sharding,
+                                                          device=_device(cfg))
         model = _discrete_policy_model(cfg, int(cfg["obs_size"]))
-        results[camera] = _fit(cfg_c, f"imitation_{camera}", model, loss, loaders)
+        results[camera] = _fit(cfg_c, f"imitation_{camera}", model, loss, loaders, mesh)
     return results
 
 
@@ -345,22 +365,24 @@ def behavior_cloning_aux(cfg, cameras=("camera",), n_envs: int = 16, n_steps: in
     collection of ``n_envs`` × ``n_steps`` that records the class plane,
     then drives ``eval_envs`` × ``eval_steps`` in the closed loop
     (``_bc_aux_seg``)."""
-    _check_one_device(cfg)
     if float(cfg.get("aux_seg_weight", 0.0)) > 0.0:
         return _bc_aux_seg(cfg, n_envs, n_steps, eval_envs, eval_steps)
+    mesh, sharding = _mesh_bits(cfg)
     results = {}
     for camera in cameras:
         cfg_c = cfg.copy()
         cfg_c["camera"] = camera
-        _maybe_synthesize(cfg_c, camera)
-        loaders = pipe.sequential_aux_train_val_test_iterator(cfg_c, device=_device(cfg))
+        _maybe_synthesize_once(cfg_c, mesh, _maybe_synthesize, camera)
+        loaders = pipe.sequential_aux_train_val_test_iterator(cfg_c, sharding=sharding,
+                                                              device=_device(cfg))
         model = AuxNet(obs_size=int(cfg["obs_size"]), n_actions=int(cfg["n_actions"]),
                        n_traffic_classes=int(cfg.get("n_traffic_classes", 2)),
                        image_hw=int(cfg.get("image_height", 256)), dtype=_dtype(cfg))
         loss = aux_loss_fn(float(cfg.get("aux_recon_weight", 0.0)),
                            float(cfg.get("aux_traffic_weight", 0.0)),
                            float(cfg.get("aux_action_weight", 1.0)))
-        results[camera] = _fit(cfg_c, f"imitation_aux_{camera}", model, loss, loaders)
+        results[camera] = _fit(cfg_c, f"imitation_aux_{camera}", model, loss, loaders,
+                               mesh)
     return results
 
 
@@ -385,9 +407,11 @@ def _bc_aux_seg(cfg, n_envs: int, n_steps: int, eval_envs: int, eval_steps: int)
     del traj
     batch = int(cfg.get("BATCH_SIZE", 64))
     dropout = float(cfg.get("aux_speed_dropout", 0.3))
+    mesh, sharding = _mesh_bits(cfg)
     loaders = {f"{k}_dataloader": pipe.AuxSegDataset(pipe.DeviceDataset(
         store.slice(a, b), batch, frame_skip=fs, shuffle=(k == "train"), aux=True,
-        drop_last=(k == "train"), device=dev), sem[a:b],
+        drop_last=(k == "train"), sharding=sharding if k == "train" else None,
+        device=dev), sem[a:b],
         speed_dropout=dropout if k == "train" else 0.0)
         for k, (a, b) in _bounds(len(store)).items()}
     model = AuxNet(obs_size=fs, image_hw=rcfg.height, seg_classes=int(cfg.get("seg_classes", 8)),
@@ -396,7 +420,7 @@ def _bc_aux_seg(cfg, n_envs: int, n_steps: int, eval_envs: int, eval_steps: int)
                            float(cfg.get("aux_traffic_weight", 0.0)),
                            float(cfg.get("aux_action_weight", 1.0)),
                            float(cfg.get("aux_seg_weight", 0.5)))
-    result = _fit(cfg, "bc_aux_seg", model, loss, loaders)
+    result = _fit(cfg, "bc_aux_seg", model, loss, loaders, mesh)
     trained = eval_params(result.pop("state"))
     result["eval"] = cl.evaluate_policy(params, town, rcfg, trained.as_policy_fn(), gen,
                                         n_envs=eval_envs, n_steps=eval_steps, frame_skip=fs,
@@ -408,38 +432,47 @@ def _bc_aux_seg(cfg, n_envs: int, n_steps: int, eval_envs: int, eval_steps: int)
 @experiment("bc_raw_segment")
 def behavior_cloning_raw_segment(cfg, **kw):
     """Shared-trunk dual-stream BC over the raw and semantic cameras."""
-    _check_one_device(cfg)
+    mesh, sharding = _mesh_bits(cfg)
     cfg_c = cfg.copy()
-    _maybe_synthesize(cfg_c, "camera")
-    loaders = pipe.paired_sequential_iterator(cfg_c, device=_device(cfg))
+    _maybe_synthesize_once(cfg_c, mesh, _maybe_synthesize, "camera")
+    loaders = pipe.paired_sequential_iterator(cfg_c, sharding=sharding, device=_device(cfg))
     model = DualStreamCNN(obs_size=int(cfg["obs_size"]), n_actions=int(cfg["n_actions"]),
                           dtype=_dtype(cfg))
-    return _fit(cfg_c, "imitation_raw_segment", model, dual_stream_loss_fn, loaders)
+    return _fit(cfg_c, "imitation_raw_segment", model, dual_stream_loss_fn, loaders, mesh)
 
 
 @experiment("vae_pooled")
 def vae_pooled(cfg, **kw):
     """Conv VAE on the pooled random split of every log in ``logs``."""
-    _check_one_device(cfg)
     cfg_c = cfg.copy()
     cfg_c["camera"] = kw.get("camera", "SL")
     cfg_c["train_logs"] = cfg["logs"]
-    _maybe_synthesize_vae(cfg_c)
+    mesh, sharding = _mesh_bits(cfg_c)
+    _maybe_synthesize_once(cfg_c, mesh, _maybe_synthesize_vae)
     return _fit_vae(cfg_c, "vae_pooled", vae_data.train_val_test_iterator(
-        cfg_c, "pooled_data", device=_device(cfg)))
+        cfg_c, "pooled_data", device=_device(cfg), sharding=sharding), mesh)
 
 
 @experiment("vae_leave_one_out")
 def vae_leave_one_out(cfg, **kw):
     """Conv VAE trained on all of ``logs`` but the last, tested on the last."""
-    _check_one_device(cfg)
     cfg_c = cfg.copy()
     cfg_c["camera"] = kw.get("camera", "SL")
     cfg_c["train_logs"] = cfg["logs"][:-1]
     cfg_c["test_logs"] = cfg["logs"][-1:]
-    _maybe_synthesize_vae(cfg_c)
+    mesh, sharding = _mesh_bits(cfg_c)
+    _maybe_synthesize_once(cfg_c, mesh, _maybe_synthesize_vae)
     return _fit_vae(cfg_c, "vae_leave_one_out", vae_data.train_val_test_iterator(
-        cfg_c, "leave_one_out_data", device=_device(cfg)))
+        cfg_c, "leave_one_out_data", device=_device(cfg), sharding=sharding), mesh)
+
+
+def _maybe_synthesize_once(cfg, mesh, synthesize, *args) -> None:
+    """``synthesize(cfg, *args)`` on rank 0 alone; under a mesh the other
+    ranks wait until its log is on disk."""
+    if mesh is None or mesh.is_writer:
+        synthesize(cfg, *args)
+    if mesh is not None:
+        mesh.barrier()
 
 
 def _maybe_synthesize_vae(cfg) -> None:
@@ -458,12 +491,12 @@ def _maybe_synthesize_vae(cfg) -> None:
                                    seed=zlib.crc32(log.encode()) % (2 ** 31))
 
 
-def _fit_vae(cfg, name: str, loaders: dict) -> dict:
+def _fit_vae(cfg, name: str, loaders: dict, mesh=None) -> dict:
     c, h, w = (int(v) for v in cfg["image_size"])
     model = ConvVAE(channels=c, height=h, width=w, z_size=int(cfg.get("z_size", 32)),
                     dtype=_dtype(cfg))
     return _fit(cfg, name, model, vae_loss_fn(float(cfg["alpha"]), float(cfg["beta"])),
-                loaders)
+                loaders, mesh)
 
 
 @experiment("test_eval")
@@ -892,17 +925,19 @@ def closed_loop_eval(cfg, checkpoint: str | None = None, artifact: str | None = 
     ``safety_shield=true`` puts the emergency-brake layer
     (``training/shield.py``) over the policy's rollout, not the expert's,
     and the policy's metrics gain its interventions. The policy drives with
-    the ``surround_cameras`` rig, the expert needs none."""
-    _check_one_device(cfg)
+    the ``surround_cameras`` rig, the expert needs none. Under a mesh the
+    fleet is sharded over ``data``."""
     dev = _device(cfg)
+    mesh, _ = _mesh_bits(cfg, batch_size=n_envs)
     town, params, rcfg = _sim_bits(cfg)
     policy_fn, space = _eval_policy_fn(cfg, checkpoint, artifact, rcfg.height, rcfg.width)
     policy = cl.evaluate_policy(params, town, rcfg, policy_fn, _generator(cfg),
                                 n_envs=n_envs, n_steps=n_steps,
                                 control_space=space, device=dev,
-                                shield=shield_from_cfg(cfg), cameras=_surround_cams(cfg))
+                                shield=shield_from_cfg(cfg), cameras=_surround_cams(cfg),
+                                mesh=mesh)
     expert = cl.evaluate_policy(params, town, rcfg, None, _generator(cfg),
-                                n_envs=n_envs, n_steps=n_steps, device=dev)
+                                n_envs=n_envs, n_steps=n_steps, device=dev, mesh=mesh)
     return {"policy": policy, "expert": expert}
 
 
@@ -943,8 +978,7 @@ def scenario_eval(cfg, checkpoint: str | None = None, artifact: str | None = Non
     """Scenario suite: one policy's driving metrics under each named world
     and weather condition of ``SCENARIOS``, beside the expert's from the
     same fleet start as its ceiling. ``artifact=`` scores an exported
-    artifact (see ``closed_loop_eval``)."""
-    _check_one_device(cfg)
+    artifact (see ``closed_loop_eval``); a mesh shards every fleet."""
     names = (list(SCENARIOS) if scenarios in ("all", "", None)
              else [n.strip() for n in str(scenarios).split(",")])
     unknown = [n for n in names if n not in SCENARIOS]
@@ -957,12 +991,14 @@ def scenario_eval(cfg, checkpoint: str | None = None, artifact: str | None = Non
     cams = _surround_cams(cfg)
     out, summary = {}, {}
     for name in names:
-        town, params, rcfg = _sim_bits(scenario_config(cfg, name))
+        scfg = scenario_config(cfg, name)
+        mesh, _ = _mesh_bits(scfg, batch_size=n_envs)
+        town, params, rcfg = _sim_bits(scfg)
         pm = cl.evaluate_policy(params, town, rcfg, policy_fn, _generator(cfg),
                                 n_envs=n_envs, n_steps=n_steps,
-                                control_space=space, device=dev, cameras=cams)
+                                control_space=space, device=dev, cameras=cams, mesh=mesh)
         em = cl.evaluate_policy(params, town, rcfg, None, _generator(cfg),
-                                n_envs=n_envs, n_steps=n_steps, device=dev)
+                                n_envs=n_envs, n_steps=n_steps, device=dev, mesh=mesh)
         out[name] = {"policy": pm, "expert": em}
         summary[name] = {"policy": pm["driving_score"], "expert": em["driving_score"],
                          "policy_arc": pm["driving_score_arc"],
@@ -1000,7 +1036,6 @@ def bc_cil(cfg, n_envs: int = 32, n_steps: int = 300, n_goals: int = 0, **kw):
     sampling by branch. With ``surround_cameras`` the side views ride as
     extra camera-minor channels, split with their half. The result carries
     the command histogram."""
-    _check_one_device(cfg)
     cams = _surround_cams(cfg)
     town, params, rcfg, goal_ids = _goal_bits(cfg, n_goals, n_envs)
     fs = int(cfg.get("frame_skip", 4))
@@ -1022,17 +1057,18 @@ def bc_cil(cfg, n_envs: int = 32, n_steps: int = 300, n_goals: int = 0, **kw):
               for k in ("train", "val", "test")}
     batch = int(cfg.get("BATCH_SIZE", 64))
     balanced = _flag(cfg, "balanced_sampling")
+    mesh, sharding = _mesh_bits(cfg)
     loaders = {f"{k}_dataloader": pipe.DeviceDataset(
         st, batch, frame_skip=fs, shuffle=(k == "train"), cil=True,
         drop_last=(k == "train"), balanced=balanced and k == "train",
         balance_key=str(cfg.get("balance_key", "action")), extra_frames=extra or None,
-        device=dev)
+        sharding=sharding if k == "train" else None, device=dev)
         for k, (st, extra) in splits.items()}
     n_commands = int(cfg.get("n_commands", 6))
     model = BranchedCILPolicy(obs_size=fs * len(cams), n_commands=n_commands,
                               dtype=_dtype(cfg))
     result = _fit(cfg, "bc_cil", model, cil_loss_fn(float(cfg.get("speed_weight", 0.1))),
-                  loaders)
+                  loaders, mesh)
     commands = np.concatenate(commands)
     hist = np.bincount(commands, minlength=n_commands)
     result["command_histogram"] = hist.tolist()
@@ -1051,7 +1087,6 @@ def bc_continuous(cfg, n_envs: int = 32, n_steps: int = 300, eval_envs: int = 64
     − brake) from the state log (the clean steer under collection noise),
     split 80/10/10, then drive the closed loop with continuous control
     (with the ``surround_cameras`` rig, its side views as extra channels)."""
-    _check_one_device(cfg)
     cams = _surround_cams(cfg)
     town, params, rcfg = _sim_bits(cfg)
     fs = int(cfg.get("frame_skip", 4))
@@ -1065,15 +1100,17 @@ def bc_continuous(cfg, n_envs: int = 32, n_steps: int = 300, eval_envs: int = 64
                        np.asarray(state_log.throttle, np.float32)
                        - np.asarray(state_log.brake, np.float32)], axis=1)
     batch = int(cfg.get("BATCH_SIZE", 64))
+    mesh, sharding = _mesh_bits(cfg)
     loaders = {f"{k}_dataloader": pipe.DeviceDataset(
         store.slice(a, b), batch, frame_skip=fs, shuffle=(k == "train"),
         drop_last=(k == "train"), continuous_labels=labels[a:b],
-        extra_frames=[e[a:b] for e in extra] or None, device=dev)
+        extra_frames=[e[a:b] for e in extra] or None,
+        sharding=sharding if k == "train" else None, device=dev)
         for k, (a, b) in _bounds(len(store)).items()}
     model = ContinuousPolicyCNN(obs_size=fs * len(cams), dtype=_dtype(cfg))
     loss = continuous_bc_loss_fn(float(cfg.get("steer_weight", 1.0)),
                                  float(cfg.get("accel_weight", 0.5)))
-    result = _fit(cfg, "bc_continuous", model, loss, loaders)
+    result = _fit(cfg, "bc_continuous", model, loss, loaders, mesh)
     trained = result["state"].model
 
     @torch.no_grad()
@@ -1099,12 +1136,12 @@ def route_eval(cfg, checkpoint: str | None = None, artifact: str | None = None,
     then follows the planner's commands; ``artifact=`` for an exported
     artifact, a CIL one taking the commands through its second and third
     inputs), from the same fleet start. The town gets turn fans, the
-    planner's graph."""
-    _check_one_device(cfg)
+    planner's graph. A mesh shards the fleet."""
     dev = _device(cfg)
+    mesh, _ = _mesh_bits(cfg, batch_size=n_envs)
     town, params, rcfg, goal_ids = _goal_bits(cfg, n_goals, n_envs)
     expert = cl.evaluate_routes(params, town, rcfg, None, _generator(cfg), n_envs=n_envs,
-                                n_steps=n_steps, goal_ids=goal_ids, device=dev)
+                                n_steps=n_steps, goal_ids=goal_ids, device=dev, mesh=mesh)
     out = {"goals": town.nav_goals.cpu().numpy().tolist(), "expert": expert}
     if checkpoint or artifact:
         policy_fn, space = _eval_policy_fn(cfg, checkpoint, artifact, rcfg.height, rcfg.width)
@@ -1112,7 +1149,7 @@ def route_eval(cfg, checkpoint: str | None = None, artifact: str | None = None,
                                            n_envs=n_envs, n_steps=n_steps,
                                            control_space=space,
                                            goal_ids=goal_ids, device=dev,
-                                           cameras=_surround_cams(cfg))
+                                           cameras=_surround_cams(cfg), mesh=mesh)
     return out
 
 
@@ -1132,12 +1169,15 @@ def dagger(cfg, rounds: int = 3, n_envs: int = 16, n_steps: int = 200,
     and the expert labels, each followed by training on every round's data
     (``training.dagger.run_dagger``), in the configured policy family;
     goal-directed with ``n_goals`` > 0, the final policy then also scored on
-    the routes."""
-    _check_one_device(cfg)
+    the routes. Under a mesh the training batches are sharded and the
+    eval fleet too when it divides the world (re-validated at its size)."""
     if n_goals > 0:
         _force_turn_fans(cfg)
+    mesh, _ = _mesh_bits(cfg)
+    eval_mesh = _mesh_bits(cfg, batch_size=min(n_envs, 32))[0] if mesh is not None else None
     town, params, rcfg = _sim_bits(cfg)
     return run_dagger(params, town, rcfg, _generator(cfg), rounds=rounds, n_envs=n_envs,
+                      mesh=mesh, eval_mesh=eval_mesh,
                       n_steps=n_steps, epochs_per_round=epochs_per_round, n_goals=n_goals,
                       noise=_noise_bits(cfg), balanced=_flag(cfg, "balanced_sampling"),
                       speed_weight=float(cfg.get("speed_weight", 0.1)),
@@ -1152,8 +1192,9 @@ def dagger_online(cfg, rounds: int = 3, n_envs: int = 16, n_steps: int = 200,
     """Online DAgger with the aggregation buffer on the card
     (``training.dagger.run_dagger_online``): β-mixed rounds, β_r =
     ``beta``**r; ``policy_family=cil`` runs it on commands, and ``n_goals``
-    > 0 makes every round goal-directed."""
-    _check_one_device(cfg)
+    > 0 makes every round goal-directed. Its sharded buffer waits for ROADMAP
+    Queue 1, item 6b: under a mesh it raises."""
+    _refuse_mesh(cfg, "dagger_online", n_envs)
     if n_goals > 0:
         _force_turn_fans(cfg)
     town, params, rcfg = _sim_bits(cfg)
@@ -1172,7 +1213,6 @@ def dagger_uncertain(cfg, rounds: int = 3, n_envs: int = 16, n_steps: int = 200,
     """Uncertainty-gated DAgger (``training.dagger.run_dagger_uncertain``): a
     K-member ensemble drives by majority vote, the expert labels, and only
     the states the ensemble disagreed on (disagreement ≥ ``tau``) train."""
-    _check_one_device(cfg)
     town, params, rcfg = _sim_bits(cfg)
     return run_dagger_uncertain(params, town, rcfg, _generator(cfg), rounds=rounds,
                                 n_envs=n_envs, n_steps=n_steps,
@@ -1211,8 +1251,9 @@ def rl_finetune(cfg, checkpoint: str | None = None, n_envs: int = 256,
     deterministic actor's driving metrics before and after (the same
     ``eval_envs`` × ``eval_steps`` fleet), the per-iteration PPO metrics and
     ``score_delta``, and writes the actor as a ``PolicyCNN``-shaped
-    checkpoint under ``<log_dir>/rl_finetune/actor_params``."""
-    _check_one_device(cfg)
+    checkpoint under ``<log_dir>/rl_finetune/actor_params``. PPO's sharded
+    form waits for ROADMAP Queue 1, item 6b: under a mesh it raises."""
+    _refuse_mesh(cfg, "rl_finetune", n_envs)
     if len(cfg.get("surround_cameras") or ()) > 1:
         raise ValueError(
             "rl_finetune runs single-view PPO rollouts — surround_cameras "
@@ -1263,10 +1304,10 @@ def rl_finetune(cfg, checkpoint: str | None = None, n_envs: int = 256,
 
 
 def _sequence_loader(cfg, store, batch: int, seq_len: int, episode_len: int | None,
-                     shuffle: bool, seed: int = 0, continuous: bool = False):
+                     shuffle: bool, seed: int = 0, continuous: bool = False, sharding=None):
     return pipe.SequenceDataset(store, batch, seq_len=seq_len, episode_len=episode_len,
                                 shuffle=shuffle, seed=seed, continuous_actions=continuous,
-                                device=_device(cfg))
+                                device=_device(cfg), sharding=sharding)
 
 
 @experiment("bc_rnn")
@@ -1277,19 +1318,21 @@ def bc_rnn(cfg, n_envs: int = 32, n_steps: int = 300, seq_len: int = 8,
     episode-safe sequences of an expert collection split 80/10/10, then
     driven in the closed loop with its hidden state in the rollout's
     policy carry (zeroed on every auto-reset), seeing the newest frame of
-    the window. → the fit's result with ``closed_loop`` metrics."""
-    _check_one_device(cfg)
+    the window. → the fit's result with ``closed_loop`` metrics. A mesh
+    shards the training batches, and the eval fleet when it divides."""
     dev = _device(cfg)
     town, params, rcfg = _sim_bits(cfg)
     store, _, _ = cl.collect_dataset(params, town, rcfg, _generator(cfg), n_envs, n_steps,
                                      noise=_noise_bits(cfg), device=dev)
     batch = int(cfg.get("BATCH_SIZE", 64))
+    mesh, sharding = _mesh_bits(cfg)
     loaders = {f"{k}_dataloader": _sequence_loader(
-        cfg, v, batch, seq_len, n_steps if k == "train" else None, shuffle=(k == "train"))
+        cfg, v, batch, seq_len, n_steps if k == "train" else None, shuffle=(k == "train"),
+        sharding=sharding if k == "train" else None)
         for k, v in _split3(store).items()}
     model = RecurrentPolicy(obs_size=1, hidden=int(cfg.get("rnn_hidden", 128)),
                             n_actions=int(cfg.get("n_actions", 9)), dtype=_dtype(cfg))
-    result = _fit(cfg, "bc_rnn", model, rnn_bc_loss_fn, loaders)
+    result = _fit(cfg, "bc_rnn", model, rnn_bc_loss_fn, loaders, mesh)
     net = result.pop("state").model
 
     @torch.no_grad()
@@ -1300,12 +1343,13 @@ def bc_rnn(cfg, n_envs: int = 32, n_steps: int = 300, seq_len: int = 8,
     result["closed_loop"] = cl.evaluate_policy(
         params, town, rcfg, policy_fn, torch.Generator().manual_seed(int(cfg.get("seed", 0)) + 7),
         n_envs=eval_envs, n_steps=eval_steps, device=dev,
-        policy_carry_init=lambda b: net.initial_state(b, dev))
+        policy_carry_init=lambda b: net.initial_state(b, dev),
+        mesh=_mesh_bits(cfg, batch_size=eval_envs)[0])
     return result
 
 
 def _world_model_loaders(cfg, store, n_envs: int, n_steps: int, seq_len: int,
-                         continuous: bool = False) -> dict:
+                         continuous: bool = False, sharding=None) -> dict:
     """The last env's stream for validation (env-major collections), so
     the split and the episode boundaries agree; sequences never cross an
     env's ``n_steps`` boundary."""
@@ -1313,7 +1357,7 @@ def _world_model_loaders(cfg, store, n_envs: int, n_steps: int, seq_len: int,
     split = (n_envs - 1) * n_steps if n_envs > 1 else int(0.9 * n)
     batch, seed = int(cfg.get("wm_batch", 16)), int(cfg.get("seed", 0))
     return {"train_dataloader": _sequence_loader(cfg, store.slice(0, split), batch, seq_len,
-                                                 n_steps, True, seed, continuous),
+                                                 n_steps, True, seed, continuous, sharding),
             "val_dataloader": _sequence_loader(cfg, store.slice(split, n), batch, seq_len,
                                                n_steps, False, seed, continuous)}
 
@@ -1324,8 +1368,9 @@ def world_model(cfg, n_envs: int = 16, n_steps: int = 128, seq_len: int = 8,
     """The latent world model (encoder → ``wm_rnn`` LSTM or GRU → decoder)
     on an expert collection; ``wm_z_size``, ``wm_image_loss`` (``mse`` or
     ``ms_ssim``), ``wm_seq_len`` and ``wm_batch`` override. The result
-    carries the resolved architecture as ``wm_config``."""
-    _check_one_device(cfg)
+    carries the resolved architecture as ``wm_config``. A mesh shards the
+    ``wm_batch`` batches."""
+    mesh, sharding = _mesh_bits(cfg, batch_size=int(cfg.get("wm_batch", 16)))
     z_size = int(cfg.get("wm_z_size", z_size))
     rnn = str(cfg.get("wm_rnn", rnn))
     image_loss = str(cfg.get("wm_image_loss", image_loss))
@@ -1338,7 +1383,8 @@ def world_model(cfg, n_envs: int = 16, n_steps: int = 128, seq_len: int = 8,
                              width=rcfg.width, dtype=_dtype(cfg))
     result = _fit(cfg, f"world_model_{rnn}_{z_size}_{image_loss}", model,
                   world_model_loss_fn(image_loss=image_loss),
-                  _world_model_loaders(cfg, store, n_envs, n_steps, seq_len))
+                  _world_model_loaders(cfg, store, n_envs, n_steps, seq_len,
+                                       sharding=sharding), mesh)
     result["wm_config"] = {"z_size": model.z_size, "rnn": model.rnn,
                            "n_actions": model.n_actions, "height": model.height,
                            "width": model.width, "image_loss": image_loss, "seq_len": seq_len}
@@ -1430,7 +1476,6 @@ def dream_policy(cfg, n_envs: int = 16, n_steps: int = 200, seq_len: int = 8,
     latent-BC policy and the expert in the real sim from one fleet start.
     ``policy_family=continuous`` conditions the whole chain on the expert's
     (steer, accel) and drives with continuous control."""
-    _check_one_device(cfg)
     dev, seed = _device(cfg), int(cfg.get("seed", 0))
     town, params, rcfg = _sim_bits(cfg)
     store, _, traj = cl.collect_dataset(params, town, rcfg, _generator(cfg), n_envs, n_steps,
@@ -1518,8 +1563,7 @@ def bc_surround(cfg, n_envs: int = 8, n_steps: int = 200, eval_envs: int = 64,
     layout; the trained policy then drives the closed loop with the same
     rig (``make_rollout(cameras=...)``, kernel B once a view each step).
     ``surround_cameras`` picks the rig (default forward, FL and FR);
-    ``policy_arch=vit`` works here too."""
-    _check_one_device(cfg)
+    ``policy_arch=vit`` works here too. A mesh shards the training batches."""
     cams = _surround_cams(cfg)
     if len(cams) < 2:
         cams = ("camera", "FL", "FR")
@@ -1531,14 +1575,15 @@ def bc_surround(cfg, n_envs: int = 8, n_steps: int = 200, eval_envs: int = 64,
     fs = int(cfg.get("frame_skip", 4))
     base = pipe.FrameStore.from_arrays(frames[cams[0]], state_log, starts=starts)
     batch = int(cfg.get("BATCH_SIZE", 64))
+    mesh, sharding = _mesh_bits(cfg)
     loaders = {f"{k}_dataloader": pipe.DeviceDataset(
         base.slice(a, b), batch, frame_skip=fs, shuffle=(k == "train"),
         drop_last=(k == "train"), extra_frames=[frames[c][a:b] for c in cams[1:]],
-        device=dev)
+        sharding=sharding if k == "train" else None, device=dev)
         for k, (a, b) in _bounds(len(base)).items()}
     del frames
     model = _discrete_policy_model(cfg, fs * len(cams))
-    result = _fit(cfg, "bc_surround", model, bc_loss_fn, loaders)
+    result = _fit(cfg, "bc_surround", model, bc_loss_fn, loaders, mesh)
     trained = result["state"].model
 
     @torch.no_grad()
@@ -1665,7 +1710,6 @@ def export_policy_exp(cfg, checkpoint: str | None = None, artifact_dir: str | No
     the same kind (the int8 copy for int8) at ``verify_batches``, warm the
     bucketed engine (``serve_max_batch``) and run one request. The artifact
     goes to ``artifact_dir`` (default ``<log_dir>/policy_artifact``)."""
-    _check_one_device(cfg)
     dev = _device(cfg)
     _, model = _policy_bits(cfg, checkpoint, height, width)
     model.eval()

@@ -49,6 +49,7 @@ class ConvVAE(nn.Module):
                  dec_strides: Sequence[int] = (2, 2, 2, 3, 2),
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
+        self.draw_shard = None   # (rank, ranks) under a mesh: see bottleneck
         self.channels, self.height, self.width = channels, height, width
         self.z_size = z_size
         self.enc_channels = tuple(enc_channels)
@@ -110,12 +111,21 @@ class ConvVAE(nn.Module):
     def bottleneck(self, h: torch.Tensor, generator: torch.Generator | None = None):
         """(B, hidden) → (z, mu, log_var), all in float32: z = mu without a
         generator, else mu + exp(log_var / 2) · ε with ε a standard normal
-        from ``generator`` (through ``draw_noise``)."""
+        from ``generator`` (through ``draw_noise``). With ``draw_shard``
+        (rank, ranks), set by ``parallel.mesh.shard_train_state``, ε is
+        drawn for the global batch and this rank's rows are kept, so a
+        sharded step draws the unsharded step's noise."""
         mu = F.linear(h, self.to_mu.weight, self.to_mu.bias)
         log_var = F.linear(h, self.to_log_var.weight, self.to_log_var.bias)
         if generator is None:
             return mu, mu, log_var
-        noise = draw_noise(generator, tuple(mu.shape), mu.device, mu.dtype)
+        rows = mu.shape[0]
+        if self.draw_shard is None:
+            noise = draw_noise(generator, tuple(mu.shape), mu.device, mu.dtype)
+        else:   # a data-parallel rank: the global batch's draw, its own rows
+            r, n = self.draw_shard
+            noise = draw_noise(generator, (rows * n,) + tuple(mu.shape[1:]), mu.device,
+                               mu.dtype)[r * rows:(r + 1) * rows]
         return mu + torch.exp(0.5 * log_var) * noise.to(mu.dtype), mu, log_var
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:

@@ -133,9 +133,20 @@ class AugmentDraws:
 
 
 def augment_draws(generator: torch.Generator, x: torch.Tensor, crop: bool = True,
-                  flip: bool = True, jitter: bool = True, noise: bool = True) -> AugmentDraws:
+                  flip: bool = True, jitter: bool = True, noise: bool = True,
+                  draw_shard: tuple | None = None) -> AugmentDraws:
     """Every draw ``augment_batch`` needs for the batch ``x``, on the
-    generator's device."""
+    generator's device. With ``draw_shard`` (rank, ranks) ``x`` is one
+    data-parallel rank's rows: the draws are made for the global batch and
+    this rank's rows are kept."""
+    if draw_shard is not None:
+        r, n = draw_shard
+        rows = x.shape[0]
+        full = augment_draws(generator, torch.empty((rows * n,) + x.shape[1:], device="meta"),
+                             crop, flip, jitter, noise)
+        return AugmentDraws(**{f.name: None if getattr(full, f.name) is None
+                               else getattr(full, f.name)[r * rows:(r + 1) * rows]
+                               for f in dataclasses.fields(AugmentDraws)})
     d = AugmentDraws()
     if flip:
         d.flip = draw_flip(generator, x.shape[0])
@@ -164,6 +175,7 @@ def augment_with(draws: AugmentDraws, x: torch.Tensor, actions: torch.Tensor):
 
 def augment_batch(generator: torch.Generator, x: torch.Tensor, actions: torch.Tensor,
                   crop: bool = True, flip: bool = True, jitter: bool = True,
-                  noise: bool = True):
+                  noise: bool = True, draw_shard: tuple | None = None):
     """Composed augmentation of a BC batch from ``generator``'s draws."""
-    return augment_with(augment_draws(generator, x, crop, flip, jitter, noise), x, actions)
+    return augment_with(augment_draws(generator, x, crop, flip, jitter, noise, draw_shard),
+                        x, actions)

@@ -27,6 +27,11 @@ Two opt-in variants of the same rollout render (``rasterize_luma_fast``):
 - ``vec=True`` (kernel D, ``vec_bands`` / ``csrc/raster_vec.cu``): kernel
   B's function read from per-band gathered tables (``gather_band_tables``)
   in groups of ``VEC_P`` list entries, bit-exact against kernel B.
+
+All three take ``list_band_factor`` f (default 1): the lists are built over
+bands of f·tile_rows rows, and render band r reads list row r // f. A
+coarse list is a superset of each of its bands' own lists, so without a
+``max_tris_per_tile`` cap the frame is the same at every factor.
 """
 
 from __future__ import annotations
@@ -102,8 +107,9 @@ def compact_setup(setup: TriangleSetup, cap: int) -> TriangleSetup:
 
 def tile_lists_fast(setup: "TriangleSetup | PrimSetup", height: int, k: int, width: int,
                     far: float = 300.0, lod_px: float = 0.0,
-                    rows_per_band: int = TILE_ROWS):
-    """Per band: indices of the triangles that can cover a pixel in it.
+                    rows_per_band: int = TILE_ROWS, list_band_factor: int = 1):
+    """Per list row of ``rows_per_band · list_band_factor`` image rows:
+    indices of the triangles that can cover a pixel in it.
 
     Beyond the bbox test: the corner cull (edge functions are affine, so
     their maxima over the band rectangle [0, W]×[ylo, yhi] sit at corners)
@@ -112,16 +118,17 @@ def tile_lists_fast(setup: "TriangleSetup | PrimSetup", height: int, k: int, wid
     culled the same way. Hits are grouped first in index
     order; with ``k`` below the table width, hits are ordered by zmin rank
     so the cap drops the farthest. Keys are built in int64.
-    → (idx (B, R, k) int32, count (B, R) int32)."""
-    n_rows = height // rows_per_band
+    → (idx (B, R, k) int32, count (B, R) int32), R = height // span."""
+    span = rows_per_band * list_band_factor
+    n_rows = height // span
     dev = setup.bbox.device
     xmin, xmax = setup.bbox[..., 0], setup.bbox[..., 1]
     ymin, ymax = setup.bbox[..., 2], setup.bbox[..., 3]
     onscreen = setup.valid & (setup.zmin < far) & (xmax >= 0.0) & (xmin <= width)
     if lod_px > 0.0:
         onscreen = onscreen & ((xmax - xmin >= lod_px) | (ymax - ymin >= lod_px))
-    row_lo = (torch.arange(n_rows, dtype=torch.float32, device=dev) * rows_per_band)[None, :, None]
-    row_hi = row_lo + rows_per_band
+    row_lo = (torch.arange(n_rows, dtype=torch.float32, device=dev) * span)[None, :, None]
+    row_hi = row_lo + span
     hit = (ymax[:, None, :] >= row_lo) & (ymin[:, None, :] <= row_hi) & onscreen[:, None, :]
 
     # corner cull: e(x, y) = a·x + b·y + c over x ∈ [0, W], y ∈ [ylo, yhi]
@@ -147,6 +154,21 @@ def tile_lists_fast(setup: "TriangleSetup | PrimSetup", height: int, k: int, wid
         packed = torch.where(hit, 0, 0x80000000) | iota
         idx = torch.sort(packed, dim=-1).values & 0xFFFF
     return idx.to(torch.int32).contiguous(), count.contiguous()
+
+
+def _n_bands(n_list_rows: int, height: int, tile_rows: int, factor: int) -> int:
+    """Render bands of ``n_list_rows`` lists shared by ``factor`` bands each;
+    raises unless they tile the image in bands of ``tile_rows``."""
+    if n_list_rows * factor * tile_rows != height:
+        raise ValueError(f"unsupported band layout: {n_list_rows} list rows x factor "
+                         f"{factor} x {tile_rows} rows != H={height}")
+    return n_list_rows * factor
+
+
+def _list_rows(n_list_rows: int, height: int, tile_rows: int, factor: int, dev):
+    """The list row each render band reads: band r takes row r // factor."""
+    R = _n_bands(n_list_rows, height, tile_rows, factor)
+    return torch.arange(R, device=dev) // factor
 
 
 def _band_grid(B: int, R: int, rows: int, width: int, dev):
@@ -194,13 +216,17 @@ def _luma_epilogue(kmin, py, height: int, far: float, fog_density: float):
 
 
 def fast_bands_plain(tbl, idx, count, height: int, width: int, near: float,
-                     far: float, fog_density: float, tile_rows: int):
+                     far: float, fog_density: float, tile_rows: int,
+                     list_band_factor: int = 1):
     """Plain PyTorch version of kernel B over the same bands, lists and
     packed keys: list positions below the count rounded up to the unroll
-    width, a running min of the packed key, the same epilogue. → (B, H, W)."""
+    width, a running min of the packed key, the same epilogue; band r reads
+    list row r // list_band_factor. → (B, H, W)."""
     B, _, T = tbl.shape
-    R, K = idx.shape[1], idx.shape[2]
     dev = tbl.device
+    lrow = _list_rows(idx.shape[1], height, tile_rows, list_band_factor, dev)
+    R, K = lrow.numel(), idx.shape[2]
+    count = count[:, lrow]
     n_pass = torch.clamp((count + FAST_UNROLL - 1) // FAST_UNROLL * FAST_UNROLL,
                          max=K)                                               # (B, R)
     px, py, pyb = _band_grid(B, R, tile_rows, width, dev)
@@ -212,7 +238,7 @@ def fast_bands_plain(tbl, idx, count, height: int, width: int, near: float,
     n_max = int(n_pass.max()) if n_pass.numel() else 0
     for j0 in range(0, n_max, chunk):
         j = torch.arange(j0, min(j0 + chunk, K), device=dev)
-        co = tbl_t[benv, idx[:, :, j0:j0 + j.numel()].to(torch.int64)]     # (B, R, C, 13)
+        co = tbl_t[benv, idx[:, lrow, j0:j0 + j.numel()].to(torch.int64)]  # (B, R, C, 13)
         live = (j < n_pass[..., None])[..., None, None]
         cand = _tri_keys([co[..., i, None, None] for i in range(FAST_PACK_WIDTH)],
                          px, pyb, near)
@@ -221,30 +247,32 @@ def fast_bands_plain(tbl, idx, count, height: int, width: int, near: float,
 
 
 def fast_bands(tbl, idx, count, height: int, width: int, near: float,
-               far: float, fog_density: float, tile_rows: int):
+               far: float, fog_density: float, tile_rows: int,
+               list_band_factor: int = 1):
     """Kernel B on CUDA tensors (``csrc/raster_fast.cu``), its plain PyTorch
-    version on CPU tensors. tbl (B, 13, T) f32, idx (B, R, K) int32 with K
-    even, count (B, R) int32 → gray (B, H, W) f32."""
+    version on CPU tensors. tbl (B, 13, T) f32, idx (B, RL, K) int32 with K
+    even, count (B, RL) int32, RL = H // (tile_rows · list_band_factor) list
+    rows → gray (B, H, W) f32."""
     if not tbl.is_cuda:
         return fast_bands_plain(tbl, idx, count, height, width, near, far,
-                                fog_density, tile_rows)
+                                fog_density, tile_rows, list_band_factor)
     B, _, T = tbl.shape
-    R, K = idx.shape[1], idx.shape[2]
+    RL, K = idx.shape[1], idx.shape[2]
     cuda_lib.check_cuda(tbl, "tbl", torch.float32, (B, FAST_PACK_WIDTH, T))
-    cuda_lib.check_cuda(idx, "idx", torch.int32, (B, R, K))
-    cuda_lib.check_cuda(count, "count", torch.int32, (B, R))
-    if R * tile_rows != height or K % FAST_UNROLL or width > 256:
-        raise ValueError(f"unsupported band layout: R={R} rows={tile_rows} "
-                         f"H={height} W={width} K={K}")
+    cuda_lib.check_cuda(idx, "idx", torch.int32, (B, RL, K))
+    cuda_lib.check_cuda(count, "count", torch.int32, (B, RL))
+    R = _n_bands(RL, height, tile_rows, list_band_factor)
+    if K % FAST_UNROLL or width > 256:
+        raise ValueError(f"unsupported band layout: H={height} W={width} K={K}")
     fn = cuda_lib.entry_point(
         "raster_fast", "raster_fast_launch",
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int]
-        + [ctypes.c_float] * 5 + [ctypes.c_void_p])
+        + [ctypes.c_float] * 5 + [ctypes.c_int, ctypes.c_void_p])
     out = torch.empty((B, height, width), dtype=torch.float32, device=tbl.device)
     err = fn(tbl.data_ptr(), idx.data_ptr(), count.data_ptr(), out.data_ptr(),
              B, T, R, K, height, width, tile_rows, near, pack_key_const(far),
              SKY_TOP_L, SKY_HOR_L, 1.0 / max(height - 1, 1), 1.0 / LUMA_MASK,
-             fog_density, cuda_lib.stream_ptr(tbl.device))
+             fog_density, list_band_factor, cuda_lib.stream_ptr(tbl.device))
     cuda_lib.raise_on_error(err, "raster_fast")
     FAST_KERNEL.add()
     return out
@@ -362,15 +390,19 @@ def prim_far_key(far: float) -> int:
 
 
 def prim_bands_plain(tbl, idx, count, height: int, width: int, near: float,
-                     far: float, fog_density: float, tile_rows: int):
+                     far: float, fog_density: float, tile_rows: int,
+                     list_band_factor: int = 1):
     """Plain PyTorch version of kernel C over the same bands, lists and
     keys: four edge rows and the 1/z row per primitive, a running max of
     ``(bits(1/z) & ~0xFFF) | luma12`` (0 = miss) over list positions below
     the count rounded up to the unroll width; the epilogue shades by
-    zi / (zi + 0.004) and fogs at depth 1 / max(zi, 1e-9). → (B, H, W)."""
+    zi / (zi + 0.004) and fogs at depth 1 / max(zi, 1e-9); band r reads
+    list row r // list_band_factor. → (B, H, W)."""
     B, _, T = tbl.shape
-    R, K = idx.shape[1], idx.shape[2]
     dev = tbl.device
+    lrow = _list_rows(idx.shape[1], height, tile_rows, list_band_factor, dev)
+    R, K = lrow.numel(), idx.shape[2]
+    count = count[:, lrow]
     n_pass = torch.clamp((count + FAST_UNROLL - 1) // FAST_UNROLL * FAST_UNROLL, max=K)
     px, py, pyb = _band_grid(B, R, tile_rows, width, dev)
     tbl_t = tbl.transpose(1, 2)                                               # (B, P, 16)
@@ -382,7 +414,7 @@ def prim_bands_plain(tbl, idx, count, height: int, width: int, near: float,
     n_max = int(n_pass.max()) if n_pass.numel() else 0
     for j0 in range(0, n_max, chunk):
         j = torch.arange(j0, min(j0 + chunk, K), device=dev)
-        co = tbl_t[benv, idx[:, :, j0:j0 + j.numel()].to(torch.int64)]     # (B, R, C, 16)
+        co = tbl_t[benv, idx[:, lrow, j0:j0 + j.numel()].to(torch.int64)]  # (B, R, C, 16)
         live = (j < n_pass[..., None])[..., None, None]
         c = [co[..., i, None, None] for i in range(PRIM_PACK_WIDTH)]
         e = [c[3 * i] * px + (c[3 * i + 1] * pyb + c[3 * i + 2]) for i in range(4)]
@@ -406,31 +438,33 @@ def prim_bands_plain(tbl, idx, count, height: int, width: int, near: float,
 
 
 def prim_bands(tbl, idx, count, height: int, width: int, near: float,
-               far: float, fog_density: float, tile_rows: int):
+               far: float, fog_density: float, tile_rows: int,
+               list_band_factor: int = 1):
     """Kernel C on CUDA tensors (``csrc/raster_prim.cu``), its plain PyTorch
-    version on CPU tensors. tbl (B, 16, P) f32, idx (B, R, K) int32 with K
-    even, count (B, R) int32 → gray (B, H, W) f32."""
+    version on CPU tensors. tbl (B, 16, P) f32, idx (B, RL, K) int32 with K
+    even, count (B, RL) int32, RL = H // (tile_rows · list_band_factor) list
+    rows → gray (B, H, W) f32."""
     if not tbl.is_cuda:
         return prim_bands_plain(tbl, idx, count, height, width, near, far,
-                                fog_density, tile_rows)
+                                fog_density, tile_rows, list_band_factor)
     B, _, P = tbl.shape
-    R, K = idx.shape[1], idx.shape[2]
+    RL, K = idx.shape[1], idx.shape[2]
     cuda_lib.check_cuda(tbl, "tbl", torch.float32, (B, PRIM_PACK_WIDTH, P))
-    cuda_lib.check_cuda(idx, "idx", torch.int32, (B, R, K))
-    cuda_lib.check_cuda(count, "count", torch.int32, (B, R))
-    if R * tile_rows != height or K % FAST_UNROLL or width > 256:
-        raise ValueError(f"unsupported band layout: R={R} rows={tile_rows} "
-                         f"H={height} W={width} K={K}")
+    cuda_lib.check_cuda(idx, "idx", torch.int32, (B, RL, K))
+    cuda_lib.check_cuda(count, "count", torch.int32, (B, RL))
+    R = _n_bands(RL, height, tile_rows, list_band_factor)
+    if K % FAST_UNROLL or width > 256:
+        raise ValueError(f"unsupported band layout: H={height} W={width} K={K}")
     fn = cuda_lib.entry_point(
         "raster_prim", "raster_prim_launch",
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int]
-        + [ctypes.c_float] * 5 + [ctypes.c_void_p])
+        + [ctypes.c_float] * 5 + [ctypes.c_int, ctypes.c_void_p])
     out = torch.empty((B, height, width), dtype=torch.float32, device=tbl.device)
     queue = item_queue(tbl.device)
     err = fn(tbl.data_ptr(), idx.data_ptr(), count.data_ptr(), out.data_ptr(), queue.data_ptr(),
              B, P, R, K, height, width, tile_rows, float(np.float32(1.0 / near)),
              prim_far_key(far), SKY_TOP_L, SKY_HOR_L, 1.0 / max(height - 1, 1),
-             1.0 / LUMA_MASK, fog_density, cuda_lib.stream_ptr(tbl.device))
+             1.0 / LUMA_MASK, fog_density, list_band_factor, cuda_lib.stream_ptr(tbl.device))
     cuda_lib.raise_on_error(err, "raster_prim")
     PRIM_KERNEL.add()
     return out
@@ -444,7 +478,7 @@ def prim_bands(tbl, idx, count, height: int, width: int, near: float,
 
 def gather_band_tables(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """(B, 13, T) coefficient table + (B, R, k) band lists → (B, R, k, 16)
-    band-resident tables (13 rows + 3 zero pad, so an entry is 64 bytes).
+    band-resident tables, one per list row (13 rows + 3 zero pad, so an entry is 64 bytes).
     The result is allocated once and filled in place: at 1024 envs, R = 4,
     k = 1408 it is 369 MB."""
     B, W13, T = tbl.shape
@@ -458,19 +492,24 @@ def gather_band_tables(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def vec_bands_plain(btbl, count, height: int, width: int, near: float,
-                    far: float, fog_density: float, tile_rows: int):
+                    far: float, fog_density: float, tile_rows: int,
+                    list_band_factor: int = 1):
     """Plain PyTorch version of kernel D: kernel B's pass and epilogue over
-    each band's own table, for list positions below the count rounded up to
-    a whole group of VEC_P. → (B, H, W)."""
-    B, R, K, _ = btbl.shape
+    each band's table, for list positions below the count rounded up to a
+    whole group of VEC_P; band r reads the table and count of list row
+    r // list_band_factor. → (B, H, W)."""
+    B, _, K, _ = btbl.shape
     dev = btbl.device
+    lrow = _list_rows(btbl.shape[1], height, tile_rows, list_band_factor, dev)
+    R = lrow.numel()
+    count = count[:, lrow]
     n_pass = torch.clamp((count + VEC_P - 1) // VEC_P * VEC_P, max=K)
     px, py, pyb = _band_grid(B, R, tile_rows, width, dev)
     kmin = torch.full((B, R, tile_rows, width), MISS_KEY, dtype=torch.int32, device=dev)
     chunk = max(VEC_P, PLAIN_BUDGET // (B * R * tile_rows * width) // VEC_P * VEC_P)
     n_max = int(n_pass.max()) if n_pass.numel() else 0
     for j0 in range(0, n_max, chunk):
-        co = btbl[:, :, j0:j0 + chunk]                                       # (B, R, C, 16)
+        co = btbl[:, lrow, j0:j0 + chunk]                                    # (B, R, C, 16)
         j = torch.arange(j0, j0 + co.shape[2], device=dev)
         live = (j < n_pass[..., None])[..., None, None]
         cand = _tri_keys([co[..., i, None, None] for i in range(FAST_PACK_WIDTH)],
@@ -480,32 +519,33 @@ def vec_bands_plain(btbl, count, height: int, width: int, near: float,
 
 
 def vec_bands(btbl, count, height: int, width: int, near: float, far: float,
-              fog_density: float, tile_rows: int):
+              fog_density: float, tile_rows: int, list_band_factor: int = 1):
     """Kernel D on CUDA tensors (``csrc/raster_vec.cu``), its plain PyTorch
-    version on CPU tensors. btbl (B, R, K, 16) f32 with K a multiple of
-    VEC_P, 16-byte aligned (the kernel bulk-copies its rows), count (B, R)
-    int32 → gray (B, H, W) f32."""
+    version on CPU tensors. btbl (B, RL, K, 16) f32 with K a multiple of
+    VEC_P, 16-byte aligned (the kernel bulk-copies its rows), count (B, RL)
+    int32, RL = H // (tile_rows · list_band_factor) list rows → gray (B, H,
+    W) f32."""
     if not btbl.is_cuda:
         return vec_bands_plain(btbl, count, height, width, near, far,
-                               fog_density, tile_rows)
-    B, R, K, _ = btbl.shape
-    cuda_lib.check_cuda(btbl, "btbl", torch.float32, (B, R, K, VEC_ROW))
-    cuda_lib.check_cuda(count, "count", torch.int32, (B, R))
-    if R * tile_rows != height or K % VEC_P or width > 256:
-        raise ValueError(f"unsupported band layout: R={R} rows={tile_rows} "
-                         f"H={height} W={width} K={K}")
+                               fog_density, tile_rows, list_band_factor)
+    B, RL, K, _ = btbl.shape
+    cuda_lib.check_cuda(btbl, "btbl", torch.float32, (B, RL, K, VEC_ROW))
+    cuda_lib.check_cuda(count, "count", torch.int32, (B, RL))
+    R = _n_bands(RL, height, tile_rows, list_band_factor)
+    if K % VEC_P or width > 256:
+        raise ValueError(f"unsupported band layout: H={height} W={width} K={K}")
     if btbl.data_ptr() % 16:
         raise ValueError("btbl must be 16-byte aligned")
     fn = cuda_lib.entry_point(
         "raster_vec", "raster_vec_launch",
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int]
-        + [ctypes.c_float] * 5 + [ctypes.c_void_p])
+        + [ctypes.c_float] * 5 + [ctypes.c_int, ctypes.c_void_p])
     out = torch.empty((B, height, width), dtype=torch.float32, device=btbl.device)
     queue = item_queue(btbl.device)
     err = fn(btbl.data_ptr(), count.data_ptr(), out.data_ptr(), queue.data_ptr(),
              B, R, K, height, width, tile_rows, near, pack_key_const(far),
              SKY_TOP_L, SKY_HOR_L, 1.0 / max(height - 1, 1), 1.0 / LUMA_MASK,
-             fog_density, cuda_lib.stream_ptr(btbl.device))
+             fog_density, list_band_factor, cuda_lib.stream_ptr(btbl.device))
     cuda_lib.raise_on_error(err, "raster_vec")
     VEC_KERNEL.add()
     return out
@@ -516,13 +556,15 @@ def rasterize_luma_fast(setup: TriangleSetup, height: int, width: int,
                         max_tris_per_tile: int | None = None,
                         compact_cap: int | None = None,
                         fog_density: float = 0.0, lod_px: float = 0.0,
-                        quads: bool = False, vec: bool = False):
+                        list_band_factor: int = 1, quads: bool = False,
+                        vec: bool = False):
     """→ gray (B, H, W) f32 in [0, 1], the policy observation channel.
 
     ``max_tris_per_tile`` caps each band's list (dropping the farthest);
     ``compact_cap`` pre-gathers the valid triangles into a table that wide;
     ``fog_density > 0`` fuses exponential fog into the epilogue and shrinks
-    ``far`` to the visibility limit. ``quads`` takes kernel C (the setup must
+    ``far`` to the visibility limit. ``list_band_factor`` f builds one list
+    per f bands (coarse shared lists). ``quads`` takes kernel C (the setup must
     carry ``pair_ok`` and ``zinv``); otherwise ``vec`` takes kernel D, and
     by default kernel B runs. (The JAX package's ``quads=None`` turns kernel
     C on whenever the setup carries the pair analysis; here it is asked for
@@ -542,13 +584,15 @@ def rasterize_luma_fast(setup: TriangleSetup, height: int, width: int,
     n_tris = tbl.shape[2]
     k = n_tris if max_tris_per_tile is None else min(max_tris_per_tile, n_tris)
     idx, count = tile_lists_fast(src, height, k, width=width, far=far,
-                                 lod_px=lod_px, rows_per_band=rows)
+                                 lod_px=lod_px, rows_per_band=rows,
+                                 list_band_factor=list_band_factor)
     if vec and not quads:   # whole groups of VEC_P: pad the lists with index 0
         if k % VEC_P:
             idx = torch.nn.functional.pad(idx, (0, VEC_P - k % VEC_P))
         return vec_bands(gather_band_tables(tbl, idx), count, height, width,
-                         near, far, fog_density, rows)
+                         near, far, fog_density, rows, list_band_factor)
     if k % FAST_UNROLL:  # the pair-wise walk may read one entry past k
         idx = torch.nn.functional.pad(idx, (0, FAST_UNROLL - k % FAST_UNROLL))
     bands = prim_bands if quads else fast_bands
-    return bands(tbl, idx, count, height, width, near, far, fog_density, rows)
+    return bands(tbl, idx, count, height, width, near, far, fog_density, rows,
+                 list_band_factor)

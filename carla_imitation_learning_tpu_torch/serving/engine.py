@@ -62,7 +62,7 @@ class InferenceEngine:
     ):
         if mesh is not None:
             raise NotImplementedError(
-                "InferenceEngine(mesh=...) is not ported yet (ROADMAP Queue 1, item 6)")
+                "InferenceEngine(mesh=...) is not ported yet (ROADMAP Queue 1, item 6b)")
         self._fn = policy_fn
         self.buckets = tuple(sorted(set(buckets or _default_buckets(max_batch))))
         if not self.buckets or self.buckets[0] < 1:

@@ -21,6 +21,13 @@ the DAgger aggregation step (``dagger_iteration``). A ``ShieldConfig``
 control, and ``lidar_beams`` records a planar range scan
 (``render.lidar``) of every step. ``collect_multicamera`` renders one
 expert trajectory from a whole camera rig on the exact path (kernel A).
+
+Data parallel (``mesh=`` on ``make_rollout``, ``evaluate_policy`` and
+``evaluate_routes``): every rank draws the global fleet and keeps its rows
+of the env axis, renders and steps them (kernel B on each rank's rows);
+the noise schedule is drawn for the global fleet from an all-reduced seed
+and sliced; the metrics are sums and counts all-reduced once per rollout.
+A step itself all-reduces nothing.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from carla_imitation_learning_tpu_torch.data.frame_log import StateLog
 from carla_imitation_learning_tpu_torch.data.pipeline import FrameStore
 from carla_imitation_learning_tpu_torch.device import resolve_device
 from carla_imitation_learning_tpu_torch.ops.raster import rasterize_exact_luma
+from carla_imitation_learning_tpu_torch.parallel.mesh import shard_batch
 from carla_imitation_learning_tpu_torch.render.lidar import make_lidar
 from carla_imitation_learning_tpu_torch.render.pipeline import (
     RenderConfig, make_renderer, make_scene_setup,
@@ -131,12 +139,16 @@ def _noise_schedule(generator: torch.Generator, n_steps: int, n_envs: int,
     return noise_shape(*noise_draws(generator, n_steps, n_envs, ncfg), ncfg)
 
 
-def noise_generator(ncfg: NoiseConfig, states) -> torch.Generator:
+def noise_generator(ncfg: NoiseConfig, states, mesh=None) -> torch.Generator:
     """A CPU generator seeded from ``ncfg.seed`` and the sum of the fleet's
     per-env keys (one host read), so collections from different fleet
     states draw different schedules and a repeat draws the same one. Both
-    are hashed into the 32 bits the CPU generator's seed keeps."""
-    key_sum = int(states.rng.sum())
+    are hashed into the 32 bits the CPU generator's seed keeps. Under a
+    ``mesh`` the sum is over the global fleet (all-reduced over ``data``)."""
+    key_sum = states.rng.sum().reshape(1)
+    if mesh is not None:
+        mesh.all_reduce_(key_sum)
+    key_sum = int(key_sum)
     seed = np.random.SeedSequence([int(ncfg.seed), key_sum]).generate_state(1)[0]
     return torch.Generator().manual_seed(int(seed))
 
@@ -161,7 +173,7 @@ def make_rollout(params: SimParams, town: TownMap, rcfg: RenderConfig,
                  policy_rng: torch.Generator | None = None,
                  shield: ShieldConfig | None = None, lidar_beams: int = 0,
                  policy_carry_init: Callable | None = None,
-                 cameras: tuple = ("camera",)):
+                 cameras: tuple = ("camera",), mesh=None):
     """Build (init_fn, rollout_fn) for a fleet.
 
     ``policy_fn(obs)`` maps the NHWC float window (B, H, W, frame_skip) in
@@ -208,6 +220,11 @@ def make_rollout(params: SimParams, town: TownMap, rcfg: RenderConfig,
     frame_skip·K channels, time-major and camera-minor
     (``update_framebuf``), and ``traj["views"]`` (T, B, H, W, K) uint8 logs
     all of them. One camera runs the single-view program.
+    ``mesh`` (``parallel.mesh``) shards the env axis over ``data``:
+    ``init_fn`` draws the global fleet of ``n_envs`` and keeps this rank's
+    rows, so the carry and the trajectory are the rank's; the noise
+    schedule is the global one's columns. A ``policy_rng`` would draw for
+    the rank's rows only, so it is refused under a mesh.
 
     ``init_fn(generator, n_envs) -> carry`` with carry = (states, framebuf
     (B, H, W, fs·K) uint8, just_reset (B,) bool[, policy state]);
@@ -218,6 +235,9 @@ def make_rollout(params: SimParams, town: TownMap, rcfg: RenderConfig,
         raise ValueError(f"unknown control_space {control_space!r}")
     continuous = control_space == "continuous"
     recurrent = policy_carry_init is not None
+    if mesh is not None and policy_rng is not None:
+        raise ValueError("a policy_rng draws per rank, not for the global fleet: "
+                         "it cannot run under a mesh")
     if continuous and recurrent:
         raise NotImplementedError(
             "continuous control_space with a recurrent policy is not wired up: "
@@ -249,6 +269,9 @@ def make_rollout(params: SimParams, town: TownMap, rcfg: RenderConfig,
     @torch.no_grad()
     def init_fn(generator: torch.Generator, n_envs: int):
         states = reset_env(params, town, generator, n_envs)
+        if mesh is not None:   # the global fleet's draws, this rank's rows
+            states = shard_batch(mesh, states)
+            n_envs = states.t.shape[0]
         framebuf = views_of(states).repeat(1, 1, 1, frame_skip)
         base = (states, framebuf, torch.zeros(n_envs, dtype=torch.bool, device=dev))
         if recurrent:
@@ -353,8 +376,12 @@ def make_rollout(params: SimParams, town: TownMap, rcfg: RenderConfig,
         schedule = None
         if noise is not None:
             n_envs = carry[0].t.shape[0]
-            schedule = _noise_schedule(noise_generator(noise, carry[0]), n_steps, n_envs,
-                                       noise).to(dev)
+            n_global = n_envs if mesh is None else n_envs * mesh.size()
+            schedule = _noise_schedule(noise_generator(noise, carry[0], mesh), n_steps,
+                                       n_global, noise)
+            if mesh is not None:
+                schedule = schedule[:, mesh.rows(n_global)]
+            schedule = schedule.to(dev)
         outs = []
         for t in range(n_steps):
             carry, out = one_step(carry, None if schedule is None else schedule[t],
@@ -537,21 +564,22 @@ def evaluate_policy(params: SimParams, town: TownMap, rcfg: RenderConfig,
                     device: str | torch.device = "cuda",
                     shield: ShieldConfig | None = None,
                     policy_carry_init: Callable | None = None,
-                    cameras: tuple = ("camera",)) -> dict:
+                    cameras: tuple = ("camera",), mesh=None) -> dict:
     """Driving metrics for a policy (or the expert when ``policy_fn`` is
     None): raw per-step rates plus the CARLA-leaderboard-style composite —
     per env stream, route completion (odometer and along-route) times the
     infraction penalty 0.60^collisions · 0.65^offroads · 0.70^red-runs.
     With a ``shield`` the rollout runs under it and the metrics gain its
     interventions per km and active share. ``policy_carry_init`` runs a
-    recurrent policy, and ``cameras`` a surround rig (``make_rollout``)."""
+    recurrent policy, and ``cameras`` a surround rig (``make_rollout``).
+    ``mesh`` shards the fleet; the metrics are the global fleet's."""
     init_fn, rollout_fn = make_rollout(params, town, rcfg, policy_fn, frame_skip,
                                        spawn_pool=spawn_pool, device=device,
                                        control_space=control_space, shield=shield,
                                        policy_carry_init=policy_carry_init,
-                                       cameras=cameras)
+                                       cameras=cameras, mesh=mesh)
     _, traj = rollout_fn(init_fn(generator, n_envs), n_steps)
-    return driving_metrics(params, traj)
+    return driving_metrics(params, traj, mesh)
 
 
 def evaluate_routes(params: SimParams, town: TownMap, rcfg: RenderConfig,
@@ -560,39 +588,54 @@ def evaluate_routes(params: SimParams, town: TownMap, rcfg: RenderConfig,
                     control_space: str = "discrete", goal_ids=None,
                     spawn_pool: torch.Tensor | None = None,
                     device: str | torch.device = "cuda",
-                    cameras: tuple = ("camera",)) -> dict:
+                    cameras: tuple = ("camera",), mesh=None) -> dict:
     """Goal-directed (A→B) driving metrics on a town with nav tables: each
     env drives to its goal (``goal_ids`` (B,), by default round-robin over
     ``town.nav_goals``), arrivals end the episode and the env tries again
-    from a fresh spawn; ``cameras`` is the policy's rig. → ``route_metrics``
+    from a fresh spawn; ``cameras`` is the policy's rig. ``mesh`` shards
+    the fleet (``goal_ids`` stay the global fleet's). → ``route_metrics``
     of the rollout."""
     if town.nav_goals is None:
         raise ValueError("evaluate_routes needs a town with nav tables "
                          "(sim.planner.plan_to_goals)")
     init_fn, rollout_fn = make_rollout(params, town, rcfg, policy_fn, frame_skip,
                                        spawn_pool=spawn_pool, device=device,
-                                       control_space=control_space, cameras=cameras)
+                                       control_space=control_space, cameras=cameras,
+                                       mesh=mesh)
     carry = init_fn(generator, n_envs)
     n_goals = int(town.nav_goals.shape[0])
     if goal_ids is None:
         goal_ids = np.arange(n_envs) % n_goals
+    if mesh is not None:
+        goal_ids = np.asarray(goal_ids)[mesh.rows(n_envs)]
     _, traj = rollout_fn(assign_goals(carry, goal_ids), n_steps)
-    return route_metrics(params, traj, n_goals)
+    return route_metrics(params, traj, n_goals, mesh)
 
 
-def route_metrics(params: SimParams, traj: dict, n_goals: int) -> dict:
+def _global_sums(sums: dict, mesh) -> dict:
+    """Per-rank float64 sums and counts → their totals over the mesh's
+    ``data`` axis, in one all-reduce (unchanged without a mesh)."""
+    if mesh is None:
+        return sums
+    keys = list(sums)
+    flat = torch.tensor([float(sums[k]) for k in keys], dtype=torch.float64,
+                        device=mesh.device)
+    mesh.all_reduce_(flat)
+    return dict(zip(keys, flat.cpu().numpy().tolist()))
+
+
+def route_metrics(params: SimParams, traj: dict, n_goals: int, mesh=None) -> dict:
     """The A→B metrics of a goal-directed rollout's (T, B) trajectory, from
     a host walk over each env's episodes: an episode ends in an arrival, a
     crash (collision or off-road), a timeout, or — length 1 with neither —
     an unreachable spawn's respawn, which is not an attempt (the spawn
     failed, not the driving). The unfinished last episode of each env is not
-    counted. Infractions count crash episodes, not flagged steps."""
+    counted. Infractions count crash episodes, not flagged steps. Under a
+    ``mesh`` the counts are summed over the global fleet."""
     done = traj["done"].cpu().numpy().astype(bool)               # (T, B)
     arrived = traj["arrived"].cpu().numpy().astype(bool)
     crashed = (traj["collision"] | traj["offroad"]).cpu().numpy().astype(bool)
-    km = float(traj["speed"].cpu().numpy().astype(np.float64).sum() * params.dt / 1000.0)
-    arrivals = crashes = timeouts = 0
-    steps_to_arrival = []
+    arrivals = crashes = timeouts = steps_to_arrival = 0
     for b in range(done.shape[1]):
         start = 0
         for t in np.nonzero(done[:, b])[0]:
@@ -600,13 +643,19 @@ def route_metrics(params: SimParams, traj: dict, n_goals: int) -> dict:
             start = int(t) + 1
             if arrived[t, b]:
                 arrivals += 1
-                steps_to_arrival.append(length)
+                steps_to_arrival += length
             elif crashed[t, b]:
                 crashes += 1
             elif length > 1:
                 timeouts += 1
+    tot = _global_sums({
+        "arrivals": arrivals, "crashes": crashes, "timeouts": timeouts,
+        "steps_to_arrival": steps_to_arrival, "env_steps": done.size,
+        "speed": traj["speed"].cpu().numpy().astype(np.float64).sum()}, mesh)
+    arrivals, crashes, timeouts = (int(tot[k]) for k in ("arrivals", "crashes", "timeouts"))
+    km = float(tot["speed"] * params.dt / 1000.0)
     attempts = arrivals + crashes + timeouts
-    mean_steps = float(np.mean(steps_to_arrival)) if steps_to_arrival else None
+    mean_steps = tot["steps_to_arrival"] / arrivals if arrivals else None
     return {
         "goals": n_goals,
         "attempts": attempts,
@@ -619,15 +668,16 @@ def route_metrics(params: SimParams, traj: dict, n_goals: int) -> dict:
         "km_driven": km,
         "arrivals_per_km": arrivals / km if km > 0 else None,
         "infractions_per_km": crashes / km if km > 0 else None,
-        "env_steps": int(done.size),
+        "env_steps": int(tot["env_steps"]),
     }
 
 
-def driving_metrics(params: SimParams, traj: dict) -> dict:
-    """The metrics of ``evaluate_policy`` from a rollout's (T, B) trajectory."""
+def driving_metrics(params: SimParams, traj: dict, mesh=None) -> dict:
+    """The metrics of ``evaluate_policy`` from a rollout's (T, B) trajectory;
+    under a ``mesh`` (B the rank's rows) from sums and counts over the
+    global fleet, never means of per-rank means."""
     traj = {k: v.cpu().numpy() for k, v in traj.items()}
     n_steps, n_envs = traj["speed"].shape
-    steps = n_envs * n_steps
     speed = traj["speed"].astype(np.float64)              # (T, B)
     coll = traj["collision"].astype(bool)
     off = traj["offroad"].astype(bool)
@@ -635,13 +685,6 @@ def driving_metrics(params: SimParams, traj: dict) -> dict:
     done = traj["done"].astype(bool)
     ran_red = traj["ran_red"].astype(bool)
     km_env = speed.sum(axis=0) * params.dt / 1000.0
-    km = float(km_env.sum())
-
-    def per_km(count: float) -> float | None:
-        if km > 0:
-            return count / km
-        return None if count else 0.0
-
     ideal_km = n_steps * params.dt * params.target_speed / 1000.0
     completion = np.clip(km_env / ideal_km, 0.0, 1.0)
     route_km_env = np.clip(traj["route_ds"].astype(np.float64).sum(axis=0),
@@ -651,29 +694,49 @@ def driving_metrics(params: SimParams, traj: dict) -> dict:
     steer_cmd = traj["steer"].astype(np.float64)
     dsteer = np.abs(np.diff(steer_cmd, axis=0))
     valid = ~done[:-1]
-    out = {
-        "mean_speed": float(speed.mean()),
-        "steer_rate": float((dsteer * valid).sum() / max(valid.sum(), 1)),
-        "collisions_per_1k_steps": float(coll.sum()) / steps * 1000,
-        "offroad_per_1k_steps": float(off.sum()) / steps * 1000,
-        "episodes_ended": int(done.sum()),
-        "red_light_exposure": float(red.mean()),
-        "action_agreement": float((traj["action"] == traj["expert_action"]).mean()),
-        "env_steps": steps,
-        "km_driven": km,
-        "collisions_per_km": per_km(float(coll.sum())),
-        "offroad_per_km": per_km(float(off.sum())),
-        "red_violations_per_km": per_km(float(ran_red.sum())),
-        "clean_episode_rate": float((~(coll.any(0) | off.any(0))).mean()),
-        "mean_episode_steps": steps / (int(done.sum()) + n_envs),
-        "route_completion": float(completion.mean()),
-        "driving_score": float((completion * penalty).mean()),
-        "route_km": float(route_km_env.sum()),
-        "route_completion_arc": float(arc_completion.mean()),
-        "driving_score_arc": float((arc_completion * penalty).mean()),
+    sums = {
+        "envs": n_envs, "speed": speed.sum(), "dsteer": (dsteer * valid).sum(),
+        "valid": valid.sum(), "coll": coll.sum(), "off": off.sum(), "done": done.sum(),
+        "red": red.sum(), "ran_red": ran_red.sum(),
+        "agree": (traj["action"] == traj["expert_action"]).sum(), "km": km_env.sum(),
+        "clean": (~(coll.any(0) | off.any(0))).sum(), "completion": completion.sum(),
+        "score": (completion * penalty).sum(), "route_km": route_km_env.sum(),
+        "arc": arc_completion.sum(), "score_arc": (arc_completion * penalty).sum(),
     }
     if "shield" in traj:
-        interventions = float(traj["shield"].astype(bool).sum())
-        out["shield_interventions_per_km"] = per_km(interventions)
-        out["shield_active_frac"] = interventions / steps
+        sums["shield"] = traj["shield"].astype(bool).sum()
+    tot = _global_sums(sums, mesh)
+    n_envs = int(tot["envs"])
+    steps = n_envs * n_steps
+    km = float(tot["km"])
+
+    def per_km(count: float) -> float | None:
+        if km > 0:
+            return count / km
+        return None if count else 0.0
+
+    out = {
+        "mean_speed": float(tot["speed"] / steps),
+        "steer_rate": float(tot["dsteer"] / max(tot["valid"], 1)),
+        "collisions_per_1k_steps": float(tot["coll"]) / steps * 1000,
+        "offroad_per_1k_steps": float(tot["off"]) / steps * 1000,
+        "episodes_ended": int(tot["done"]),
+        "red_light_exposure": float(tot["red"] / steps),
+        "action_agreement": float(tot["agree"] / steps),
+        "env_steps": steps,
+        "km_driven": km,
+        "collisions_per_km": per_km(float(tot["coll"])),
+        "offroad_per_km": per_km(float(tot["off"])),
+        "red_violations_per_km": per_km(float(tot["ran_red"])),
+        "clean_episode_rate": float(tot["clean"] / n_envs),
+        "mean_episode_steps": steps / (int(tot["done"]) + n_envs),
+        "route_completion": float(tot["completion"] / n_envs),
+        "driving_score": float(tot["score"] / n_envs),
+        "route_km": float(tot["route_km"]),
+        "route_completion_arc": float(tot["arc"] / n_envs),
+        "driving_score_arc": float(tot["score_arc"] / n_envs),
+    }
+    if "shield" in tot:
+        out["shield_interventions_per_km"] = per_km(float(tot["shield"]))
+        out["shield_active_frac"] = float(tot["shield"]) / steps
     return out

@@ -33,6 +33,7 @@ from torch import nn
 from torch.func import functional_call, stack_module_state, vmap
 
 from carla_imitation_learning_tpu_torch.data.pipeline import DeviceDataset, FrameStore
+from carla_imitation_learning_tpu_torch.parallel.mesh import batch_sharding, shard_train_state
 from carla_imitation_learning_tpu_torch.device import resolve_device
 from carla_imitation_learning_tpu_torch.models import (
     BranchedCILPolicy, ContinuousPolicyCNN, PolicyCNN,
@@ -193,7 +194,7 @@ def run_dagger(params: SimParams, town: TownMap, rcfg: RenderConfig,
                n_commands: int = 6, speed_weight: float = 0.1, steer_weight: float = 1.0,
                accel_weight: float = 0.5, balanced: bool = False, goal_seed: int = 0,
                tx: AdamConfig | None = None, dtype: torch.dtype = torch.bfloat16,
-               device: str | torch.device = "cuda") -> dict:
+               device: str | torch.device = "cuda", mesh=None, eval_mesh=None) -> dict:
     """The ``dagger`` experiment: round 0 collects with the expert (with
     ``noise``, the only noisy round), later rounds with the current policy
     (``dagger_iteration``); each round trains ``epochs_per_round`` epochs
@@ -208,7 +209,10 @@ def run_dagger(params: SimParams, town: TownMap, rcfg: RenderConfig,
     ``goal_seed``), and the final policy is also scored by
     ``evaluate_routes`` on the same env → goal assignment. ``tx`` (default
     ``experiment_optimizer()``) and ``dtype`` set the optimizer and the
-    compute dtype. → {"rounds": [metrics + round, train_loss,
+    compute dtype. A ``mesh`` (``parallel.mesh``) replicates the state and
+    shards every training batch over ``data`` (every rank collects the same
+    rounds from the same generator); ``eval_mesh`` shards the per-round
+    evaluation fleet. → {"rounds": [metrics + round, train_loss,
     dataset_frames][, "routes": ...]}."""
     dev = resolve_device(device)
     goal_ids = None
@@ -218,6 +222,8 @@ def run_dagger(params: SimParams, town: TownMap, rcfg: RenderConfig,
                                                      steer_weight, accel_weight, dtype)
     state = create_train_state(model, tx or experiment_optimizer(), generator=generator,
                                device=dev)
+    if mesh is not None:
+        state = shard_train_state(mesh, state)
     step = make_train_step(loss_fn)
     stores, history = [], []
     for rnd in range(rounds):
@@ -234,6 +240,7 @@ def run_dagger(params: SimParams, town: TownMap, rcfg: RenderConfig,
         ds = DeviceDataset(agg, batch_size, shuffle=True, seed=rnd,
                            cil=policy_family == "cil", balanced=balanced,
                            continuous_labels=agg.controls if space == "continuous" else None,
+                           sharding=None if mesh is None else batch_sharding(mesh),
                            device=dev)
         last = {}
         for _ in range(epochs_per_round):
@@ -241,7 +248,7 @@ def run_dagger(params: SimParams, town: TownMap, rcfg: RenderConfig,
                 state, last = step(state, batch)
         m = cl.evaluate_policy(params, town, rcfg, policy_from(state.model), generator,
                                n_envs=min(n_envs, 32), n_steps=100, control_space=space,
-                               device=dev)
+                               device=dev, mesh=eval_mesh)
         m["round"] = rnd
         m["train_loss"] = float(last["loss"]) if last else float("nan")
         m["dataset_frames"] = len(agg)

@@ -12,6 +12,14 @@
 
 A logger (``add_scalars``, ``add_scalars_flat``) and a checkpoint manager
 (``save``, ``best``) are called when passed.
+
+Data parallel: a loader with a ``sharding`` (``parallel.mesh.batch_sharding``)
+feeds each rank its rows, and its state must come from
+``parallel.mesh.shard_train_state``. The steps' metrics are global means,
+so the history, the NaN rollback and the best checkpoint come out the same
+on every rank. Only rank 0 is handed a logger, callbacks and a writing
+checkpoint manager (``experiments._trainer_bits``); every rank waits at the
+end of ``fit`` until rank 0's checkpoints are on disk.
 """
 
 from __future__ import annotations
@@ -118,15 +126,20 @@ class Trainer:
         max_epochs: int | None = None,
     ) -> FitResult:
         self._check_device(state)
-        train_step = make_train_step(loss_fn)
-        eval_step = make_eval_step(loss_fn)
         train_loader = loaders["train_dataloader"]
         val_loader = loaders.get("val_dataloader")
+        train_sh = getattr(train_loader, "sharding", None)
+        val_sh = getattr(val_loader, "sharding", None)
+        if train_sh is not None and state.mesh is None:
+            raise ValueError("a sharded train loader needs a state from "
+                             "parallel.mesh.shard_train_state")
+        train_step = make_train_step(loss_fn)
+        eval_step = make_eval_step(loss_fn, None if val_sh is None else val_sh.mesh)
         fused_epoch = fused_eval = None
         if self.profiler is None and hasattr(train_loader, "pure_batch"):
-            fused_epoch = make_fused_epoch(loss_fn, train_loader.pure_batch)
+            fused_epoch = make_fused_epoch(loss_fn, train_loader.pure_batch, train_sh)
             if val_loader is not None and hasattr(val_loader, "pure_batch"):
-                fused_eval = make_fused_eval(loss_fn, val_loader.pure_batch)
+                fused_eval = make_fused_eval(loss_fn, val_loader.pure_batch, val_sh)
         max_epochs = max_epochs or self.max_epochs
         history: list[dict] = []
         timer = StepTimer(items_per_step=getattr(train_loader, "batch_size", 0))
@@ -187,6 +200,8 @@ class Trainer:
             self._callback("on_epoch_end", state=state, epoch=epoch, metrics=epoch_row,
                            loaders=loaders)
 
+        if state.mesh is not None:
+            state.mesh.barrier()   # rank 0's checkpoints are written
         elapsed = time.perf_counter() - t_start
         throughput = {
             "steps_per_sec": timer.steps / max(elapsed, 1e-9),
@@ -231,6 +246,7 @@ class Trainer:
 
     def test(self, state: TrainState, loss_fn: Callable, loaders: dict) -> dict:
         self._check_device(state)
-        eval_step = make_eval_step(loss_fn)
+        sh = getattr(loaders["test_dataloader"], "sharding", None)
+        eval_step = make_eval_step(loss_fn, None if sh is None else sh.mesh)
         metrics = [eval_step(state, b) for b in loaders["test_dataloader"]]
         return {f"test_{k}": v for k, v in _mean_metrics(metrics).items()}

@@ -89,9 +89,9 @@ def bc_augmented_loss_fn(crop: bool = True, flip: bool = True, jitter: bool = Tr
 
     def loss_fn(model, batch, generator: torch.Generator | None = None):
         x, y = batch
-        if generator is not None:
+        if generator is not None:   # a data-parallel rank draws for the global batch
             x, y = augment_batch(generator, x, y, crop=crop, flip=flip, jitter=jitter,
-                                 noise=noise)
+                                 noise=noise, draw_shard=getattr(model, "draw_shard", None))
         return bc_loss_fn(model, (x, y))
 
     return loss_fn

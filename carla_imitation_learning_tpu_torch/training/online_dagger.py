@@ -137,7 +137,7 @@ def make_online_dagger(model_apply: Callable, params: SimParams, town: TownMap,
     (goals survive auto-resets), so every round is goal-directed."""
     if mesh is not None:
         raise NotImplementedError(
-            "online DAgger over a mesh is not ported yet (ROADMAP Queue 1 item 6)")
+            "online DAgger over a mesh is not ported yet (ROADMAP Queue 1, item 6b)")
     dev = resolve_device(device)
     town = town.to(dev)
     rcfg = dataclasses.replace(rcfg, rgb=False, fast=True)

@@ -13,6 +13,13 @@ tensor, so under ``torch.func.vmap`` every trial of a sweep steps with its
 own rate, which ``torch.optim.Adam``'s one scalar per group cannot. Nothing here reads a device value on the host: a step's
 metrics stay device tensors, and the fused epoch stacks them so that its
 caller syncs once per epoch.
+
+Under a mesh (``parallel.mesh.shard_train_state``) a rank steps on its rows
+of the global batch: its gradients are averaged over ``data`` in one flat
+bucket before the clip, and its metrics are averaged too, so every rank
+holds the same parameters and reports the global mean. The fused runners
+take this rank's columns of the (n_batches, B) order, JAX's
+``PartitionSpec(None, 'data')``.
 """
 
 from __future__ import annotations
@@ -57,7 +64,8 @@ class TrainState:
 
     ``ema`` (optional) is a Polyak shadow of the model, updated after every
     optimizer step as ``e·d + p·(1 − d)``; evaluation then runs on it
-    (``eval_params``)."""
+    (``eval_params``). ``mesh`` (set by ``parallel.mesh.shard_train_state``)
+    makes the steps data-parallel."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
@@ -65,10 +73,14 @@ class TrainState:
     step: int = 0
     ema: nn.Module | None = None
     ema_decay: float = 0.0
+    mesh: object = None
 
     def apply_gradients(self) -> None:
-        """One optimizer step from the gradients in the parameters' ``.grad``."""
+        """One optimizer step from the gradients in the parameters' ``.grad``,
+        averaged over the mesh's ``data`` axis first when there is one."""
         params = [p for p in self.model.parameters() if p.grad is not None]
+        if self.mesh is not None:
+            self.mesh.mean_grads_([p.grad for p in params])
         if self.tx.clip > 0:
             clip_by_global_norm_([p.grad for p in params], self.tx.clip)
         for group in self.optimizer.param_groups:
@@ -269,7 +281,7 @@ def _train_one(state: TrainState, loss_fn, batch, generator):
     loss, metrics = loss_fn(state.model, batch, generator)
     loss.backward()
     state.apply_gradients()
-    return metrics
+    return metrics if state.mesh is None else state.mesh.mean_metrics(metrics)
 
 
 def make_train_step(loss_fn):
@@ -282,14 +294,21 @@ def make_train_step(loss_fn):
     return step
 
 
-def make_eval_step(loss_fn):
-    """``step(state, batch) -> metrics`` on ``eval_params(state)``."""
+def make_eval_step(loss_fn, mesh=None):
+    """``step(state, batch) -> metrics`` on ``eval_params(state)``; with a
+    ``mesh`` (a sharded loader's) the metrics are averaged over ``data``."""
 
     @torch.no_grad()
     def step(state: TrainState, batch):
-        return loss_fn(eval_params(state), batch, None)[1]
+        metrics = loss_fn(eval_params(state), batch, None)[1]
+        return metrics if mesh is None else mesh.mean_metrics(metrics)
 
     return step
+
+
+def _columns(order: torch.Tensor, sharding) -> torch.Tensor:
+    """This rank's columns of an (n_batches, B) order (all without a sharding)."""
+    return order if sharding is None else order[:, sharding.rows(order.shape[1])]
 
 
 @torch.no_grad()
@@ -301,26 +320,29 @@ def _stack(metrics: list) -> dict:
     return {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
 
 
-def make_fused_epoch(loss_fn, pure_batch: Callable):
+def make_fused_epoch(loss_fn, pure_batch: Callable, sharding=None):
     """Whole-epoch runner over the rows of an (n_batches, B) device matrix of
     sample indices: ``epoch(state, order, generator=None) -> (state,
     generator, stacked metrics (n_batches,))``. The order is uploaded once
-    by the caller and no step reads a device value on the host."""
+    by the caller and no step reads a device value on the host. With a
+    ``sharding`` (the loader's ``parallel.mesh.BatchSharding``) each rank
+    steps on its columns of the order."""
 
     def epoch(state: TrainState, order: torch.Tensor,
               generator: torch.Generator | None = None):
-        metrics = [_train_one(state, loss_fn, pure_batch(idx), generator) for idx in order]
+        metrics = [_train_one(state, loss_fn, pure_batch(idx), generator)
+                   for idx in _columns(order, sharding)]
         return state, generator, _stack(metrics)
 
     return epoch
 
 
-def make_fused_eval(loss_fn, pure_batch: Callable):
+def make_fused_eval(loss_fn, pure_batch: Callable, sharding=None):
     """Eval counterpart of ``make_fused_epoch``: ``run(state, order) ->
-    stacked metrics``."""
-    eval_step = make_eval_step(loss_fn)
+    stacked metrics``, global means under a ``sharding``."""
+    eval_step = make_eval_step(loss_fn, None if sharding is None else sharding.mesh)
 
     def run(state: TrainState, order: torch.Tensor):
-        return _stack([eval_step(state, pure_batch(idx)) for idx in order])
+        return _stack([eval_step(state, pure_batch(idx)) for idx in _columns(order, sharding)])
 
     return run

@@ -75,7 +75,9 @@ def restore_params(path: str | Path, template: dict) -> dict:
 class BestKCheckpointManager:
     """Keeps the ``save_top_k`` best checkpoints on ``monitor`` (``mode``
     "min" or "max"), listed in ``index.json``; a NaN score is never kept.
-    ``save_last`` also writes ``<filename>-last`` on every call."""
+    ``save_last`` also writes ``<filename>-last`` on every call. With
+    ``write=False`` (a data-parallel rank other than 0) it keeps the same
+    books in memory and touches no file."""
 
     def __init__(
         self,
@@ -85,11 +87,14 @@ class BestKCheckpointManager:
         save_top_k: int = 1,
         save_last: bool = False,
         filename: str = "ckpt",
+        write: bool = True,
     ):
         if mode not in ("min", "max"):
             raise ValueError(f"mode must be 'min' or 'max', got {mode!r}")
         self.directory = Path(directory).resolve()
-        self.directory.mkdir(parents=True, exist_ok=True)
+        self.write = write
+        if write:
+            self.directory.mkdir(parents=True, exist_ok=True)
         self.monitor = monitor
         self.mode = mode
         self.save_top_k = save_top_k
@@ -105,7 +110,8 @@ class BestKCheckpointManager:
         return v if self.mode == "min" else -v
 
     def _write_index(self) -> None:
-        self._index_path.write_text(json.dumps(self._index, indent=1))
+        if self.write:
+            self._index_path.write_text(json.dumps(self._index, indent=1))
 
     def save(self, step: int, state: Any, metrics: dict) -> Path | None:
         """Save if within top-k on the monitored metric; prune the worst."""
@@ -114,7 +120,8 @@ class BestKCheckpointManager:
         kept = [e for e in self._index if not e.get("is_last")]
         keep = len(kept) < self.save_top_k or score < max(e["score"] for e in kept)
         if keep and not math.isnan(score):
-            save_pytree(path, state)
+            if self.write:
+                save_pytree(path, state)
             self._index.append({
                 "step": int(step), "score": score, "path": str(path),
                 "metric": float(metrics.get(self.monitor, math.nan)),
@@ -123,11 +130,12 @@ class BestKCheckpointManager:
                             key=lambda e: e["score"])
             for e in ranked[self.save_top_k:]:
                 self._index.remove(e)
-                shutil.rmtree(e["path"], ignore_errors=True)
+                if self.write:
+                    shutil.rmtree(e["path"], ignore_errors=True)
             self._write_index()
         else:
             path = None
-        if self.save_last:
+        if self.save_last and self.write:
             save_pytree(self.directory / f"{self.filename}-last", state)
         return path
 

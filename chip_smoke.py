@@ -168,6 +168,16 @@ Phases (any failure exits nonzero, with no result line):
    latent sizes HPO_WM_Z and HPO_WM_EPOCHS epochs of at most HPO_WM_BATCHES
    batches: no trial fails, every reconstruction loss falls, kernel B
    exactly 4 × 129);
+6m. data parallelism (``mesh_phase``): (a) one NCCL rank on the card
+   (torchrun's variables for a world of one) runs ``run bc -o
+   mesh.enabled=true`` through the CLI at 128² and the imitation preset's
+   batch of 64 for MESH_BC_BATCHES steps, each all-reducing its gradient
+   bucket and its metrics over NCCL; (b) two gloo ranks spawned on cuda:0
+   (the backend named: NCCL refuses two ranks on one card) run one fp32 BC
+   step at batch 64 and an expert rollout of 256 envs × 50 steps (kernel B
+   on each rank's 128 envs), held against the same work in one process
+   with TF32 off: speeds at rtol 1e-5, actions equal, step metrics at rtol
+   2e-5, parameters equal on both ranks; a rank's failure fails the script;
    every phase's seconds are printed (``phase_seconds``);
 7. the rich fleet (same town and envs, the rich128 preset: facade bands,
    markings, shadows, textures, T=1408) from three seeds: kernel A's
@@ -175,6 +185,10 @@ Phases (any failure exits nonzero, with no result line):
    px LOD), kernel C (fused quads) and kernel D (grouped band tables) vs
    their plain versions, C vs B within the quad contract, D vs B bit for bit
    at 0 px; each timed at those shapes;
+7b. kernels B, C and D with coarse shared band lists (``list_band_factor``
+   2) on seed 0's rich frame: each bit for bit against its plain version
+   and against its factor-1 frame, timed beside the factor-1 run, and
+   listed in the ``kernels`` line;
 8. the rich collection path, counts reset just before it: the expert
    rollout with ``record_semantic=True`` on the rich preset at 1024 envs
    (what segmentation collection runs: kernel B for the policy frame, kernel
@@ -202,6 +216,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -326,6 +342,12 @@ SERVE_CLIENTS, SERVE_REQUESTS, SERVE_WINDOWS = 8, 40, (0.0, 2.0)
 HPO_WM_EPOCHS, HPO_WM_BATCHES = 2, 10
 HPO_WM_Z = (64,)
 HPO_CROSS_TRIAL = 0      # the vmapped trial held against itself alone and the CPU
+# The mesh phase: a 1-rank NCCL ``run bc -o mesh.enabled=true`` (a synthetic
+# 128² log, the imitation preset's batch of 64, MESH_BC_BATCHES batches), then
+# two gloo ranks on cuda:0 against one process: one fp32 BC step at batch 64
+# and an expert rollout of MESH_ENVS × MESH_STEPS (kernel B on each rank's rows)
+MESH_BC_FRAMES, MESH_BC_BATCHES = 512, 4
+MESH_BATCH, MESH_ENVS, MESH_STEPS = 64, 256, 50
 HPO_TIMED_REPEATS = 3    # vmapped sweep vs its trials one after another: median of 3
 LANES_PER_SM = 128       # lane-instructions an SM issues per clock (4 × 32)
 HBM_RATE = 3.35e12       # H100 SXM device memory, B/s
@@ -500,6 +522,270 @@ def b_tolerance(got, want, what: str) -> float:
     return float(d.max())
 
 
+def band_factor_kernels(params, town, dev, rows, rate, facts) -> list:
+    """Phase 7b: kernels B, C and D with coarse shared band lists
+    (``list_band_factor`` 2: one list over every two bands, render band r
+    reading list row r // 2) on the rich fleet's seed-0 frame at 2 px LOD:
+    each bit for bit against its plain version and against its own frame
+    from the per-band lists, and timed beside that factor-1 run. Bounds
+    count the pairs of the coarse lists that each band walks (its list row's
+    entries in its own warp tiles). → their entries of the ``kernels``
+    line."""
+    import torch
+
+    from carla_imitation_learning_tpu_torch.ops import raster_fast as rf
+    from carla_imitation_learning_tpu_torch.render.pipeline import make_scene_setup
+    from carla_imitation_learning_tpu_torch.sim.world import reset_env
+
+    rich = rich_config(rgb=False, fast=True, quads=True)
+    states = reset_env(params, town, torch.Generator().manual_seed(0), N_ENVS)
+    s_q = make_scene_setup(params, town, rich, device=dev)(states)
+    near, far = rich.near, rich.far
+    a1 = fast_args(s_q, T_RICH, near, far, rows)
+    a2 = fast_args(s_q, T_RICH, near, far, rows, factor=2)
+    runs = {"B": (rf.fast_bands, rf.fast_bands_plain, a1, a2),
+            "C": (rf.prim_bands, rf.prim_bands_plain, prim_args(s_q, T_RICH, near, far, rows),
+                  prim_args(s_q, T_RICH, near, far, rows, factor=2)),
+            "D": (rf.vec_bands, rf.vec_bands_plain, vec_args(a1), vec_args(a2))}
+    del s_q
+    lrow = torch.arange(HW // rows, device=dev) // 2     # each band's list row
+    frame_px = N_ENVS * HW * HW
+    spec = {"B": ("raster_fast (kernel B, list_band_factor 2)", "raster_fast.cu",
+                  "carla_imitation_learning_tpu/ops/raster_fast.py:400", "main",
+                  OPS_PER_PASS_B, 2, FAST_ENTRY_BYTES, 3),
+            "C": ("raster_prim (kernel C, list_band_factor 2)", "raster_prim.cu",
+                  "carla_imitation_learning_tpu/ops/raster_fast.py:265", "quad_vec_ab",
+                  OPS_PER_PASS_C, 2, PRIM_ENTRY_BYTES, 4),
+            "D": ("raster_vec (kernel D, list_band_factor 2)", "raster_vec.cu",
+                  "carla_imitation_learning_tpu/ops/raster_fast.py:341", "quad_vec_ab",
+                  OPS_PER_PASS_D, rf.VEC_P, VEC_ENTRY_BYTES, 3)}
+    entries, report = [], {}
+    for k, (fn, plain, args1, args2) in runs.items():
+        out1, out2 = fn(*args1), fn(*args2)
+        want2 = plain(*args2)
+        err = float((out2 - want2).abs().max())
+        check(torch.equal(out2, want2), f"kernel {k} at list_band_factor 2: max|d| vs plain "
+                                        f"{err:.3e}")
+        check(torch.equal(out2, out1), f"kernel {k} at list_band_factor 2: "
+                                       f"{int((out2 != out1).sum())} pixels differ from factor 1")
+        del out1, out2, want2
+        name, src, replaces, path, ops_pass, group, entry_bytes, edges = spec[k]
+        cnt2 = args2[1] if k == "D" else args2[2]
+        cnt_band = cnt2[:, lrow]                         # what each band walks
+        if k == "D":    # D walks B's coarse lists in whole groups
+            tbl_b, idx_b = a2[0], a2[1][:, lrow]
+        else:
+            tbl_b, idx_b = args2[0], args2[1][:, lrow]
+        tiles, kept = warp_tile_pairs(tbl_b, idx_b, cnt_band, HW, HW, rows, exact=False,
+                                      edges=edges, group=group)
+        k_wide = args2[0].shape[2] if k == "D" else args2[1].shape[2]
+        ms_1 = cuda_ms(lambda: fn(*args1), reps=20)
+        entries.append(kernel_entry(
+            name, k, src, replaces, fn, plain, args2, err, rate,
+            ops=kept * ops_pass + frame_px * OPS_PER_PIXEL_EPILOGUE_B,
+            band_list_ops=listed(cnt_band, rows) * ops_pass,
+            table_bytes=walked_bytes(cnt_band, group, k_wide, entry_bytes),
+            out_bytes=frame_px * 4, path=path, rows=rows, count=cnt_band,
+            warp_tile_pairs=tiles, kept_pairs=kept, list_band_factor=2, ms_factor_1=ms_1,
+            list_rows=int(cnt2.shape[1]), **facts[k]))
+        report[k] = {"ms": entries[-1]["ms"], "ms_factor_1": ms_1,
+                     "walked_per_band": float(cnt_band.float().mean())}
+        del args1, args2, cnt2, cnt_band, idx_b
+        runs[k] = None
+        torch.cuda.empty_cache()
+    log(json.dumps({"band_factor": report}))
+    return entries
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_shape() -> dict:
+    """The sizes of phase 6m's work, handed to its spawned ranks."""
+    return {"hw": HW, "t": T, "batch": MESH_BATCH, "envs": MESH_ENVS, "steps": MESH_STEPS,
+            "town": BENCH_TOWN}
+
+
+def mesh_work(mesh, dev, shape: dict) -> dict:
+    """Phase 6m's work, sharded over ``mesh`` or (None) whole in this
+    process: one fp32 BC step of ``PolicyCNN`` at a batch of ``shape
+    ["batch"]`` frames of ``shape["hw"]``² (a rank takes its rows, the
+    state replicated) and an expert rollout of ``shape["envs"]`` ×
+    ``shape["steps"]`` on the bench town (a rank steps and renders its rows
+    with kernel B). Inputs from fixed seeds; TF32 is the caller's."""
+    import torch
+
+    from carla_imitation_learning_tpu_torch.models import PolicyCNN
+    from carla_imitation_learning_tpu_torch.parallel.mesh import shard_batch, shard_train_state
+    from carla_imitation_learning_tpu_torch.render.pipeline import RenderConfig
+    from carla_imitation_learning_tpu_torch.sim.town import make_town
+    from carla_imitation_learning_tpu_torch.sim.world import SimParams
+    from carla_imitation_learning_tpu_torch.training.closed_loop import make_rollout
+    from carla_imitation_learning_tpu_torch.training.losses import bc_loss_fn
+    from carla_imitation_learning_tpu_torch.training.steps import (
+        create_train_state, make_optimizer, make_train_step,
+    )
+
+    hw = shape["hw"]
+    state = create_train_state(PolicyCNN(dtype=torch.float32), make_optimizer(
+        {"LEARNING_RATE": BC_LR, "gradient_clip_val": BC_CLIP}, 1),
+        generator=torch.Generator().manual_seed(0), device=dev)
+    gen = torch.Generator().manual_seed(1)
+    batch = (torch.rand((shape["batch"], hw, hw, 4), generator=gen).to(dev),
+             torch.randint(0, 9, (shape["batch"],), generator=gen).to(dev))
+    if mesh is not None:
+        state, batch = shard_train_state(mesh, state), shard_batch(mesh, batch)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, metrics = make_train_step(bc_loss_fn)(state, batch)
+    metrics = {k: float(v) for k, v in metrics.items()}
+    step_s = time.perf_counter() - t0
+    params = torch.cat([p.detach().reshape(-1) for p in state.model.parameters()]).cpu()
+    rcfg = RenderConfig(height=hw, width=hw, max_triangles=shape["t"])
+    init_fn, rollout_fn = make_rollout(SimParams(n_agents=15), make_town(**shape["town"]),
+                                       rcfg, None, device=dev, mesh=mesh)
+    reset_counts()
+    t0 = time.perf_counter()
+    _, traj = rollout_fn(init_fn(torch.Generator().manual_seed(2), shape["envs"]),
+                         shape["steps"])
+    speed, action = traj["speed"].cpu(), traj["action"].cpu()
+    return {"metrics": metrics, "params": params, "speed": speed, "action": action,
+            "launches": read_counts(), "step_s": step_s,
+            "rollout_s": time.perf_counter() - t0}
+
+
+def mesh_rank(rank: int, port: int, out_dir: str, device: str, shape: dict) -> None:
+    """One of phase 6m's two gloo ranks on ``device`` (cuda:0 for both: NCCL
+    will not put two ranks on one card): ``mesh_work`` over a ``data`` mesh
+    of two, with TF32 off; its result saved for the parent."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from carla_imitation_learning_tpu_torch.parallel.mesh import make_mesh, multihost_initialize
+
+    multihost_initialize(coordinator_address=f"127.0.0.1:{port}", num_processes=2,
+                         process_id=rank, backend="gloo", device=device)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        mesh = make_mesh(axis_sizes={"data": 2}, devices=device)
+        torch.save(mesh_work(mesh, mesh.device, shape), Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_phase(dev, smi: str) -> dict:
+    """Phase 6m: data parallelism over ``torch.distributed``.
+
+    a. One NCCL rank on the card: torchrun's variables for a world of one
+       (RANK 0, WORLD_SIZE 1, MASTER_ADDR 127.0.0.1, a free port), then
+       ``run bc -o mesh.enabled=true`` through the CLI, which joins the
+       process group (``nccl``) and trains on a synthetic 128² log at the
+       preset's batch for MESH_BC_BATCHES batches: every train step crosses
+       NCCL's all-reduce (the gradient bucket, then the metrics).
+    b. Two gloo ranks spawned on cuda:0, the backend named: ``mesh_work``
+       sharded over them against ``mesh_work`` whole in this process, TF32
+       off in both: speeds at rtol 1e-5, actions equal, the step's metrics
+       at rtol 2e-5 and equal on both ranks, the parameters equal on both
+       ranks, kernel B launched MESH_STEPS + 1 times on each rank.
+    A rank's failure fails the phase. → launch counts (this process and
+    both ranks)."""
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    launches = {k: 0 for k in counters()}
+    res = {}
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp, \
+                Capture(dist, "all_reduce", lambda a, k, out: (
+                    dist.get_backend(), a[0].numel() * a[0].element_size())) as calls:
+            t0 = time.perf_counter()
+            out = cli_run("bc", "-o", f"data_dir={tmp}/data", "-o", f"log_dir={tmp}/logs",
+                          "-o", f"image_height={HW}", "-o", f"image_width={HW}",
+                          "-o", f"synthetic_frames={MESH_BC_FRAMES}", "-o", "NUM_EPOCHS=1",
+                          "-o", f"BATCH_SIZE={MESH_BATCH}",
+                          "-o", f"trainer.limit_train_batches={MESH_BC_BATCHES}",
+                          "-o", "trainer.limit_val_batches=2",
+                          "-o", "bc_cameras=['camera']", "-o", "mesh.enabled=true")
+            nccl_s = time.perf_counter() - t0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    check(not dist.is_initialized(), "run bc left its process group up")
+    loss = out["camera"]["history"][-1]["train_loss"]
+    check(loss > 0 and loss == loss, f"1-rank NCCL run bc: train_loss {loss}")
+    backends = {b for b, _ in calls.calls}
+    bucket = max(n for _, n in calls.calls)
+    check(backends == {"nccl"}, f"1-rank run bc all-reduced over {backends}")
+    check(sum(n == bucket for _, n in calls.calls) == MESH_BC_BATCHES,
+          f"1-rank run bc: {len(calls.calls)} all-reduces, not one bucket a step")
+    res["nccl_one_rank"] = {"seconds": nccl_s, "all_reduces": len(calls.calls),
+                            "bucket_bytes": bucket, "train_loss": loss}
+    log(f"mesh (a) 1 NCCL rank, run bc {MESH_BC_BATCHES} steps at batch {MESH_BATCH}, "
+        f"{HW}²: {nccl_s:.1f} s; {smi}")
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as tmp:
+            t0 = time.perf_counter()
+            try:
+                mp.spawn(mesh_rank, args=(_free_port(), tmp, DEVICE, mesh_shape()), nprocs=2,
+                         join=True)
+            except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+                raise SmokeFailure(f"mesh (b): a gloo rank failed: {e}") from e
+            ranks_s = time.perf_counter() - t0
+            ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
+                     for r in range(2)]
+        whole = mesh_work(None, dev, mesh_shape())
+        launches["B"] += whole["launches"]["B"]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    speed = torch.cat([r["speed"] for r in ranks], dim=1)
+    action = torch.cat([r["action"] for r in ranks], dim=1)
+    check(speed.shape == whole["speed"].shape, f"sharded rollout shape {tuple(speed.shape)}")
+    check(bool(torch.allclose(speed, whole["speed"], rtol=1e-5, atol=0.0)),
+          f"mesh (b): speeds differ from one process, max|d| "
+          f"{float((speed - whole['speed']).abs().max()):.3e}")
+    check(torch.equal(action, whole["action"]), "mesh (b): actions differ from one process")
+    check(ranks[0]["metrics"] == ranks[1]["metrics"], "mesh (b): the ranks' metrics differ")
+    check(torch.equal(ranks[0]["params"], ranks[1]["params"]),
+          "mesh (b): the ranks' parameters differ after the step")
+    for k, v in whole["metrics"].items():
+        got = ranks[0]["metrics"][k]
+        check(abs(got - v) <= 2e-5 * abs(v), f"mesh (b): step {k} {got} vs one process {v}")
+    for r in ranks:
+        check(r["launches"]["B"] == MESH_STEPS + 1,
+              f"mesh (b): kernel B launched {r['launches']['B']} times on a rank")
+        launches["B"] += r["launches"]["B"]
+    res["gloo_two_ranks"] = {
+        "seconds": ranks_s, "step_s": [r["step_s"] for r in ranks],
+        "rollout_s": [r["rollout_s"] for r in ranks], "one_process_step_s": whole["step_s"],
+        "one_process_rollout_s": whole["rollout_s"], "metrics": ranks[0]["metrics"],
+        "one_process_metrics": whole["metrics"],
+        "param_bytes": int(ranks[0]["params"].numel() * 4),
+        "max_speed_diff": float((speed - whole["speed"]).abs().max())}
+    log(f"mesh (b) 2 gloo ranks on cuda:0, BC step at batch {MESH_BATCH} and a "
+        f"{MESH_ENVS} × {MESH_STEPS} rollout: {ranks_s:.1f} s with the ranks' start; {smi}")
+    res["seconds"] = time.perf_counter() - t_phase
+    log(json.dumps({"mesh": res}))
+    return launches
+
+
 def bench_fleet(dev):
     """The bench town on ``dev`` and its sim parameters → (params, town)."""
     from carla_imitation_learning_tpu_torch.sim.town import make_town
@@ -518,23 +804,30 @@ def exact_args(setup, t: int, near: float, far: float, n_ch: int, rows: int, lis
     return (ra.pack_setup(setup, luma_only=n_ch == 1), idx, cnt, HW, HW, near, far, n_ch, rows)
 
 
-def fast_args(setup, t: int, near: float, far: float, rows: int, lod: float = 2.0):
+def fast_args(setup, t: int, near: float, far: float, rows: int, lod: float = 2.0,
+              factor: int = 1):
     """Kernel B's arguments for a fleet's scene setup at HW²: its table, the
-    band lists of ``tile_lists_fast`` at ``lod`` px, no fog."""
+    band lists of ``tile_lists_fast`` at ``lod`` px, no fog; with ``factor``
+    > 1 one coarse list per ``factor`` bands (``list_band_factor``)."""
     from carla_imitation_learning_tpu_torch.ops import raster_fast as rf
 
-    idx, cnt = rf.tile_lists_fast(setup, HW, t, width=HW, lod_px=lod, rows_per_band=rows)
-    return (rf.pack_setup_fast(setup), idx, cnt, HW, HW, near, far, 0.0, rows)
+    idx, cnt = rf.tile_lists_fast(setup, HW, t, width=HW, lod_px=lod, rows_per_band=rows,
+                                  list_band_factor=factor)
+    args = (rf.pack_setup_fast(setup), idx, cnt, HW, HW, near, far, 0.0, rows)
+    return args + (factor,) if factor > 1 else args
 
 
-def prim_args(setup, t: int, near: float, far: float, rows: int):
+def prim_args(setup, t: int, near: float, far: float, rows: int, factor: int = 1):
     """Kernel C's arguments for a fleet's quad-ready setup at HW²: the fused
-    primitives' table, their band lists at 2 px LOD, no fog."""
+    primitives' table, their band lists at 2 px LOD, no fog (coarse lists
+    with ``factor`` > 1)."""
     from carla_imitation_learning_tpu_torch.ops import raster_fast as rf
 
     prims = rf.fuse_prims(setup)
-    idx, cnt = rf.tile_lists_fast(prims, HW, t, width=HW, lod_px=2.0, rows_per_band=rows)
-    return (rf.pack_setup_prims(prims), idx, cnt, HW, HW, near, far, 0.0, rows)
+    idx, cnt = rf.tile_lists_fast(prims, HW, t, width=HW, lod_px=2.0, rows_per_band=rows,
+                                  list_band_factor=factor)
+    args = (rf.pack_setup_prims(prims), idx, cnt, HW, HW, near, far, 0.0, rows)
+    return args + (factor,) if factor > 1 else args
 
 
 def vec_args(args_b):
@@ -808,6 +1101,7 @@ def run(args) -> dict:
     phase("seq_wm", seq_wm_phase, dev)
     phase("rigs_replay", rigs_replay_phase, dev)
     phase("hpo", hpo_phase, dev)
+    phase("mesh", mesh_phase, dev, smi)
     # the rich phases allocate gigabytes of temporaries; they run after the
     # main path has been timed
     t0 = time.perf_counter()
@@ -815,6 +1109,9 @@ def run(args) -> dict:
     kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], b_rich_err)
     kernels += rich
     phase_s["rich_kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kernels += band_factor_kernels(params, town, dev, rows, rate, facts)
+    phase_s["band_factor"] = time.perf_counter() - t0
     phase("rich_collection", rich_collection, params, town, dev)
     phase("quad_vec_ab", quad_vec_ab, params, town, dev, kernels)
     log(json.dumps({"phase_seconds": phase_s}))

@@ -7,7 +7,8 @@ packed store equal to it; ``bc`` on that log and ``closed_loop_eval`` from
 the saved checkpoint; the policy families (``bc_cil`` then ``route_eval``
 of its checkpoint, ``bc_continuous``, goal-directed and continuous DAgger)
 at toy size; ``dagger_uncertain`` through the CLI with the JAX
-experiment's result keys; the options that wait for other modules raise."""
+experiment's result keys; a mesh larger than the world raises, and a mesh
+of one equals the unsharded run."""
 
 import contextlib
 import fcntl
@@ -182,15 +183,55 @@ def test_bc_then_closed_loop_eval(collected, capsys):
     assert ev["expert"]["action_agreement"] == 1.0
 
 
+MESH_OF_ONE = {
+    "bc": ["NUM_EPOCHS=1", "BATCH_SIZE=8", "synthetic_frames=60", "image_height=64",
+           "image_width=64", "compute_dtype=float32", "trainer.num_sanity_val_steps=0",
+           "bc_cameras=['camera']"],
+    "closed_loop_eval": ["n_envs=2", "n_steps=6", "compute_dtype=float32"],
+}
+
+
+def _without_state(x):
+    if isinstance(x, dict):
+        return {k: _without_state(v) for k, v in x.items()
+                if k not in ("state", "throughput", "best_path")}
+    return x
+
+
 @pytest.mark.parametrize("experiment,overrides", [
     ("bc", ["mesh.axes.model=2"]), ("bc", ["mesh.enabled=true"]), ("bc", ["mesh.axes.data=4"]),
     ("closed_loop_eval", ["mesh.enabled=true"]), ("route_eval", ["mesh.axes.data=4"]),
 ])
 def test_unported_options_raise(tmp_path, experiment, overrides):
+    """The mesh options (named when they raised as not ported): axes that
+    ask for more ranks than the world (one process here) has raise
+    ``ValueError`` before anything runs; ``mesh.enabled=true`` is a mesh of
+    one rank whose collectives are the identity, so its run equals the
+    unsharded one."""
+    if overrides != ["mesh.enabled=true"]:
+        cfg = p_compose("config", overrides=["model=imitation", "device=cpu",
+                                             f"data_dir={tmp_path}", f"log_dir={tmp_path}",
+                                             *TINY, *overrides])
+        with pytest.raises(ValueError, match="asks? for more ranks than the world has"):
+            ex.EXPERIMENTS[experiment](cfg)
+        return
+    results = []
+    for tag, extra in (("plain", []), ("mesh", overrides)):
+        cfg = p_compose("config", overrides=[
+            "model=imitation", "device=cpu", f"data_dir={tmp_path}/data",
+            f"log_dir={tmp_path}/{tag}", *TINY, *MESH_OF_ONE[experiment], *extra])
+        results.append(_without_state(ex.EXPERIMENTS[experiment](cfg)))
+    assert results[0] == results[1]
+
+
+@pytest.mark.parametrize("experiment", ["dagger_online", "rl_finetune"])
+def test_mesh_waits_for_item_6b(tmp_path, experiment):
+    """Online DAgger's sharded buffer and PPO's sharded rollouts are a later
+    slice: under a mesh (here one of one rank) both raise, naming it."""
     cfg = p_compose("config", overrides=["model=imitation", "device=cpu",
                                          f"data_dir={tmp_path}", f"log_dir={tmp_path}",
-                                         *TINY, *overrides])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+                                         *TINY, "mesh.enabled=true"])
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 6b"):
         ex.EXPERIMENTS[experiment](cfg)
 
 

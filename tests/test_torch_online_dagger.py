@@ -297,7 +297,7 @@ def test_beta_one_stays_expert():
 
 
 def test_online_dagger_refuses():
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 6b"):
         p_od.make_online_dagger(PolicyCNN.__call__, P_PARAMS, P_TOWN, P_RCFG, 2, 4, 1, 1,
                                 4, device="cpu", mesh=object())
     if not torch.cuda.is_available():

@@ -144,11 +144,11 @@ def test_device_dataset_matches(case):
 
 
 def test_device_dataset_refuses(tmp_path):
-    """Sharding (not ported) raises; extra camera streams of another shape
-    raise; a log that is not on disk raises; the default device is the
-    card."""
+    """A sharding that is not the port's (``parallel.mesh.batch_sharding``)
+    raises; extra camera streams of another shape raise; a log that is not
+    on disk raises; the default device is the card."""
     p_store, _ = _stores()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="parallel.mesh.batch_sharding"):
         p_pipe.DeviceDataset(p_store, 8, device="cpu", sharding=object())
     with pytest.raises(ValueError, match="extra_frames"):
         p_pipe.DeviceDataset(p_store, 8, device="cpu", extra_frames=[p_store.frames[1:]])

@@ -1,5 +1,6 @@
-"""The PyTorch port, chip_smoke.py and benchmarks_torch/ import neither
-JAX, flax nor the JAX package, and read no file of the JAX package (its ``configs/``, its
+"""The PyTorch port, chip_smoke.py, benchmarks_torch/ and the rank side of
+the data-parallel tests (tests/torch_mesh_ranks.py) import neither JAX,
+flax nor the JAX package, and read no file of the JAX package (its ``configs/``, its
 ``native/framestore.cpp``): the machine with the card has none of them, and
 the port keeps its own copies."""
 
@@ -16,7 +17,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "carla_imitation_learning_tpu_torch"
 FORBIDDEN = ("jax", "flax", "carla_imitation_learning_tpu")
 SOURCES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-           + sorted((ROOT / "benchmarks_torch").glob("*.py")))
+           + sorted((ROOT / "benchmarks_torch").glob("*.py"))
+           + [ROOT / "tests" / "torch_mesh_ranks.py"])
 
 
 def _imported_roots(path: pathlib.Path) -> set:
@@ -111,3 +113,29 @@ def test_hpo_sources_are_checked():
             "carla_imitation_learning_tpu_torch/parallel/hpo.py",
             "carla_imitation_learning_tpu_torch/experiments.py",
             "benchmarks_torch/continuous_ab.py", "benchmarks_torch/hpo_phase.py"} <= names
+
+
+def test_mesh_sources_are_checked():
+    """The mesh, the modules it shards and the ranks' side of its tests are
+    among the sources every check above walks."""
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    assert {"carla_imitation_learning_tpu_torch/parallel/mesh.py",
+            "carla_imitation_learning_tpu_torch/training/steps.py",
+            "carla_imitation_learning_tpu_torch/training/closed_loop.py",
+            "carla_imitation_learning_tpu_torch/data/vae_data.py",
+            "tests/torch_mesh_ranks.py"} <= names
+
+
+def test_mesh_module_leaves_jax_unloaded():
+    """A rank imports the mesh and the rank-side test module without
+    loading JAX: the ranks run the port alone."""
+    code = ("import sys\n"
+            "import carla_imitation_learning_tpu_torch.parallel.mesh\n"
+            "import torch_mesh_ranks\n"
+            f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, [str(ROOT), str(ROOT / "tests"), os.environ.get("PYTHONPATH")])))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr

@@ -124,7 +124,7 @@ def test_engine_stats_warmup_and_errors(pair):
         eng.infer(np.zeros((H, W, 4), np.uint8))
     with pytest.raises(ValueError, match="rows"):
         eng.infer(_frames(3), np.zeros(2, np.float32))
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 6b"):
         InferenceEngine(pair.servable, mesh=object())
     live = InferenceEngine(lambda f: pair.tm(f.float() / 255), buckets=(2, 4), device="cpu")
     assert live.infer(_frames(3)).shape == (3,)
