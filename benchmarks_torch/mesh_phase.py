@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
-"""``chip_smoke.py``'s ``mesh`` phase (6m) and its coarse-band-list kernel
-checks (7b) alone, on one NVIDIA GPU, from a cold kernel build.
+"""``chip_smoke.py``'s ``doctor`` step, its ``mesh`` phase (6m) and its
+coarse-band-list kernel checks (7b) alone, on one NVIDIA GPU, from a cold
+kernel build.
 
-Builds every kernel from ``csrc/`` and the frame store's library, then
-runs ``chip_smoke.band_factor_kernels`` (kernels B, C and D at
+Builds every kernel from ``csrc/`` and the frame store's library, runs
+``chip_smoke.doctor_phase`` (``cli doctor`` on the card, every check
+green; its ``{"doctor": ...}`` line), then
+``chip_smoke.band_factor_kernels`` (kernels B, C and D at
 ``list_band_factor`` 2 on the rich fleet, bit for bit against their plain
 versions and their factor-1 frames, timed beside the factor-1 run; one
 ``{"band_factor": ...}`` line and the three entries of the ``kernels``
-line) and ``chip_smoke.mesh_phase`` (one NCCL rank's ``run bc -o
-mesh.enabled=true``; two gloo ranks on cuda:0 against one process; its
-``{"mesh": ...}`` line), each with the script's gates. Prints the card's
+line) and ``chip_smoke.mesh_phase`` (one NCCL rank's traced ``run bc -o
+mesh.enabled=true``; two gloo ranks on cuda:0 against one process: the BC
+step, the rollout, online DAgger, PPO and a served batch; its ``{"mesh":
+...}`` line), each with the script's gates. Prints the card's
 nvidia-smi name and power limit first. Exits nonzero when a gate fails.
 
     python3 benchmarks_torch/mesh_phase.py
@@ -43,6 +47,9 @@ def main() -> int:
         for name in cuda_lib.SOURCES:
             cuda_lib.load(name)
         cs.log(f"build: {time.perf_counter() - t0:.1f} s")
+        t1 = time.perf_counter()
+        cs.doctor_phase()
+        doctor_s = time.perf_counter() - t1
         facts = {"B": cs.launch_facts("raster_fast"), "C": cs.launch_facts("raster_prim"),
                  "D": cs.launch_facts("raster_vec")}
         dev = torch.device("cuda")
@@ -59,7 +66,8 @@ def main() -> int:
         print(f"mesh_phase: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
     cs.log(json.dumps({"kernels": entries}))
-    cs.log(f"band_factor: {band_s:.1f} s, mesh: {mesh_s:.1f} s, launches {launches}; {smi}")
+    cs.log(f"doctor: {doctor_s:.1f} s, band_factor: {band_s:.1f} s, mesh: {mesh_s:.1f} s, "
+           f"launches {launches}; {smi}")
     return 0
 
 

@@ -5,7 +5,11 @@ calls hooks by name, ``on_fit_start(trainer, state)``,
 
 from carla_imitation_learning_tpu_torch.callbacks.callbacks import (  # noqa: F401
     Callback,
-    SaveBestMetricScores,
-    SaveConfusionMatrix,
+    ExampleCallback,
+    UnfreezeModelCallback,
+    SaveCodeSnapshot,
     SaveMetricsHeatmap,
+    SaveConfusionMatrix,
+    SaveBestMetricScores,
+    UploadCheckpointsToWandb,
 )

@@ -1,6 +1,8 @@
-"""The callbacks the experiments attach to every fit (the JAX package's
-``callbacks/callbacks.py``, its ``Callback``, ``SaveBestMetricScores``,
-``SaveMetricsHeatmap`` and ``SaveConfusionMatrix``).
+"""Training callbacks (the JAX package's ``callbacks/callbacks.py``): the
+ones the experiments attach to every fit (``SaveBestMetricScores``,
+``SaveMetricsHeatmap``, ``SaveConfusionMatrix``) and the reference's others
+(``ExampleCallback``, ``UnfreezeModelCallback``, ``SaveCodeSnapshot``,
+``UploadCheckpointsToWandb``).
 
 The per-class callbacks compute validation predictions at fit end when the
 trainer passes ``loaders``, write ``per_class_metrics.json`` /
@@ -12,6 +14,7 @@ JAX package's does, so inside a fit they return at once.
 from __future__ import annotations
 
 import json
+import zipfile
 from pathlib import Path
 
 import numpy as np
@@ -38,6 +41,70 @@ def _wandb_run():
     except ImportError:
         return None
     return wandb.run
+
+
+class ExampleCallback(Callback):
+    def __init__(self):
+        print("Callback initialized.")
+
+    def on_fit_start(self, trainer, state, **kw):
+        print("Starting to train!")
+
+    def on_fit_end(self, trainer, state, history, **kw):
+        print("Training is done.")
+
+
+class UnfreezeModelCallback(Callback):
+    """``frozen`` is True until ``wait_epochs`` epochs have ended (the
+    reference unfreezes ``requires_grad`` then); a loss or an optimizer that
+    freezes parameters reads it through ``trainer.callbacks``."""
+
+    def __init__(self, wait_epochs: int = 5):
+        self.wait_epochs = wait_epochs
+        self.frozen = True
+
+    def on_epoch_end(self, trainer, state, epoch, metrics, loaders, **kw):
+        if epoch + 1 >= self.wait_epochs:
+            self.frozen = False
+
+
+class SaveCodeSnapshot(Callback):
+    """Zip the package's Python sources (this package's by default, or
+    ``code_dir``'s) to ``out_dir/code_snapshot.zip`` at fit start, paths
+    relative to the package's parent; a live wandb run also logs them."""
+
+    def __init__(self, out_dir: str, code_dir: str | None = None):
+        self.out_dir = Path(out_dir)
+        self.code_dir = Path(code_dir) if code_dir else Path(__file__).resolve().parents[1]
+
+    def on_fit_start(self, trainer, state, **kw):
+        self.out_dir.mkdir(parents=True, exist_ok=True)
+        out = self.out_dir / "code_snapshot.zip"
+        with zipfile.ZipFile(out, "w", zipfile.ZIP_DEFLATED) as z:
+            for p in sorted(self.code_dir.rglob("*.py")):
+                z.write(p, p.relative_to(self.code_dir.parent))
+        run = _wandb_run()
+        if run is not None:
+            run.log_code(str(self.code_dir))
+
+
+class UploadCheckpointsToWandb(Callback):
+    """At fit end, ``ckpt_dir`` as a wandb artifact of a live run; without
+    one it does nothing (no network)."""
+
+    def __init__(self, ckpt_dir: str):
+        self.ckpt_dir = Path(ckpt_dir)
+
+    def on_fit_end(self, trainer, state, history, **kw):
+        run = _wandb_run()
+        if run is None:
+            return
+        import wandb
+
+        art = wandb.Artifact("experiment-ckpts", type="checkpoints")
+        if self.ckpt_dir.exists():
+            art.add_dir(str(self.ckpt_dir))
+        run.log_artifact(art)
 
 
 class _ValPredictionCallback(Callback):

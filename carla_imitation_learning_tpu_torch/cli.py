@@ -1,7 +1,8 @@
 """Command line: ``python -m carla_imitation_learning_tpu_torch.cli run
-<experiment> [-o K=V ...]``, ``... list``, ``... serve <artifact>`` and
-``... import_torch <ckpt> --out <dir>`` (the JAX package's ``tpuil`` commands
-of those names). Runs on the card; ``-o device=cpu`` (``--device cpu`` for
+<experiment> [-o K=V ...]``, ``... list``, ``... serve <artifact>``,
+``... import_torch <ckpt> --out <dir>`` and ``... doctor [--cpu]
+[--timeout S] [--json]`` (the JAX package's ``tpuil`` commands of those
+names). Runs on the card; ``-o device=cpu`` (``--device cpu`` for
 ``serve``) asks for the CPU.
 
 ``run`` joins a multi-process run first (``parallel.mesh.multihost_initialize``
@@ -48,6 +49,13 @@ def main(argv=None) -> int:
              "(ConvNet1/ConvNetRawSegment .ckpt) into this package's checkpoint")
     imp_p.add_argument("ckpt", help="path to the torch .ckpt/.pt file")
     imp_p.add_argument("--out", required=True, help="output checkpoint dir (for --checkpoint)")
+    doc_p = sub.add_parser(
+        "doctor", help="environment and device diagnostics (every device probe runs in "
+                       "a subprocess bounded by the timeout)")
+    doc_p.add_argument("--timeout", type=float, default=90.0, help="per-probe timeout seconds")
+    doc_p.add_argument("--cpu", action="store_true",
+                       help="pin the device probes to the CPU (and skip the kernel build)")
+    doc_p.add_argument("--json", action="store_true")
     serve_p = sub.add_parser("serve", help="serve an exported policy artifact over HTTP")
     serve_p.add_argument("artifact", help="artifact dir (see export_policy)")
     serve_p.add_argument("--host", default="127.0.0.1")
@@ -65,6 +73,16 @@ def main(argv=None) -> int:
         out = import_and_save(args.ckpt, args.out)
         print(f"imported {args.ckpt} -> {out} (use with --checkpoint {out})", file=sys.stderr)
         return 0
+
+    if args.command == "doctor":
+        from carla_imitation_learning_tpu_torch.utils.doctor import print_report, run_doctor
+
+        report = run_doctor(timeout=args.timeout, force_cpu=args.cpu)
+        if args.json:
+            print(json.dumps(report))
+        else:
+            print_report(report)
+        return 0 if report["ok"] else 1
 
     if args.command == "serve":
         from carla_imitation_learning_tpu_torch.serving import PolicyServer

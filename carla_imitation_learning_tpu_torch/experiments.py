@@ -216,22 +216,12 @@ def _flag(cfg, key: str, default: bool = False) -> bool:
     return bool(v)
 
 
-def _not_ported(option: str, item) -> NotImplementedError:
-    return NotImplementedError(f"{option} is not ported yet (ROADMAP Queue 1, item {item})")
-
-
 def _mesh_bits(cfg, batch_size: int | None = None):
     """(mesh, batch_sharding) for data-parallel experiments: the uniform
     treatment the reference gives every block through ``gpus=``. (None,
     None) on one rank; a mesh over more ranks than the world has raises."""
     mesh = maybe_mesh(cfg, batch_size=batch_size or int(cfg.get("BATCH_SIZE", 64)))
     return mesh, (batch_sharding(mesh) if mesh is not None else None)
-
-
-def _refuse_mesh(cfg, option: str, batch_size: int) -> None:
-    """``option`` has no data-parallel form yet: raise when a mesh applies."""
-    if _mesh_bits(cfg, batch_size)[0] is not None:
-        raise _not_ported(f"{option} under a mesh", "6b")
 
 
 def _trainer_bits(cfg, name: str, mesh=None):
@@ -1192,13 +1182,16 @@ def dagger_online(cfg, rounds: int = 3, n_envs: int = 16, n_steps: int = 200,
     """Online DAgger with the aggregation buffer on the card
     (``training.dagger.run_dagger_online``): β-mixed rounds, β_r =
     ``beta``**r; ``policy_family=cil`` runs it on commands, and ``n_goals``
-    > 0 makes every round goal-directed. Its sharded buffer waits for ROADMAP
-    Queue 1, item 6b: under a mesh it raises."""
-    _refuse_mesh(cfg, "dagger_online", n_envs)
+    > 0 makes every round goal-directed. Under a mesh the fleet, the buffer
+    and every training batch are sharded (``n_envs`` must divide the
+    world), and the final evaluation too when its fleet divides it."""
     if n_goals > 0:
         _force_turn_fans(cfg)
+    mesh, _ = _mesh_bits(cfg, batch_size=n_envs)
+    eval_mesh = _mesh_bits(cfg, batch_size=min(n_envs, 32))[0] if mesh is not None else None
     town, params, rcfg = _sim_bits(cfg)
     return run_dagger_online(params, town, rcfg, _generator(cfg), rounds=rounds,
+                             mesh=mesh, eval_mesh=eval_mesh,
                              n_envs=n_envs, n_steps=n_steps,
                              train_steps_per_round=train_steps_per_round,
                              eval_steps=eval_steps, n_goals=n_goals,
@@ -1251,9 +1244,9 @@ def rl_finetune(cfg, checkpoint: str | None = None, n_envs: int = 256,
     deterministic actor's driving metrics before and after (the same
     ``eval_envs`` × ``eval_steps`` fleet), the per-iteration PPO metrics and
     ``score_delta``, and writes the actor as a ``PolicyCNN``-shaped
-    checkpoint under ``<log_dir>/rl_finetune/actor_params``. PPO's sharded
-    form waits for ROADMAP Queue 1, item 6b: under a mesh it raises."""
-    _refuse_mesh(cfg, "rl_finetune", n_envs)
+    checkpoint under ``<log_dir>/rl_finetune/actor_params`` (rank 0 writes
+    it). Under a mesh the PPO fleet and both evaluations are sharded
+    (``n_envs`` and ``eval_envs`` must divide the world)."""
     if len(cfg.get("surround_cameras") or ()) > 1:
         raise ValueError(
             "rl_finetune runs single-view PPO rollouts — surround_cameras "
@@ -1274,6 +1267,7 @@ def rl_finetune(cfg, checkpoint: str | None = None, n_envs: int = 256,
     pcfg = _ppo_config(cfg)
     state = create_train_state(model, AdamConfig(schedule=lambda count: pcfg.learning_rate,
                                                  clip=pcfg.max_grad_norm), device=dev)
+    mesh, _ = _mesh_bits(cfg, batch_size=n_envs)
 
     @torch.no_grad()
     def deterministic(obs):
@@ -1284,9 +1278,11 @@ def rl_finetune(cfg, checkpoint: str | None = None, n_envs: int = 256,
         return cl.evaluate_policy(params, town, rcfg, deterministic,
                                   torch.Generator().manual_seed(int(cfg.get("seed", 0)) + 101),
                                   n_envs=eval_envs, n_steps=eval_steps, control_space=family,
-                                  device=dev)
+                                  device=dev, mesh=mesh)
 
     def report(i, m):
+        if mesh is not None and not mesh.is_writer:
+            return
         print(f"  ppo iter {i}: reward/step {m['reward_per_step']:+.4f} "
               f"progress {m['progress_m_per_step']:.3f} m kl {m['approx_kl']:.4f} "
               f"entropy {m['entropy']:.3f}", file=sys.stderr)
@@ -1294,10 +1290,13 @@ def rl_finetune(cfg, checkpoint: str | None = None, n_envs: int = 256,
     before = evaluate()
     _, history = ppo_train(params, town, rcfg, state, _generator(cfg), n_envs=n_envs,
                            rollout_steps=rollout_steps, iterations=iterations, cfg=pcfg,
-                           frame_skip=frame_skip, on_iteration=report, device=dev)
+                           frame_skip=frame_skip, on_iteration=report, device=dev, mesh=mesh)
     after = evaluate()
     out = Path(cfg["log_dir"]) / "rl_finetune" / "actor_params"
-    save_pytree(out, {"params": actor_policy_params_from(model)})
+    if mesh is None or mesh.is_writer:
+        save_pytree(out, {"params": actor_policy_params_from(model)})
+    if mesh is not None:
+        mesh.barrier()   # the checkpoint is on disk for every rank
     return {"before": before, "after": after, "history": history,
             "actor_checkpoint": str(out),
             "score_delta": float(after["driving_score"] - before["driving_score"])}

@@ -136,6 +136,15 @@ def stream_ptr(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+def launch(fn, device: torch.device, *args) -> int:
+    """``fn(*args, stream)``, a kernel's C launch entry point, with ``device``
+    (the tensors') the current card and its current stream last. The CUDA
+    runtime launches on the current card, which on a machine with several
+    need not be the tensors' (a rank whose current card is another one)."""
+    with torch.cuda.device(device):
+        return fn(*args, stream_ptr(device))
+
+
 def raise_on_error(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} launch failed with cudaError {err}")

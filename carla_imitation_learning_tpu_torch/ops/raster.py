@@ -203,9 +203,9 @@ def raster_bands(tbl, idx, count, height: int, width: int, near: float,
     sem = torch.empty((B, height, width), dtype=torch.int32, device=dev)
     col = torch.empty((B, n_channels, height, width), dtype=torch.float32, device=dev)
     depth = torch.empty((B, height, width), dtype=torch.float32, device=dev)
-    err = fn(tbl.data_ptr(), idx.data_ptr(), count.data_ptr(), sem.data_ptr(),
-             col.data_ptr(), depth.data_ptr(), B, T, R, K, height, width,
-             tile_rows, n_channels, int(textured), near, far, cuda_lib.stream_ptr(dev))
+    err = cuda_lib.launch(fn, dev, tbl.data_ptr(), idx.data_ptr(), count.data_ptr(),
+                          sem.data_ptr(), col.data_ptr(), depth.data_ptr(), B, T, R, K,
+                          height, width, tile_rows, n_channels, int(textured), near, far)
     cuda_lib.raise_on_error(err, "raster_exact")
     (EXACT_TEX_KERNEL if textured else EXACT_KERNEL).add()
     return sem, col, depth

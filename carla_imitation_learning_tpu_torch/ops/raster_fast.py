@@ -269,10 +269,10 @@ def fast_bands(tbl, idx, count, height: int, width: int, near: float,
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int]
         + [ctypes.c_float] * 5 + [ctypes.c_int, ctypes.c_void_p])
     out = torch.empty((B, height, width), dtype=torch.float32, device=tbl.device)
-    err = fn(tbl.data_ptr(), idx.data_ptr(), count.data_ptr(), out.data_ptr(),
-             B, T, R, K, height, width, tile_rows, near, pack_key_const(far),
-             SKY_TOP_L, SKY_HOR_L, 1.0 / max(height - 1, 1), 1.0 / LUMA_MASK,
-             fog_density, list_band_factor, cuda_lib.stream_ptr(tbl.device))
+    err = cuda_lib.launch(fn, tbl.device, tbl.data_ptr(), idx.data_ptr(), count.data_ptr(),
+                          out.data_ptr(), B, T, R, K, height, width, tile_rows, near,
+                          pack_key_const(far), SKY_TOP_L, SKY_HOR_L, 1.0 / max(height - 1, 1),
+                          1.0 / LUMA_MASK, fog_density, list_band_factor)
     cuda_lib.raise_on_error(err, "raster_fast")
     FAST_KERNEL.add()
     return out
@@ -461,10 +461,11 @@ def prim_bands(tbl, idx, count, height: int, width: int, near: float,
         + [ctypes.c_float] * 5 + [ctypes.c_int, ctypes.c_void_p])
     out = torch.empty((B, height, width), dtype=torch.float32, device=tbl.device)
     queue = item_queue(tbl.device)
-    err = fn(tbl.data_ptr(), idx.data_ptr(), count.data_ptr(), out.data_ptr(), queue.data_ptr(),
-             B, P, R, K, height, width, tile_rows, float(np.float32(1.0 / near)),
-             prim_far_key(far), SKY_TOP_L, SKY_HOR_L, 1.0 / max(height - 1, 1),
-             1.0 / LUMA_MASK, fog_density, list_band_factor, cuda_lib.stream_ptr(tbl.device))
+    err = cuda_lib.launch(fn, tbl.device, tbl.data_ptr(), idx.data_ptr(), count.data_ptr(),
+                          out.data_ptr(), queue.data_ptr(), B, P, R, K, height, width, tile_rows,
+                          float(np.float32(1.0 / near)), prim_far_key(far), SKY_TOP_L,
+                          SKY_HOR_L, 1.0 / max(height - 1, 1), 1.0 / LUMA_MASK, fog_density,
+                          list_band_factor)
     cuda_lib.raise_on_error(err, "raster_prim")
     PRIM_KERNEL.add()
     return out
@@ -542,10 +543,10 @@ def vec_bands(btbl, count, height: int, width: int, near: float, far: float,
         + [ctypes.c_float] * 5 + [ctypes.c_int, ctypes.c_void_p])
     out = torch.empty((B, height, width), dtype=torch.float32, device=btbl.device)
     queue = item_queue(btbl.device)
-    err = fn(btbl.data_ptr(), count.data_ptr(), out.data_ptr(), queue.data_ptr(),
-             B, R, K, height, width, tile_rows, near, pack_key_const(far),
-             SKY_TOP_L, SKY_HOR_L, 1.0 / max(height - 1, 1), 1.0 / LUMA_MASK,
-             fog_density, list_band_factor, cuda_lib.stream_ptr(btbl.device))
+    err = cuda_lib.launch(fn, btbl.device, btbl.data_ptr(), count.data_ptr(), out.data_ptr(),
+                          queue.data_ptr(), B, R, K, height, width, tile_rows, near,
+                          pack_key_const(far), SKY_TOP_L, SKY_HOR_L, 1.0 / max(height - 1, 1),
+                          1.0 / LUMA_MASK, fog_density, list_band_factor)
     cuda_lib.raise_on_error(err, "raster_vec")
     VEC_KERNEL.add()
     return out

@@ -113,13 +113,22 @@ class Mesh:
             t.copy_(buf)
         return t
 
+    def abort(self) -> None:
+        """Take the default process group down after a failure that left
+        the ranks out of step: every other rank's pending or next
+        collective then raises instead of waiting (nothing to do for a
+        mesh of one)."""
+        if self.device_mesh is not None and dist.is_initialized():
+            dist.destroy_process_group()
+
     def barrier(self) -> None:
         """Every rank waits for the others (an all-reduce of one element)."""
         self.all_reduce_(torch.zeros(1, device=self.device))
 
-    def mean_grads_(self, grads: list, axis: str = DATA) -> None:
+    def mean_grads_(self, grads: list, axis: str = DATA, mean: bool = True) -> None:
         """Average ``grads`` over ``axis`` in place through one flat bucket a
-        dtype: its bytes are the gradients' bytes."""
+        dtype: its bytes are the gradients' bytes. ``mean=False`` leaves the
+        sum, for a loss whose terms were already divided by a global count."""
         if self.device_mesh is None or not grads:
             return
         by_dtype: dict = {}
@@ -128,7 +137,8 @@ class Mesh:
         for group in by_dtype.values():
             flat = torch.cat([g.reshape(-1) for g in group])
             self.all_reduce_(flat, axis)
-            flat /= self.size(axis)
+            if mean:
+                flat /= self.size(axis)
             torch._foreach_copy_(group, [f.view_as(g) for f, g in
                                          zip(flat.split([g.numel() for g in group]), group)])
 

@@ -6,6 +6,24 @@ ladder (powers of two up to ``max_batch``), so a server sees a small, warm
 set of shapes; requests above the largest bucket run in chunks of it. The
 policy is anything ``fn(frames_u8, *extras) -> logits`` on tensors: a live
 model or a loaded artifact (``serving/export.py`` ``LoadedPolicy``).
+
+Data-parallel serving (``mesh=``, the JAX package's bucket sharded over the
+mesh's leading axis) is SPMD over ``torch.distributed``: every rank loads
+the policy on its own device, rank 0 owns the engine that callers (and the
+HTTP server) use, and every other rank runs ``follow()``. For each chunk
+rank 0 broadcasts a header (operation, bucket, frame shape, extras' dtypes)
+and then the padded frames and extras; every rank runs its ``bucket / n``
+rows, and the logits come back to rank 0 through one all-reduce of a
+zero-filled (bucket, n_out) tensor, each rank's rows written into its own
+block (gloo runs only ``all_reduce`` and ``broadcast`` on CUDA tensors, and
+NCCL refuses two ranks on one card). Only one thread on rank 0 may use a
+sharded engine: the collectives must come in the same order on every rank.
+Inputs are checked before the header goes out. A failure once it has gone
+out (a policy call or a collective raising on any rank) leaves the ranks
+out of step, so the engine that sees it takes the process group down
+(``Mesh.abort``): the other ranks' pending collectives then raise instead
+of waiting, a follower's ``follow()`` raises, and rank 0's engine refuses
+every later call (``failed``).
 """
 
 from __future__ import annotations
@@ -18,6 +36,11 @@ import numpy as np
 import torch
 
 from carla_imitation_learning_tpu_torch.device import resolve_device
+
+_RUN, _STOP = 1, 2                       # header operations
+_HEADER = 7                              # op, bucket, H, W, C, frame dtype, n extras
+_DTYPES = (torch.uint8, torch.float32, torch.int32, torch.int64, torch.float16,
+           torch.bfloat16, torch.float64)
 
 
 def _default_buckets(max_batch: int) -> tuple[int, ...]:
@@ -47,7 +70,14 @@ class InferenceEngine:
 
     The engine runs the policy on ``device`` (default: the policy's own
     ``device`` attribute, else the card), under ``torch.inference_mode`` in
-    whichever thread calls it. ``mesh=`` (sharded serving) is not ported.
+    whichever thread calls it.
+
+    ``mesh`` (``parallel.mesh``) shards every bucket over its ``data`` axis
+    (see the module's docstring): the ladder is rounded up to multiples of
+    the mesh's size, rank 0 serves, the other ranks call ``follow()``, and
+    ``stop()`` on rank 0 ends their loops. Extras must then be one value
+    per row. After a failure inside a sharded chunk the process group is
+    down and ``failed`` holds the error: every later call raises.
     """
 
     def __init__(
@@ -60,13 +90,17 @@ class InferenceEngine:
         mesh=None,
         device: str | torch.device | None = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "InferenceEngine(mesh=...) is not ported yet (ROADMAP Queue 1, item 6b)")
         self._fn = policy_fn
         self.buckets = tuple(sorted(set(buckets or _default_buckets(max_batch))))
         if not self.buckets or self.buckets[0] < 1:
             raise ValueError(f"bad bucket ladder {self.buckets}")
+        self.mesh = mesh
+        self.failed: Exception | None = None
+        if mesh is not None:
+            # every bucket must split evenly: the ladder rounded up to
+            # multiples of the mesh's size
+            n = mesh.size()
+            self.buckets = tuple(sorted({max(n, -(-b // n) * n) for b in self.buckets}))
         dev = resolve_device(device if device is not None
                              else getattr(policy_fn, "device", "cuda"))
         if dev.type == "cuda" and dev.index is None:   # the card, by its index
@@ -91,7 +125,90 @@ class InferenceEngine:
         with torch.inference_mode():
             args = [torch.from_numpy(np.require(a, requirements=("C", "W"))).to(self.device)
                     for a in (frames, *extras)]
-            return self._fn(*args).float().cpu().numpy()
+            if self.mesh is None:
+                return self._fn(*args).float().cpu().numpy()
+            if self.mesh.rank() != 0:
+                raise RuntimeError("a sharded engine serves from rank 0; "
+                                   "the other ranks call follow()")
+            self._refuse_if_failed()
+            if len(args) > 5 or any(e.dim() != 1 for e in args[1:]):
+                raise ValueError("a sharded engine takes at most four extras, "
+                                 "one value per row")
+            if any(a.dtype not in _DTYPES for a in args):
+                raise ValueError(f"a sharded engine takes inputs of {_DTYPES}, "
+                                 f"not {[a.dtype for a in args]}")
+            header = [_RUN, *args[0].shape, _DTYPES.index(args[0].dtype), len(args) - 1]
+            try:
+                self._broadcast_header(header + [_DTYPES.index(e.dtype) for e in args[1:]])
+                for a in args:
+                    self.mesh.broadcast_(a)
+                return self._sharded_rows(args).cpu().numpy()
+            except Exception as e:
+                self._fail(e)
+                raise RuntimeError("the sharded engine failed inside a chunk; the "
+                                   "process group is down") from e
+
+    def _refuse_if_failed(self) -> None:
+        if self.failed is not None:
+            raise RuntimeError(f"the sharded engine stopped after a failure: "
+                               f"{type(self.failed).__name__}: {self.failed}")
+
+    def _fail(self, error: Exception) -> None:
+        """The ranks are out of step: keep ``error`` and take the process
+        group down, so that no rank waits on a collective that will not
+        come."""
+        self.failed = error
+        self.mesh.abort()
+
+    def _broadcast_header(self, values: list) -> torch.Tensor:
+        """Rank 0's header to every rank: the fixed fields, then one dtype
+        code an extra (room for four)."""
+        head = torch.zeros(_HEADER + 4, dtype=torch.int64, device=self.device)
+        if values:
+            head[:len(values)] = torch.tensor(values, dtype=torch.int64)
+        return self.mesh.broadcast_(head)
+
+    def _sharded_rows(self, args: list) -> torch.Tensor:
+        """This rank's rows of the bucket through the policy, and every
+        rank's gathered: (bucket, n_out) float32 on every rank."""
+        rows = self.mesh.rows(args[0].shape[0])
+        mine = self._fn(*(a[rows] for a in args)).float()
+        out = torch.zeros((args[0].shape[0],) + tuple(mine.shape[1:]), dtype=torch.float32,
+                          device=mine.device)
+        out[rows] = mine
+        return self.mesh.all_reduce_(out)
+
+    def follow(self) -> None:
+        """The loop of a rank other than 0 under a mesh: receive each
+        chunk's header and inputs from rank 0, run this rank's rows, add
+        them to the gathered logits; return when rank 0 stops."""
+        if self.mesh is None or self.mesh.rank() == 0:
+            raise RuntimeError("follow() runs on the ranks other than 0 of a sharded engine")
+        self._refuse_if_failed()
+        with torch.inference_mode():
+            while True:
+                try:
+                    head = self._broadcast_header([]).tolist()
+                    if head[0] == _STOP:
+                        return
+                    bucket, h, w, c, code, n_extras = head[1:7]
+                    args = [torch.empty((bucket, h, w, c), dtype=_DTYPES[code],
+                                        device=self.device)]
+                    args += [torch.empty(bucket, dtype=_DTYPES[d], device=self.device)
+                             for d in head[_HEADER:_HEADER + n_extras]]
+                    for a in args:
+                        self.mesh.broadcast_(a)
+                    self._sharded_rows(args)
+                except Exception as e:
+                    self._fail(e)
+                    raise
+
+    def stop(self) -> None:
+        """Rank 0 of a sharded engine: end the other ranks' ``follow()``
+        loops (nothing to do without a mesh, or after a failure: the
+        process group is down)."""
+        if self.mesh is not None and self.mesh.rank() == 0 and self.failed is None:
+            self._broadcast_header([_STOP])
 
     def _run_chunk(self, frames: np.ndarray, extras=()) -> np.ndarray:
         n = frames.shape[0]

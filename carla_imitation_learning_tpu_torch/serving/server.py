@@ -23,6 +23,13 @@ CIL (command-conditioned) artifacts also take per-row side inputs: JSON
 fields "speed" (floats) and "command" (ints), or X-Speed/X-Command
 comma-separated headers on octet-stream bodies; scalars broadcast. Bad
 input answers 400, an engine failure 500.
+
+Over a mesh (``mesh=``, rank 0's server; see ``serving/engine.py``) the
+micro-batcher's thread is the one thread that issues collectives: the
+engine's chunks, ``warmup()`` (handed to that thread) and, when the server
+stops, the engine's ``stop()`` that ends the other ranks' ``follow()``.
+A failure inside a sharded chunk takes the mesh down (``engine.failed``):
+that request and every later one answer 503, and so does ``/healthz``.
 """
 
 from __future__ import annotations
@@ -42,16 +49,22 @@ from carla_imitation_learning_tpu_torch.serving.export import LoadedPolicy, load
 
 
 class _Request:
-    """One in-flight inference request parked on the batcher queue."""
+    """One in-flight inference request parked on the batcher queue, or a
+    ``job`` (a callable) for the batcher's thread to run."""
 
-    __slots__ = ("frames", "extras", "logits", "error", "done")
+    __slots__ = ("frames", "extras", "logits", "error", "done", "job")
 
-    def __init__(self, frames: np.ndarray, extras: tuple = ()):
+    def __init__(self, frames: np.ndarray | None, extras: tuple = (), job=None):
         self.frames = frames
         self.extras = extras  # per-row side inputs (e.g. CIL speed, command)
+        self.job = job
         self.logits: np.ndarray | None = None
         self.error: Exception | None = None
         self.done = threading.Event()
+
+    @property
+    def rows(self) -> int:
+        return 0 if self.frames is None else self.frames.shape[0]
 
 
 class _MicroBatcher:
@@ -82,12 +95,19 @@ class _MicroBatcher:
                                         name="policy-microbatcher")
         self._thread.start()
 
-    def submit(self, frames: np.ndarray, extras: tuple = ()) -> _Request:
-        req = _Request(frames, extras)
+    def submit(self, frames: np.ndarray | None, extras: tuple = (), job=None) -> _Request:
+        req = _Request(frames, extras, job)
         with self._lock:
             self._queue.append(req)
             self._lock.notify()
         return req
+
+    def run_job(self, job) -> None:
+        """Run ``job()`` on the batcher's thread and wait; its error raises."""
+        req = self.submit(None, job=job)
+        req.done.wait()
+        if req.error is not None:
+            raise req.error
 
     def shutdown(self) -> None:
         with self._lock:
@@ -103,7 +123,7 @@ class _MicroBatcher:
                 return []
             batch = [self._queue.pop(0)]
         deadline = time.perf_counter() + self._window_s
-        rows = batch[0].frames.shape[0]
+        rows = batch[0].rows
         while rows < self._max_rows:
             remaining = deadline - time.perf_counter()
             if remaining <= 0:
@@ -114,7 +134,7 @@ class _MicroBatcher:
                 if not self._queue:
                     break
                 batch.append(self._queue.pop(0))
-                rows += batch[-1].frames.shape[0]
+                rows += batch[-1].rows
         return batch
 
     def _loop(self) -> None:
@@ -126,12 +146,25 @@ class _MicroBatcher:
             while True:
                 batch = self._drain()
                 if not batch:
+                    self._engine.stop()   # a sharded engine's followers return
                     return  # stopped and drained
                 groups: dict[tuple, list[_Request]] = {}
                 for req in batch:
-                    groups.setdefault(req.frames.shape[1:], []).append(req)
+                    if req.job is not None:
+                        self._run_job(req)
+                    else:
+                        groups.setdefault(req.frames.shape[1:], []).append(req)
                 for reqs in groups.values():
                     self._run_group(reqs)
+
+    @staticmethod
+    def _run_job(req: _Request) -> None:
+        try:
+            req.job()
+        except Exception as e:  # reported to the caller waiting on it
+            req.error = e
+        finally:
+            req.done.set()
 
     def _run_group(self, reqs: list[_Request]) -> None:
         try:
@@ -220,7 +253,10 @@ class PolicyServer:
     card by default), a LoadedPolicy, or any ``fn(frames_u8) -> logits`` on
     tensors (run on ``device``). ``port=0`` binds an ephemeral port
     (``server.port`` holds the real one after ``start()``). Use as a context
-    manager or call ``start()``/``stop()``.
+    manager or call ``start()``/``stop()``. ``mesh`` shards every bucket
+    (``InferenceEngine(mesh=)``): the server runs on rank 0, every other
+    rank runs ``InferenceEngine(policy, mesh=mesh).follow()``, which returns
+    when this server stops.
     """
 
     def __init__(self, policy, *, host: str = "127.0.0.1", port: int = 0,
@@ -293,7 +329,7 @@ class PolicyServer:
         h, w, c = self._expect_hwc
         specs = ([((), np.float32), ((), np.int32)]
                  if self.meta.get("family") == "cil" else [])
-        self.engine.warmup(h, w, c, extra_specs=specs)
+        self._batcher.run_job(lambda: self.engine.warmup(h, w, c, extra_specs=specs))
 
     # -- request handling --------------------------------------------------
     def _stats(self) -> dict:
@@ -336,7 +372,10 @@ class PolicyServer:
 
             def do_GET(self):  # noqa: N802
                 if self.path == "/healthz":
-                    self._json(200, {"status": "ok"})
+                    if server.engine.failed is None:
+                        self._json(200, {"status": "ok"})
+                    else:
+                        self._json(503, {"status": "failed", "error": repr(server.engine.failed)})
                 elif self.path == "/v1/metadata":
                     self._json(200, {"meta": server.meta,
                                      "buckets": list(server.engine.buckets),
@@ -365,8 +404,9 @@ class PolicyServer:
                 except ValueError as e:
                     self._json(400, {"error": str(e)})
                     return
-                except Exception as e:  # engine/device failure
-                    self._json(500, {"error": f"{type(e).__name__}: {e}"})
+                except Exception as e:  # engine/device failure; 503 once a mesh is down
+                    self._json(500 if server.engine.failed is None else 503,
+                               {"error": f"{type(e).__name__}: {e}"})
                     return
                 if self.path == "/v1/infer":
                     if server.meta.get("family") == "continuous":

@@ -223,8 +223,9 @@ def make_rollout(params: SimParams, town: TownMap, rcfg: RenderConfig,
     ``mesh`` (``parallel.mesh``) shards the env axis over ``data``:
     ``init_fn`` draws the global fleet of ``n_envs`` and keeps this rank's
     rows, so the carry and the trajectory are the rank's; the noise
-    schedule is the global one's columns. A ``policy_rng`` would draw for
-    the rank's rows only, so it is refused under a mesh.
+    schedule is the global one's columns. A policy that draws from
+    ``policy_rng`` (the same generator on every rank) must draw for the
+    global fleet and keep its rows, as ``rl.make_actor(mesh=)`` does.
 
     ``init_fn(generator, n_envs) -> carry`` with carry = (states, framebuf
     (B, H, W, fs·K) uint8, just_reset (B,) bool[, policy state]);
@@ -235,9 +236,6 @@ def make_rollout(params: SimParams, town: TownMap, rcfg: RenderConfig,
         raise ValueError(f"unknown control_space {control_space!r}")
     continuous = control_space == "continuous"
     recurrent = policy_carry_init is not None
-    if mesh is not None and policy_rng is not None:
-        raise ValueError("a policy_rng draws per rank, not for the global fleet: "
-                         "it cannot run under a mesh")
     if continuous and recurrent:
         raise NotImplementedError(
             "continuous control_space with a recurrent policy is not wired up: "

@@ -270,7 +270,7 @@ def run_dagger_online(params: SimParams, town: TownMap, rcfg: RenderConfig,
                       policy_family: str = "discrete", n_commands: int = 6,
                       speed_weight: float = 0.1, goal_seed: int = 0,
                       tx: AdamConfig | None = None, dtype: torch.dtype = torch.bfloat16,
-                      device: str | torch.device = "cuda") -> dict:
+                      device: str | torch.device = "cuda", mesh=None, eval_mesh=None) -> dict:
     """The ``dagger_online`` experiment: ``make_online_dagger`` over a fresh
     policy with the expert-mix schedule β_r = ``beta``**r (the config's
     ``beta``, default 0.0), then ``evaluate_policy`` of the result at
@@ -279,7 +279,8 @@ def run_dagger_online(params: SimParams, town: TownMap, rcfg: RenderConfig,
     the discrete ``PolicyCNN``, as in the JAX package. With ``n_goals`` > 0
     every round is goal-directed and the final policy is also scored by
     ``evaluate_routes`` on the same goals. ``tx`` and ``dtype`` as in
-    ``run_dagger``."""
+    ``run_dagger``. ``mesh`` shards the loop's fleet, buffer and batches
+    (and the routes' fleet), ``eval_mesh`` the final evaluation's."""
     dev = resolve_device(device)
     goal_ids = None
     if n_goals > 0:
@@ -292,11 +293,12 @@ def run_dagger_online(params: SimParams, town: TownMap, rcfg: RenderConfig,
     run = make_online_dagger(type(model).__call__, params, town, rcfg, n_envs=n_envs,
                              n_steps=n_steps, rounds=rounds, train_steps=train_steps_per_round,
                              batch=batch_size, beta=beta, cil=cil, goal_ids=goal_ids,
-                             speed_weight=speed_weight, device=dev)
+                             speed_weight=speed_weight, mesh=mesh, device=dev)
     state, metrics = run(state, generator)
     policy_fn = state.model.as_policy_fn() if cil else _argmax_policy(state.model)
     final = cl.evaluate_policy(params, town, rcfg, policy_fn, generator,
-                               n_envs=min(n_envs, 32), n_steps=eval_steps, device=dev)
+                               n_envs=min(n_envs, 32), n_steps=eval_steps, device=dev,
+                               mesh=eval_mesh)
     out = {"loss_per_round": [float(x) for x in metrics["loss"]],
            "agreement_per_round": [float(x) for x in metrics["agreement"]],
            "valid_frac_per_round": [float(x) for x in metrics["valid_frac"]],
@@ -304,7 +306,7 @@ def run_dagger_online(params: SimParams, town: TownMap, rcfg: RenderConfig,
     if n_goals > 0:
         out["routes"] = cl.evaluate_routes(params, town, rcfg, policy_fn, generator,
                                            n_envs=n_envs, n_steps=n_steps,
-                                           goal_ids=goal_ids, device=dev)
+                                           goal_ids=goal_ids, device=dev, mesh=mesh)
     return out
 
 

@@ -11,7 +11,11 @@
 - the validation split's partial last batch through one eval step.
 
 A logger (``add_scalars``, ``add_scalars_flat``) and a checkpoint manager
-(``save``, ``best``) are called when passed.
+(``save``, ``best``) are called when passed. ``trainer.profiler=trace``
+records a ``torch.profiler`` trace (``utils.profiling.trace_profiler``)
+of the epochs, from after the sanity validation to the end of the last
+epoch as the JAX package's does, under ``trainer.trace_dir`` (default
+``<log_dir>/<run name>/trace``).
 
 Data parallel: a loader with a ``sharding`` (``parallel.mesh.batch_sharding``)
 feeds each rank its rows, and its state must come from
@@ -27,6 +31,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
+from pathlib import Path
 from typing import Callable, Sequence
 
 import numpy as np
@@ -36,7 +41,9 @@ from carla_imitation_learning_tpu_torch.device import resolve_device
 from carla_imitation_learning_tpu_torch.training.steps import (
     TrainState, make_eval_step, make_fused_epoch, make_fused_eval, make_train_step,
 )
-from carla_imitation_learning_tpu_torch.utils.profiling import SimpleProfiler, StepTimer
+from carla_imitation_learning_tpu_torch.utils.profiling import (
+    SimpleProfiler, StepTimer, trace_profiler,
+)
 
 
 @dataclasses.dataclass
@@ -95,9 +102,14 @@ class Trainer:
         self.num_sanity_val_steps = int(tcfg.get("num_sanity_val_steps", 0))
         self.limit_train_batches = tcfg.get("limit_train_batches", 1.0)
         self.limit_val_batches = tcfg.get("limit_val_batches", 1.0)
-        if tcfg.get("profiler") == "trace":
-            raise NotImplementedError("profiler='trace' is not ported yet")
         self.profiler = SimpleProfiler() if tcfg.get("profiler") == "simple" else None
+        self.trace_dir = None
+        if tcfg.get("profiler") == "trace":
+            self.trace_dir = str(tcfg.get("trace_dir") or "") or None
+            if self.trace_dir is None and cfg.get("log_dir"):
+                self.trace_dir = str(Path(cfg["log_dir"]) / name / "trace")
+            if self.trace_dir is None:
+                raise ValueError("trainer.profiler=trace needs trainer.trace_dir or log_dir")
         # on a non-finite train loss, restore the last good state
         self.restore_on_nan = bool(tcfg.get("restore_on_nan", True))
         self.nan_events = 0
@@ -151,54 +163,55 @@ class Trainer:
                     break
                 eval_step(state, batch)
 
-        t_start = time.perf_counter()
-        last_good = state.snapshot() if self.restore_on_nan else None
-        for epoch in range(max_epochs):
-            nb = _limit(len(train_loader), self.limit_train_batches)
-            if fused_epoch is not None:
-                bsz = train_loader.batch_size
-                order = train_loader.epoch_indices()[:nb * bsz].astype(np.int64)
-                order_dev = torch.from_numpy(order.reshape(nb, bsz)).to(self.device)
-                state, generator, stacked = fused_epoch(state, order_dev, generator)
-                train_mean = {k: float(np.mean(v)) for k, v in _to_host(stacked).items()}
-                timer.tick(nb)
-            else:
-                train_metrics: list[dict] = []
-                for i, batch in enumerate(train_loader):
-                    if i >= nb:
-                        break
-                    if self.profiler:
-                        with self.profiler.phase("train_step"):
+        with trace_profiler(self.trace_dir, enabled=self.trace_dir is not None):
+            t_start = time.perf_counter()
+            last_good = state.snapshot() if self.restore_on_nan else None
+            for epoch in range(max_epochs):
+                nb = _limit(len(train_loader), self.limit_train_batches)
+                if fused_epoch is not None:
+                    bsz = train_loader.batch_size
+                    order = train_loader.epoch_indices()[:nb * bsz].astype(np.int64)
+                    order_dev = torch.from_numpy(order.reshape(nb, bsz)).to(self.device)
+                    state, generator, stacked = fused_epoch(state, order_dev, generator)
+                    train_mean = {k: float(np.mean(v)) for k, v in _to_host(stacked).items()}
+                    timer.tick(nb)
+                else:
+                    train_metrics: list[dict] = []
+                    for i, batch in enumerate(train_loader):
+                        if i >= nb:
+                            break
+                        if self.profiler:
+                            with self.profiler.phase("train_step"):
+                                state, metrics = train_step(state, batch, generator)
+                        else:
                             state, metrics = train_step(state, batch, generator)
-                    else:
-                        state, metrics = train_step(state, batch, generator)
-                    train_metrics.append(metrics)
-                    timer.tick()
-                train_mean = _mean_metrics(train_metrics)
-            epoch_row = {f"train_{k}": v for k, v in train_mean.items()}
+                        train_metrics.append(metrics)
+                        timer.tick()
+                    train_mean = _mean_metrics(train_metrics)
+                epoch_row = {f"train_{k}": v for k, v in train_mean.items()}
 
-            if self.restore_on_nan and not math.isfinite(epoch_row.get("train_loss", 0.0)):
-                self.nan_events += 1
-                state.restore(last_good)
-                epoch_row["nan_rollback"] = 1.0
-            elif self.restore_on_nan:
-                last_good = state.snapshot()
+                if self.restore_on_nan and not math.isfinite(epoch_row.get("train_loss", 0.0)):
+                    self.nan_events += 1
+                    state.restore(last_good)
+                    epoch_row["nan_rollback"] = 1.0
+                elif self.restore_on_nan:
+                    last_good = state.snapshot()
 
-            if val_loader is not None:
-                epoch_row.update(self._validate(state, val_loader, eval_step, fused_eval))
+                if val_loader is not None:
+                    epoch_row.update(self._validate(state, val_loader, eval_step, fused_eval))
 
-            epoch_row["epoch"] = epoch
-            history.append(epoch_row)
-            if self.logger is not None:
-                self.logger.add_scalars(
-                    "losses", {k: v for k, v in epoch_row.items() if k.endswith("loss")},
-                    step=epoch)
-                self.logger.add_scalars_flat(
-                    {k: v for k, v in epoch_row.items() if k != "epoch"}, step=epoch)
-            if self.ckpt is not None:
-                self.ckpt.save(epoch, state.payload(), epoch_row)
-            self._callback("on_epoch_end", state=state, epoch=epoch, metrics=epoch_row,
-                           loaders=loaders)
+                epoch_row["epoch"] = epoch
+                history.append(epoch_row)
+                if self.logger is not None:
+                    self.logger.add_scalars(
+                        "losses", {k: v for k, v in epoch_row.items() if k.endswith("loss")},
+                        step=epoch)
+                    self.logger.add_scalars_flat(
+                        {k: v for k, v in epoch_row.items() if k != "epoch"}, step=epoch)
+                if self.ckpt is not None:
+                    self.ckpt.save(epoch, state.payload(), epoch_row)
+                self._callback("on_epoch_end", state=state, epoch=epoch, metrics=epoch_row,
+                               loaders=loaders)
 
         if state.mesh is not None:
             state.mesh.barrier()   # rank 0's checkpoints are written

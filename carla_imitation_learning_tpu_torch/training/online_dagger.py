@@ -21,6 +21,19 @@ start lies before the trajectory, or that holds an auto-reset between its
 frames, gets weight 0 in the masked cross-entropy rather than being drawn
 again. Its frames are still gathered (from the start ``lax.dynamic_slice``
 gives it), so every term stays finite.
+
+Data parallel (``mesh=``, SPMD over ``torch.distributed``, the JAX
+package's env-axis sharding of the env state, the (R, T, B) buffer and
+every training batch): each rank holds its ``B / n`` envs, its columns of
+the buffer and its rows of each batch, so every gather stays on the rank.
+The random draws (the first fleet, the β coins, the window indices) are
+the global fleet's, each rank keeping its rows, so the ranks run the
+global program: the masked loss divides by the all-reduced weight sum of
+the global batch and the gradients are summed over ranks, not averaged (a
+mean of rank means equals the global mean only when the ranks' weight sums
+are equal, which torn windows break). A train step all-reduces the weight
+sum and the gradient bucket; a round all-reduces its losses and agreement
+once.
 """
 
 from __future__ import annotations
@@ -34,6 +47,7 @@ import torch.nn.functional as F
 
 from carla_imitation_learning_tpu_torch.data.actions import continuous_to_discrete
 from carla_imitation_learning_tpu_torch.device import resolve_device
+from carla_imitation_learning_tpu_torch.parallel.mesh import shard_batch, shard_train_state
 from carla_imitation_learning_tpu_torch.render.pipeline import RenderConfig, make_renderer
 from carla_imitation_learning_tpu_torch.sim.town import TownMap
 from carla_imitation_learning_tpu_torch.sim.world import (
@@ -101,12 +115,15 @@ def sample_windows(generator: torch.Generator, frames: torch.Tensor, labels: tor
     return gather_windows_at(frames, labels, dones, r_i, t_i, frame_skip, extras)
 
 
-def masked_cross_entropy(logits: torch.Tensor, y: torch.Tensor, w: torch.Tensor):
-    """Σ w·ce / max(Σ w, 1) in at least float32."""
+def masked_cross_entropy(logits: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+                         w_sum: torch.Tensor | None = None):
+    """Σ w·ce / max(Σ w, 1) in at least float32; ``w_sum`` replaces Σ w in
+    the denominator (the global batch's weight sum under a mesh)."""
     logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
     ce = -F.log_softmax(logits, -1).gather(1, y.to(torch.int64)[:, None])[:, 0]
     w = w.to(ce.dtype)
-    return (w * ce).sum() / torch.clamp(w.sum(), min=1.0)
+    return (w * ce).sum() / torch.clamp(w.sum() if w_sum is None else w_sum.to(ce.dtype),
+                                        min=1.0)
 
 
 def make_online_dagger(model_apply: Callable, params: SimParams, town: TownMap,
@@ -134,11 +151,16 @@ def make_online_dagger(model_apply: Callable, params: SimParams, town: TownMap,
     policy drives on the live command, and the loss adds ``speed_weight``
     times the weighted MSE of the speed head (the ``cil_loss_fn`` recipe).
     ``goal_ids`` (B,) sets each env's goal once on a town with nav tables
-    (goals survive auto-resets), so every round is goal-directed."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "online DAgger over a mesh is not ported yet (ROADMAP Queue 1, item 6b)")
+    (goals survive auto-resets), so every round is goal-directed.
+
+    ``mesh`` (``parallel.mesh``) shards the env axis over ``data`` (see the
+    module's docstring): ``n_envs``, ``batch`` and ``goal_ids`` stay the
+    global fleet's, ``run`` replicates the state (``shard_train_state``),
+    and the metrics are the global run's on every rank. ``n_envs`` must
+    divide over the mesh."""
     dev = resolve_device(device)
+    rows = slice(None) if mesh is None else mesh.rows(n_envs)
+    n_local = n_envs if mesh is None else n_envs // mesh.size()
     town = town.to(dev)
     rcfg = dataclasses.replace(rcfg, rgb=False, fast=True)
     render = make_renderer(params, town, rcfg, device=dev)
@@ -154,12 +176,15 @@ def make_online_dagger(model_apply: Callable, params: SimParams, town: TownMap,
             return model_apply(model, obs, speed, command)[0]
         return model_apply(model, obs)
 
+    def all_reduce_(t: torch.Tensor) -> torch.Tensor:
+        return t if mesh is None else mesh.all_reduce_(t)
+
     @torch.no_grad()
     def rollout_round(model, states, framebuf, just_reset, generator, beta_r: float,
                       frames, labels, dones, speeds, commands):
         """β-mixed rollout writing its (T, B, ...) frames, labels and dones
         (and with ``cil`` speeds and commands) into the buffer's round
-        slices → (carry, agreement share)."""
+        slices → (carry, this rank's count of steps that agreed)."""
         agree = torch.zeros((), dtype=torch.int64, device=dev)
         for t in range(n_steps):
             gray_u8 = quantize(states)
@@ -177,53 +202,64 @@ def make_online_dagger(model_apply: Callable, params: SimParams, town: TownMap,
                 action = policy_logits(model, obs, states.ego_v,
                                        commands[t] if cil else None).argmax(-1)
                 if beta_r > 0.0:
-                    use_expert = (torch.rand(n_envs, generator=generator) < beta_r).to(dev)
+                    coin = torch.rand(n_envs, generator=generator)[rows]   # the global draw
+                    use_expert = (coin < beta_r).to(dev)
                     action = torch.where(use_expert, expert_action, action)
             fresh = pick_fresh_packed(pool, params, states)
             states, info = step_env(params, town, states, control_from_discrete(action), fresh)
             just_reset = info["done"]
             frames[t], labels[t], dones[t] = gray_u8, expert_action, just_reset
             agree += (action == expert_action).sum()
-        return (states, framebuf, just_reset), agree / (n_steps * n_envs)
+        return (states, framebuf, just_reset), agree
 
     def train_on_buffer(state: TrainState, generator, frames, labels, dones, r: int,
                         speeds, commands):
+        """``train_steps`` masked steps → (this rank's terms of each step's
+        loss (train_steps,), the mean sample weight)."""
+        R, T = labels.shape[:2]
+        extras = (speeds, commands) if cil else ()
         losses, vfracs = [], []
         for _ in range(train_steps):
             state.optimizer.zero_grad(set_to_none=True)
+            r_i, t_i = window_indices(generator, r, R, T, n_envs, k_per_env)
+            obs, y, w, *ex = gather_windows_at(frames, labels, dones, r_i[rows], t_i[rows],
+                                               frame_skip, extras)
+            w_sum = all_reduce_(w.sum())          # the global batch's weight
             if cil:
-                obs, y, w, sp, cm = sample_windows(generator, frames, labels, dones, r,
-                                                   k_per_env, frame_skip, (speeds, commands))
+                sp, cm = ex
                 logits, pred_speed = model_apply(state.model, obs, sp, cm)
-                loss = masked_cross_entropy(logits, y, w)
+                loss = masked_cross_entropy(logits, y, w, w_sum)
                 wf = w.to(pred_speed.dtype)
                 loss = loss + speed_weight * (
-                    (wf * (pred_speed - sp) ** 2).sum() / torch.clamp(wf.sum(), min=1.0))
+                    (wf * (pred_speed - sp) ** 2).sum()
+                    / torch.clamp(w_sum.to(pred_speed.dtype), min=1.0))
             else:
-                obs, y, w = sample_windows(generator, frames, labels, dones, r, k_per_env,
-                                           frame_skip)
-                loss = masked_cross_entropy(model_apply(state.model, obs), y, w)
+                loss = masked_cross_entropy(model_apply(state.model, obs), y, w, w_sum)
             loss.backward()
-            state.apply_gradients()
+            state.apply_gradients(mean_over_mesh=False)
             losses.append(loss.detach())
-            vfracs.append(w.mean())
-        return torch.stack(losses).mean(), torch.stack(vfracs).mean()
+            vfracs.append(w_sum / (n_envs * k_per_env))
+        return torch.stack(losses), torch.stack(vfracs).mean()
 
     def run(state: TrainState, generator: torch.Generator):
+        if mesh is not None and state.mesh is None:
+            state = shard_train_state(mesh, state)
         states = reset_env(params, town, generator, n_envs)
+        if mesh is not None:   # the global fleet's draws, this rank's rows
+            states = shard_batch(mesh, states)
         if goal_ids is not None:
             states = states.replace(goal=torch.as_tensor(
-                np.asarray(goal_ids), dtype=torch.int64).to(dev))
+                np.asarray(goal_ids)[rows], dtype=torch.int64).to(dev))
         with torch.no_grad():
             framebuf = quantize(states)[..., None].repeat(1, 1, 1, frame_skip)
-        just_reset = torch.zeros(n_envs, dtype=torch.bool, device=dev)
-        frames = torch.zeros((rounds, n_steps, n_envs, H, W), dtype=torch.uint8, device=dev)
-        labels = torch.zeros((rounds, n_steps, n_envs), dtype=torch.int64, device=dev)
-        dones = torch.zeros((rounds, n_steps, n_envs), dtype=torch.bool, device=dev)
+        just_reset = torch.zeros(n_local, dtype=torch.bool, device=dev)
+        frames = torch.zeros((rounds, n_steps, n_local, H, W), dtype=torch.uint8, device=dev)
+        labels = torch.zeros((rounds, n_steps, n_local), dtype=torch.int64, device=dev)
+        dones = torch.zeros((rounds, n_steps, n_local), dtype=torch.bool, device=dev)
         speeds = commands = None
         if cil:
-            speeds = torch.zeros((rounds, n_steps, n_envs), dtype=torch.float32, device=dev)
-            commands = torch.zeros((rounds, n_steps, n_envs), dtype=torch.int64, device=dev)
+            speeds = torch.zeros((rounds, n_steps, n_local), dtype=torch.float32, device=dev)
+            commands = torch.zeros((rounds, n_steps, n_local), dtype=torch.int64, device=dev)
         per_round = []
         for r in range(rounds):
             beta_r = float(np.float32(beta) ** r)            # 0 ** 0 == 1
@@ -232,10 +268,14 @@ def make_online_dagger(model_apply: Callable, params: SimParams, town: TownMap,
                 frames[r], labels[r], dones[r],
                 None if speeds is None else speeds[r],
                 None if commands is None else commands[r])
-            loss, vfrac = train_on_buffer(state, generator, frames, labels, dones, r,
-                                          speeds, commands)
-            per_round.append(torch.stack([loss.to(torch.float32),
-                                          agree.to(torch.float32), vfrac]))
+            losses, vfrac = train_on_buffer(state, generator, frames, labels, dones, r,
+                                            speeds, commands)
+            # one all-reduce a round: the steps' loss terms and the agreement count
+            summed = all_reduce_(torch.cat([losses.to(torch.float64),
+                                            agree.to(torch.float64).reshape(1)]))
+            per_round.append(torch.stack([
+                summed[:-1].to(torch.float32).mean(),
+                (summed[-1] / (n_steps * n_envs)).to(torch.float32), vfrac]))
         host = torch.stack(per_round).cpu().numpy()
         return state, {"loss": host[:, 0], "agreement": host[:, 1], "valid_frac": host[:, 2]}
 

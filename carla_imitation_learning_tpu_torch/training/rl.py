@@ -13,6 +13,15 @@ progress minus collision, red-light and off-road penalties.
 Random draws go through two hooks, ``actor_draws`` (the actor's Gumbel or
 normal noise) and ``epoch_permutations`` (each epoch's per-env step
 orders), so a test can feed them the JAX package's draws.
+
+Data parallel (``ppo_train(mesh=)``, the JAX package's env-axis sharding
+of the rollout and the update): each rank steps and renders its ``B / n``
+envs and updates on its envs' steps. Every draw is the global fleet's,
+each rank keeping its rows (the fleet's reset, the actor's noise, each
+epoch's permutations), so the ranks run the global program: the
+advantages are normalised by the global mean and population std (two
+all-reduces), a minibatch's gradient is the mean over ranks of their
+equal-sized row means before the clip, and the metrics are global means.
 """
 
 from __future__ import annotations
@@ -173,11 +182,13 @@ def epoch_permutations(generator: torch.Generator, n_envs: int, n_steps: int,
     return torch.argsort(keys, dim=1).to(device)
 
 
-def make_actor(model: ActorCriticCNN, sample: bool = True) -> Callable:
+def make_actor(model: ActorCriticCNN, sample: bool = True, mesh=None) -> Callable:
     """``policy_fn(obs, extras, params)`` for ``make_rollout``: ``params``
     is the module to run (``model`` when None), the draw comes from
     ``extras["rng"]`` through ``actor_draws``. ``sample=False`` is the
-    deterministic actor (argmax, or the Gaussian mean).
+    deterministic actor (argmax, or the Gaussian mean). Under a ``mesh``
+    (``obs`` a rank's rows of the fleet) each draw is the global fleet's,
+    of which the rank keeps its rows.
 
     Discrete: → (action (B,) int64, extra (B, 2) = (logp, value)).
     Continuous: → (raw (B, 2), extra (B, 4) = (raw a0, raw a1, logp,
@@ -185,20 +196,25 @@ def make_actor(model: ActorCriticCNN, sample: bool = True) -> Callable:
     the rollout executes it clipped to the unit square (run it with
     ``control_space="continuous"``)."""
 
+    def draws(extras, like: torch.Tensor, continuous: bool) -> torch.Tensor:
+        if mesh is None:
+            return actor_draws(extras["rng"], tuple(like.shape), continuous, like.device)
+        n = like.shape[0] * mesh.size()
+        return actor_draws(extras["rng"], (n,) + tuple(like.shape[1:]), continuous,
+                           like.device)[mesh.rows(n)]
+
     def policy_fn(obs, extras, params=None):
         net = model if params is None else params
         if net.continuous:
             (mean, log_std), value = net(obs)
             raw = mean
             if sample:
-                raw = mean + torch.exp(log_std) * actor_draws(
-                    extras["rng"], tuple(mean.shape), True, mean.device)
+                raw = mean + torch.exp(log_std) * draws(extras, mean, True)
             lp = gaussian_logp(raw, mean, log_std)
             return raw, torch.cat([raw, torch.stack([lp, value.to(torch.float32)], -1)], -1)
         logits, value = net(obs)
         if sample:
-            action = torch.argmax(logits + actor_draws(
-                extras["rng"], tuple(logits.shape), False, logits.device), dim=-1)
+            action = torch.argmax(logits + draws(extras, logits, False), dim=-1)
         else:
             action = torch.argmax(logits, dim=-1)
         lp = F.log_softmax(logits, dim=-1).gather(-1, action[:, None])[:, 0]
@@ -241,6 +257,19 @@ def ppo_loss_fn(cfg: PPOConfig):
     return loss_fn
 
 
+def normalize_advantages(adv: torch.Tensor, mesh=None) -> torch.Tensor:
+    """(adv − mean) / (population std + 1e-8) over the whole (T, B); under
+    a ``mesh`` (B a rank's columns) over the global fleet's, in two passes
+    in float32: the all-reduced sum, then the all-reduced sum of squared
+    deviations."""
+    if mesh is None or mesh.size() == 1:
+        return (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+    n = adv.numel() * mesh.size()
+    mean = mesh.all_reduce_(adv.sum().reshape(1)) / n
+    var = mesh.all_reduce_(((adv - mean) ** 2).sum().reshape(1)) / n
+    return (adv - mean) / (torch.sqrt(var) + 1e-8)
+
+
 def make_ppo_update(state: TrainState, cfg: PPOConfig, frame_skip: int = 4):
     """``update(traj, last_value, generator) -> metrics`` (device scalars):
     GAE on the rollout's rewards, then ``update_epochs`` × ``num_minibatches``
@@ -248,12 +277,17 @@ def make_ppo_update(state: TrainState, cfg: PPOConfig, frame_skip: int = 4):
     Minibatches are stratified by env: each epoch draws a permutation of
     the T steps per env (``epoch_permutations``), its first mt · M entries
     (mt = T // M) split into M minibatches of mt steps from every env, and
-    the windows flattened b-major to (B·mt, H, W, k)."""
+    the windows flattened b-major to (B·mt, H, W, k). A state replicated
+    over a mesh (``shard_train_state``; ``traj`` the rank's envs) updates
+    data-parallel: see the module's docstring."""
     loss_fn = ppo_loss_fn(cfg)
     continuous = state.model.continuous
+    mesh = state.mesh
 
     def update(traj: dict, last_value: torch.Tensor, generator: torch.Generator) -> dict:
         n_steps, n_envs = traj["action"].shape[:2]
+        n_global = n_envs if mesh is None else n_envs * mesh.size()
+        rows = slice(None) if mesh is None else mesh.rows(n_global)
         height, width = traj["gray"].shape[2:]
         dev = traj["gray"].device
         rewards = reward_from_traj(traj, cfg)
@@ -263,7 +297,7 @@ def make_ppo_update(state: TrainState, cfg: PPOConfig, frame_skip: int = 4):
         adv, ret = compute_gae(rewards, values, traj["done"], last_value, cfg.gamma,
                                cfg.gae_lambda)
         if cfg.normalize_advantages:
-            adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+            adv = normalize_advantages(adv, mesh)
         src = window_sources(traj["done"], frame_skip)
         mt = n_steps // cfg.num_minibatches
         if mt == 0:
@@ -272,7 +306,7 @@ def make_ppo_update(state: TrainState, cfg: PPOConfig, frame_skip: int = 4):
         env = torch.arange(n_envs, device=dev)[:, None]   # (B, 1)
         stats = []
         for _ in range(cfg.update_epochs):
-            perm = epoch_permutations(generator, n_envs, n_steps, dev)
+            perm = epoch_permutations(generator, n_global, n_steps, dev)[rows]
             perm = perm[:, :mt * cfg.num_minibatches].reshape(
                 n_envs, cfg.num_minibatches, mt).transpose(0, 1)       # (M, B, mt)
             for t_sel in perm:
@@ -293,7 +327,7 @@ def make_ppo_update(state: TrainState, cfg: PPOConfig, frame_skip: int = 4):
         metrics["value_mean"] = values.mean()
         metrics["ran_red_per_1k_steps"] = 1e3 * traj["ran_red"].to(torch.float32).mean()
         metrics["collisions_per_1k_steps"] = 1e3 * traj["collision"].to(torch.float32).mean()
-        return metrics
+        return metrics if mesh is None else mesh.mean_metrics(metrics)
 
     return update
 
@@ -315,7 +349,7 @@ def _sync(dev: torch.device) -> None:
 def ppo_train(sim_params, town, rcfg, state: TrainState, generator: torch.Generator, *,
               n_envs: int, rollout_steps: int, iterations: int, cfg: PPOConfig | None = None,
               frame_skip: int = 4, on_iteration: Callable | None = None,
-              device: str | torch.device = "cuda"):
+              device: str | torch.device = "cuda", mesh=None):
     """PPO: fleet rollouts (the env state persists across iterations) and
     updates, alternating, on ``state`` (an ``ActorCriticCNN``'s train
     state, updated in place). ``generator`` (a CPU generator) draws the
@@ -325,27 +359,34 @@ def ppo_train(sim_params, town, rcfg, state: TrainState, generator: torch.Genera
     history: per iteration the update's metrics as host floats, with
     ``seconds``, ``env_steps_per_sec``, and ``rollout_seconds`` and
     ``update_seconds`` (each ended by a device sync);
-    ``on_iteration(i, metrics)`` is called with each."""
+    ``on_iteration(i, metrics)`` is called with each. ``mesh`` shards the
+    fleet of ``n_envs`` (which must divide over it) and replicates
+    ``state`` (``shard_train_state``); the metrics, and
+    ``env_steps_per_sec``, are the global fleet's on every rank."""
     from carla_imitation_learning_tpu_torch.device import resolve_device
+    from carla_imitation_learning_tpu_torch.parallel.mesh import shard_train_state
     from carla_imitation_learning_tpu_torch.training import closed_loop as cl
 
     cfg = cfg or PPOConfig()
     dev = resolve_device(device)
+    if mesh is not None and state.mesh is None:
+        state = shard_train_state(mesh, state)
     model = state.model
     seeds = torch.randint(0, 2 ** 62, (2,), generator=generator).tolist()
     policy_gen = torch.Generator(device=dev).manual_seed(seeds[0])
     update_gen = torch.Generator(device=dev).manual_seed(seeds[1])
     init_fn, rollout_fn = cl.make_rollout(
-        sim_params, town, rcfg, make_actor(model, sample=True), frame_skip,
-        device=dev, policy_rng=policy_gen,
+        sim_params, town, rcfg, make_actor(model, sample=True, mesh=mesh), frame_skip,
+        device=dev, policy_rng=policy_gen, mesh=mesh,
         control_space="continuous" if model.continuous else "discrete")
     update = make_ppo_update(state, cfg, frame_skip)
     carry = init_fn(generator, n_envs)
+    n_local = carry[0].t.shape[0]
     history = []
     for i in range(iterations):
         t0 = time.perf_counter()
         states, framebuf, _ = carry
-        carry = (states, framebuf, torch.ones(n_envs, dtype=torch.bool, device=dev))
+        carry = (states, framebuf, torch.ones(n_local, dtype=torch.bool, device=dev))
         carry, traj = rollout_fn(carry, rollout_steps, policy_params=model)
         _sync(dev)
         t1 = time.perf_counter()

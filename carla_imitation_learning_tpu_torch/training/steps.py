@@ -75,12 +75,14 @@ class TrainState:
     ema_decay: float = 0.0
     mesh: object = None
 
-    def apply_gradients(self) -> None:
+    def apply_gradients(self, mean_over_mesh: bool = True) -> None:
         """One optimizer step from the gradients in the parameters' ``.grad``,
-        averaged over the mesh's ``data`` axis first when there is one."""
+        averaged over the mesh's ``data`` axis first when there is one
+        (summed with ``mean_over_mesh=False``: the loss of each rank already
+        divided by the global batch's weight)."""
         params = [p for p in self.model.parameters() if p.grad is not None]
         if self.mesh is not None:
-            self.mesh.mean_grads_([p.grad for p in params])
+            self.mesh.mean_grads_([p.grad for p in params], mean=mean_over_mesh)
         if self.tx.clip > 0:
             clip_by_global_norm_([p.grad for p in params], self.tx.clip)
         for group in self.optimizer.param_groups:
@@ -277,11 +279,13 @@ def create_train_state(model: nn.Module, tx: AdamConfig,
 
 
 def _train_one(state: TrainState, loss_fn, batch, generator):
-    state.optimizer.zero_grad(set_to_none=True)
-    loss, metrics = loss_fn(state.model, batch, generator)
-    loss.backward()
-    state.apply_gradients()
-    return metrics if state.mesh is None else state.mesh.mean_metrics(metrics)
+    # a named span in torch.profiler traces (``trainer.profiler=trace``)
+    with torch.profiler.record_function("train_step"):
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, metrics = loss_fn(state.model, batch, generator)
+        loss.backward()
+        state.apply_gradients()
+        return metrics if state.mesh is None else state.mesh.mean_metrics(metrics)
 
 
 def make_train_step(loss_fn):

@@ -10,9 +10,11 @@ Phases (any failure exits nonzero, with no result line):
 2. build: every hand-written kernel from ``csrc/`` (one nvcc per source,
    all started together, beside g++ for the frame store's library), with
    ptxas's registers and spills and every kernel's launch facts
-   (registers, spills, shared memory, resident blocks per SM); then kernels A (flat and textured, C = 1 and 3), B, C and D bit
-   for bit against their plain versions on the synthetic edge cases of
-   ``edge_case_tables``;
+   (registers, spills, shared memory, resident blocks per SM); then ``cli
+   doctor`` (``doctor_phase``: every probe in its own subprocess on the
+   card, all green, ``cuda_kernels`` among them); then kernels A (flat and
+   textured, C = 1 and 3), B, C and D bit for bit against their plain
+   versions on the synthetic edge cases of ``edge_case_tables``;
 3. kernel A (exact z-buffer) vs its plain PyTorch version, and
 4. kernel B (fast grayscale) vs its plain version and vs kernel A's luma, on
    the bench town's fleet (1024 envs, 128², T=512) from three seeds; each
@@ -135,7 +137,7 @@ Phases (any failure exits nonzero, with no result line):
    their plain versions on the fleet seen from FL, SR and RR, and a 3-view
    rollout on 8 envs on the card against the CPU; then, counts reset just
    before each run, ``run collect_multicamera`` (16 envs × RIG_COLLECT_STEPS
-   (100) of its 200 steps, 6 views on the exact path: A 600 times), ``run
+   (50) of its 200 steps, 6 views on the exact path: A 300 times), ``run
    bc_surround`` (16 × 300
    with forward, FL and FR, A 900 times; 2 epochs of at most 40 batches;
    its closed loop at 64 × 200 with the rig, B 603 times) and ``run
@@ -165,20 +167,32 @@ Phases (any failure exits nonzero, with no result line):
    idle share), ``run hpo_pbt`` (8 × 4 generations; every exploit/explore
    bit for bit card vs CPU and equal to the run's next generation) and
    ``run world_model_sweep`` (16 × 128 a trial, 4 at a time, cut to the
-   latent sizes HPO_WM_Z and HPO_WM_EPOCHS epochs of at most HPO_WM_BATCHES
-   batches: no trial fails, every reconstruction loss falls, kernel B
-   exactly 4 × 129);
+   latent sizes HPO_WM_Z, the image losses HPO_WM_LOSSES and HPO_WM_EPOCHS
+   epochs of at most HPO_WM_BATCHES batches: no trial fails, every
+   reconstruction loss falls, kernel B exactly 2 × 129);
 6m. data parallelism (``mesh_phase``): (a) one NCCL rank on the card
    (torchrun's variables for a world of one) runs ``run bc -o
-   mesh.enabled=true`` through the CLI at 128² and the imitation preset's
-   batch of 64 for MESH_BC_BATCHES steps, each all-reducing its gradient
-   bucket and its metrics over NCCL; (b) two gloo ranks spawned on cuda:0
-   (the backend named: NCCL refuses two ranks on one card) run one fp32 BC
-   step at batch 64 and an expert rollout of 256 envs × 50 steps (kernel B
-   on each rank's 128 envs), held against the same work in one process
-   with TF32 off: speeds at rtol 1e-5, actions equal, step metrics at rtol
-   2e-5, parameters equal on both ranks; a rank's failure fails the script;
-   every phase's seconds are printed (``phase_seconds``);
+   mesh.enabled=true -o trainer.profiler=trace`` through the CLI at 128²
+   and the imitation preset's batch of 64 for MESH_BC_BATCHES steps, each
+   all-reducing its gradient bucket and its metrics over NCCL, and its
+   trace must hold CUDA kernel events, the train steps and NCCL's
+   all-reduce kernel; (b) two gloo ranks spawned once on cuda:0 (the
+   backend named: NCCL refuses two ranks on one card) run one fp32 BC step
+   at batch 64, an expert rollout of 256 envs × 50 steps (kernel B on each
+   rank's 128 envs), one round of online DAgger at the preset's 64 envs ×
+   300 steps and batch 128 (20 of its 400 train steps), one PPO iteration
+   at ``rl_finetune``'s 256 envs × 128 steps with an fp32
+   ``ActorCriticCNN``, and a sharded engine batch of 128 frames of a bf16
+   artifact, all held against the same work in one process with TF32 off
+   and cuDNN's deterministic algorithms (online DAgger's and PPO's model
+   run over the ranks' two halves of each batch there, ``_in_halves``):
+   speeds at rtol 1e-5, actions, windows and labels equal, step metrics at
+   rtol 2e-5, every step's loss, advantages and PPO metrics at rtol 1e-6,
+   parameters after the whole round and iteration within rtol 1e-5 and
+   equal on both ranks, the served logits bit for bit
+   against the bucket's two halves, kernel B's launches exact on each rank
+   (paths ``mesh``, ``mesh_online_dagger``, ``mesh_ppo``); a rank's failure
+   fails the script; every phase's seconds are printed (``phase_seconds``);
 7. the rich fleet (same town and envs, the rich128 preset: facade bands,
    markings, shadows, textures, T=1408) from three seeds: kernel A's
    textured variant (C=1 and C=3), kernel B on the rich lists (2 px and 0
@@ -310,11 +324,14 @@ SEQ_RNN_STEPS, SEQ_RNN_EVAL_STEPS = 150, 100   # bc_rnn's collection and eval (p
 # (the preset's 64 envs; 100 of its 200 steps)
 SEQ_VIT_ENVS, SEQ_VIT_STEPS, SEQ_VIT_EVAL_STEPS = 64, 100, 100
 SEQ_VIT_EPOCHS, SEQ_VIT_BATCH = 6, 128
-SEQ_DREAM_STEPS, SEQ_DREAM_UPDATES, SEQ_DREAM_EVAL_STEPS = 100, 50, 75   # (preset 200, 300, 150)
-SEQ_CONT_STEPS, SEQ_CONT_UPDATES, SEQ_CONT_EVAL_STEPS = 100, 50, 50   # continuous dream_policy
+# dream_policy's depth, cut from 100, 50, 75 (and 100, 50, 50 for the
+# continuous run) to make room for the doctor and the mesh phase's online
+# DAgger, PPO and serving: its gates are finite metrics and scores
+SEQ_DREAM_STEPS, SEQ_DREAM_UPDATES, SEQ_DREAM_EVAL_STEPS = 60, 25, 40   # (preset 200, 300, 150)
+SEQ_CONT_STEPS, SEQ_CONT_UPDATES, SEQ_CONT_EVAL_STEPS = 60, 25, 30   # continuous dream_policy
 SEQ_ROLL_SHORT, SEQ_ROLL_LONG, SEQ_ROLL_REPEATS = 16, 32, 3   # the recurrent rollout's rate
 # each train step and the imagination update alone, as AUX_TIMED
-SEQ_TIMED = (3, 20, 3, 5)
+SEQ_TIMED = (3, 10, 3, 5)        # runs cut from 20 steps to 10 likewise
 SEQ_CROSS_BATCH = 2                            # card-vs-CPU steps: sequences of 8 at 128²
 # The rigs_replay phase: collect_multicamera, bc_surround and replay at their
 # presets' widths through the CLI (bc_surround's fit cut to RIG_EPOCHS
@@ -323,7 +340,10 @@ RIG_CAMERAS = ("camera", "FL", "FR")           # bc_surround's rig
 RIG_CHECK_CAMERAS = ("FL", "SR", "RR")         # A and B vs plain from these views
 RIG_EPOCHS, RIG_BATCHES = 2, 40
 RIG_ROLL_SHORT, RIG_ROLL_LONG, RIG_ROLL_REPEATS = 16, 64, 3   # surround rollout, replay
-RIG_COLLECT_STEPS = 100          # collect_multicamera's depth (preset 16 × 200)
+# collect_multicamera's depth (preset 16 × 200), cut from 100 to make room
+# for the doctor and the mesh phase's online DAgger, PPO and serving: its
+# gates are counts of frames, files and launches
+RIG_COLLECT_STEPS = 50
 # The serving phase: export_policy through the CLI (128² and the preset's
 # 256²), closed_loop_eval of an artifact, the latency ladder, the engine and HTTP
 SERVE_EVAL_ENVS, SERVE_EVAL_STEPS = 256, 50
@@ -338,9 +358,13 @@ SERVE_CLIENTS, SERVE_REQUESTS, SERVE_WINDOWS = 8, 40, (0.0, 2.0)
 # a time (12 trials at 2 epochs of 20 batches took 139 s, 8 at 2 × 10 took
 # 112-115 s): each fit from the vae group's 50 epochs to HPO_WM_EPOCHS
 # epochs of at most HPO_WM_BATCHES batches, then the grid's latent sizes to
-# HPO_WM_Z (both RNNs and both image losses kept: 4 of the 12 trials)
-HPO_WM_EPOCHS, HPO_WM_BATCHES = 2, 10
+# HPO_WM_Z (both RNNs and both image losses kept: 4 of the 12 trials), then,
+# to make room for the doctor and the mesh phase's online DAgger, PPO and
+# serving, to the image loss HPO_WM_LOSSES (the seq_wm phase's world models
+# train with MSE): 2 trials, LSTM and GRU
+HPO_WM_EPOCHS, HPO_WM_BATCHES = 2, 6     # cut from 10 batches likewise
 HPO_WM_Z = (64,)
+HPO_WM_LOSSES = ("ms_ssim",)
 HPO_CROSS_TRIAL = 0      # the vmapped trial held against itself alone and the CPU
 # The mesh phase: a 1-rank NCCL ``run bc -o mesh.enabled=true`` (a synthetic
 # 128² log, the imitation preset's batch of 64, MESH_BC_BATCHES batches), then
@@ -348,6 +372,15 @@ HPO_CROSS_TRIAL = 0      # the vmapped trial held against itself alone and the C
 # and an expert rollout of MESH_ENVS × MESH_STEPS (kernel B on each rank's rows)
 MESH_BC_FRAMES, MESH_BC_BATCHES = 512, 4
 MESH_BATCH, MESH_ENVS, MESH_STEPS = 64, 256, 50
+# ... and on the same two ranks against one process: one round of online
+# DAgger at the dagger_online preset's widths (64 envs × 300 steps, batch
+# 128) cut to MESH_OD_TRAIN of its 400 train steps, one PPO iteration at
+# rl_finetune's (256 envs × 128 steps, 4 epochs × 8 minibatches), and one
+# sharded engine batch of a bf16 PolicyCNN artifact at 128²
+MESH_OD_ENVS, MESH_OD_STEPS, MESH_OD_BATCH, MESH_OD_TRAIN = 64, 300, 128, 20
+MESH_PPO_ENVS, MESH_PPO_STEPS, MESH_PPO_LR = 256, 128, 3e-4
+MESH_SERVE_BATCH = 128
+DOCTOR_TIMEOUT = 300     # cli doctor's per-probe bound (s)
 HPO_TIMED_REPEATS = 3    # vmapped sweep vs its trials one after another: median of 3
 LANES_PER_SM = 128       # lane-instructions an SM issues per clock (4 × 32)
 HBM_RATE = 3.35e12       # H100 SXM device memory, B/s
@@ -603,19 +636,202 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def mesh_shape() -> dict:
-    """The sizes of phase 6m's work, handed to its spawned ranks."""
+def mesh_shape(artifact: str | None = None) -> dict:
+    """The sizes of phase 6m's work, handed to its spawned ranks, and the
+    bf16 artifact that part (b) serves."""
     return {"hw": HW, "t": T, "batch": MESH_BATCH, "envs": MESH_ENVS, "steps": MESH_STEPS,
-            "town": BENCH_TOWN}
+            "town": BENCH_TOWN, "od": (MESH_OD_ENVS, MESH_OD_STEPS, MESH_OD_BATCH,
+                                       MESH_OD_TRAIN),
+            "ppo": (MESH_PPO_ENVS, MESH_PPO_STEPS, MESH_PPO_LR),
+            "serve_batch": MESH_SERVE_BATCH, "artifact": artifact}
+
+
+def _flat_params(model):
+    import torch
+
+    return torch.cat([p.detach().reshape(-1) for p in model.parameters()]).cpu()
+
+
+def _flat_grads(a, k, out):
+    """``Capture`` record of ``clip_by_global_norm_``: the step's gradient
+    (reduced over the mesh, then clipped) flat on the host."""
+    import torch
+
+    return torch.cat([g.reshape(-1) for g in a[0]]).cpu()
+
+
+def _in_halves(model):
+    """``model`` (on the card) with every forward run as a mesh of two runs
+    it: over the first and the second half of the batch apart, the outputs
+    joined. The parameters stay ``model``'s, so a gradient is the sum of
+    the halves' gradients, as the mesh's all-reduce sums the ranks'. The
+    one-process reference of phase 6m's part (b): a forward of the whole
+    batch rounds apart from its halves in the last bit (the kernels block
+    by batch size), and Adam turns a last-bit difference of a gradient
+    within rounding of zero into part of a step."""
+    import torch
+
+    whole = model.forward
+
+    def join(a, b):
+        if isinstance(a, torch.Tensor):
+            return torch.cat([a, b])
+        return type(a)(join(x, y) for x, y in zip(a, b))
+
+    def forward(*args):
+        n = args[0].shape[0]
+        a, b = (whole(*(x[s].clone() for x in args))
+                for s in (slice(0, n // 2), slice(n // 2, n)))
+        return join(a, b)
+
+    model.forward = forward
+    return model
+
+
+def _normalize_in_halves(adv, mesh=None):
+    """``rl.normalize_advantages`` as a mesh of two computes it: the sums
+    and the sums of squared deviations of the two halves of the fleet's
+    columns, each half contiguous as on its rank, added."""
+    import torch
+
+    a, b = (h.contiguous() for h in adv.chunk(2, dim=1))
+    n = adv.numel()
+    mean = (a.sum() + b.sum()).reshape(1) / n
+    var = (((a - mean) ** 2).sum() + ((b - mean) ** 2).sum()).reshape(1) / n
+    return (adv - mean) / (torch.sqrt(var) + 1e-8)
+
+
+def mesh_online_dagger(mesh, dev, shape: dict) -> dict:
+    """One round of ``make_online_dagger`` (β = 0: the expert drives round
+    0) at ``shape["od"]``'s envs, steps, batch and train steps on the bench
+    town, fp32 ``PolicyCNN`` from a seed → per-round metrics, every train
+    step's (labels, weights, the integer pixel sum of each window) of this
+    rank's rows, the final parameters and kernel B's launches. Without a
+    mesh the model runs ``_in_halves``."""
+    import torch
+
+    from carla_imitation_learning_tpu_torch.models import PolicyCNN
+    from carla_imitation_learning_tpu_torch.render.pipeline import RenderConfig
+    from carla_imitation_learning_tpu_torch.sim.town import make_town
+    from carla_imitation_learning_tpu_torch.sim.world import SimParams
+    from carla_imitation_learning_tpu_torch.training import online_dagger as od
+    from carla_imitation_learning_tpu_torch.training import steps
+    from carla_imitation_learning_tpu_torch.training.steps import (
+        create_train_state, make_optimizer,
+    )
+
+    n_envs, n_steps, batch, train_steps = shape["od"]
+    state = create_train_state(PolicyCNN(dtype=torch.float32), make_optimizer(
+        {"LEARNING_RATE": BC_LR, "gradient_clip_val": BC_CLIP}, 1),
+        generator=torch.Generator().manual_seed(3), device=dev)
+    if mesh is None:
+        _in_halves(state.model)
+    run = od.make_online_dagger(PolicyCNN.__call__, SimParams(n_agents=15),
+                                make_town(**shape["town"]),
+                                RenderConfig(height=shape["hw"], width=shape["hw"],
+                                             max_triangles=shape["t"]),
+                                n_envs=n_envs, n_steps=n_steps, rounds=1,
+                                train_steps=train_steps, batch=batch, beta=0.0, mesh=mesh,
+                                device=dev)
+
+    def windows(a, k, out):
+        obs, y, w = out[:3]
+        pix = (obs * 255.0).round().to(torch.int64).sum(dim=(1, 2, 3))
+        return torch.stack([y.to(torch.int64), w.to(torch.int64), pix]).cpu()
+
+    reset_counts()
+    t0 = time.perf_counter()
+    with Capture(od, "gather_windows_at", windows) as seen, \
+            Capture(od, "masked_cross_entropy", lambda a, k, out: float(out.detach())) as losses, \
+            Capture(steps, "clip_by_global_norm_", _flat_grads) as grads:
+        state, metrics = run(state, torch.Generator().manual_seed(4))
+    return {"metrics": {k: v.tolist() for k, v in metrics.items()},
+            "windows": torch.stack(seen.calls), "losses": losses.calls,
+            "grad": grads.calls[0], "params": _flat_params(state.model),
+            "launches": read_counts(), "seconds": time.perf_counter() - t0}
+
+
+def mesh_ppo(mesh, dev, shape: dict) -> dict:
+    """One ``ppo_train`` iteration at ``shape["ppo"]``'s envs and steps
+    (PPOConfig's 4 epochs × 8 minibatches, the preset's rate) with an fp32
+    ``ActorCriticCNN`` from a seed on the bench town → the rollout's actions
+    and the normalised advantages (this rank's columns), the history, the
+    parameters and kernel B's launches. Without a mesh the model runs
+    ``_in_halves`` and the advantages ``_normalize_in_halves``."""
+    import torch
+
+    from carla_imitation_learning_tpu_torch.render.pipeline import RenderConfig
+    from carla_imitation_learning_tpu_torch.sim.town import make_town
+    from carla_imitation_learning_tpu_torch.sim.world import SimParams
+    from carla_imitation_learning_tpu_torch.training import rl, steps
+    from carla_imitation_learning_tpu_torch.training.steps import (
+        AdamConfig, create_train_state, flax_init_,
+    )
+
+    n_envs, n_steps, lr = shape["ppo"]
+    model = flax_init_(rl.ActorCriticCNN(dtype=torch.float32), torch.Generator().manual_seed(5))
+    cfg = rl.PPOConfig(learning_rate=lr)
+    state = create_train_state(model, AdamConfig(schedule=lambda c: cfg.learning_rate,
+                                                 clip=cfg.max_grad_norm), device=dev)
+    normalize = rl.normalize_advantages
+    if mesh is None:
+        _in_halves(state.model)
+        rl.normalize_advantages = _normalize_in_halves
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with Capture(rl, "reward_from_traj", lambda a, k, out: a[0]["action"].cpu()) as actions, \
+                Capture(rl, "normalize_advantages", lambda a, k, out: out.cpu()) as adv, \
+                Capture(steps, "clip_by_global_norm_", _flat_grads) as grads:
+            state, history = rl.ppo_train(
+                SimParams(n_agents=15), make_town(**shape["town"]),
+                RenderConfig(height=shape["hw"], width=shape["hw"], max_triangles=shape["t"]),
+                state, torch.Generator().manual_seed(6), n_envs=n_envs, rollout_steps=n_steps,
+                iterations=1, cfg=cfg, device=dev, mesh=mesh)
+    finally:
+        rl.normalize_advantages = normalize
+    return {"actions": actions.calls[0], "adv": adv.calls[0], "history": history,
+            "grad": grads.calls[0], "params": _flat_params(state.model),
+            "launches": read_counts(), "seconds": time.perf_counter() - t0}
+
+
+def mesh_serving(mesh, dev, shape: dict) -> dict:
+    """One engine batch of ``shape["serve_batch"]`` seeded frames of the
+    bf16 artifact: sharded over ``mesh`` (rank 0 serves and stops, rank 1
+    follows), or whole in one process beside the two halves of the bucket
+    run one after the other (what each rank runs) → logits."""
+    import numpy as np
+    import torch
+
+    from carla_imitation_learning_tpu_torch.serving import InferenceEngine, load_policy
+
+    policy = load_policy(shape["artifact"], dev)
+    hw, n = shape["hw"], shape["serve_batch"]
+    frames = np.random.default_rng(7).integers(0, 256, (n, hw, hw, 4), dtype=np.uint8)
+    t0 = time.perf_counter()
+    if mesh is None:
+        whole = InferenceEngine(policy, max_batch=n, device=dev).infer_logits(frames)
+        with torch.inference_mode():
+            halves = torch.cat([policy(torch.from_numpy(f).to(dev)).float().cpu()
+                                for f in np.split(frames, 2)]).numpy()
+        return {"logits": whole, "halves": halves, "seconds": time.perf_counter() - t0}
+    engine = InferenceEngine(policy, max_batch=n, mesh=mesh, device=dev)
+    if mesh.rank() != 0:
+        engine.follow()
+        return {"seconds": time.perf_counter() - t0}
+    logits = engine.infer_logits(frames)
+    engine.stop()
+    return {"logits": logits, "buckets": engine.buckets, "seconds": time.perf_counter() - t0}
 
 
 def mesh_work(mesh, dev, shape: dict) -> dict:
     """Phase 6m's work, sharded over ``mesh`` or (None) whole in this
     process: one fp32 BC step of ``PolicyCNN`` at a batch of ``shape
     ["batch"]`` frames of ``shape["hw"]``² (a rank takes its rows, the
-    state replicated) and an expert rollout of ``shape["envs"]`` ×
+    state replicated), an expert rollout of ``shape["envs"]`` ×
     ``shape["steps"]`` on the bench town (a rank steps and renders its rows
-    with kernel B). Inputs from fixed seeds; TF32 is the caller's."""
+    with kernel B), then ``mesh_online_dagger``, ``mesh_ppo`` and
+    ``mesh_serving``. Inputs from fixed seeds; TF32 is the caller's."""
     import torch
 
     from carla_imitation_learning_tpu_torch.models import PolicyCNN
@@ -644,7 +860,7 @@ def mesh_work(mesh, dev, shape: dict) -> dict:
     _, metrics = make_train_step(bc_loss_fn)(state, batch)
     metrics = {k: float(v) for k, v in metrics.items()}
     step_s = time.perf_counter() - t0
-    params = torch.cat([p.detach().reshape(-1) for p in state.model.parameters()]).cpu()
+    params = _flat_params(state.model)
     rcfg = RenderConfig(height=hw, width=hw, max_triangles=shape["t"])
     init_fn, rollout_fn = make_rollout(SimParams(n_agents=15), make_town(**shape["town"]),
                                        rcfg, None, device=dev, mesh=mesh)
@@ -653,15 +869,21 @@ def mesh_work(mesh, dev, shape: dict) -> dict:
     _, traj = rollout_fn(init_fn(torch.Generator().manual_seed(2), shape["envs"]),
                          shape["steps"])
     speed, action = traj["speed"].cpu(), traj["action"].cpu()
-    return {"metrics": metrics, "params": params, "speed": speed, "action": action,
-            "launches": read_counts(), "step_s": step_s,
-            "rollout_s": time.perf_counter() - t0}
+    out = {"metrics": metrics, "params": params, "speed": speed, "action": action,
+           "launches": read_counts(), "step_s": step_s,
+           "rollout_s": time.perf_counter() - t0}
+    del traj
+    out["online_dagger"] = mesh_online_dagger(mesh, dev, shape)
+    out["ppo"] = mesh_ppo(mesh, dev, shape)
+    out["serving"] = mesh_serving(mesh, dev, shape)
+    return out
 
 
 def mesh_rank(rank: int, port: int, out_dir: str, device: str, shape: dict) -> None:
     """One of phase 6m's two gloo ranks on ``device`` (cuda:0 for both: NCCL
     will not put two ranks on one card): ``mesh_work`` over a ``data`` mesh
-    of two, with TF32 off; its result saved for the parent."""
+    of two, with TF32 off and cuDNN's deterministic algorithms; its result
+    saved for the parent."""
     import torch
     import torch.distributed as dist
 
@@ -673,10 +895,203 @@ def mesh_rank(rank: int, port: int, out_dir: str, device: str, shape: dict) -> N
     try:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
         mesh = make_mesh(axis_sizes={"data": 2}, devices=device)
         torch.save(mesh_work(mesh, mesh.device, shape), Path(out_dir) / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
+
+
+def _close(got: float, want: float, rtol: float, atol: float) -> bool:
+    return abs(got - want) <= atol + rtol * abs(want)
+
+
+def _trace_checks(trace_dir: Path) -> dict:
+    """The torch.profiler trace that part (a)'s ``run bc`` wrote: its CUDA
+    kernel events, its train steps and NCCL's all-reduce among them (the
+    process group's ``nccl:all_reduce`` op; a world of one launches no
+    NCCL kernel for it, so a kernel of that name counts where there is
+    one)."""
+    files = sorted(trace_dir.rglob("*.pt.trace.json"))
+    check(len(files) == 1, f"mesh (a): {len(files)} trace files under {trace_dir}")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    nccl = [e for e in events if "nccl" in e.get("name", "").lower()
+            and "allreduce" in e.get("name", "").lower().replace("_", "")]
+    # the host's spans (the card's timeline repeats them as gpu_user_annotation)
+    steps = [e for e in events if e.get("name") == "train_step"
+             and e.get("cat") == "user_annotation"]
+    check(kernels, "mesh (a): the trace holds no CUDA kernel event")
+    check(nccl, "mesh (a): the trace holds no NCCL all-reduce")
+    check(len(steps) == MESH_BC_BATCHES, f"mesh (a): {len(steps)} train_step spans traced")
+    return {"events": len(events), "kernel_events": len(kernels),
+            "nccl_allreduce_events": len(nccl), "train_steps": len(steps),
+            "nccl_names": sorted({e["name"][:80] for e in nccl}),
+            "nccl_cats": sorted({str(e.get("cat")) for e in nccl}),
+            "bytes": files[0].stat().st_size}
+
+
+def _rel(a, b) -> float:
+    """max |a − b| / max |b| of two tensors (0 for equal ones)."""
+    scale = float(b.abs().max())
+    return float((a - b).abs().max()) / scale if scale else float((a - b).abs().max())
+
+
+def _mesh_od_checks(ranks: list, whole: dict, gate) -> dict:
+    """Part (b)'s online DAgger round on two ranks against one process that
+    runs the ranks' halves (``_in_halves``): windows, labels and weights
+    equal (each rank's rows joined), agreement and valid_frac equal, every
+    step's loss (the ranks' terms summed) and the round's loss rtol 1e-6,
+    the first step's reduced gradient within 1e-5 of its largest element,
+    the parameters after the round rtol 1e-5 / atol 1e-6 (the CPU test's),
+    equal on both ranks; kernel B MESH_OD_STEPS + 1 times on each rank and
+    in one process."""
+    import torch
+
+    r_od = [r["online_dagger"] for r in ranks]
+    w_od = whole["online_dagger"]
+    joined = torch.cat([r["windows"] for r in r_od], dim=2)
+    gate(torch.equal(joined, w_od["windows"]),
+         "mesh (b) online DAgger: windows, labels or weights differ from one process")
+    for r in r_od:
+        gate(r["metrics"]["agreement"] == w_od["metrics"]["agreement"] == [1.0],
+             f"mesh (b) online DAgger: agreement {r['metrics']['agreement']}")
+        gate(r["metrics"]["valid_frac"] == w_od["metrics"]["valid_frac"],
+             "mesh (b) online DAgger: valid_frac differs")
+        gate(r["launches"]["B"] == MESH_OD_STEPS + 1,
+             f"mesh (b) online DAgger: kernel B launched {r['launches']['B']} times on a rank")
+    losses = torch.tensor([sum(x) for x in zip(*(r["losses"] for r in r_od))], dtype=torch.float64)
+    w_losses = torch.tensor(w_od["losses"], dtype=torch.float64)
+    step_rel = ((losses - w_losses).abs() / w_losses.abs()).tolist()
+    gate(len(step_rel) == MESH_OD_TRAIN and max(step_rel) <= 1e-6,
+         f"mesh (b) online DAgger: step losses rel diff up to {max(step_rel):.3e}")
+    got, want = r_od[0]["metrics"]["loss"][0], w_od["metrics"]["loss"][0]
+    gate(_close(got, want, 1e-6, 0.0), f"mesh (b) online DAgger: loss {got} vs {want}")
+    g_rel = _rel(r_od[0]["grad"], w_od["grad"])
+    gate(g_rel <= 1e-5, f"mesh (b) online DAgger: first gradient max|d| {g_rel:.3e} of its max")
+    d_par = float((r_od[0]["params"] - w_od["params"]).abs().max())
+    gate(bool(torch.allclose(r_od[0]["params"], w_od["params"], rtol=1e-5, atol=1e-6)),
+         f"mesh (b) online DAgger: parameters max|d| {d_par:.3e} from one process")
+    gate(torch.equal(r_od[0]["params"], r_od[1]["params"]) and torch.equal(
+        r_od[0]["grad"], r_od[1]["grad"]), "mesh (b) online DAgger: the ranks differ")
+    gate(w_od["launches"]["B"] == MESH_OD_STEPS + 1, "mesh (b) online DAgger: B launches whole")
+    return {"loss": r_od[0]["metrics"]["loss"], "one_process_loss": w_od["metrics"]["loss"],
+            "valid_frac": r_od[0]["metrics"]["valid_frac"], "step_loss_rel_diff": step_rel,
+            "first_grad_rel_diff": g_rel, "max_param_diff": d_par,
+            "params_equal": torch.equal(r_od[0]["params"], w_od["params"]),
+            "windows": int(joined.shape[0] * joined.shape[2]),
+            "seconds": [r["seconds"] for r in r_od], "one_process_seconds": w_od["seconds"]}
+
+
+def _mesh_ppo_checks(ranks: list, whole: dict, gate) -> dict:
+    """Part (b)'s PPO iteration on two ranks against one process that runs
+    the ranks' halves (``_in_halves``, ``_normalize_in_halves``): the
+    rollout's actions equal, normalised advantages rtol 1e-6 / atol 1e-6,
+    the first minibatch's reduced gradient within 1e-5 of its largest
+    element, every metric of the iteration rtol 1e-6 / atol 1e-6 and the
+    parameters after its 32 steps rtol 1e-5 / atol 1e-6 (the CPU test's),
+    both equal on the two ranks and finite; kernel B MESH_PPO_STEPS + 1
+    times on each rank and in one process."""
+    import math
+
+    import torch
+
+    r_ppo = [r["ppo"] for r in ranks]
+    w_ppo = whole["ppo"]
+    gate(torch.equal(torch.cat([r["actions"] for r in r_ppo], dim=1), w_ppo["actions"]),
+         "mesh (b) PPO: the rollout's actions differ from one process")
+    adv = torch.cat([r["adv"] for r in r_ppo], dim=1)
+    d_adv = float((adv - w_ppo["adv"]).abs().max())
+    gate(bool(torch.allclose(adv, w_ppo["adv"], rtol=1e-6, atol=1e-6)),
+         f"mesh (b) PPO: advantages max|d| {d_adv:.3e} from one process")
+    g_rel = _rel(r_ppo[0]["grad"], w_ppo["grad"])
+    gate(g_rel <= 1e-5, f"mesh (b) PPO: first gradient max|d| {g_rel:.3e} of its max")
+    want = w_ppo["history"][0]
+    got = r_ppo[0]["history"][0]
+    untimed = [k for k in want if "seconds" not in k and "per_sec" not in k]
+    gate(all(r_ppo[1]["history"][0][k] == got[k] and math.isfinite(got[k]) for k in untimed),
+         "mesh (b) PPO: the ranks' metrics differ or are not finite")
+    off = [k for k in untimed if not _close(got[k], want[k], 1e-6, 1e-6)]
+    gate(not off, f"mesh (b) PPO: metrics {off} differ from one process")
+    d_par = float((r_ppo[0]["params"] - w_ppo["params"]).abs().max())
+    gate(bool(torch.allclose(r_ppo[0]["params"], w_ppo["params"], rtol=1e-5, atol=1e-6)),
+         f"mesh (b) PPO: parameters max|d| {d_par:.3e} from one process")
+    gate(torch.equal(r_ppo[0]["params"], r_ppo[1]["params"]),
+         "mesh (b) PPO: the ranks' parameters differ")
+    for r in r_ppo + [w_ppo]:
+        gate(r["launches"]["B"] == MESH_PPO_STEPS + 1,
+             f"mesh (b) PPO: kernel B launched {r['launches']['B']} times")
+    return {"max_adv_diff": d_adv, "first_grad_rel_diff": g_rel, "max_param_diff": d_par,
+            "params_equal": torch.equal(r_ppo[0]["params"], w_ppo["params"]),
+            "metric_rel_diff": {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+                                for k in untimed},
+            "metrics": got, "one_process_metrics": want}
+
+
+def _split_witness(dev) -> dict:
+    """Why part (b)'s reference runs the halves: one fp32 ``PolicyCNN``
+    gradient of a seeded batch of MESH_OD_BATCH 128² windows, whole and as
+    ``_in_halves`` runs it, in this process with TF32 off, with cuDNN's
+    deterministic algorithms and without → the gradients' largest gap as
+    a share of their largest element."""
+    import torch
+    import torch.nn.functional as F
+
+    from carla_imitation_learning_tpu_torch.models import PolicyCNN
+    from carla_imitation_learning_tpu_torch.training.steps import flax_init_
+
+    gen = torch.Generator().manual_seed(12)
+    x = torch.rand((MESH_OD_BATCH, HW, HW, 4), generator=gen).to(dev)
+    y = torch.randint(0, 9, (MESH_OD_BATCH,), generator=gen).to(dev)
+    model = flax_init_(PolicyCNN(dtype=torch.float32), torch.Generator().manual_seed(3)).to(dev)
+
+    def grad(m):
+        m.zero_grad(set_to_none=True)
+        F.cross_entropy(m(x), y).backward()
+        return torch.cat([p.grad.reshape(-1) for p in m.parameters()])
+
+    det = torch.backends.cudnn.deterministic
+    out = {}
+    try:
+        for flag in (False, True):
+            torch.backends.cudnn.deterministic = flag
+            full = grad(model)
+            halves = grad(_in_halves(model))
+            del model.forward                       # the whole forward again
+            again = grad(_in_halves(model))
+            del model.forward
+            key = "deterministic" if flag else "default"
+            out[key] = {"whole_vs_halves": _rel(halves, full),
+                        "halves_vs_halves": _rel(again, halves)}
+    finally:
+        torch.backends.cudnn.deterministic = det
+    return out
+
+
+def _mesh_serving_checks(ranks: list, whole: dict, gate) -> dict:
+    """Part (b)'s sharded engine batch against one process: the ladder in
+    multiples of 2; rank 0's logits equal, bit for bit, the two halves of
+    the bucket run one after the other in one process (what each rank
+    runs); against the whole bucket in one call (another batch size, so
+    cuDNN may pick another algorithm) the argmax of at least 99 % of the
+    rows equal and the logits within 2 % of their scale (bf16)."""
+    import numpy as np
+
+    got = ranks[0]["serving"]["logits"]
+    w = whole["serving"]
+    gate(all(b % 2 == 0 for b in ranks[0]["serving"]["buckets"]),
+         f"mesh (b) serving: ladder {ranks[0]['serving']['buckets']}")
+    gate(got.shape == (MESH_SERVE_BATCH, 9) and np.array_equal(got, w["halves"]),
+         f"mesh (b) serving: sharded logits differ from the halves, max|d| "
+         f"{float(np.abs(got - w['halves']).max()):.3e}")
+    agree = float((got.argmax(-1) == w["logits"].argmax(-1)).mean())
+    scale = float(np.abs(w["logits"]).max())
+    d_whole = float(np.abs(got - w["logits"]).max())
+    gate(agree >= 0.99 and d_whole <= 0.02 * scale,
+         f"mesh (b) serving: argmax agreement {agree}, max|d| {d_whole:.3e} (scale {scale:.3f})")
+    return {"argmax_agreement_whole": agree, "max_diff_whole": d_whole, "scale": scale,
+            "seconds": [r["serving"]["seconds"] for r in ranks],
+            "one_process_seconds": w["seconds"]}
 
 
 def mesh_phase(dev, smi: str) -> dict:
@@ -684,23 +1099,37 @@ def mesh_phase(dev, smi: str) -> dict:
 
     a. One NCCL rank on the card: torchrun's variables for a world of one
        (RANK 0, WORLD_SIZE 1, MASTER_ADDR 127.0.0.1, a free port), then
-       ``run bc -o mesh.enabled=true`` through the CLI, which joins the
-       process group (``nccl``) and trains on a synthetic 128² log at the
-       preset's batch for MESH_BC_BATCHES batches: every train step crosses
-       NCCL's all-reduce (the gradient bucket, then the metrics).
-    b. Two gloo ranks spawned on cuda:0, the backend named: ``mesh_work``
-       sharded over them against ``mesh_work`` whole in this process, TF32
-       off in both: speeds at rtol 1e-5, actions equal, the step's metrics
-       at rtol 2e-5 and equal on both ranks, the parameters equal on both
-       ranks, kernel B launched MESH_STEPS + 1 times on each rank.
-    A rank's failure fails the phase. → launch counts (this process and
-    both ranks)."""
+       ``run bc -o mesh.enabled=true -o trainer.profiler=trace`` through the
+       CLI, which joins the process group (``nccl``) and trains on a
+       synthetic 128² log at the preset's batch for MESH_BC_BATCHES
+       batches: every train step crosses NCCL's all-reduce (the gradient
+       bucket, then the metrics); its torch.profiler trace must hold CUDA
+       kernel events, one ``train_step`` span a step and NCCL's all-reduce
+       kernel.
+    b. Two gloo ranks spawned once on cuda:0, the backend named:
+       ``mesh_work`` sharded over them against ``mesh_work`` whole in this
+       process, TF32 off and cuDNN deterministic in both (``_split_witness``
+       records why online DAgger and PPO run ``_in_halves`` here). The BC
+       step and the expert rollout:
+       speeds at rtol 1e-5, actions equal, the step's metrics at rtol 2e-5
+       and equal on both ranks, the parameters equal on both ranks, kernel
+       B launched MESH_STEPS + 1 times on each rank. Then online DAgger,
+       PPO and serving with ``_mesh_od_checks``, ``_mesh_ppo_checks`` and
+       ``_mesh_serving_checks``.
+    A rank's failure fails the phase. → launch counts by path: ``mesh``
+    (the rollout), ``mesh_online_dagger`` and ``mesh_ppo`` (this process
+    and both ranks)."""
     import torch
     import torch.distributed as dist
     import torch.multiprocessing as mp
 
+    from carla_imitation_learning_tpu_torch.models import PolicyCNN
+    from carla_imitation_learning_tpu_torch.serving import export_policy
+    from carla_imitation_learning_tpu_torch.training.steps import flax_init_
+
     t_phase = time.perf_counter()
-    launches = {k: 0 for k in counters()}
+    paths = {name: {k: 0 for k in counters()}
+             for name in ("mesh", "mesh_online_dagger", "mesh_ppo")}
     res = {}
     env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
            "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port())}
@@ -717,8 +1146,11 @@ def mesh_phase(dev, smi: str) -> dict:
                           "-o", f"BATCH_SIZE={MESH_BATCH}",
                           "-o", f"trainer.limit_train_batches={MESH_BC_BATCHES}",
                           "-o", "trainer.limit_val_batches=2",
-                          "-o", "bc_cameras=['camera']", "-o", "mesh.enabled=true")
+                          "-o", "bc_cameras=['camera']", "-o", "mesh.enabled=true",
+                          "-o", "trainer.profiler=trace",
+                          "-o", f"trainer.trace_dir={tmp}/trace")
             nccl_s = time.perf_counter() - t0
+            trace = _trace_checks(Path(tmp) / "trace")
     finally:
         for k, v in saved.items():
             if v is None:
@@ -734,27 +1166,37 @@ def mesh_phase(dev, smi: str) -> dict:
     check(sum(n == bucket for _, n in calls.calls) == MESH_BC_BATCHES,
           f"1-rank run bc: {len(calls.calls)} all-reduces, not one bucket a step")
     res["nccl_one_rank"] = {"seconds": nccl_s, "all_reduces": len(calls.calls),
-                            "bucket_bytes": bucket, "train_loss": loss}
+                            "bucket_bytes": bucket, "train_loss": loss, "trace": trace}
     log(f"mesh (a) 1 NCCL rank, run bc {MESH_BC_BATCHES} steps at batch {MESH_BATCH}, "
-        f"{HW}²: {nccl_s:.1f} s; {smi}")
+        f"{HW}², traced: {nccl_s:.1f} s; {smi}")
 
-    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
     try:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as tmp:
             t0 = time.perf_counter()
+            model = flax_init_(PolicyCNN(dtype=torch.bfloat16), torch.Generator().manual_seed(8))
+            shape = mesh_shape(str(export_policy(model.eval(), Path(tmp) / "policy_bf16",
+                                                 height=HW, width=HW, device=dev)))
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
             try:
-                mp.spawn(mesh_rank, args=(_free_port(), tmp, DEVICE, mesh_shape()), nprocs=2,
+                mp.spawn(mesh_rank, args=(_free_port(), tmp, DEVICE, shape), nprocs=2,
                          join=True)
             except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
                 raise SmokeFailure(f"mesh (b): a gloo rank failed: {e}") from e
             ranks_s = time.perf_counter() - t0
             ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
                      for r in range(2)]
-        whole = mesh_work(None, dev, mesh_shape())
-        launches["B"] += whole["launches"]["B"]
+            t0 = time.perf_counter()
+            whole = mesh_work(None, dev, shape)
+            whole_s = time.perf_counter() - t0
+        witness = _split_witness(dev)
     finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
     speed = torch.cat([r["speed"] for r in ranks], dim=1)
     action = torch.cat([r["action"] for r in ranks], dim=1)
     check(speed.shape == whole["speed"].shape, f"sharded rollout shape {tuple(speed.shape)}")
@@ -771,19 +1213,54 @@ def mesh_phase(dev, smi: str) -> dict:
     for r in ranks:
         check(r["launches"]["B"] == MESH_STEPS + 1,
               f"mesh (b): kernel B launched {r['launches']['B']} times on a rank")
-        launches["B"] += r["launches"]["B"]
+    for name, part in (("mesh", None), ("mesh_online_dagger", "online_dagger"),
+                       ("mesh_ppo", "ppo")):
+        for r in ranks + [whole]:
+            counts = r["launches"] if part is None else r[part]["launches"]
+            for k, v in counts.items():
+                paths[name][k] += v
     res["gloo_two_ranks"] = {
-        "seconds": ranks_s, "step_s": [r["step_s"] for r in ranks],
+        "seconds": ranks_s, "export_s": export_s, "one_process_s": whole_s,
+        "step_s": [r["step_s"] for r in ranks],
         "rollout_s": [r["rollout_s"] for r in ranks], "one_process_step_s": whole["step_s"],
         "one_process_rollout_s": whole["rollout_s"], "metrics": ranks[0]["metrics"],
         "one_process_metrics": whole["metrics"],
         "param_bytes": int(ranks[0]["params"].numel() * 4),
-        "max_speed_diff": float((speed - whole["speed"]).abs().max())}
-    log(f"mesh (b) 2 gloo ranks on cuda:0, BC step at batch {MESH_BATCH} and a "
-        f"{MESH_ENVS} × {MESH_STEPS} rollout: {ranks_s:.1f} s with the ranks' start; {smi}")
+        "max_speed_diff": float((speed - whole["speed"]).abs().max()),
+        "split_witness": witness}
+    # every comparison is made and logged before a failed one fails the phase
+    failed = []
+
+    def gate(cond: bool, msg: str) -> None:
+        if not cond:
+            failed.append(msg)
+
+    res["gloo_two_ranks"].update(online_dagger=_mesh_od_checks(ranks, whole, gate),
+                                 ppo=_mesh_ppo_checks(ranks, whole, gate),
+                                 serving=_mesh_serving_checks(ranks, whole, gate))
+    log(f"mesh (b) 2 gloo ranks on cuda:0, BC step at batch {MESH_BATCH}, a "
+        f"{MESH_ENVS} × {MESH_STEPS} rollout, online DAgger {MESH_OD_ENVS} × {MESH_OD_STEPS}, "
+        f"PPO {MESH_PPO_ENVS} × {MESH_PPO_STEPS}, a served batch of {MESH_SERVE_BATCH}: "
+        f"{ranks_s:.1f} s with the ranks' start; {smi}")
     res["seconds"] = time.perf_counter() - t_phase
     log(json.dumps({"mesh": res}))
-    return launches
+    check(not failed, "; ".join(failed))
+    return paths
+
+
+def doctor_phase() -> dict:
+    """``cli doctor --json`` on the card (``utils/doctor.py``): every check
+    green, ``cuda_kernels`` among them (the libraries are built by then, so
+    its probe loads them and asks each kernel's ``raster_*_info``)."""
+    from carla_imitation_learning_tpu_torch.utils.doctor import run_doctor
+
+    t0 = time.perf_counter()
+    report = run_doctor(timeout=DOCTOR_TIMEOUT)
+    bad = {k: v for k, v in report["checks"].items() if not v.get("ok")}
+    check(report["ok"] and not bad, f"doctor: failed checks {bad}")
+    check("cuda_kernels" in report["checks"], "doctor: no cuda_kernels check")
+    log(json.dumps({"doctor": {**report, "seconds": time.perf_counter() - t0}}))
+    return report
 
 
 def bench_fleet(dev):
@@ -947,6 +1424,9 @@ def run(args) -> dict:
              "B": launch_facts("raster_fast"), "C": launch_facts("raster_prim"),
              "D": launch_facts("raster_vec")}
     log(json.dumps({"launch_facts": facts}))
+    t0 = time.perf_counter()
+    doctor_phase()
+    doctor_s = time.perf_counter() - t0
 
     # --- phase 2b: kernels A to D vs plain on synthetic edge cases
     t0 = time.perf_counter()
@@ -1075,13 +1555,15 @@ def run(args) -> dict:
                "max_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     log(json.dumps({"rollout": rollout}))
     paths = {"main": launches}
-    phase_s = {"to_main_path": time.perf_counter() - t_run}
+    phase_s = {"to_main_path": time.perf_counter() - t_run, "doctor": doctor_s}
     prof = args.profile is not None
 
     def phase(name: str, fn, *a, **k):
-        """Run phase ``fn`` and keep its seconds; its launch counts → ``paths``."""
+        """Run phase ``fn`` and keep its seconds; its launch counts → ``paths``
+        (a phase that drives several paths returns the counts of each)."""
         t0 = time.perf_counter()
-        paths[name] = fn(*a, **k)
+        out = fn(*a, **k)
+        paths.update(out if isinstance(next(iter(out.values())), dict) else {name: out})
         torch.cuda.empty_cache()
         phase_s[name] = time.perf_counter() - t0
         log(f"phase {name}: {phase_s[name]:.1f} s")
@@ -4377,7 +4859,7 @@ def hpo_phase(dev) -> dict:
        copied and the perturbed rates bit for bit equal, and equal to the
        run's next generation;
     d. ``run world_model_sweep`` (16 envs × 128 steps a trial, 4 at a
-       time; latent sizes HPO_WM_Z × LSTM and GRU × MSE and MS-SSIM, fits
+       time; latent sizes HPO_WM_Z × LSTM and GRU × HPO_WM_LOSSES, fits
        cut to HPO_WM_EPOCHS epochs of at most HPO_WM_BATCHES batches): no
        trial fails, each trial's reconstruction loss falls and its model is
        the trial's (z, RNN, loss); kernel B exactly 129 times a trial (its
@@ -4471,7 +4953,7 @@ def hpo_phase(dev) -> dict:
 
         # d. world_model_sweep, every trial's fit recorded as it returns
         wm = compose("config", overrides=["experiment=world_model_sweep"])
-        n_trials = 4 * len(HPO_WM_Z)
+        n_trials = 2 * len(HPO_WM_Z) * len(HPO_WM_LOSSES)
         with Capture(ex, "world_model",
                      lambda a, k, r: (k, r["history"], r["wm_config"])) as cap:
             out = counted("world_model_sweep", n_trials * (int(wm["n_steps"]) + 1),
@@ -4491,8 +4973,10 @@ def hpo_phase(dev) -> dict:
         res["world_model_sweep"] = {
             "table": out["table"], "best_config": out["best_config"],
             "best_metrics": out["best_metrics"],
-            "tpu_table": [r for r in tpu["table"] if r["z"] in HPO_WM_Z],
+            "tpu_table": [r for r in tpu["table"]
+                          if r["z"] in HPO_WM_Z and r["loss"] in HPO_WM_LOSSES],
             "tpu_best_config": tpu["best_config"], "z_sizes": HPO_WM_Z,
+            "losses": HPO_WM_LOSSES,
             "epochs": HPO_WM_EPOCHS, "batches_per_epoch": HPO_WM_BATCHES}
     res["launches"] = launches
     res["seconds"] = time.perf_counter() - t_phase
@@ -4550,6 +5034,7 @@ def wm_sweep_args(data_dir: str, log_dir: str, max_concurrent: int | None = None
     extra = ("-o", f"max_concurrent={max_concurrent}") if max_concurrent else ()
     return ("-o", "experiment=world_model_sweep", "-o", f"data_dir={data_dir}",
             "-o", f"log_dir={log_dir}", "-o", f"z_sizes={list(HPO_WM_Z)}",
+            "-o", f"losses={list(HPO_WM_LOSSES)}",
             "-o", f"NUM_EPOCHS={HPO_WM_EPOCHS}",
             "-o", f"trainer.limit_train_batches={HPO_WM_BATCHES}", *extra)
 

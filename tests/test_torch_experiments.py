@@ -224,15 +224,39 @@ def test_unported_options_raise(tmp_path, experiment, overrides):
     assert results[0] == results[1]
 
 
+MESH_SIZES = {
+    "dagger_online": ["rounds=2", "n_envs=2", "n_steps=8", "train_steps_per_round=2",
+                      "eval_steps=4", "BATCH_SIZE=4", "compute_dtype=float32"],
+    "rl_finetune": ["n_envs=2", "rollout_steps=4", "iterations=1", "eval_envs=2",
+                    "eval_steps=4", "rl_update_epochs=1", "rl_num_minibatches=2",
+                    "compute_dtype=float32"],
+}
+
+
+def _untimed(x):
+    """A result without its wall-clock figures and its paths."""
+    if isinstance(x, dict):
+        return {k: _untimed(v) for k, v in x.items()
+                if "seconds" not in k and "per_sec" not in k and k != "actor_checkpoint"}
+    if isinstance(x, list):
+        return [_untimed(v) for v in x]
+    return x
+
+
 @pytest.mark.parametrize("experiment", ["dagger_online", "rl_finetune"])
 def test_mesh_waits_for_item_6b(tmp_path, experiment):
-    """Online DAgger's sharded buffer and PPO's sharded rollouts are a later
-    slice: under a mesh (here one of one rank) both raise, naming it."""
-    cfg = p_compose("config", overrides=["model=imitation", "device=cpu",
-                                         f"data_dir={tmp_path}", f"log_dir={tmp_path}",
-                                         *TINY, "mesh.enabled=true"])
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 6b"):
-        ex.EXPERIMENTS[experiment](cfg)
+    """Online DAgger's sharded buffer and PPO's sharded rollouts (the item
+    that this test's name recalls, when both raised under a mesh): under a
+    mesh of one rank, whose collectives are the identity, each run equals
+    the unsharded one (two ranks: ``tests/test_torch_online_dagger_mesh.py``
+    and ``tests/test_torch_ppo_mesh.py``)."""
+    results = []
+    for tag, extra in (("plain", []), ("mesh", ["mesh.enabled=true"])):
+        cfg = p_compose("config", overrides=[
+            "model=imitation", "device=cpu", f"data_dir={tmp_path}/data",
+            f"log_dir={tmp_path}/{tag}", *TINY, *MESH_SIZES[experiment], *extra])
+        results.append(_untimed(ex.EXPERIMENTS[experiment](cfg)))
+    assert results[0] == results[1]
 
 
 @pytest.mark.parametrize("experiment,overrides", [

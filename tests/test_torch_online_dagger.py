@@ -297,9 +297,13 @@ def test_beta_one_stays_expert():
 
 
 def test_online_dagger_refuses():
-    with pytest.raises(NotImplementedError, match="item 6b"):
+    """A fleet that does not divide over the mesh, and (without a card) the
+    card, are refused."""
+    from carla_imitation_learning_tpu_torch.parallel.mesh import Mesh
+
+    with pytest.raises(ValueError, match="do not divide"):
         p_od.make_online_dagger(PolicyCNN.__call__, P_PARAMS, P_TOWN, P_RCFG, 2, 4, 1, 1,
-                                4, device="cpu", mesh=object())
+                                4, device="cpu", mesh=Mesh({"data": 3}, torch.device("cpu")))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             p_od.make_online_dagger(PolicyCNN.__call__, P_PARAMS, P_TOWN, P_RCFG, 2, 4, 1, 1, 4)

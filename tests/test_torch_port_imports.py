@@ -139,3 +139,39 @@ def test_mesh_module_leaves_jax_unloaded():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
+
+
+def test_tooling_sources_are_checked():
+    """The sharded online DAgger, PPO and serving, the doctor, the trace
+    profiler, the callbacks and the scaling harness are among the sources
+    every check above walks."""
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    assert {f"carla_imitation_learning_tpu_torch/{m}.py"
+            for m in ("training/online_dagger", "training/rl", "serving/engine",
+                      "serving/server", "utils/doctor", "utils/profiling",
+                      "callbacks/callbacks", "callbacks/__init__", "cli")} <= names
+    assert "benchmarks_torch/scaling.py" in names
+
+
+@pytest.mark.parametrize("name", ["torch_import", "device_compute", "compile_smoke",
+                                  "cpu_mesh", "cuda_kernels"])
+def test_doctor_probes_import_no_jax(name):
+    """The doctor's probes are code in strings, run in subprocesses, which
+    the import scan above cannot see: each (with the snippet it starts,
+    for the CPU mesh) imports torch and never JAX or the JAX package."""
+    from carla_imitation_learning_tpu_torch.utils import doctor
+
+    code = doctor.PROBES[name]
+    snippets = [code] + [n.value for n in ast.walk(ast.parse(code))
+                         if isinstance(n, ast.Constant) and isinstance(n.value, str)
+                         and "import" in n.value]
+    for snippet in snippets:
+        roots = set()
+        for node in ast.walk(ast.parse(snippet)):
+            if isinstance(node, ast.Import):
+                roots |= {alias.name.split(".")[0] for alias in node.names}
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                roots.add(node.module.split(".")[0])
+        assert "torch" in roots or "subprocess" in roots, name
+        assert not roots & set(FORBIDDEN), (name, roots)
+        assert not re.search(r"\bjax\b|carla_imitation_learning_tpu\b(?!_torch)", snippet), name

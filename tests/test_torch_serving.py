@@ -27,6 +27,7 @@ from carla_imitation_learning_tpu_torch import cli, convert
 from carla_imitation_learning_tpu_torch.models import (
     BranchedCILPolicy, ContinuousPolicyCNN, PolicyCNN, ViTPolicy,
 )
+from carla_imitation_learning_tpu_torch.parallel.mesh import make_mesh
 from carla_imitation_learning_tpu_torch.render.pipeline import RenderConfig
 from carla_imitation_learning_tpu_torch.serving import (
     InferenceEngine, export_cil_policy, export_fn, export_policy, load_policy,
@@ -124,8 +125,15 @@ def test_engine_stats_warmup_and_errors(pair):
         eng.infer(np.zeros((H, W, 4), np.uint8))
     with pytest.raises(ValueError, match="rows"):
         eng.infer(_frames(3), np.zeros(2, np.float32))
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        InferenceEngine(pair.servable, mesh=object())
+    # a mesh of one rank (no process group): the same ladder and logits;
+    # rank 0 serves and never follows
+    one = make_mesh(axis_sizes={"data": 1}, devices="cpu")
+    sharded = InferenceEngine(pair.servable, max_batch=4, mesh=one)
+    assert sharded.buckets == eng.buckets
+    np.testing.assert_array_equal(sharded.infer_logits(_frames(3)), eng.infer_logits(_frames(3)))
+    with pytest.raises(RuntimeError, match="ranks other than 0"):
+        sharded.follow()
+    sharded.stop()
     live = InferenceEngine(lambda f: pair.tm(f.float() / 255), buckets=(2, 4), device="cpu")
     assert live.infer(_frames(3)).shape == (3,)
 
