@@ -30,19 +30,11 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-
-
-def card_line() -> str:
-    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60, check=True)
-    return res.stdout.strip().splitlines()[0]
 
 
 def main(argv=None) -> dict:
@@ -64,7 +56,7 @@ def main(argv=None) -> dict:
     import torch
 
     from carla_imitation_learning_tpu_torch.data.pipeline import DeviceDataset, FrameStore
-    from carla_imitation_learning_tpu_torch.device import resolve_device
+    from carla_imitation_learning_tpu_torch.device import card_line, resolve_device
     from carla_imitation_learning_tpu_torch.models import PolicyCNN
     from carla_imitation_learning_tpu_torch.render.pipeline import RenderConfig
     from carla_imitation_learning_tpu_torch.sim.town import make_town

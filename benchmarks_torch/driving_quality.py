@@ -64,7 +64,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -73,13 +72,6 @@ ROOT = Path(__file__).resolve().parents[1]
 KEEP = ("driving_score", "route_completion", "clean_episode_rate", "collisions_per_km",
         "red_violations_per_km", "mean_speed", "action_agreement", "km_driven",
         "steer_rate", "driving_score_arc", "route_completion_arc", "route_km")
-
-
-def card_line() -> str:
-    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60, check=True)
-    return res.stdout.strip().splitlines()[0]
 
 
 def summarize(runs: dict, tiers) -> dict:
@@ -140,7 +132,7 @@ def main(argv=None) -> dict:
     import torch
 
     from carla_imitation_learning_tpu_torch.data.pipeline import DeviceDataset, FrameStore
-    from carla_imitation_learning_tpu_torch.device import resolve_device
+    from carla_imitation_learning_tpu_torch.device import card_line, resolve_device
     from carla_imitation_learning_tpu_torch.models import PolicyCNN, ViTPolicy
     from carla_imitation_learning_tpu_torch.render.pipeline import RenderConfig
     from carla_imitation_learning_tpu_torch.sim.town import make_town

@@ -28,7 +28,6 @@ import io
 import json
 import os
 import shutil
-import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -119,6 +118,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import torch
 
+    from carla_imitation_learning_tpu_torch.device import card_line
     from carla_imitation_learning_tpu_torch.render.pipeline import RenderConfig
     from carla_imitation_learning_tpu_torch.sim.town import make_town
     from carla_imitation_learning_tpu_torch.sim.world import SimParams
@@ -130,9 +130,7 @@ def main() -> int:
     report = {"cpu_count": os.cpu_count(), "workers": args.workers,
               "device": args.device, "dirs": []}
     if args.device != "cpu":
-        report["card"] = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, check=True).stdout.strip()
+        report["card"] = card_line()
     for d in args.dir:
         report["dirs"].append(bench_dir(store.frames, store, d, args.workers))
         print(json.dumps(report["dirs"][-1]), flush=True)

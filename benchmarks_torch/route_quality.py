@@ -51,10 +51,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "benchmarks_torch"))
-
-from driving_quality import card_line  # noqa: E402
-
 AGG_KEYS = ("arrival_rate", "arrivals", "attempts", "crashes", "timeouts",
             "infractions_per_km", "mean_steps_to_arrival", "km_driven")
 TIERS = ("expert", "untrained", "cil", "dagger_cil")
@@ -112,7 +108,7 @@ def main(argv=None) -> dict:
     import torch
 
     from carla_imitation_learning_tpu_torch.data.pipeline import DeviceDataset, FrameStore
-    from carla_imitation_learning_tpu_torch.device import resolve_device
+    from carla_imitation_learning_tpu_torch.device import card_line, resolve_device
     from carla_imitation_learning_tpu_torch.models import BranchedCILPolicy
     from carla_imitation_learning_tpu_torch.render.pipeline import RenderConfig
     from carla_imitation_learning_tpu_torch.sim.planner import goal_setup

@@ -40,7 +40,6 @@ import argparse
 import json
 import os
 import socket
-import subprocess
 import sys
 import tempfile
 import time
@@ -205,15 +204,6 @@ def layouts(device: str) -> list[dict]:
     return out
 
 
-def nvidia_smi() -> str:
-    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60)
-    if res.returncode != 0:
-        raise SystemExit(f"nvidia-smi failed: {res.stderr}")
-    return res.stdout.strip()
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -234,10 +224,11 @@ def main(argv=None) -> int:
     report["config"] = {"device": args.device, "ranks": args.ranks, **size,
                         "triangles": TRIANGLES, "out": str(out)}
     if args.device == "cuda":
+        from carla_imitation_learning_tpu_torch.device import card_line
         from carla_imitation_learning_tpu_torch.native import framestore
         from carla_imitation_learning_tpu_torch.ops import cuda_lib
 
-        report["smi"] = nvidia_smi()
+        report["smi"] = card_line()
         print(report["smi"], flush=True)
         cuda_lib.build()               # once, before the ranks load it
         framestore.build_library()

@@ -33,19 +33,11 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-
-
-def card_line() -> str:
-    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60, check=True)
-    return res.stdout.strip().splitlines()[0]
 
 
 def main(argv=None) -> dict:
@@ -76,7 +68,7 @@ def main(argv=None) -> dict:
     import torch
 
     from carla_imitation_learning_tpu_torch.data import pipeline as pipe
-    from carla_imitation_learning_tpu_torch.device import resolve_device
+    from carla_imitation_learning_tpu_torch.device import card_line, resolve_device
     from carla_imitation_learning_tpu_torch.models import AuxNet, PolicyCNN
     from carla_imitation_learning_tpu_torch.render.pipeline import RenderConfig
     from carla_imitation_learning_tpu_torch.sim.town import make_town

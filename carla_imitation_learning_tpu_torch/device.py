@@ -7,6 +7,18 @@ import dataclasses
 import torch
 
 
+def card_line() -> str:
+    """The cards' names and power limits, one line a card, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them: what a
+    measurement on the card is reported beside."""
+    import subprocess
+
+    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True)
+    return res.stdout.strip()
+
+
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     """``device`` as a ``torch.device``; a CUDA device must exist.
 

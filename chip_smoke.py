@@ -193,6 +193,24 @@ Phases (any failure exits nonzero, with no result line):
    against the bucket's two halves, kernel B's launches exact on each rank
    (paths ``mesh``, ``mesh_online_dagger``, ``mesh_ppo``); a rank's failure
    fails the script; every phase's seconds are printed (``phase_seconds``);
+6n. the seven harnesses of ``benchmarks_torch/`` that port the JAX
+   package's diagnostic and ViT harnesses (``harnesses_phase``): first
+   kernels A (C = 3) and B on ``vit_crossover``'s evaluation fleet at 256²
+   (128 envs, T = 512), each bit for bit against its plain version and
+   timed (two more ``kernels`` entries); then, counts reset, each harness
+   in process at a smoke size through the function its ``main`` runs:
+   ``sim_ablation`` (eight variants, 64 envs) and ``rollout_breakdown``
+   (five components, 256 envs) on marginal pairs of 2 and 6 steps,
+   ``crash_forensics`` (32 × 200 on the route world; mode counts summing to
+   the collision events), ``expert_envelope`` (four stages at 64 × 20),
+   ``reference_control`` (96 JPEG frames at 256², two spawned workers),
+   ``vit_ab`` (both architectures at batch 64, 256²) and ``vit_crossover``
+   (a 16 × 40 collection at 256², the CNN and both ViTs, four evaluations
+   at 16 × 20); kernel B launched exactly once per rollout step plus each
+   rollout's first frame, C once per ``render_only`` step (path
+   ``harnesses``). To pay for it, the quad / vec A/B's long run, the
+   synthetic log of ``file_io``'s ``bc`` and ``bc_rnn``'s collection were
+   cut (AB_LONG, FILE_SYNTHETIC_FRAMES, SEQ_RNN_STEPS);
 7. the rich fleet (same town and envs, the rich128 preset: facade bands,
    markings, shadows, textures, T=1408) from three seeds: kernel A's
    textured variant (C=1 and C=3), kernel B on the rich lists (2 px and 0
@@ -246,7 +264,9 @@ T_RICH = 1408            # the rich128 preset's table
 DEVICE = "cuda"
 ROLLOUT_SHORT, ROLLOUT_LONG = 16, 96   # marginal rollout pair
 ROLLOUT_REPEATS = 3      # marginal pairs; the median is reported
-AB_SHORT, AB_LONG = 16, 64   # the quad / vec A/B's marginal pair
+# the quad / vec A/B's marginal pair (the long run cut from 64 steps to make
+# room for the harnesses phase)
+AB_SHORT, AB_LONG = 16, 40
 CROSS_ENVS, CROSS_STEPS = 8, 8   # the card-vs-CPU check of the main path
 BC_ENVS, BC_STEPS = 1024, 24     # the BC phase's expert collection (≈ 400 MB of frames)
 BC_BATCH, BC_EPOCHS, BC_BATCHES = 256, 2, 40   # its bf16 fit: batches per epoch at most
@@ -269,7 +289,10 @@ FILE_COLLECT_ENVS, FILE_COLLECT_STEPS = 256, 48      # the file phase's PNG log
 FILE_EVAL_ENVS, FILE_EVAL_STEPS = 256, 50            # closed_loop_eval of its checkpoint
 FILE_STREAM_ENVS, FILE_STREAM_STEPS = 1024, 24       # bc_streaming's collection
 FILE_BATCH, FILE_EPOCHS, FILE_SHARD_FRAMES = 256, 2, 4096
-FILE_SYNTHETIC_FRAMES = 1024     # the README's first command: bc on an empty data_dir
+# the README's first command, bc on an empty data_dir: its synthetic log cut
+# from 1024 frames to make room for the harnesses phase (its gates are a
+# checkpoint per camera and a finite loss)
+FILE_SYNTHETIC_FRAMES = 512
 SCENARIO_ENVS, SCENARIO_STEPS = 1024, 50    # scenario_eval: every scenario, policy and expert
 SCENARIO_CHANGE_STEPS = 100      # the direct turns / multilane run: the ego's turns need 80+
 # ``busy`` adds 12 walkers and 9 vehicles, but its delta raises the table
@@ -317,7 +340,9 @@ S2D_BATCH, S2D_REPS = 1024, 20                 # the s2d stem's forward at 1024 
 # dream_policy and bc_vit at their widths (envs, sizes, batches); epochs,
 # batches per epoch, rollout depths and updates cut
 SEQ_EPOCHS, SEQ_BATCHES = 2, 40                # every fit (presets: 50 epochs; dream_policy 10)
-SEQ_RNN_STEPS, SEQ_RNN_EVAL_STEPS = 150, 100   # bc_rnn's collection and eval (preset 300, 200)
+# bc_rnn's collection and eval (preset 300, 200; the collection cut from 150
+# to make room for the harnesses phase)
+SEQ_RNN_STEPS, SEQ_RNN_EVAL_STEPS = 100, 100
 # bc_vit: an expert log of SEQ_VIT_ENVS × SEQ_VIT_STEPS at 128² on disk, a fit
 # of SEQ_VIT_EPOCHS epochs of at most SEQ_BATCHES batches of SEQ_VIT_BATCH,
 # evaluations of the trained and the untrained ViT at 64 × SEQ_VIT_EVAL_STEPS
@@ -380,6 +405,19 @@ MESH_BATCH, MESH_ENVS, MESH_STEPS = 64, 256, 50
 MESH_OD_ENVS, MESH_OD_STEPS, MESH_OD_BATCH, MESH_OD_TRAIN = 64, 300, 128, 20
 MESH_PPO_ENVS, MESH_PPO_STEPS, MESH_PPO_LR = 256, 128, 3e-4
 MESH_SERVE_BATCH = 128
+# The harnesses phase: the seven harnesses of benchmarks_torch/ that port the
+# JAX package's diagnostic and ViT harnesses, in process at a smoke size
+HARN_PAIR = (2, 6)              # rollout_breakdown's and sim_ablation's marginal pair, once
+HARN_BREAKDOWN_ENVS = 256
+HARN_SIM_ENVS = 64
+HARN_CRASH = (32, 200)          # crash_forensics: envs × steps on the route world
+HARN_ENVELOPE = (64, 20)        # expert_envelope: envs × steps a stage
+HARN_REFERENCE = (96, 16, 2)    # reference_control: 256² JPEG frames, batch, workers
+HARN_VIT_BATCH = 64             # vit_ab at 256², chains of 2 and 6 steps
+HARN_VC_HW = 256                # vit_crossover's camera, and its evaluation fleet's
+HARN_VC = (16, 20, 16, 40, 2, 32)   # its envs, steps, collect envs and steps, epochs, batch
+HARN_KERNEL_ENVS = 128          # its evaluation fleet's width (kernels A, C = 3, and B)
+HARN_VC_EVAL_SEED = 100         # the generator of its expert evaluation's fleet
 DOCTOR_TIMEOUT = 300     # cli doctor's per-probe bound (s)
 HPO_TIMED_REPEATS = 3    # vmapped sweep vs its trials one after another: median of 3
 LANES_PER_SM = 128       # lane-instructions an SM issues per clock (4 × 32)
@@ -430,11 +468,9 @@ def log(msg: str) -> None:
 
 
 def nvidia_smi() -> str:
-    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    check(res.returncode == 0 and res.stdout.strip(), f"nvidia-smi failed: {res.stderr}")
-    return res.stdout.strip().splitlines()[0]
+    from carla_imitation_learning_tpu_torch.device import card_line
+
+    return card_line()
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -1263,6 +1299,187 @@ def doctor_phase() -> dict:
     return report
 
 
+def load_harness(name: str):
+    """``benchmarks_torch/<name>.py`` imported under its own name, so that
+    the workers ``reference_control`` starts by ``spawn`` import it too."""
+    import importlib
+
+    where = str(ROOT / "benchmarks_torch")
+    if where not in sys.path:
+        sys.path.insert(0, where)
+    return importlib.import_module(name)
+
+
+def crossover_kernels(dev, rate, facts) -> list:
+    """Kernels A (C = 3) and B on ``vit_crossover``'s evaluation fleet at
+    HARN_VC_HW² (the bench town, the expert evaluation's reset draws,
+    HARN_KERNEL_ENVS envs, T = 512), each bit for bit against its plain
+    version and timed; B on the lists the rollout builds there (2 px LOD).
+    → two ``kernels`` entries: A's counts the main path's launches, B's the
+    harnesses phase's, which runs B at this shape."""
+    import torch
+
+    from carla_imitation_learning_tpu_torch.ops import raster as ra
+    from carla_imitation_learning_tpu_torch.ops import raster_fast as rf
+    from carla_imitation_learning_tpu_torch.render.pipeline import RenderConfig, make_scene_setup
+    from carla_imitation_learning_tpu_torch.sim.world import reset_env
+
+    params, town = bench_fleet(dev)
+    hw, n = HARN_VC_HW, HARN_KERNEL_ENVS
+    rcfg = RenderConfig(height=hw, width=hw)
+    states = reset_env(params, town, torch.Generator().manual_seed(HARN_VC_EVAL_SEED), n)
+    setup = make_scene_setup(params, town, rcfg, device=dev)(states)
+    t, rows = rcfg.max_triangles, ra.band_rows(hw)
+    args_a = (ra.pack_setup(setup), *ra.tile_lists(setup, hw, t, width=hw), hw, hw,
+              rcfg.near, rcfg.far, 3, rows)
+    err_a, hits = check_exact(args_a, f"kernel A C=3 at {hw}², the crossover's fleet")
+    idx, cnt = rf.tile_lists_fast(setup, hw, t, width=hw, lod_px=2.0, rows_per_band=rows)
+    args_b = (rf.pack_setup_fast(setup), idx, cnt, hw, hw, rcfg.near, rcfg.far, 0.0, rows)
+    err_b, frame = check_fast(args_b, f"kernel B at {hw}², the crossover's fleet")
+    check(bool(frame.std() > 0.01) and hits > 0, "the crossover's frames are blank")
+    frame_px = n * hw * hw
+    a_tiles, a_kept = warp_tile_pairs(*args_a[:5], rows, exact=True)
+    b_tiles, b_kept = warp_tile_pairs(*args_b[:5], rows, exact=False)
+    # per pass A does OPS_PER_PASS_A and a select per colour channel
+    a_ops = OPS_PER_PASS_A + 3
+    return [
+        kernel_entry(f"raster_exact (kernel A, RGB, {hw}², the crossover's fleet)", "A",
+                     "raster_exact.cu", "carla_imitation_learning_tpu/ops/raster.py:120",
+                     ra.raster_bands, ra.raster_bands_plain, args_a, err_a, rate,
+                     ops=a_kept * a_ops + frame_px * OPS_PER_PIXEL_EPILOGUE_A,
+                     band_list_ops=float(args_a[2].sum()) * rows * hw * a_ops,
+                     out_bytes=frame_px * 4 * 5, path="main", n_envs=n, hw=hw,
+                     warp_tile_pairs=a_tiles, kept_pairs=a_kept, hit_pixels=hits,
+                     launches_note=("the main path's luma launches at 128²: no path "
+                                    "launches kernel A at C = 3 and 256²"),
+                     **facts["A"]),
+        kernel_entry(f"raster_fast (kernel B, {hw}², the crossover's fleet)", "B",
+                     "raster_fast.cu", "carla_imitation_learning_tpu/ops/raster_fast.py:400",
+                     rf.fast_bands, rf.fast_bands_plain, args_b, err_b, rate,
+                     ops=b_kept * OPS_PER_PASS_B + frame_px * OPS_PER_PIXEL_EPILOGUE_B,
+                     band_list_ops=float(cnt.sum()) * rows * hw * OPS_PER_PASS_B,
+                     table_bytes=walked_bytes(cnt, 2, idx.shape[2], FAST_ENTRY_BYTES),
+                     out_bytes=frame_px * 4, path="harnesses", n_envs=n, hw=hw,
+                     warp_tile_pairs=b_tiles, kept_pairs=b_kept, **facts["B"]),
+    ]
+
+
+def harnesses_phase(dev, rate, facts, kernels) -> dict:
+    """Phase 6n: kernels A (C = 3) and B on the crossover's fleet
+    (``crossover_kernels``, appended to ``kernels``), then, counts reset, the
+    seven harnesses in process at a smoke size, each through the function
+    its ``main`` runs: ``sim_ablation.ablate`` (eight variants at
+    HARN_SIM_ENVS) and ``rollout_breakdown.breakdown`` (five components at
+    HARN_BREAKDOWN_ENVS; B in full and expert, C in render_only) on
+    HARN_PAIR, ``crash_forensics``, ``expert_envelope``,
+    ``reference_control`` and ``vit_crossover`` through ``main`` (reports
+    in a temporary directory; the crossover renders B at HARN_VC_HW²), and
+    ``vit_ab.bench_arch`` for both architectures. Every time finite, every
+    report's keys the JAX report's, mode counts summing to the collision
+    events, and B and C launched exactly as those runs' steps ask; →
+    launch counts."""
+    import math
+
+    from carla_imitation_learning_tpu_torch.models import PolicyCNN, ViTPolicy
+
+    kernels += crossover_kernels(dev, rate, facts)
+    mods = {m: load_harness(m) for m in ("sim_ablation", "crash_forensics", "rollout_breakdown",
+                                         "expert_envelope", "reference_control", "vit_ab",
+                                         "vit_crossover")}
+    small, big = HARN_PAIR
+    res, seconds = {}, {}
+
+    def finite(*xs) -> bool:
+        return all(x is not None and math.isfinite(x) for x in xs)
+
+    reset_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_harnesses_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        sa = mods["sim_ablation"].ablate(HARN_SIM_ENVS, dev, n_small=small, n_big=big, reps=1)
+        check(list(sa["ms"]) == list(mods["sim_ablation"].variants(bench_fleet(dev)[0]))
+              and finite(*sa["ms"].values()), f"sim_ablation: {sa}")
+        res["sim_ablation"], seconds["sim_ablation"] = sa, time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        rb_mod = mods["rollout_breakdown"]
+        rb = rb_mod.report(HARN_BREAKDOWN_ENVS, False, -1.0, rb_mod.breakdown(
+            HARN_BREAKDOWN_ENVS, False, -1.0, dev, n_small=small, n_big=big, reps=1))
+        check(finite(*rb["ms_per_fleet_step"].values(), *rb["derived_ms"].values())
+              and list(rb["ms_per_fleet_step"]) == list(rb_mod.COMPONENTS),
+              f"rollout_breakdown: {rb}")
+        res["rollout_breakdown"], seconds["rollout_breakdown"] = rb, time.perf_counter() - t0
+
+        envs, steps = HARN_CRASH
+        t0 = time.perf_counter()
+        cf = mods["crash_forensics"].main(["--envs", str(envs), "--steps", str(steps),
+                                           "--device", DEVICE, "--out", str(tmp / "cf.json")])
+        check(sum(cf["modes"].values()) == cf["collision_events"]
+              and list(cf["modes"]) == list(mods["crash_forensics"].MODES)
+              and cf["km"] > 0 and finite(cf["wall_seconds"]), f"crash_forensics: {cf}")
+        res["crash_forensics"], seconds["crash_forensics"] = cf, time.perf_counter() - t0
+
+        envs, steps = HARN_ENVELOPE
+        t0 = time.perf_counter()
+        ee_mod = mods["expert_envelope"]
+        ee = ee_mod.main(["--envs", str(envs), "--steps", str(steps), "--device", DEVICE,
+                          "--out", str(tmp / "ee.json")])
+        for stage in ee_mod.stages(4.0):
+            check(set(ee[stage]) == set(ee_mod.KEEP)
+                  and finite(*(ee[stage][k] for k in ("driving_score", "km_driven"))),
+                  f"expert_envelope {stage}: {ee[stage]}")
+        res["expert_envelope"] = {k: ee[k] for k in ee_mod.stages(4.0)}
+        seconds["expert_envelope"] = time.perf_counter() - t0
+
+        frames, batch, workers = HARN_REFERENCE
+        t0 = time.perf_counter()
+        rc = mods["reference_control"].main([
+            "--frames", str(frames), "--batch", str(batch), "--workers", str(workers),
+            "--device", DEVICE, "--data-dir", str(tmp / "reference_log"),
+            "--out", str(tmp / "rc.json")])
+        check(finite(rc["value"], rc["decode_only_images_per_sec"]) and rc["value"] > 0,
+              f"reference_control: {rc}")
+        res["reference_control"], seconds["reference_control"] = rc, time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        va_mod = mods["vit_ab"]
+        va = {name: va_mod.bench_arch(name, model, HARN_VIT_BATCH, 256, va_mod.H100_BF16_DENSE_TFLOPS,
+                                      dev, short=small, long=big, reps=1)
+              for name, model in (("cnn", PolicyCNN()), ("vit", ViTPolicy()))}
+        for name, r in va.items():
+            check(finite(*r.values()) and r["gflops_per_step"] > 0
+                  and 0 < r["mfu_pct"] < 100, f"vit_ab {name}: {r}")
+        res["vit_ab"], seconds["vit_ab"] = va, time.perf_counter() - t0
+
+        envs, steps, c_envs, c_steps, epochs, batch = HARN_VC
+        t0 = time.perf_counter()
+        vc_mod = mods["vit_crossover"]
+        vc = vc_mod.main([
+            "--obs-hw", str(HARN_VC_HW), "--envs", str(envs), "--steps", str(steps),
+            "--collect-envs", str(c_envs), "--collect-steps", str(c_steps),
+            "--epochs", str(epochs), "--batch", str(batch), "--device", DEVICE,
+            "--out", str(tmp / "vc.json")])
+        check(vc["dataset_frames"] == c_envs * c_steps and "reduced" in vc,
+              f"vit_crossover: {vc.get('dataset_frames')} frames")
+        for tier in ("cnn", "vit_2m", "vit_scaled"):
+            check(finite(vc[tier]["final_loss"], vc[tier]["eval"]["driving_score"])
+                  and vc[tier]["epochs"] >= (epochs if tier == "cnn" else 2),
+                  f"vit_crossover {tier}: {vc[tier]}")
+        res["vit_crossover"] = {k: vc[k] for k in ("dataset_frames", "wall_budget_seconds",
+                                                   "expert", "cnn", "vit_2m", "vit_scaled")}
+        seconds["vit_crossover"] = time.perf_counter() - t0
+    launches = read_counts()
+    breakdown_b = 2 * (1 + 2 * (small + big))            # full and expert: a warm pair, one pair
+    envelope_b = len(mods["expert_envelope"].stages(4.0)) * (HARN_ENVELOPE[1] + 1)
+    crossover_b = (HARN_VC[3] + 1) + 4 * (HARN_VC[1] + 1)   # its collection and four evaluations
+    want = {"A": 0, "A-tex": 0, "B": breakdown_b + envelope_b + crossover_b,
+            "C": 2 * (small + big), "D": 0}
+    check(launches == want, f"harnesses: launches {launches}, expected {want}")
+    res["seconds"], res["launches"] = seconds, launches
+    log(json.dumps({"harnesses": res}))
+    return launches
+
+
 def bench_fleet(dev):
     """The bench town on ``dev`` and its sim parameters → (params, town)."""
     from carla_imitation_learning_tpu_torch.sim.town import make_town
@@ -1584,6 +1801,7 @@ def run(args) -> dict:
     phase("rigs_replay", rigs_replay_phase, dev)
     phase("hpo", hpo_phase, dev)
     phase("mesh", mesh_phase, dev, smi)
+    phase("harnesses", harnesses_phase, dev, rate, facts, kernels)
     # the rich phases allocate gigabytes of temporaries; they run after the
     # main path has been timed
     t0 = time.perf_counter()

@@ -175,3 +175,13 @@ def test_doctor_probes_import_no_jax(name):
         assert "torch" in roots or "subprocess" in roots, name
         assert not roots & set(FORBIDDEN), (name, roots)
         assert not re.search(r"\bjax\b|carla_imitation_learning_tpu\b(?!_torch)", snippet), name
+
+
+def test_harness_sources_are_checked():
+    """The seven diagnostic and ViT harnesses are among the sources every
+    check above walks."""
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    assert {f"benchmarks_torch/{m}.py"
+            for m in ("rollout_breakdown", "sim_ablation", "expert_envelope",
+                      "crash_forensics", "reference_control", "vit_ab",
+                      "vit_crossover")} <= names
