@@ -1,9 +1,11 @@
 """Command line: ``python -m carla_imitation_learning_tpu_torch.cli run
 <experiment> [-o K=V ...]``, ``... list``, ``... serve <artifact>``,
-``... import_torch <ckpt> --out <dir>`` and ``... doctor [--cpu]
-[--timeout S] [--json]`` (the JAX package's ``tpuil`` commands of those
-names). Runs on the card; ``-o device=cpu`` (``--device cpu`` for
-``serve``) asks for the CPU.
+``... import_torch <ckpt> --out <dir>``, ``... doctor [--cpu]
+[--timeout S] [--json]`` and ``... bench [--device cuda]`` (the JAX
+package's ``tpuil`` commands of those names; ``bench`` runs ``bench.main``,
+whose last stdout line is the headline's JSON). Runs on the card; ``-o
+device=cpu`` (``--device cpu`` for ``serve`` and ``bench``) asks for the
+CPU.
 
 ``run`` joins a multi-process run first (``parallel.mesh.multihost_initialize``
 reads torchrun's environment): ``torchrun --nproc-per-node N -m
@@ -65,7 +67,16 @@ def main(argv=None) -> int:
                          help="micro-batch coalescing window")
     serve_p.add_argument("--device", default="cuda", help="device the artifact runs on")
     serve_p.add_argument("--verbose", action="store_true", help="log every request")
+    bench_p = sub.add_parser(
+        "bench", help="headline benchmark: the kernel parity gate, BC images/s and "
+                      "closed-loop env-steps/s; the last stdout line is its JSON")
+    bench_p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
+
+    if args.command == "bench":
+        from carla_imitation_learning_tpu_torch import bench
+
+        return bench.main(["--device", args.device])
 
     if args.command == "import_torch":
         from carla_imitation_learning_tpu_torch.utils.torch_import import import_and_save

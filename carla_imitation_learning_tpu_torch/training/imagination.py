@@ -189,7 +189,7 @@ def make_imagination_update(
     horizon: int = 15, gamma: float = 0.98, temperature: float = 1.0,
     entropy_coef: float = 3e-3, explore_std: float = 0.1, disagree_coef: float = 0.0,
     anchor: nn.Module | None = None, anchor_coef: float = 0.0,
-    uncertainty_stop: float = 0.0,
+    uncertainty_stop: float = 0.0, mesh=None,
 ) -> Callable:
     """``update(z0 (B, z), generator) -> metrics``: one Adam step of
     ``policy`` on the negated imagined return (plus the entropy bonus and
@@ -197,7 +197,16 @@ def make_imagination_update(
     ``HeadEnsemble`` applies the disagreement penalty and the uncertainty
     stop; a single head has zero spread). ``anchor`` is the frozen
     latent-BC policy. Metrics (device tensors): ``imagined_return``,
-    ``entropy``, ``anchor_kl``, ``reward_std``, ``alive_frac``, ``loss``."""
+    ``entropy``, ``anchor_kl``, ``reward_std``, ``alive_frac``, ``loss``.
+
+    Under a ``mesh`` (``parallel.mesh``; ``policy`` the same on every rank)
+    ``z0`` holds this rank's rows of a global batch sharded over ``data``,
+    as JAX's SPMD update takes a sharded ``z0``: the exploration noise is
+    drawn for the global batch and the rank keeps its rows, every mean of
+    the loss is over the global batch (a rank's sum over its rows divided
+    by the global count), the gradients are summed over ``data`` in one
+    bucket before Adam, and the metrics are summed likewise, so every rank
+    steps to the same policy and reports the global run's metrics."""
     continuous = wm.action_space == "continuous"
     wm.requires_grad_(False)
     head.requires_grad_(False)
@@ -213,6 +222,15 @@ def make_imagination_update(
 
     def imagined_loss(z0, generator):
         dev = z0.device
+        n_global = z0.shape[0] if mesh is None else z0.shape[0] * mesh.size()
+        rows = slice(None) if mesh is None else mesh.rows(n_global)
+
+        def batch_mean(x):
+            return x.mean() if mesh is None else x.sum() / n_global
+
+        def draw(fn, like):
+            return fn(generator, (n_global,) + tuple(like.shape[1:]), dev)[rows]
+
         carry, z = wm.initial_carry(z0.shape[0], dev), z0
         alive = torch.ones(z0.shape[0], device=dev)
         rs, ents, anchors, stds, alives = [], [], [], [], []
@@ -221,22 +239,22 @@ def make_imagination_update(
             out = policy(z)
             anchor_t = zero
             if continuous:
-                noise = explore_std * draw_normal(generator, tuple(out.shape), dev)
+                noise = explore_std * draw(draw_normal, out)
                 a = torch.clamp(out + noise, -1.0, 1.0)
                 entropy = zero
                 if anchor is not None:
                     ref = anchor(z).detach()
-                    anchor_t = ((out - ref) ** 2).sum(-1).mean()
+                    anchor_t = batch_mean(((out - ref) ** 2).sum(-1))
             else:
                 logp = F.log_softmax(out, dim=-1)
-                g = draw_gumbel(generator, tuple(out.shape), dev)
+                g = draw(draw_gumbel, out)
                 y = F.softmax((out + g) / temperature, dim=-1)
                 hard = F.one_hot(y.argmax(-1), out.shape[-1]).to(y.dtype)
                 a = hard + y - y.detach()
-                entropy = -(logp.exp() * logp).sum(-1).mean()
+                entropy = batch_mean(-(logp.exp() * logp).sum(-1))
                 if anchor is not None:
                     ref_logp = F.log_softmax(anchor(z).detach(), dim=-1)
-                    anchor_t = (logp.exp() * (logp - ref_logp)).sum(-1).mean()
+                    anchor_t = batch_mean((logp.exp() * (logp - ref_logp)).sum(-1))
             r, std = step_reward(z)
             alive_next = (alive * (std < uncertainty_stop).to(alive.dtype)
                           if uncertainty_stop > 0.0 else alive)
@@ -244,11 +262,11 @@ def make_imagination_update(
             rs.append(r * alive)
             ents.append(entropy)
             anchors.append(anchor_t)
-            stds.append(std.mean())
-            alives.append(alive.mean())
+            stds.append(batch_mean(std))
+            alives.append(batch_mean(alive))
             alive = alive_next
         disc = gamma ** torch.arange(horizon, dtype=torch.float32, device=dev)
-        ret = (torch.stack(rs) * disc[:, None]).sum(0).mean()
+        ret = batch_mean((torch.stack(rs) * disc[:, None]).sum(0))
         entropy, anchor_kl = torch.stack(ents).mean(), torch.stack(anchors).mean()
         loss = -(ret + entropy_coef * entropy) + anchor_coef * anchor_kl
         return loss, {"imagined_return": ret.detach(), "entropy": entropy.detach(),
@@ -260,8 +278,15 @@ def make_imagination_update(
         loss, metrics = imagined_loss(z0, generator)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if mesh is not None:
+            mesh.mean_grads_([p.grad for p in policy.parameters() if p.grad is not None],
+                             mean=False)
         optimizer.step()
         metrics["loss"] = loss.detach()
+        if mesh is not None:
+            keys = list(metrics)
+            flat = mesh.all_reduce_(torch.stack([metrics[k] for k in keys]))
+            metrics = dict(zip(keys, flat.unbind()))
         return metrics
 
     return update

@@ -55,7 +55,7 @@ Phases (any failure exits nonzero, with no result line):
    train steps); kernel B's launches counted;
 6d. file-backed BC (``file_io_phase``), through the port's CLI in this
    process on temporary directories, kernel B's launches counted per run:
-   ``run collect_data`` at 256 envs × 48 steps (PNG log, state.csv and a
+   ``run collect_data`` at 256 envs × 24 steps (PNG log, state.csv and a
    packed store, reopened equal to the collected store; a 4-thread
    ``PrefetchReader`` yields the 1-thread batches), ``run split_folders``,
    ``run bc`` at 128², batch 256, 2 epochs (frames read back from PNG bit
@@ -68,7 +68,7 @@ Phases (any failure exits nonzero, with no result line):
    the idle share of each streaming tier's train steps;
 6e. the scenario suite (``scenarios_phase``), counts reset just before
    it: ``run scenario_eval`` through the CLI on 6d's best checkpoint at
-   1024 envs × SCENARIO_STEPS (50) steps, all
+   1024 envs × SCENARIO_STEPS (25) steps, all
    eight scenarios (kernel B once per step of
    each of the 16 rollouts plus their first frames), then kernel B bit for
    bit against its plain version on one frame of each scenario's fleet
@@ -93,7 +93,7 @@ Phases (any failure exits nonzero, with no result line):
 6g. the aux, dual-stream, augmentation and VAE experiments
    (``aux_vae_phase``), counts reset just before ``run bc_aux -o
    aux_seg_weight=0.5`` through the CLI: an expert collection at 256 envs
-   × 200 steps that records the class plane (kernel A every step, B for
+   × 120 steps that records the class plane (kernel A every step, B for
    the frames), AuxNet with its seg decoder in bf16 at batch 64 for 2
    epochs (the loss falls; the test mIoU above the test split's
    majority-class share), the closed loop at 256 × 100 (B); A and B on the
@@ -137,7 +137,7 @@ Phases (any failure exits nonzero, with no result line):
    their plain versions on the fleet seen from FL, SR and RR, and a 3-view
    rollout on 8 envs on the card against the CPU; then, counts reset just
    before each run, ``run collect_multicamera`` (16 envs × RIG_COLLECT_STEPS
-   (50) of its 200 steps, 6 views on the exact path: A 300 times), ``run
+   (25) of its 200 steps, 6 views on the exact path: A 150 times), ``run
    bc_surround`` (16 × 300
    with forward, FL and FR, A 900 times; 2 epochs of at most 40 batches;
    its closed loop at 64 × 200 with the rig, B 603 times) and ``run
@@ -179,8 +179,8 @@ Phases (any failure exits nonzero, with no result line):
    all-reduce kernel; (b) two gloo ranks spawned once on cuda:0 (the
    backend named: NCCL refuses two ranks on one card) run one fp32 BC step
    at batch 64, an expert rollout of 256 envs × 50 steps (kernel B on each
-   rank's 128 envs), one round of online DAgger at the preset's 64 envs ×
-   300 steps and batch 128 (20 of its 400 train steps), one PPO iteration
+   rank's 128 envs), one round of online DAgger at the preset's 64 envs
+   and batch 128 (150 of its 300 steps, 20 of its 400 train steps), one PPO iteration
    at ``rl_finetune``'s 256 envs × 128 steps with an fp32
    ``ActorCriticCNN``, and a sharded engine batch of 128 frames of a bf16
    artifact, all held against the same work in one process with TF32 off
@@ -211,6 +211,22 @@ Phases (any failure exits nonzero, with no result line):
    ``harnesses``). To pay for it, the quad / vec A/B's long run, the
    synthetic log of ``file_io``'s ``bc`` and ``bc_rnn``'s collection were
    cut (AB_LONG, FILE_SYNTHETIC_FRAMES, SEQ_RNN_STEPS);
+6o. the headline benchmark and the demo's camera (``bench_phase``): kernel
+   A in RGB on the bench gate's one-env scene (seeds 0-2) bit for bit
+   against its plain version and timed; the gate in this process; ``python
+   -m carla_imitation_learning_tpu_torch.cli bench`` as a subprocess (exit
+   0, its last line the headline's JSON with ``vs_baseline`` null, its four
+   figures and the card line on stderr, its launch counts exact: path
+   ``bench``); the demo GIF's drive (``docs/make_demo_gif_torch.py``),
+   DEMO_FRAMES frames with counts reset (kernel A-tex once a frame: path
+   ``demo``), and A-tex in RGB at its 2048 triangles bit for bit on its
+   first frames and timed;
+6p. the dry run and the compile check (``graft_entry_phase``): kernel B at
+   32² with a 192-triangle table on the dry run's fleet bit for bit and
+   timed; ``dryrun_multichip(2)`` on two gloo ranks on cuda:0 (every loss
+   finite, rank 0's ok line, the env axis split, kernel B launched
+   DRYRUN_B times on each rank: path ``graft_entry``); ``entry()``'s bf16
+   logits on the card against the CPU within 5e-2;
 7. the rich fleet (same town and envs, the rich128 preset: facade bands,
    markings, shadows, textures, T=1408) from three seeds: kernel A's
    textured variant (C=1 and C=3), kernel B on the rich lists (2 px and 0
@@ -285,7 +301,9 @@ ONLINE_TIMED_STEPS = 20                                  # the masked step's tim
 ONLINE_MIN_AGREEMENT = 2 / 9
 ENSEMBLE_K, ENSEMBLE_ENVS, ENSEMBLE_STEPS = 4, 256, 24   # the uncertainty-gated round
 ENSEMBLE_TAU, ENSEMBLE_TRAIN_STEPS = 0.25, 5
-FILE_COLLECT_ENVS, FILE_COLLECT_STEPS = 256, 48      # the file phase's PNG log
+# the file phase's PNG log, its depth cut from 48 to make room for the entry
+# points' phases (its gates are counts, files and checkpoints bit for bit)
+FILE_COLLECT_ENVS, FILE_COLLECT_STEPS = 256, 24
 FILE_EVAL_ENVS, FILE_EVAL_STEPS = 256, 50            # closed_loop_eval of its checkpoint
 FILE_STREAM_ENVS, FILE_STREAM_STEPS = 1024, 24       # bc_streaming's collection
 FILE_BATCH, FILE_EPOCHS, FILE_SHARD_FRAMES = 256, 2, 4096
@@ -293,7 +311,10 @@ FILE_BATCH, FILE_EPOCHS, FILE_SHARD_FRAMES = 256, 2, 4096
 # from 1024 frames to make room for the harnesses phase (its gates are a
 # checkpoint per camera and a finite loss)
 FILE_SYNTHETIC_FRAMES = 512
-SCENARIO_ENVS, SCENARIO_STEPS = 1024, 50    # scenario_eval: every scenario, policy and expert
+# scenario_eval: every scenario, policy and expert; its depth cut from 50 to
+# make room for the entry points' phases (its gates are finite metrics,
+# counts and the expert driving)
+SCENARIO_ENVS, SCENARIO_STEPS = 1024, 25
 SCENARIO_CHANGE_STEPS = 100      # the direct turns / multilane run: the ego's turns need 80+
 # ``busy`` adds 12 walkers and 9 vehicles, but its delta raises the table
 # by the walkers' 120 triangles only, so on the bench town its 650-triangle
@@ -316,7 +337,10 @@ CONT_EVAL_ENVS, CONT_EVAL_STEPS = 256, 50
 ROUTE_CLI_ENVS, ROUTE_CLI_STEPS = 1024, 100       # run route_eval on the CIL checkpoint
 ROUTE_PROFILE_WARM, ROUTE_PROFILE_STEPS = 4, 8    # --profile: the CIL route rollout
 # The aux_vae phase: ``run bc_aux -o aux_seg_weight=0.5`` on the bench town at 128²
-AUX_ENVS, AUX_STEPS = 256, 200                # the record_semantic collection
+# the record_semantic collection, its depth cut from 200 to make room for the
+# entry points' phases (its fit's gates: the loss falls, mIoU above the
+# majority class share)
+AUX_ENVS, AUX_STEPS = 256, 120
 AUX_EVAL_ENVS, AUX_EVAL_STEPS = 256, 100
 AUX_BATCH, AUX_EPOCHS = 64, 2
 # each model's train step alone: warm-up steps, steps a run, runs, profiled steps
@@ -366,9 +390,10 @@ RIG_CHECK_CAMERAS = ("FL", "SR", "RR")         # A and B vs plain from these vie
 RIG_EPOCHS, RIG_BATCHES = 2, 40
 RIG_ROLL_SHORT, RIG_ROLL_LONG, RIG_ROLL_REPEATS = 16, 64, 3   # surround rollout, replay
 # collect_multicamera's depth (preset 16 × 200), cut from 100 to make room
-# for the doctor and the mesh phase's online DAgger, PPO and serving: its
-# gates are counts of frames, files and launches
-RIG_COLLECT_STEPS = 50
+# for the doctor and the mesh phase's online DAgger, PPO and serving, and
+# from 50 for the entry points' phases: its gates are counts of frames,
+# files and launches
+RIG_COLLECT_STEPS = 25
 # The serving phase: export_policy through the CLI (128² and the preset's
 # 256²), closed_loop_eval of an artifact, the latency ladder, the engine and HTTP
 SERVE_EVAL_ENVS, SERVE_EVAL_STEPS = 256, 50
@@ -398,11 +423,12 @@ HPO_CROSS_TRIAL = 0      # the vmapped trial held against itself alone and the C
 MESH_BC_FRAMES, MESH_BC_BATCHES = 512, 4
 MESH_BATCH, MESH_ENVS, MESH_STEPS = 64, 256, 50
 # ... and on the same two ranks against one process: one round of online
-# DAgger at the dagger_online preset's widths (64 envs × 300 steps, batch
-# 128) cut to MESH_OD_TRAIN of its 400 train steps, one PPO iteration at
+# DAgger at the dagger_online preset's widths (64 envs, batch 128), cut to
+# MESH_OD_STEPS of its 300 steps (from 300, to make room for the entry
+# points' phases) and MESH_OD_TRAIN of its 400 train steps, one PPO iteration at
 # rl_finetune's (256 envs × 128 steps, 4 epochs × 8 minibatches), and one
 # sharded engine batch of a bf16 PolicyCNN artifact at 128²
-MESH_OD_ENVS, MESH_OD_STEPS, MESH_OD_BATCH, MESH_OD_TRAIN = 64, 300, 128, 20
+MESH_OD_ENVS, MESH_OD_STEPS, MESH_OD_BATCH, MESH_OD_TRAIN = 64, 150, 128, 20
 MESH_PPO_ENVS, MESH_PPO_STEPS, MESH_PPO_LR = 256, 128, 3e-4
 MESH_SERVE_BATCH = 128
 # The harnesses phase: the seven harnesses of benchmarks_torch/ that port the
@@ -418,6 +444,18 @@ HARN_VC_HW = 256                # vit_crossover's camera, and its evaluation fle
 HARN_VC = (16, 20, 16, 40, 2, 32)   # its envs, steps, collect envs and steps, epochs, batch
 HARN_KERNEL_ENVS = 128          # its evaluation fleet's width (kernels A, C = 3, and B)
 HARN_VC_EVAL_SEED = 100         # the generator of its expert evaluation's fleet
+# The entry points' phases: ``cli bench`` in a subprocess (its full protocol),
+# the demo GIF's drive, and ``graft_entry``'s dry run on two gloo ranks
+BENCH_TIMEOUT = 600      # s, cli bench's subprocess
+DEMO_FRAMES = 8          # the demo's drive rendered with counts reset (kernel A-tex, C = 3)
+DEMO_CHECK_FRAMES = 3    # its first frames, each held bit for bit against the plain version
+DEMO_T = 2048            # the demo's triangle table
+DRYRUN_RANKS = 2
+DRYRUN_HW, DRYRUN_T, DRYRUN_ENVS = 32, 192, 4     # the dry run's fleet: 2 envs a rank
+# kernel B on a rank of the dry run: the sharded fleet (first frame + 2 steps), the
+# goal-directed one (likewise), PPO (first frame + 4) and online DAgger (first
+# frame + 2 rounds × 6 steps)
+DRYRUN_B = 2 * (1 + 2) + (1 + 4) + (1 + 2 * 6)
 DOCTOR_TIMEOUT = 300     # cli doctor's per-probe bound (s)
 HPO_TIMED_REPEATS = 3    # vmapped sweep vs its trials one after another: median of 3
 LANES_PER_SM = 128       # lane-instructions an SM issues per clock (4 × 32)
@@ -1480,6 +1518,256 @@ def harnesses_phase(dev, rate, facts, kernels) -> dict:
     return launches
 
 
+def load_demo():
+    """``docs/make_demo_gif_torch.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "make_demo_gif_torch", ROOT / "docs" / "make_demo_gif_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def exact_rgb_entry(name, counter, replaces, args, err, hits, rate, facts, path, textured=False,
+                    **extra) -> dict:
+    """The ``kernels`` entry of kernel A (or A-tex) in RGB on ``args`` at
+    HW²: per kept pass A's operations and a select per colour channel, per
+    hit pixel of A-tex the texture and a multiply per channel; out: three
+    colours, the class and the depth."""
+    from carla_imitation_learning_tpu_torch.ops import raster as ra
+
+    rows = args[-1]
+    frame_px = args[0].shape[0] * HW * HW
+    a_tiles, a_kept = warp_tile_pairs(*args[:5], rows, exact=True)
+    a_ops = OPS_PER_PASS_A + 3
+    tex_ops = hits * (OPS_PER_PIXEL_TEX + 3) if textured else 0
+    return kernel_entry(name, counter, "raster_exact.cu", replaces, ra.raster_bands,
+                        ra.raster_bands_plain, args, err, rate,
+                        ops=a_kept * a_ops + frame_px * OPS_PER_PIXEL_EPILOGUE_A + tex_ops,
+                        band_list_ops=listed(args[2], rows) * a_ops + tex_ops,
+                        out_bytes=frame_px * 4 * 5, path=path, rows=rows,
+                        warp_tile_pairs=a_tiles, kept_pairs=a_kept, hit_pixels=hits,
+                        **extra, **facts[counter])
+
+
+def bench_phase(dev, rate, facts, kernels) -> dict:
+    """Phase 6o: the headline benchmark and the demo GIF's camera.
+
+    a. Kernel A in RGB (C = 3) on the bench gate's scene (one env, 128²,
+       512 triangles) from seeds 0-2, each bit for bit against its plain
+       version, timed on seed 0's (a ``kernels`` entry); then, counts reset,
+       ``bench.assert_kernel_parity`` in this process (its figures).
+    b. ``python -m carla_imitation_learning_tpu_torch.cli bench`` in a
+       subprocess, as a user runs it: exit 0, the last stdout line the
+       headline's JSON (the metric's name, ``value`` > 0, ``vs_baseline``
+       null), the gate's, the BC step, BC fused and closed-loop figures on
+       stderr beside the card's name and power limit, and its wrappers'
+       launch counts (printed by ``bench.main`` from a fresh process): A six
+       times (RGB and luma, three seeds), B three times in the gate and once
+       per rollout step plus the first frame (path ``bench``).
+    c. The demo GIF's drive (``docs/make_demo_gif_torch.py``): DEMO_FRAMES
+       frames rendered with counts reset, kernel A-tex once a frame (path
+       ``demo``), and A-tex in RGB at the demo's 2048 triangles on its first
+       DEMO_CHECK_FRAMES frames bit for bit against its plain version, timed
+       on the first (a ``kernels`` entry).
+    → launch counts by path."""
+    import inspect
+    import re
+
+    import torch
+
+    from carla_imitation_learning_tpu_torch import bench
+    from carla_imitation_learning_tpu_torch.ops import raster as ra
+    from carla_imitation_learning_tpu_torch.render import geometry as geo
+    from carla_imitation_learning_tpu_torch.render.pipeline import make_scene_setup
+    from carla_imitation_learning_tpu_torch.sim.world import reset_env
+
+    res, paths = {}, {}
+    rows = ra.band_rows(HW)
+    params, town = bench.bench_world(dev)
+    static = geo.build_static_scene(town).to(dev)
+    err, first = 0.0, None
+    for seed in range(3):
+        st = reset_env(params, town, torch.Generator().manual_seed(seed), 1)
+        args = exact_args(bench.bench_setup(params, town, static, st, HW), T, 0.5, 300.0, 3, rows)
+        e, hits = check_exact(args, f"kernel A C=3 on the bench gate's scene, seed {seed}")
+        err = max(err, e)
+        first = first or (args, hits)
+    kernels.append(exact_rgb_entry(
+        "raster_exact (kernel A, RGB, the bench gate's scene)", "A",
+        "carla_imitation_learning_tpu/ops/raster.py:120", first[0], err, first[1], rate, facts,
+        "bench", n_envs=1, hw=HW,
+        launches_note="cli bench's: 3 at C = 3 and 3 luma (the gate), counted in its process"))
+    reset_counts()
+    res["gate"] = bench.assert_kernel_parity(device=dev)
+    gate = read_counts()
+    check(gate == {"A": 6, "A-tex": 0, "B": 3, "C": 0, "D": 0}, f"the gate's launches {gate}")
+    paths["bench_gate"] = gate
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "carla_imitation_learning_tpu_torch.cli",
+                           "bench"], cwd=ROOT, capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT)
+    res["cli_bench_s"] = time.perf_counter() - t0
+    for line in proc.stderr.strip().splitlines():
+        log(f"  cli bench: {line}")
+    check(proc.returncode == 0, f"cli bench exited {proc.returncode}")
+    last = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(list(last) == ["metric", "value", "unit", "vs_baseline"]
+          and last["metric"] == bench.METRIC and last["value"] > 0
+          and last["unit"] == "env-steps/sec" and last["vs_baseline"] is None,
+          f"cli bench's last line {last}")
+    res["headline"] = last
+    err_lines = proc.stderr.splitlines()
+    figures = {}
+    for key, pattern in (("bc_step_images_per_s", r"BC training \(step path\): ([\d,]+)"),
+                         ("bc_fused_images_per_s", r"BC training \(fused epoch.*?\): ([\d,]+)"),
+                         ("closed_loop_env_steps_per_s", r"closed-loop: ([\d,]+)")):
+        found = [re.search(pattern, ln) for ln in err_lines]
+        found = [m for m in found if m]
+        check(len(found) == 1, f"cli bench printed no {key} figure")
+        figures[key] = float(found[0].group(1).replace(",", ""))
+    check(any(ln.startswith("kernel parity: exact max|d|=") for ln in err_lines),
+          "cli bench printed no gate figures")
+    check(any(nvidia_smi() in ln for ln in err_lines), "cli bench printed no card line")
+    res["figures"] = figures
+    launches = json.loads(next(ln for ln in err_lines if ln.startswith('{"launches"')))["launches"]
+    short, long = inspect.signature(bench.bench_closed_loop).parameters["lengths"].default
+    repeats = inspect.signature(bench.bench_closed_loop).parameters["repeats"].default
+    want = {"A": 6, "A-tex": 0, "B": 3 + 1 + (1 + repeats) * (short + long), "C": 0, "D": 0}
+    check(launches == want, f"cli bench launched {launches}, expected {want}")
+    paths["bench"] = launches
+
+    demo = load_demo()
+    reset_counts()
+    t0 = time.perf_counter()
+    frames, _ = demo.demo_frames(DEMO_FRAMES, dev)
+    res["demo_s"] = time.perf_counter() - t0
+    drawn = read_counts()
+    check(drawn == {"A": 0, "A-tex": DEMO_FRAMES, "B": 0, "C": 0, "D": 0},
+          f"the demo's drive launched {drawn}")
+    check(len(frames) == DEMO_FRAMES and frames[0].shape == (HW, 2 * HW, 3)
+          and float(frames[-1].std()) > 1.0, "the demo's frames are wrong or blank")
+    paths["demo"] = drawn
+    d_params, d_town, rcfg, states = demo.demo_drive(DEMO_CHECK_FRAMES, dev)
+    check(rcfg.max_triangles == DEMO_T and rcfg.texture_detail and rcfg.rgb,
+          "the demo's camera is not A-tex in RGB at 2048 triangles")
+    setup_fn = make_scene_setup(d_params, d_town, rcfg, device=dev)
+    err, first = 0.0, None
+    for i, st in enumerate(states):
+        args = exact_args(setup_fn(st), DEMO_T, rcfg.near, rcfg.far, 3, rows)
+        check(args[0].shape[1] == ra.TEX_PACK_WIDTH, "the demo's table is not textured")
+        e, hits = check_exact(args, f"kernel A-tex C=3 on the demo's frame {i}")
+        err = max(err, e)
+        first = first or (args, hits)
+    kernels.append(exact_rgb_entry(
+        "raster_exact textured (kernel A-tex, RGB, the demo's 2048 triangles)", "A-tex",
+        "carla_imitation_learning_tpu/ops/raster.py:151", first[0], err, first[1], rate, facts,
+        "demo", textured=True, n_envs=1, hw=HW))
+    log(json.dumps({"bench": res}))
+    return paths
+
+
+def graft_entry_phase(dev, rate, facts, kernels) -> dict:
+    """Phase 6p: the multi-device dry run and the compile check
+    (``carla_imitation_learning_tpu_torch/graft_entry.py``).
+
+    a. Kernel B at DRYRUN_HW² with the dry run's 192-triangle table on its
+       fleet (the 2-block town, 2 agents, DRYRUN_ENVS envs, 2 px LOD) bit
+       for bit against its plain version and timed (a ``kernels`` entry).
+    b. ``dryrun_multichip(DRYRUN_RANKS)`` on the card: two gloo ranks on
+       cuda:0 run every family; rank 0's line (printed to a captured stdout)
+       has the JAX line's start, every loss is finite, each rank holds 2
+       envs, and each launched kernel B DRYRUN_B times (path ``graft_entry``,
+       the ranks' counts summed).
+    c. ``entry()``'s bf16 forward on the card against the same module on the
+       CPU, on its zero input and on a seeded frame stack: (8, 9) logits
+       within 5e-2 (the bf16 scale of ``tests/test_torch_policy.py``).
+    → launch counts."""
+    import copy
+    import math
+
+    import numpy as np
+    import torch
+
+    from carla_imitation_learning_tpu_torch import graft_entry as ge
+    from carla_imitation_learning_tpu_torch.ops import raster as ra
+    from carla_imitation_learning_tpu_torch.ops import raster_fast as rf
+    from carla_imitation_learning_tpu_torch.render.pipeline import RenderConfig, make_scene_setup
+    from carla_imitation_learning_tpu_torch.sim.town import make_town
+    from carla_imitation_learning_tpu_torch.sim.world import SimParams, reset_env
+
+    res = {}
+    hw, t, n = DRYRUN_HW, DRYRUN_T, DRYRUN_ENVS
+    params, town = SimParams(n_agents=2), make_town(blocks=2, n_buildings=4, n_lights=2).to(dev)
+    rcfg = RenderConfig(hw, hw, max_triangles=t, rgb=False, fast=True, lod_px=2.0)
+    states = reset_env(params, town, torch.Generator().manual_seed(2), n)
+    setup = make_scene_setup(params, town, rcfg, device=dev)(states)
+    rows = ra.band_rows(hw)
+    idx, cnt = rf.tile_lists_fast(setup, hw, t, width=hw, lod_px=2.0, rows_per_band=rows)
+    args_b = (rf.pack_setup_fast(setup), idx, cnt, hw, hw, rcfg.near, rcfg.far, 0.0, rows)
+    err_b, frame = check_fast(args_b, f"kernel B at {hw}², the dry run's fleet")
+    check(bool(frame.std() > 0.01), "the dry run's frames are blank")
+    frame_px = n * hw * hw
+    b_tiles, b_kept = warp_tile_pairs(*args_b[:5], rows, exact=False)
+    kernels.append(kernel_entry(
+        f"raster_fast (kernel B, {hw}², the dry run's fleet)", "B", "raster_fast.cu",
+        "carla_imitation_learning_tpu/ops/raster_fast.py:400", rf.fast_bands,
+        rf.fast_bands_plain, args_b, err_b, rate,
+        ops=b_kept * OPS_PER_PASS_B + frame_px * OPS_PER_PIXEL_EPILOGUE_B,
+        band_list_ops=float(cnt.sum()) * rows * hw * OPS_PER_PASS_B,
+        table_bytes=walked_bytes(cnt, 2, idx.shape[2], FAST_ENTRY_BYTES),
+        out_bytes=frame_px * 4, path="graft_entry", n_envs=n, hw=hw,
+        warp_tile_pairs=b_tiles, kept_pairs=b_kept, **facts["B"]))
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryFile(mode="w+") as out:
+        sys.stdout.flush()
+        saved = os.dup(1)
+        os.dup2(out.fileno(), 1)
+        try:
+            dry = ge.dryrun_multichip(DRYRUN_RANKS, device=DEVICE)
+        finally:
+            sys.stdout.flush()
+            os.dup2(saved, 1)
+            os.close(saved)
+        out.seek(0)
+        printed = out.read()
+    res["dryrun_s"] = time.perf_counter() - t0
+    log(printed.strip())
+    check(f"dryrun_multichip({DRYRUN_RANKS}) ok: bc_loss=" in printed,
+          "dryrun_multichip printed no ok line")
+    losses = {k: dry[k] for k in ("bc_loss", "vae_loss", "fused_epoch_loss", "ppo_loss",
+                                  "dagger_online_loss", "wm_loss", "imag_loss")}
+    check(all(math.isfinite(v) for v in losses.values()), f"dry run losses {losses}")
+    check(dry["rollout_steps"] == dry["goal_rollout_steps"] == 2 * DRYRUN_ENVS,
+          f"dry run counts {dry['rollout_steps']}, {dry['goal_rollout_steps']}")
+    launches = {k: 0 for k in counters()}
+    for r in dry["ranks"]:
+        check(r["local_envs"] == DRYRUN_ENVS // DRYRUN_RANKS, "the dry run's envs not sharded")
+        check(r["launches"] == {"A": 0, "A-tex": 0, "B": DRYRUN_B, "C": 0, "D": 0},
+              f"a dry-run rank launched {r['launches']}, expected B {DRYRUN_B}")
+        for k, v in r["launches"].items():
+            launches[k] += v
+    res.update(losses=losses, backend=dry["backend"])
+
+    fn, (model, x) = ge.entry(DEVICE)
+    cpu_model = copy.deepcopy(model).cpu()
+    frames = torch.from_numpy((np.random.default_rng(0).integers(0, 256, tuple(x.shape))
+                               / 255.0).astype(np.float32))
+    worst = 0.0
+    for inp in (x.cpu(), frames):
+        got = fn(model, inp.to(dev)).cpu()
+        want = fn(cpu_model, inp)
+        check(got.shape == (8, 9) and got.dtype == torch.float32, f"entry() gave {got.shape}")
+        worst = max(worst, float((got - want).abs().max()))
+    check(worst < 5e-2, f"entry(): card vs CPU logits max|d| {worst:.3e}")
+    res["entry_card_vs_cpu_max_abs"] = worst
+    log(json.dumps({"graft_entry": res}))
+    return {"graft_entry": launches}
+
+
 def bench_fleet(dev):
     """The bench town on ``dev`` and its sim parameters → (params, town)."""
     from carla_imitation_learning_tpu_torch.sim.town import make_town
@@ -1802,6 +2090,8 @@ def run(args) -> dict:
     phase("hpo", hpo_phase, dev)
     phase("mesh", mesh_phase, dev, smi)
     phase("harnesses", harnesses_phase, dev, rate, facts, kernels)
+    phase("bench", bench_phase, dev, rate, facts, kernels)
+    phase("graft_entry", graft_entry_phase, dev, rate, facts, kernels)
     # the rich phases allocate gigabytes of temporaries; they run after the
     # main path has been timed
     t0 = time.perf_counter()

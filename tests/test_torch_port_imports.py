@@ -1,5 +1,6 @@
-"""The PyTorch port, chip_smoke.py, benchmarks_torch/ and the rank side of
-the data-parallel tests (tests/torch_mesh_ranks.py) import neither JAX,
+"""The PyTorch port, chip_smoke.py, benchmarks_torch/, the demo GIF's
+script (docs/make_demo_gif_torch.py) and the rank side of the
+data-parallel tests (tests/torch_mesh_ranks.py) import neither JAX,
 flax nor the JAX package, and read no file of the JAX package (its ``configs/``, its
 ``native/framestore.cpp``): the machine with the card has none of them, and
 the port keeps its own copies."""
@@ -18,7 +19,7 @@ PORT = ROOT / "carla_imitation_learning_tpu_torch"
 FORBIDDEN = ("jax", "flax", "carla_imitation_learning_tpu")
 SOURCES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
            + sorted((ROOT / "benchmarks_torch").glob("*.py"))
-           + [ROOT / "tests" / "torch_mesh_ranks.py"])
+           + [ROOT / "docs" / "make_demo_gif_torch.py", ROOT / "tests" / "torch_mesh_ranks.py"])
 
 
 def _imported_roots(path: pathlib.Path) -> set:
@@ -185,3 +186,27 @@ def test_harness_sources_are_checked():
             for m in ("rollout_breakdown", "sim_ablation", "expert_envelope",
                       "crash_forensics", "reference_control", "vit_ab",
                       "vit_crossover")} <= names
+
+
+def test_entry_point_sources_are_checked():
+    """The headline benchmark, the dry run and the demo GIF's script are
+    among the sources every check above walks."""
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    assert {"carla_imitation_learning_tpu_torch/bench.py",
+            "carla_imitation_learning_tpu_torch/graft_entry.py",
+            "docs/make_demo_gif_torch.py"} <= names
+
+
+def test_demo_script_leaves_jax_unloaded():
+    """The demo GIF's script, imported as its command runs it, loads no
+    JAX: it puts its checkout's root on the path and imports the port."""
+    code = ("import runpy, sys\n"
+            f"runpy.run_path({str(ROOT / 'docs' / 'make_demo_gif_torch.py')!r}, "
+            "run_name='demo')\n"
+            "import carla_imitation_learning_tpu_torch.bench\n"
+            "import carla_imitation_learning_tpu_torch.graft_entry\n"
+            f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+            "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT / "docs",
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr

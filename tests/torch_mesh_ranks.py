@@ -494,6 +494,55 @@ def serving_checks(rank: int, job: dict) -> dict:
     return out
 
 
+IMAG_Z, IMAG_BATCH = 16, 8
+
+
+def imagination_run(case: str, mesh=None) -> dict:
+    """One ``make_imagination_update`` step from seeded weights on rows of
+    a global batch of IMAG_BATCH latents (this rank's under ``mesh``; None:
+    one process over the whole batch) → its metrics and the policy's
+    weights after Adam. ``discrete``: a GRU world model's Gumbel actions, a
+    single head, horizon 5. ``continuous``: its normal exploration noise, a
+    3-head ensemble with the disagreement penalty, the uncertainty stop and
+    the anchor, horizon 4."""
+    from carla_imitation_learning_tpu_torch.models import LatentWorldModel
+    from carla_imitation_learning_tpu_torch.training import imagination as imag
+    from carla_imitation_learning_tpu_torch.training.steps import ADAM_BETAS, ADAM_EPS
+
+    continuous = case == "continuous"
+    init = torch.Generator().manual_seed(11)
+    wm = imag.init_module(LatentWorldModel(
+        z_size=IMAG_Z, rnn="gru", height=32, width=32, hidden_size=32, dtype=torch.float32,
+        action_space="continuous" if continuous else "discrete"), init)
+    policy_cls = imag.ContinuousLatentPolicy if continuous else imag.LatentPolicy
+    policy = imag.init_module(policy_cls(IMAG_Z), init)
+    kw = {"horizon": 5}
+    if continuous:
+        heads = [imag.init_module(imag.RewardHead(IMAG_Z), init) for _ in range(3)]
+        head = imag.HeadEnsemble(heads)
+        kw = {"horizon": 4, "disagree_coef": 1.0, "anchor": imag.init_module(
+            policy_cls(IMAG_Z), init).requires_grad_(False), "anchor_coef": 0.3,
+            "uncertainty_stop": 0.05}
+    else:
+        head = imag.init_module(imag.RewardHead(IMAG_Z), init)
+    opt = torch.optim.Adam(policy.parameters(), lr=3e-4, betas=ADAM_BETAS, eps=ADAM_EPS)
+    update = imag.make_imagination_update(wm, head, policy, opt, mesh=mesh, **kw)
+    z0 = torch.randn((IMAG_BATCH, IMAG_Z), generator=torch.Generator().manual_seed(12))
+    if mesh is not None:
+        z0 = z0[mesh.rows(IMAG_BATCH)]
+    metrics = update(z0, torch.Generator().manual_seed(13))
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "params": {k: v.detach().clone() for k, v in policy.state_dict().items()}}
+
+
+def imagination_checks(rank: int, job: dict) -> dict:
+    """``imagination_run`` of every case over a ``data`` mesh of two."""
+    from carla_imitation_learning_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(axis_sizes={"data": 2}, devices="cpu")
+    return {case: imagination_run(case, mesh) for case in job["cases"]}
+
+
 JOBS = {"mesh_checks": mesh_checks, "rollout_checks": rollout_checks,
-        "serving_checks": serving_checks,
+        "serving_checks": serving_checks, "imagination_checks": imagination_checks,
         "online_dagger_checks": online_dagger_checks, "ppo_checks": ppo_checks}
