@@ -41,6 +41,7 @@ import torch
 from carla_imitation_learning_tpu_torch.data import actions as action_lib
 from carla_imitation_learning_tpu_torch.data import frame_log as fl
 from carla_imitation_learning_tpu_torch.device import resolve_device
+from carla_imitation_learning_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -404,18 +405,19 @@ class DeviceDataset:
 
     def pure_batch(self, idx: torch.Tensor):
         """Batch from a device vector of sample indices in [0, n_samples)."""
-        if self._valid_starts is not None:
-            idx = self._valid_starts[idx]
-        x = gather_windows(self.frames, idx, self.frame_skip, self.dtype)
-        at = idx + self.label_offset
-        if self.continuous is not None:
-            return x, self.continuous[at]
-        if self.cil:
-            return x, self.speeds[at], self.commands[at], self.actions[at]
-        if self.aux:
-            y = torch.stack([self.traffic[at], self.actions[at]], dim=-1).to(torch.int32)
-            return (x, self.sensors[at]), y
-        return x, self.actions[at]
+        with span("gather"):
+            if self._valid_starts is not None:
+                idx = self._valid_starts[idx]
+            x = gather_windows(self.frames, idx, self.frame_skip, self.dtype)
+            at = idx + self.label_offset
+            if self.continuous is not None:
+                return x, self.continuous[at]
+            if self.cil:
+                return x, self.speeds[at], self.commands[at], self.actions[at]
+            if self.aux:
+                y = torch.stack([self.traffic[at], self.actions[at]], dim=-1).to(torch.int32)
+                return (x, self.sensors[at]), y
+            return x, self.actions[at]
 
     def row_slice(self, n: int) -> slice:
         """This rank's rows of a global batch of ``n``."""

@@ -49,6 +49,7 @@ from carla_imitation_learning_tpu_torch.ops.raster import (
 from carla_imitation_learning_tpu_torch.render.camera import TriangleSetup
 from carla_imitation_learning_tpu_torch.render.plain_raster import SKY_HORIZON, SKY_TOP
 from carla_imitation_learning_tpu_torch.render.weather import visibility_far
+from carla_imitation_learning_tpu_torch.utils.profiling import span
 
 LUMA_BITS = 12
 LUMA_MASK = (1 << LUMA_BITS) - 1
@@ -590,10 +591,13 @@ def rasterize_luma_fast(setup: TriangleSetup, height: int, width: int,
     if vec and not quads:   # whole groups of VEC_P: pad the lists with index 0
         if k % VEC_P:
             idx = torch.nn.functional.pad(idx, (0, VEC_P - k % VEC_P))
-        return vec_bands(gather_band_tables(tbl, idx), count, height, width,
-                         near, far, fog_density, rows, list_band_factor)
+        tables = gather_band_tables(tbl, idx)
+        with span("raster"):
+            return vec_bands(tables, count, height, width, near, far, fog_density, rows,
+                             list_band_factor)
     if k % FAST_UNROLL:  # the pair-wise walk may read one entry past k
         idx = torch.nn.functional.pad(idx, (0, FAST_UNROLL - k % FAST_UNROLL))
     bands = prim_bands if quads else fast_bands
-    return bands(tbl, idx, count, height, width, near, far, fog_density, rows,
-                 list_band_factor)
+    with span("raster"):
+        return bands(tbl, idx, count, height, width, near, far, fog_density, rows,
+                     list_band_factor)

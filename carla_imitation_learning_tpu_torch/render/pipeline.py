@@ -30,6 +30,7 @@ from carla_imitation_learning_tpu_torch.sim import agents as agent_lib
 from carla_imitation_learning_tpu_torch.sim.pedestrians import ped_positions
 from carla_imitation_learning_tpu_torch.sim.town import TownMap
 from carla_imitation_learning_tpu_torch.sim.world import SimParams, WorldState
+from carla_imitation_learning_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,25 +141,26 @@ def make_renderer(params: SimParams, town: TownMap, rcfg: RenderConfig,
         return img
 
     def render(state: WorldState) -> dict:
-        setup = scene_setup(state)
-        if rcfg.fast_path:  # rollout kernel: gray plane only
-            gray = rasterize_luma_fast(
-                setup, rcfg.height, rcfg.width, near=rcfg.near, far=rcfg.far,
-                compact_cap=rcfg.active_cap, fog_density=rcfg.fog_density,
-                lod_px=max(rcfg.lod_px, 0.0), quads=rcfg.quads, vec=rcfg.vec)
-            return {"gray": weather(gray, state)}
-        if not rcfg.rgb:
-            gray, sem, depth = rasterize_exact_luma(
-                setup, rcfg.height, rcfg.width, near=rcfg.near, far=rcfg.far)
-            sky_l = luma(sky_image(rcfg.height, rcfg.width, dev))
-            gray = weather(apply_fog(gray, depth, sky_l, rcfg.fog_density), state)
-            return {"semantic": sem, "gray": gray, "depth": depth,
+        with span("render"):
+            setup = scene_setup(state)
+            if rcfg.fast_path:  # rollout kernel: gray plane only
+                gray = rasterize_luma_fast(
+                    setup, rcfg.height, rcfg.width, near=rcfg.near, far=rcfg.far,
+                    compact_cap=rcfg.active_cap, fog_density=rcfg.fog_density,
+                    lod_px=max(rcfg.lod_px, 0.0), quads=rcfg.quads, vec=rcfg.vec)
+                return {"gray": weather(gray, state)}
+            if not rcfg.rgb:
+                gray, sem, depth = rasterize_exact_luma(
+                    setup, rcfg.height, rcfg.width, near=rcfg.near, far=rcfg.far)
+                sky_l = luma(sky_image(rcfg.height, rcfg.width, dev))
+                gray = weather(apply_fog(gray, depth, sky_l, rcfg.fog_density), state)
+                return {"semantic": sem, "gray": gray, "depth": depth,
+                        "semantic_rgb": semantic_to_rgb(sem)}
+            rgb, sem, depth = rasterize_exact(setup, rcfg.height, rcfg.width,
+                                              near=rcfg.near, far=rcfg.far)
+            rgb = weather(apply_fog(rgb, depth, sky_image(rcfg.height, rcfg.width, dev),
+                                    rcfg.fog_density), state)
+            return {"rgb": rgb, "semantic": sem, "gray": luma(rgb), "depth": depth,
                     "semantic_rgb": semantic_to_rgb(sem)}
-        rgb, sem, depth = rasterize_exact(setup, rcfg.height, rcfg.width,
-                                          near=rcfg.near, far=rcfg.far)
-        rgb = weather(apply_fog(rgb, depth, sky_image(rcfg.height, rcfg.width, dev),
-                                rcfg.fog_density), state)
-        return {"rgb": rgb, "semantic": sem, "gray": luma(rgb), "depth": depth,
-                "semantic_rgb": semantic_to_rgb(sem)}
 
     return render

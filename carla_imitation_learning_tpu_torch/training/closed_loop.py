@@ -58,6 +58,7 @@ from carla_imitation_learning_tpu_torch.sim.world import (
     traffic_light_state,
 )
 from carla_imitation_learning_tpu_torch.training.shield import ShieldConfig, make_shield
+from carla_imitation_learning_tpu_torch.utils.profiling import span
 
 SPAWN_POOL_SEED = 0x5EED
 SPAWN_POOL_SIZE = 1024
@@ -297,21 +298,24 @@ def make_rollout(params: SimParams, town: TownMap, rcfg: RenderConfig,
         framebuf = update_framebuf(framebuf, views, just_reset)
         obs = framebuf.to(torch.float32) * (1.0 / 255.0)
 
-        sensors = sensor_vector(params, states)
-        traffic = traffic_light_state(params, town, states)
-        command = navigation_command(params, town, states)
-        expert = autopilot_control(params, town, states)
-        expert_action = continuous_to_discrete(
-            expert.steer, expert.throttle, expert.brake).to(torch.int64)
+        with span("expert"):
+            sensors = sensor_vector(params, states)
+            traffic = traffic_light_state(params, town, states)
+            command = navigation_command(params, town, states)
+            expert = autopilot_control(params, town, states)
+            expert_action = continuous_to_discrete(
+                expert.steer, expert.throttle, expert.brake).to(torch.int64)
         policy_extra = None
         if policy_fn is None:
             control, action = expert, expert_action
         elif recurrent:
-            action, pcarry = policy_fn(obs, pcarry)
+            with span("policy"):
+                action, pcarry = policy_fn(obs, pcarry)
             action = action.to(torch.int64)
             control = control_from_discrete(action)
         else:
-            res = run_policy(obs, states, sensors, command, policy_params)
+            with span("policy"):
+                res = run_policy(obs, states, sensors, command, policy_params)
             if isinstance(res, tuple):
                 res, policy_extra = res
             if continuous:
@@ -332,8 +336,9 @@ def make_rollout(params: SimParams, town: TownMap, rcfg: RenderConfig,
             control = dataclasses.replace(
                 control, steer=torch.clamp(control.steer + steer_noise, -1.0, 1.0))
 
-        fresh = pick_fresh_packed(pool, params, states)
-        new_states, info = step_env(params, town, states, control, fresh)
+        with span("sim"):
+            fresh = pick_fresh_packed(pool, params, states)
+            new_states, info = step_env(params, town, states, control, fresh)
         # along-route progress this step, masked on resets
         total = town.route_total[states.ego_route]
         raw_ds = torch.remainder(new_states.ego_s - states.ego_s + 0.5 * total,
@@ -371,21 +376,22 @@ def make_rollout(params: SimParams, town: TownMap, rcfg: RenderConfig,
 
     @torch.no_grad()
     def rollout_fn(carry, n_steps: int, policy_params=None):
-        schedule = None
-        if noise is not None:
-            n_envs = carry[0].t.shape[0]
-            n_global = n_envs if mesh is None else n_envs * mesh.size()
-            schedule = _noise_schedule(noise_generator(noise, carry[0], mesh), n_steps,
-                                       n_global, noise)
-            if mesh is not None:
-                schedule = schedule[:, mesh.rows(n_global)]
-            schedule = schedule.to(dev)
-        outs = []
-        for t in range(n_steps):
-            carry, out = one_step(carry, None if schedule is None else schedule[t],
-                                  policy_params)
-            outs.append(out)
-        return carry, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+        with span("rollout"):
+            schedule = None
+            if noise is not None:
+                n_envs = carry[0].t.shape[0]
+                n_global = n_envs if mesh is None else n_envs * mesh.size()
+                schedule = _noise_schedule(noise_generator(noise, carry[0], mesh), n_steps,
+                                           n_global, noise)
+                if mesh is not None:
+                    schedule = schedule[:, mesh.rows(n_global)]
+                schedule = schedule.to(dev)
+            outs = []
+            for t in range(n_steps):
+                carry, out = one_step(carry, None if schedule is None else schedule[t],
+                                      policy_params)
+                outs.append(out)
+            return carry, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
     return init_fn, rollout_fn
 

@@ -33,6 +33,7 @@ import torch
 from torch import nn
 
 from carla_imitation_learning_tpu_torch.device import resolve_device
+from carla_imitation_learning_tpu_torch.utils.profiling import span
 
 # std of a standard normal truncated to [-2, 2]: flax's lecun_normal divides by it
 _TRUNC_STD = 0.87962566103423978
@@ -279,12 +280,14 @@ def create_train_state(model: nn.Module, tx: AdamConfig,
 
 
 def _train_one(state: TrainState, loss_fn, batch, generator):
-    # a named span in torch.profiler traces (``trainer.profiler=trace``)
-    with torch.profiler.record_function("train_step"):
+    with span("train_step"):
         state.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = loss_fn(state.model, batch, generator)
-        loss.backward()
-        state.apply_gradients()
+        with span("forward"):
+            loss, metrics = loss_fn(state.model, batch, generator)
+        with span("backward"):
+            loss.backward()
+        with span("optimizer"):
+            state.apply_gradients()
         return metrics if state.mesh is None else state.mesh.mean_metrics(metrics)
 
 

@@ -1,17 +1,51 @@
-"""Step timer, per-phase wall-clock profiler and ``torch.profiler`` traces
-(the JAX package's ``utils/profiling.py``). The timer and the phases read
-the host clock: a phase measures what the host spent on it, which on the
-card is the enqueue unless the phase ends in a synchronise. A trace records
-the host's operators and, with a card, its kernels and copies (CUPTI), for
-TensorBoard's profiler plugin or Perfetto.
+"""Step timer, per-phase wall-clock profiler, layer spans and
+``torch.profiler`` traces (the JAX package's ``utils/profiling.py``). The
+timer and the phases read the host clock: a phase measures what the host
+spent on it, which on the card is the enqueue unless the phase ends in a
+synchronise. A trace records the host's operators and, with a card, its
+kernels and copies (CUPTI), for TensorBoard's profiler plugin or Perfetto.
+
+Layer spans name where each layer's work is launched: ``span(name)`` is a
+``torch.profiler.record_function`` range while spans are on (``spans_on()``,
+which ``trace_profiler`` enters for its block) and a shared no-op context
+otherwise, so a fleet step or train step pays one flag test a span when no
+one is tracing. The spans the port enters, innermost first where they nest:
+``raster`` (kernel B, C or D in ``ops/raster_fast.py``) inside ``render``
+(``render/pipeline.py``), and ``expert``, ``policy``, ``sim`` and ``render``
+inside ``rollout`` (``training/closed_loop.py``); ``gather``
+(``DeviceDataset.pure_batch``); ``forward``, ``backward`` and ``optimizer``
+inside ``train_step`` (``training/steps.py``).
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
-import subprocess
 import time
+
+import torch
+
+_NO_SPAN = contextlib.nullcontext()
+_spans = False
+
+
+def span(name: str):
+    """A named range in ``torch.profiler`` traces while spans are on; the
+    shared no-op context while they are off."""
+    if not _spans:
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
+
+
+@contextlib.contextmanager
+def spans_on():
+    """Turn layer spans on for the block (and back to what they were after)."""
+    global _spans
+    was, _spans = _spans, True
+    try:
+        yield
+    finally:
+        _spans = was
 
 
 class StepTimer:
@@ -70,29 +104,17 @@ def trace_profiler(log_dir: str, enabled: bool = True):
     """A ``torch.profiler`` trace of the block, written by
     ``tensorboard_trace_handler`` under ``log_dir`` as one
     ``*.pt.trace.json`` (Chrome trace format) when the block ends. It
-    records the CPU and, when a card is present, CUDA activity; ``enabled``
-    False runs the block untraced."""
+    records the CPU and, when a card is present, CUDA activity, with the
+    layer spans on; ``enabled`` False runs the block untraced."""
     if not enabled:
         yield None
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities,
-                 on_trace_ready=tensorboard_trace_handler(str(log_dir))) as prof:
+    with spans_on(), profile(activities=activities,
+                             on_trace_ready=tensorboard_trace_handler(str(log_dir))) as prof:
         yield prof
 
-
-def launch_tensorboard(log_dir: str, port: int = 6006) -> "subprocess.Popen | None":
-    """Start ``tensorboard --logdir log_dir`` in the background where it is
-    installed; None where it is not."""
-    try:
-        return subprocess.Popen(
-            ["tensorboard", "--logdir", str(log_dir), "--port", str(port)],
-            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
-        )
-    except OSError:
-        return None
